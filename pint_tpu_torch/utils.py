@@ -1,0 +1,139 @@
+"""Shared numeric helpers (host + device).
+
+Port of :mod:`pint_tpu.utils`.  The device half (Taylor-Horner series,
+design-matrix column normalization, the device choice) is PyTorch; the
+host half (``PosVel``, ``split_prefixed_name``, ...) is a copy of the
+numpy-only helpers of :mod:`pint_tpu.utils`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else
+    ``"cuda"``.  Asking for CUDA where there is none raises — the port
+    never falls back to the CPU quietly; pass ``device="cpu"`` for that."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pint_tpu_torch runs on CUDA by default and no CUDA device is "
+            'available; pass device="cpu" to run on the CPU')
+    return dev
+
+
+def get_xp(x):
+    """numpy for numpy arrays and Python scalars, torch for tensors."""
+    return torch if isinstance(x, torch.Tensor) else np
+
+
+def taylor_horner(dt, coeffs):
+    """Evaluate sum_k coeffs[k] * dt^k / k! by Horner's rule (same
+    operation order as :func:`pint_tpu.utils.taylor_horner`).  Works for
+    numpy arrays and tensors (pure arithmetic)."""
+    acc = 0.0 * dt
+    for k in range(len(coeffs) - 1, -1, -1):
+        acc = acc * dt / (k + 1.0) + coeffs[k]
+    return acc
+
+
+def taylor_horner_deriv(dt, coeffs, deriv_order=1):
+    """d^n/dt^n of `taylor_horner`: the same series on the coefficient
+    tail."""
+    return taylor_horner(dt, coeffs[deriv_order:])
+
+
+def normalize_designmatrix(M, params=None):
+    """Scale design-matrix columns to unit norm; returns (M_normalized,
+    norms).  Zero-norm columns are left unscaled (norm reported as 1)."""
+    xp = get_xp(M)
+    norms = xp.sqrt(xp.sum(M * M, axis=0))
+    safe = xp.where(norms == 0.0, 1.0, norms)
+    return M / safe, safe
+
+
+class PosVel(NamedTuple):
+    """A position+velocity pair (3-vectors or (...,3) arrays), with frame
+    bookkeeping by convention only (both in the same inertial frame).
+
+    Equivalent of the reference's `PosVel` (`src/pint/utils.py:182`), minus
+    astropy units: positions in meters, velocities in m/s unless stated.
+    """
+
+    pos: np.ndarray
+    vel: np.ndarray
+
+    def __add__(self, other):
+        return PosVel(self.pos + other.pos, self.vel + other.vel)
+
+    def __sub__(self, other):
+        return PosVel(self.pos - other.pos, self.vel - other.vel)
+
+    def __neg__(self):
+        return PosVel(-self.pos, -self.vel)
+
+
+def interval_hash(lo: float, hi: float) -> int:
+    """Stable hash for (mjd-range) mask caching."""
+    return hash((round(float(lo), 9), round(float(hi), 9)))
+
+
+def split_prefixed_name(name: str):
+    """Split 'F12' -> ('F', 12), 'DMX_0003' -> ('DMX_', 3).
+
+    Equivalent of reference `split_prefixed_name` (`src/pint/utils.py:500`).
+    Raises ValueError when there is no trailing integer index.
+    """
+    i = len(name)
+    while i > 0 and name[i - 1].isdigit():
+        i -= 1
+    if i == len(name):
+        raise ValueError(f"{name!r} has no numeric suffix")
+    return name[:i], int(name[i:])
+
+
+def open_or_use(path_or_file, mode="r"):
+    """Context manager accepting either a path or an open file object."""
+    import contextlib
+    import io
+    import os
+
+    if isinstance(path_or_file, (str, bytes, os.PathLike)):
+        return open(path_or_file, mode)
+    return contextlib.nullcontext(path_or_file)
+
+
+def dmxparse(fitter):
+    """Summarize the DMX model of a fitted model (reference `dmxparse`,
+    `src/pint/utils.py:1085`): returns a dict with the
+    DMX epochs, values, (fit) uncertainties, range bounds, and the
+    mean-subtracted values conventionally plotted."""
+    import numpy as np
+
+    model = fitter.model
+    comp = model.components.get("DispersionDMX")
+    if comp is None:
+        raise ValueError("model has no DispersionDMX component")
+    names = comp.dmx_names()
+    vals = np.array([float(comp.params[n].value) for n in names])
+    errs = np.array([
+        float(comp.params[n].uncertainty)
+        if comp.params[n].uncertainty is not None else np.nan
+        for n in names])
+    r1 = np.array([comp.params[f"DMXR1_{n.split('_')[1]}"].mjd_float
+                   for n in names])
+    r2 = np.array([comp.params[f"DMXR2_{n.split('_')[1]}"].mjd_float
+                   for n in names])
+    eps = 0.5 * (r1 + r2)
+    # variance-weighted mean subtraction (reference ibid: mean_dmx)
+    w = 1.0 / np.where(np.isfinite(errs) & (errs > 0), errs, np.inf) ** 2
+    mean = np.sum(vals * w) / np.sum(w) if np.any(w > 0) else vals.mean()
+    return {
+        "dmxs": vals, "dmx_verrs": errs, "dmxeps": eps,
+        "r1s": r1, "r2s": r2, "bins": names,
+        "mean_dmx": mean, "dmxs_sub": vals - mean,
+    }

@@ -1,0 +1,139 @@
+"""pint_tpu_torch's CUDA kernel on the card (skipped without one).
+
+These tests import neither jax nor pint_tpu, so they run on a machine
+that has only PyTorch for CUDA; the root conftest imports jax, so run
+them with it switched off, from the repository root::
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
+
+* ``qs_phase_frac``: frac, freq, dt64 and words bit-identical to the
+  plain version in every mode, one launch per call, no fallback;
+* ``torch.func.vmap`` over ``jacfwd`` through ``QSPhaseFrac`` on the card
+  gives the CPU plain version's values, one launch per primal;
+* the chi2 grid on the card on the committed 200-TOA set within 1e-6
+  relative of pint_tpu's stored chi2.
+"""
+
+import json
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import torch_port_data as data
+from pint_tpu_torch import qs as tqs
+from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
+from pint_tpu_torch.toabatch import split_f64_words
+
+pytestmark = pytest.mark.cuda
+N_ROWS, G_PTS = 4000, 3
+F0, F1 = 346.53199992, -1.46e-15
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+def _words(x):
+    return np.stack([np.float32(w) for w in
+                     tqs.from_f64_host(np.float64(x)).words])
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    """Seeded J0740-scale rows: epochs over 4550 days, +-500 s shifts,
+    spin offsets, other-phase rows, TZR words, pulse numbers."""
+    rng = np.random.default_rng(20261016)
+    t = torch.from_numpy
+    spec = dict(tdb_day=t(rng.integers(52700, 57251, N_ROWS)),
+                frac_w=t(split_f64_words(rng.uniform(-0.5, 0.5, N_ROWS))),
+                pep_day=torch.tensor(55000.0, dtype=torch.float64),
+                pep_w=t(_words(0.0)),
+                f_w=t(np.stack([_words(F0), _words(F1)])),
+                tzr_w=t(np.array([1.2345e6, 0.03125, 1e-9, 0.0], np.float32)),
+                pulse_number=t(np.round(rng.uniform(-1e11, 1e11, N_ROWS))))
+    cols = dict(shift=t(rng.uniform(-500, 500, (G_PTS, N_ROWS))),
+                dF=t(rng.standard_normal((G_PTS, 2)) * np.array([1e-10,
+                                                                 1e-20])),
+                other=t(rng.uniform(-1e-2, 1e-2, (G_PTS, N_ROWS))))
+    return spec, cols
+
+
+def _spec(spec, mode, dev):
+    return PhaseSpec(**{k: v.to(dev) for k, v in spec.items()}, mode=mode)
+
+
+def test_kernel_bit_identical_to_plain(inputs):
+    dev = _card()
+    spec, cols = inputs
+    c = [cols[k].to(dev) for k in ("shift", "dF", "other")]
+    for mode in ("nearest", "use_pulse_numbers", "words"):
+        s = _spec(spec, mode, dev)
+        before = QSPhaseFrac.launches
+        k = QSPhaseFrac.call(s, *c)
+        torch.cuda.synchronize()
+        assert QSPhaseFrac.launches == before + 1
+        p = s.plain(*c)
+        for name, a, b in zip(("out", "freq", "dt64"), k, p):
+            assert torch.equal(a, b), (mode, name)
+
+
+def test_no_fallback_on_card(inputs):
+    dev = _card()
+    spec, cols = inputs
+    s = _spec(spec, "nearest", dev)
+    with pytest.raises(ValueError):      # float32 rows: refused, not run
+        QSPhaseFrac.call(s, cols["shift"].to(dev, torch.float32),
+                         cols["dF"].to(dev), cols["other"].to(dev))
+    with pytest.raises(ValueError):      # rows on another device
+        QSPhaseFrac.call(s, cols["shift"].to(dev), cols["dF"],
+                         cols["other"].to(dev))
+
+
+def test_vmap_jacfwd_on_card(inputs):
+    dev = _card()
+    spec, cols = inputs
+    s_cpu, s_dev = _spec(spec, "nearest", "cpu"), _spec(spec, "nearest", dev)
+
+    def jac(s, sh, dF, ot):
+        return torch.func.vmap(torch.func.jacfwd(
+            lambda b, a, c: QSPhaseFrac.call(s, a, b, c)[0]))(dF, sh, ot)
+
+    before = QSPhaseFrac.launches
+    j_dev = jac(s_dev, *(cols[k].to(dev) for k in ("shift", "dF", "other")))
+    torch.cuda.synchronize()
+    assert QSPhaseFrac.launches == before + 1
+    j_cpu = jac(s_cpu, cols["shift"], cols["dF"], cols["other"])
+    assert torch.equal(j_dev.cpu(), j_cpu)
+
+
+def test_grid_on_card_matches_reference():
+    dev = _card()
+    from pint_tpu_torch.examples import j0740_realistic_par
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.gridutils import grid_chisq_flat
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with open(data.REF_JSON) as f:
+        ref = json.load(f)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(j0740_realistic_par(
+            dmx_bins=data.DMX_BINS).splitlines())
+        toas = get_TOAs(data.REF_TIM, model=model)
+    model.M2.frozen = True
+    model.SINI.frozen = True
+    fitter = WLSFitter(toas, model)
+    assert fitter.device.type == dev.type
+    before = QSPhaseFrac.launches
+    chi2 = grid_chisq_flat(fitter, {k: np.asarray(v) for k, v in
+                                    ref["grid"].items()},
+                           maxiter=ref["maxiter"])
+    assert QSPhaseFrac.launches > before
+    rel = float(np.max(np.abs(chi2 - ref["chi2"]) / np.asarray(ref["chi2"])))
+    print(f"card grid chi2 vs pint_tpu: max relative gap {rel:.3e}")
+    assert rel <= 1e-6

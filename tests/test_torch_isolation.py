@@ -1,0 +1,141 @@
+"""pint_tpu_torch stands alone: no jax, no pint_tpu, no quiet CPU fallback.
+
+* No file of ``pint_tpu_torch/``, nor ``chip_smoke.py``, imports ``jax`` or
+  ``pint_tpu`` (an AST scan of every import statement).
+* A fresh interpreter loads par/tim, forms residuals and runs the chi2
+  grid with the port on the CPU, and ends with no ``jax`` and no
+  ``pint_tpu`` module loaded.
+* Without a CUDA device, every entry point called without ``device``
+  raises instead of running on the CPU.
+* ``chip_smoke.py`` fails without a card, and in a directory that holds
+  nothing else of the repository, and never prints its ``"ok"`` line.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import torch_port_data as data
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pint_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+
+def _sources():
+    out = [SMOKE]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "pint_tpu")
+
+
+def test_no_jax_or_reference_imports():
+    bad = []
+    files = _sources()
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    print(f"scanned {len(files)} files")
+    assert len(files) > 30
+    assert not bad, bad
+
+
+_CHILD = r"""
+import sys, warnings
+import numpy as np
+sys.path.insert(0, {repo!r})
+from pint_tpu_torch.examples import j0740_realistic_par
+from pint_tpu_torch.fitter import WLSFitter
+from pint_tpu_torch.gridutils import grid_chisq_flat
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.toa import get_TOAs
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(j0740_realistic_par(dmx_bins=8).splitlines())
+    toas = get_TOAs({tim!r}, model=model)
+model.M2.frozen = True
+model.SINI.frozen = True
+fitter = WLSFitter(toas, model, device="cpu")
+r = fitter.resids.time_resids
+chi2 = grid_chisq_flat(fitter, {{"M2": np.array([0.25]),
+                                 "SINI": np.array([0.99])}}, maxiter=1)
+assert np.all(np.isfinite(r)) and np.all(np.isfinite(chi2))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
+print("LEAKED", leaked)
+"""
+
+
+def test_port_runs_without_jax_loaded():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(repo=REPO, tim=data.REF_TIM)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "LEAKED []" in res.stdout, res.stdout
+
+
+def test_entry_points_need_a_device_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from pint_tpu_torch.convert import pdict_from_numpy
+    from pint_tpu_torch.examples import j0740_realistic_par
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(j0740_realistic_par(dmx_bins=8).splitlines())
+        toas = get_TOAs(data.REF_TIM, model=model)
+    calls = [lambda: toas.to_batch(),
+             lambda: model.build_pdict(toas),
+             lambda: model.attach_tzr(toas),
+             lambda: Residuals(toas, model),
+             lambda: WLSFitter(toas, model),
+             lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}})]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device"):
+            call()
+    # the same calls run when the CPU is asked for
+    assert Residuals(toas, model, device="cpu").batch.device.type == "cpu"
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card(tmp_path, where):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = SMOKE
+    cwd = REPO
+    if where == "alone":
+        script = str(tmp_path / "chip_smoke.py")
+        shutil.copy(SMOKE, script)
+        cwd = str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=300, cwd=cwd, env=env)
+    print(f"{where}: exit {res.returncode}: {res.stderr.strip()[-200:]}")
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

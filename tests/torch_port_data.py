@@ -1,0 +1,149 @@
+"""Shared inputs of the ``test_torch_*`` parity tests: one small simulated
+J0740-class data set, written once as a tim file that both
+:mod:`pint_tpu` and :mod:`pint_tpu_torch` load, and the pint_tpu objects
+built from it (one JAX build per test module).
+
+The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
+size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
+bins, ELL1 with M2/SINI, FD1-4, two receiver JUMPs) and three receivers
+carrying the ``-fe`` flags the JUMPs select on.  Unlike the bench tim
+(one frequency per receiver), each receiver here observes in four
+sub-bands: with only three distinct frequencies FD1-4 are degenerate
+with the offset and the two JUMPs up to the F1*dt/F0 ~ 1e-9 time
+variation of the spin frequency, the fit keeps two directions at ~1e-11
+relative singular value, and chi2 at maxiter=2 then depends on
+1e-10-relative rounding of the design matrix (ROADMAP.md, queue C).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import warnings
+
+import numpy as np
+
+NTOAS = 200
+SPAN_DAYS = 4550.0
+CENTER_MJD = 54975.0
+DMX_BINS = 8
+#: channel offsets [MHz] within each receiver band
+SUBBANDS_MHZ = np.array([-37.5, -12.5, 12.5, 37.5])
+
+#: the committed copy of the set and pint_tpu's grid chi2 on it (written
+#: by ``python tests/torch_port_data.py``); ``chip_smoke.py`` holds the
+#: card's grid against them
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+REF_TIM = os.path.join(DATA_DIR, "j0740_sim_200.tim")
+REF_JSON = os.path.join(DATA_DIR, "j0740_sim_200_grid_chi2.json")
+
+#: the bench's 3x3 M2/SINI grid (bench.py:bench_headline_grid)
+GRID = {
+    "M2": np.repeat(np.array([0.23, 0.25, 0.27]), 3),
+    "SINI": np.tile(np.array([0.97, 0.99, 0.995]), 3),
+}
+
+
+def par_lines():
+    from pint_tpu.examples import j0740_realistic_par
+
+    return j0740_realistic_par(dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                               center_mjd=CENTER_MJD).splitlines()
+
+
+def write_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the set with pint_tpu and write it to ``path``."""
+    from pint_tpu.models import get_model
+    from pint_tpu.simulation import make_fake_toas_uniform
+    from pint_tpu.toa import write_tim
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par_lines())
+        band = np.tile([1400.0, 800.0, 1420.0], (ntoas + 2) // 3)[:ntoas]
+        freqs = band + np.resize(SUBBANDS_MHZ, (ntoas + 3) // 3).repeat(
+            3)[:ntoas]
+        toas = make_fake_toas_uniform(
+            CENTER_MJD - SPAN_DAYS / 2, CENTER_MJD + SPAN_DAYS / 2, ntoas,
+            model, obs="gbt", error_us=1.0, freq_mhz=freqs,
+            add_noise=True, seed=seed)
+    fe = {800.0: "RCVR800", 1400.0: "RCVR1400", 1420.0: "RCVR1400L"}
+    for b_mhz, fl in zip(band, toas.flags):
+        fl["fe"] = fe[float(b_mhz)]
+    write_tim(path, toas)
+    return path
+
+
+def load_jax(timfile: str, grid: bool = False):
+    """(model, toas) of pint_tpu from the par string and ``timfile``;
+    ``grid=True`` freezes M2 and SINI as the bench does."""
+    from pint_tpu.models import get_model
+    from pint_tpu.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par_lines())
+        toas = get_TOAs(timfile, model=model)
+    if grid:
+        model.M2.frozen = True
+        model.SINI.frozen = True
+    return model, toas
+
+
+def load_torch(timfile: str, grid: bool = False):
+    """(model, toas) of pint_tpu_torch from the same inputs."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par_lines())
+        toas = get_TOAs(timfile, model=model)
+    if grid:
+        model.M2.frozen = True
+        model.SINI.frozen = True
+    return model, toas
+
+
+def tree_numpy(tree):
+    """A pint_tpu params dict with every leaf as a numpy array."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def sim_tim(tmp_path_factory, name: str = "j0740_sim.tim") -> str:
+    d = tmp_path_factory.mktemp("torch_port")
+    return write_sim_tim(os.path.join(str(d), name))
+
+
+def write_reference(maxiter: int = 2) -> dict:
+    """Write REF_TIM and pint_tpu's grid chi2 on it (the SVD solve
+    pint_tpu picks on the CPU) to REF_JSON; returns the JSON record."""
+    from pint_tpu.fitter import WLSFitter, fit_wls_svd
+    from pint_tpu.gridutils import grid_chisq_flat
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_sim_tim(REF_TIM)
+    model, toas = load_jax(REF_TIM, grid=True)
+    fitter = WLSFitter(toas, model)
+    rec = {
+        "what": "pint_tpu grid_chisq_flat on j0740_sim_200.tim "
+                "(j0740_realistic_par(dmx_bins=8), JAX on the CPU)",
+        "maxiter": maxiter, "ntoas": toas.ntoas,
+        "fit_params": fitter.fit_params,
+        "grid": {k: v.tolist() for k, v in GRID.items()},
+        "kernel": "fit_wls_svd",
+        "chi2": grid_chisq_flat(fitter, GRID, maxiter=maxiter,
+                                kernel=fit_wls_svd).tolist(),
+    }
+    with open(REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(DATA_DIR)))
+    print(json.dumps(write_reference()["chi2"]))
