@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid.
+"""Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid
+and the full-width DD fit.
 
 Run from the repository root, with no arguments::
 
@@ -8,7 +9,8 @@ Run from the repository root, with no arguments::
 Phases, each printing one JSON line with its numbers and seconds:
 
 1. device: the card (``nvidia-smi`` name and power limit);
-2. build: every CUDA kernel of the package, compiled with nvcc for sm_90a;
+2. build: every CUDA kernel of the package (``qs_phase``, ``kepler``),
+   compiled with nvcc for sm_90a, one nvcc process per source at once;
 3. qs_phase_frac: the kernel against its plain PyTorch version on the
    card, at the main path's shapes (the bench tim's 12,500 TOAs at the 9
    grid points): fractions, tangents, the TZR words mode, kernel and
@@ -28,27 +30,66 @@ Phases, each printing one JSON line with its numbers and seconds:
    ``python tests/torch_port_data.py``.  (The bench tim predates the
    reference's current timing chain: its prefit residuals are spread over
    the whole pulse period, so its chi2 checks consistency, not physics.)
+5. dd_main_path: the second path, at full width:
+   ``get_model(dd_realistic_par())`` -> ``make_fake_toas_uniform`` (12,500
+   TOAs, seed 0, on the card) -> ``write_tim`` into build/ ->
+   ``get_TOAs`` -> the perturbed start -> ``WLSFitter.fit_toas(maxiter=3)``
+   (the fused loop on the card), with the launch counts zeroed just before
+   the fitter is built and read just after the fit; then three warm fits
+   from the same start (median wall, launches per fit); status, chi2/dof
+   and the pulls of the orbit and spin against the simulated truth;
+   kepler_E: the kernel against its plain version on the card, on the DD
+   path's own M and e and on a sweep of e x 4096 M: E, tangents, times,
+   the least possible time on this card;
+   dd_fused_vs_eager: the same fit through the eager rung on the card
+   (values within 1e-3 sigma, uncertainties within 1e-3 relative), and
+   the final covariance at the fitted point assembled on the card against
+   the same assembled on the CPU (the figure on which the port leaves out
+   pint_tpu's CPU re-assembly of it);
+   dd_fit_profile: one warm fit under torch.profiler;
+   dd_reference: the committed 200-TOA DD set fitted on the card, against
+   pint_tpu's eager fit stored beside it (``tests/data/dd_sim_200*``):
+   values within 1e-3 sigma, uncertainties within 1e-3 relative, chi2
+   within 1e-6 relative.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without the last line.  It needs CUDA and the repository beside
 it, and exits non-zero otherwise.
+
+``main(Run(...))`` runs the same phases on another device or at other
+sizes (``tests/test_torch_smoke_rehearsal.py`` runs them on the CPU at
+200 TOAs); with no arguments it runs on the card at full width.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TIM = os.path.join(REPO, "bench_cache", "j0740_bench_wide_12500.tim")
 REF_TIM = os.path.join(REPO, "tests", "data", "j0740_sim_200.tim")
 REF_JSON = os.path.join(REPO, "tests", "data", "j0740_sim_200_grid_chi2.json")
 REF_DMX_BINS = 8
+DD_TIM = os.path.join(REPO, "build", "dd_realistic_12500.tim")
+DD_REF_TIM = os.path.join(REPO, "tests", "data", "dd_sim_200.tim")
+DD_REF_JSON = os.path.join(REPO, "tests", "data", "dd_sim_200_fit.json")
+DD_MAXITER = 3
+#: the DD fit's start: offsets [par units] from the simulated truth, as
+#: pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
+DD_PERTURB = {"PB": 1e-7, "A1": 3e-6, "ECC": 1e-6, "OM": 3e-4,
+              "F0": 1e-10}
+#: the parameters whose pulls test_recover_dd_orbit checks, but DM (70
+#: DMX bins over the whole span make DM degenerate)
+DD_PULL_PARAMS = ("F0", "F1", "PB", "A1", "T0", "ECC", "OM")
+KEPLER_E_SWEEP = (0.0, 1e-5, 0.1, 0.5, 0.9)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 GRID_M2 = (0.23, 0.25, 0.27)
 GRID_SINI = (0.97, 0.99, 0.995)
@@ -64,6 +105,24 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 FRAC_TOL_CYCLES = 1e-12
 TANGENT_TOL = 1e-12
 CHI2_TOL = 1e-6
+KEPLER_TOL_RAD = 1e-13
+FIT_SIGMA_TOL = 1e-3
+UNC_TOL = 1e-3
+PULL_MAX = 5.0
+
+
+class Run(NamedTuple):
+    """Where the phases run and at what size: the card and the full width
+    of both paths (TOAs, DMX bins, fit parameters), the grid's tim, and
+    where the DD tim and the profiles are written."""
+
+    dev: str = "cuda"
+    tim: str = TIM
+    ntoas: int = 12500
+    dmx_bins: int = 70
+    nfit: int = 86
+    dd_tim: str = DD_TIM
+    out_dir: str = OUT_DIR
 
 
 def emit(obj) -> None:
@@ -108,15 +167,20 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     return median(times)
 
 
-def cuda_kernels(torch, fn, reps: int = 1):
+def cuda_kernels(torch, fn, reps: int = 1, setup=None):
     """The CUDA kernel events of ``reps`` calls of ``fn()`` (after one
     warm-up call), from the profiler's CUPTI trace, and the wall time of
-    those calls.  Device activity only: the host op events of an eager
-    grid call number in the hundreds of thousands and take minutes to
-    parse."""
+    those calls.  ``setup()``, if given, runs before each of the two
+    ``reps=1`` calls, outside the traced window.  Device activity only:
+    the host op events of an eager grid call number in the hundreds of
+    thousands and take minutes to parse."""
     from torch.profiler import ProfilerActivity, profile
 
+    if setup is not None:
+        setup()
     fn()
+    if setup is not None:
+        setup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -139,6 +203,7 @@ def device_kernel_ms(torch, fn, name: str, reps: int = 20):
 #: kernel families of the grid's device time, by kernel-name substring
 #: (the rest is PyTorch's elementwise and indexing kernels)
 FAMILIES = (("qs_phase_frac", ("qs_phase",)),
+            ("kepler_E", ("kepler_E",)),
             ("eigh", ("sytrd", "ormtr", "orgtr", "syevd", "stedc", "steqr",
                       "larf", "syhemv", "lansy")),
             ("copies", ("Memcpy", "Memset")),
@@ -146,13 +211,14 @@ FAMILIES = (("qs_phase_frac", ("qs_phase",)),
             ("gemm", ("gemm", "Gemm", "xmma")))
 
 
-def profile_grid(torch, fn, top: int = 8) -> dict:
+def profile_grid(torch, fn, out_dir: str, top: int = 8,
+                 out_name: str = "grid_profile", setup=None) -> dict:
     """One warm call of ``fn()`` under torch.profiler: its wall time, the
     device time summed over its CUDA kernels, the device's idle share of
     the wall time, the number of kernels, their time by family, and the
     kernels that take the most device time.  The full list goes to
-    chiprun_out/."""
-    kernels, wall = cuda_kernels(torch, fn)
+    <out_name>.json in ``out_dir``."""
+    kernels, wall = cuda_kernels(torch, fn, setup=setup)
     busy_us = sum(ev.device_time_total for ev in kernels)
     by_name = {}
     for ev in kernels:
@@ -165,8 +231,8 @@ def profile_grid(torch, fn, top: int = 8) -> dict:
                     if any(k in name for k in keys)), "elementwise_other")
         c, ms = families.get(fam, (0, 0.0))
         families[fam] = (c + n, ms + t * 1e-3)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "grid_profile.json"), "w") as f:
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{out_name}.json"), "w") as f:
         json.dump([{"name": k, "count": n, "ms": t * 1e-3}
                    for k, (n, t) in ranked], f, indent=1)
     return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
@@ -178,14 +244,16 @@ def profile_grid(torch, fn, top: int = 8) -> dict:
                             for k, (n, t) in ranked[:top]]}
 
 
-def count_ops(torch, fn):
+def count_ops(torch, fn, extra=()):
     """Elementwise arithmetic operations of ``fn()`` by result dtype: one
     per output element of every add/sub/mul/div/neg/round/conversion the
-    plain version dispatches."""
+    plain version dispatches, and of the ops named in ``extra`` (each
+    sin or cos counted as ONE operation, so the bound stays a lower
+    bound)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arith = {"add", "sub", "mul", "div", "neg", "round", "rsub",
-             "_to_copy", "where", "isnan"}
+             "_to_copy", "where", "isnan", *extra}
     counts = {}
 
     class Count(TorchDispatchMode):
@@ -202,8 +270,8 @@ def count_ops(torch, fn):
     return counts
 
 
-def load(torch, tim: str, dmx_bins: int = 70):
-    """par + tim -> (model, toas, WLSFitter) on the card, M2/SINI frozen,
+def load(torch, dev: str, tim: str, dmx_bins: int):
+    """par + tim -> (model, toas, WLSFitter) on ``dev``, M2/SINI frozen,
     as a user builds them."""
     import warnings
 
@@ -214,11 +282,12 @@ def load(torch, tim: str, dmx_bins: int = 70):
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(j0740_realistic_par(dmx_bins=dmx_bins).splitlines())
+        model = get_model(j0740_realistic_par(
+            dmx_bins=dmx_bins).splitlines())
         toas = get_TOAs(tim, model=model)
     model.M2.frozen = True
     model.SINI.frozen = True
-    fitter = WLSFitter(toas, model)
+    fitter = WLSFitter(toas, model, device=dev)
     torch.cuda.synchronize()
     return model, toas, fitter
 
@@ -230,7 +299,7 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
     from pint_tpu_torch.kernels.qs_phase import (PhaseSpec, QSPhaseFrac,
                                                  qs_phase_frac)
 
-    dev = torch.device("cuda")
+    dev = fitter.device
     batch, p = fitter.resids.batch, fitter.resids.pdict
     calc = model.calc
     sd, others = calc._kernel_layout()
@@ -257,14 +326,14 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
     spec = PhaseSpec(batch.tdb_day, batch.tdb_frac_w, pep_day, pep_w, f_w,
                      p["const"]["__tzrphase__"], None, "nearest")
 
-    k_frac, k_freq, k_dt = QSPhaseFrac.call(spec, shift, dF, other)
-    p_frac, p_freq, p_dt = spec.plain(shift, dF, other)
+    k_frac, k_slope, k_dt = QSPhaseFrac.call(spec, shift, dF, other)
+    p_frac, p_slope, p_dt = spec.plain(shift, dF, other)
     torch.cuda.synchronize()
     frac_err = float(torch.max(torch.abs(k_frac - p_frac)))
     rec.update(rows=G * N, G=G, N=N, K=K, max_abs_frac_err=frac_err,
                frac_bit_equal=bool(torch.equal(k_frac, p_frac)),
-               max_rel_freq_err=float(torch.max(
-                   torch.abs(k_freq - p_freq) / torch.abs(p_freq))),
+               max_rel_slope_err=float(torch.max(
+                   torch.abs(k_slope - p_slope) / torch.abs(p_slope))),
                dt_bit_equal=bool(torch.equal(k_dt, p_dt)))
     if frac_err > FRAC_TOL_CYCLES:
         raise AssertionError(f"kernel frac off by {frac_err} cycles")
@@ -280,27 +349,25 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
         spec, s, d, o)[0], (shift, dF, other), (ts, td, to))
     _, w_tan = torch.func.jvp(lambda s, d, o: spec.plain(s, d, o)[0],
                               (shift, dF, other), (ts, td, to))
-    a_tan = p_freq * ts + to
-    pk = p_dt
+    # the rule, summed term by term: pint_tpu's secant spin frequency
+    # sum_k F_k dt^k/(k+1)! plus sum_k dF_k dt^k/k! on d shift, and
+    # dt^(k+1)/(k+1)! on d dF_k
+    F = f_w.to(torch.float64).sum(dim=-1)
+    a_tan = to.clone()
     for k in range(K):
-        a_tan = a_tan + pk * td[:, k, None]
-        pk = pk * p_dt / (k + 2.0)
+        a_tan = a_tan + (F[k] * p_dt**k / math.factorial(k + 1)
+                         + dF[:, k, None] * p_dt**k / math.factorial(k)) * ts
+        a_tan = a_tan + p_dt**(k + 1) / math.factorial(k + 1) * td[:, k, None]
     scale = torch.abs(a_tan)
     rel_rule = float(torch.max(torch.abs(k_tan - a_tan) / scale))
     rel_words = float(torch.max(torch.abs(k_tan - w_tan) / scale))
-    # what word-level autodiff can lose: the terms of the spin series
-    # above F0 (the F1*dt part of freq), as in pint_tpu's jacfwd
-    hi = torch.abs(p_freq - p_freq.new_tensor(
-        float(f_w[0].double().sum()))) * torch.abs(ts)
-    words_bound = float(torch.max((2.0 * hi + 1e-12 * scale) / scale))
     rec.update(tangent_max_rel_vs_rule=rel_rule,
-               tangent_max_rel_vs_word_autodiff=rel_words,
-               word_autodiff_bound=words_bound)
+               tangent_max_rel_vs_word_autodiff=rel_words)
     if rel_rule > TANGENT_TOL:
         raise AssertionError(f"kernel tangent off by {rel_rule}")
-    if rel_words > words_bound:
+    if rel_words > TANGENT_TOL:
         raise AssertionError(
-            f"kernel tangent vs word autodiff {rel_words} > {words_bound}")
+            f"kernel tangent vs word autodiff off by {rel_words}")
 
     # TZR words mode, on the 1-row TZR batch
     tb = model.tzr_batch
@@ -345,7 +412,148 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def main() -> int:
+def dd_load(torch, tim: str, dmx_bins: int, perturb=None):
+    """par + tim -> (model at the perturbed start, toas) of the DD
+    configuration, as a user loads them."""
+    import warnings
+
+    from pint_tpu_torch.examples import dd_realistic_par
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_realistic_par(
+            dmx_bins=dmx_bins).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in (DD_PERTURB if perturb is None else perturb).items():
+        model[name].value += d
+    return model, toas
+
+
+def snapshot(model):
+    """The free parameters' values, to put a model back at a fit's start."""
+    return {n: model[n].value for n in model.free_params}
+
+
+def restore(model, snap) -> None:
+    for n, v in snap.items():
+        model[n].value = v
+        model[n].uncertainty = None
+
+
+def dd_fit(torch, dev: str, model, toas, eager: bool = False):
+    """A fresh ``WLSFitter`` on ``dev`` and its ``fit_toas(maxiter=3)``
+    (or the eager rung), timed around the fit with a synchronize."""
+    import warnings
+
+    from pint_tpu_torch.fitter import WLSFitter
+
+    fitter = WLSFitter(toas, model, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter._fit_eager(maxiter=DD_MAXITER) if eager else \
+            fitter.fit_toas(maxiter=DD_MAXITER)
+    torch.cuda.synchronize()
+    return fitter, chi2, time.perf_counter() - t0
+
+
+def device_offset(a, b) -> float:
+    """a - b of two device values (an MJD's [day, frac] summed) [device
+    units]."""
+    import numpy as np
+
+    return float(np.sum(np.asarray(a, np.float64) - np.asarray(b, np.float64)))
+
+
+def fit_gaps(values, uncs, ref_values, ref_uncs):
+    """(max |value - ref| / ref sigma, max |unc / ref unc - 1|) over the
+    reference's parameters (device values and uncertainties by name)."""
+    dev = max(abs(device_offset(values[n], ref_values[n])) / ref_uncs[n]
+              for n in ref_values)
+    unc = max(abs(uncs[n] / ref_uncs[n] - 1.0) for n in ref_uncs)
+    return dev, unc
+
+
+def fit_state(model, names):
+    return ({n: model[n].device_value for n in names},
+            {n: model[n].device_uncertainty for n in names})
+
+
+def check_kepler(torch, fitter, rec: dict) -> None:
+    """kepler_E against its plain version on the card: on the DD path's own
+    M and e (captured from one residual evaluation) and on a sweep of e x
+    4096 M in [0, 2pi); E, tangents, times, bound."""
+    from pint_tpu_torch.kernels import kepler as kk
+    from pint_tpu_torch.models import binary_dd
+    from pint_tpu_torch.models.binary_orbits import kepler_E
+
+    dev = fitter.device
+    captured = []
+    real = binary_dd.kepler_E_op
+    binary_dd.kepler_E_op = lambda M, e: (captured.append((M, e)),
+                                          real(M, e))[1]
+    try:
+        with torch.no_grad():
+            fitter.resids._fn(fitter.resids.pdict)
+    finally:
+        binary_dd.kepler_E_op = real
+    M_main, e_main = captured[0]
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    f64 = torch.float64
+    M_sw = (torch.rand(len(KEPLER_E_SWEEP), 4096, generator=gen, dtype=f64)
+            * (2.0 * math.pi)).to(dev)
+    e_sw = torch.tensor(KEPLER_E_SWEEP, dtype=f64, device=dev)[:, None]
+    e_sw = e_sw.expand_as(M_sw).contiguous()
+    rec.update(rows=M_main.numel(), e_shape=list(e_main.shape),
+               sweep=list(KEPLER_E_SWEEP))
+    worst_E, worst_tan = 0.0, 0.0
+    for label, (M, e) in (("main", (M_main, e_main)), ("sweep", (M_sw, e_sw))):
+        k_E = kk.kepler_E_op(M, e)
+        p_E = kepler_E(M, e)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(k_E - p_E)))
+        dM = torch.randn(M.shape, generator=gen, dtype=f64).to(dev)
+        de = (torch.randn(e.shape, generator=gen, dtype=f64) * 1e-3).to(dev)
+        _, k_t = torch.func.jvp(kk.kepler_E_op, (M, e), (dM, de))
+        _, p_t = torch.func.jvp(kepler_E, (M, e), (dM, de))
+        # the tangent's own magnitude: (|dM| + |sin E de|) / (1 - e cos E)
+        ec = torch.clamp(e, 0.0, 1.0 - 1e-9)
+        scale = (torch.abs(dM) + torch.abs(torch.sin(p_E) * de)) \
+            / (1.0 - ec * torch.cos(p_E))
+        rel = float(torch.max(torch.abs(k_t - p_t) / scale))
+        rec[f"{label}_max_abs_E_err_rad"] = err
+        rec[f"{label}_tangent_max_rel"] = rel
+        worst_E, worst_tan = max(worst_E, err), max(worst_tan, rel)
+    rec.update(max_abs_err=worst_E, tangent_max_rel=worst_tan)
+    if not worst_E <= KEPLER_TOL_RAD:
+        raise AssertionError(f"kepler_E off by {worst_E} rad")
+    if not worst_tan <= TANGENT_TOL:
+        raise AssertionError(f"kepler_E tangent off by {worst_tan}")
+
+    def launch():
+        return kk.kepler_E_op(M_main, e_main)
+
+    call_ms = time_ms(torch, launch)
+    dev_ms = device_kernel_ms(torch, launch, "kepler_E_kernel")
+    plain_ms = time_ms(torch, lambda: kepler_E(M_main, e_main), reps=5)
+    ops = count_ops(torch, lambda: kepler_E(M_main, e_main),
+                    extra=("sin", "cos", "clamp"))
+    nbytes = 8 * (M_main.numel() + e_main.numel() + M_main.numel())
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
+                for dt, n in ops.items())
+    rec.update(wrapper_call_ms=call_ms, device_kernel_ms=dev_ms,
+               ms=dev_ms if dev_ms is not None else call_ms,
+               plain_ms=plain_ms, ops=ops, bytes=nbytes,
+               bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def main(run: Run = Run()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -388,7 +596,7 @@ def main() -> int:
     # -- 3. the kernel against its plain version, at the main path's shapes --
     with phase("qs_phase_frac", {}) as kernel_rec:
         t0 = time.perf_counter()
-        model, _, fitter = load(torch, TIM)
+        model, _, fitter = load(torch, run.dev, run.tim, run.dmx_bins)
         kernel_rec["setup_first_s"] = time.perf_counter() - t0
         check_kernel(torch, np, model, fitter, grid, kernel_rec)
 
@@ -396,7 +604,7 @@ def main() -> int:
     QSPhaseFrac.launches = 0
     with phase("main_path", {}) as rec:
         t0 = time.perf_counter()
-        model, toas, fitter = load(torch, TIM)
+        model, toas, fitter = load(torch, run.dev, run.tim, run.dmx_bins)
         rec["setup_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         chi2 = grid_chisq_flat(fitter, grid, maxiter=2)
@@ -414,7 +622,7 @@ def main() -> int:
         raise AssertionError("the main path never launched qs_phase_frac")
     if chi2.shape != (9,) or not np.all(np.isfinite(chi2)):
         raise AssertionError(f"bad grid chi2 {chi2}")
-    if toas.ntoas != 12500 or len(fitter.fit_params) != 86:
+    if toas.ntoas != run.ntoas or len(fitter.fit_params) != run.nfit:
         raise AssertionError("not the full-width configuration")
 
     with phase("grid_timing", {}) as rec:
@@ -433,7 +641,7 @@ def main() -> int:
 
     with phase("grid_profile", {}) as rec:
         rec.update(profile_grid(torch, lambda: grid_chisq_flat(
-            fitter, grid, maxiter=2)))
+            fitter, grid, maxiter=2), run.out_dir))
 
     # the same grid with the phase chain run by the plain version
     with phase("plain_grid", {}) as rec:
@@ -457,7 +665,7 @@ def main() -> int:
     with phase("reference", {}) as rec:
         with open(REF_JSON) as f:
             ref = json.load(f)
-        _, rtoas, rfit = load(torch, REF_TIM, dmx_bins=REF_DMX_BINS)
+        _, rtoas, rfit = load(torch, run.dev, REF_TIM, REF_DMX_BINS)
         QSPhaseFrac.launches = 0
         rchi2 = grid_chisq_flat(rfit, {k: np.asarray(v) for k, v in
                                        ref["grid"].items()},
@@ -474,14 +682,183 @@ def main() -> int:
                 or rec["launches"] <= 0:
             raise AssertionError(f"reference grid chi2 gap {gap}")
 
+    # -- 5. the DD slice: simulate -> tim -> fit_toas, as a user drives it ----
+    from pint_tpu_torch.examples import simulate_dd_realistic
+    from pint_tpu_torch.fitter import WLSFitter, build_wls_step
+    from pint_tpu_torch.kernels.kepler import KeplerE
+    from pint_tpu_torch.toa import write_tim
+
+    with phase("dd_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        truth, sim_toas = simulate_dd_realistic(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.dd_tim), exist_ok=True)
+        write_tim(run.dd_tim, sim_toas)
+        t0 = time.perf_counter()
+        dmodel, dtoas = dd_load(torch, run.dd_tim, run.dmx_bins)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = snapshot(dmodel)
+        torch.cuda.reset_peak_memory_stats()
+        QSPhaseFrac.launches = 0
+        KeplerE.launches = 0
+        t0 = time.perf_counter()
+        dfit, dchi2, fit_s = dd_fit(torch, run.dev, dmodel, dtoas)
+        rec.update(fit_cold_s=fit_s,
+                   fitter_and_fit_s=time.perf_counter() - t0)
+        dd_launches = {"kepler_E": KeplerE.launches,
+                       "qs_phase_frac": QSPhaseFrac.launches}
+        fr = dfit.fitresult
+        names = dfit.fit_params
+        pulls = {n: device_offset(dmodel[n].device_value,
+                                  truth[n].device_value)
+                 / dmodel[n].device_uncertainty for n in DD_PULL_PARAMS}
+        rec.update(ntoas=dtoas.ntoas, n_fit=len(names),
+                   status=fr.status.name,
+                   iterations=fr.iterations, rung=fr.rung, chi2=dchi2,
+                   dof=fr.dof, chi2_per_dof=dchi2 / fr.dof, **dfit.fit_info,
+                   launches=dd_launches, pulls=pulls,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(dfit.device))
+        fused_vals, fused_uncs = fit_state(dmodel, names)
+        walls, per_fit, splits = [], [], []
+        for _ in range(3):
+            restore(dmodel, start)
+            wf = WLSFitter(dtoas, dmodel, device=run.dev)
+            QSPhaseFrac.launches = 0
+            KeplerE.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wchi2 = wf.fit_toas(maxiter=DD_MAXITER)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_fit.append({"kepler_E": KeplerE.launches,
+                            "qs_phase_frac": QSPhaseFrac.launches})
+            splits.append(wf.fit_info["seconds"])
+        # the warm fits' wall split (fitter.build_fused_fit): device loop
+        # up to the fetch, host solve + final step, write-back, and the
+        # rest of fit_toas; shares are of each fit's own wall, median
+        for sp, w in zip(splits, walls):
+            sp["other"] = w - sum(sp.values())
+        rec.update(fit_warm_s=median(walls), fit_walls_s=walls,
+                   launches_per_warm_fit=per_fit, fit_warm_split_s=splits,
+                   fit_warm_share={k: median([sp[k] / w for sp, w in
+                                              zip(splits, walls)])
+                                   for k in splits[0]},
+                   warm_chi2_change=abs(wchi2 - dchi2))
+    if dtoas.ntoas != run.ntoas or len(names) != run.nfit:
+        raise AssertionError("not the full-width DD configuration")
+    if fr.rung != "fused" or fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"DD fit ended {fr.status.name} on {fr.rung}")
+    if not 0.6 < dchi2 / fr.dof < 1.6:
+        raise AssertionError(f"DD fit chi2/dof {dchi2 / fr.dof}")
+    bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
+    if bad:
+        raise AssertionError(f"DD fit pulls {bad}")
+    if dd_launches["kepler_E"] <= 0 or dd_launches["qs_phase_frac"] <= 0:
+        raise AssertionError(f"the DD path skipped a kernel: {dd_launches}")
+
+    with phase("kepler_E", {}) as kepler_rec:
+        check_kepler(torch, dfit, kepler_rec)
+        kepler_rec["launches"] = dd_launches["kepler_E"]
+
+    with phase("dd_fused_vs_eager", {}) as rec:
+        restore(dmodel, start)
+        efit, echi2, eager_s = dd_fit(torch, run.dev, dmodel, dtoas,
+                                      eager=True)
+        ev, eu = fit_state(dmodel, names)
+        dev, unc = fit_gaps(fused_vals, fused_uncs, ev, eu)
+        rec.update(eager_s=eager_s, eager_status=efit.fitresult.status.name,
+                   eager_chi2=echi2, fused_chi2=dchi2,
+                   max_sigma_gap=dev, max_unc_rel_gap=unc,
+                   eager_fit_info=efit.fit_info)
+        # the final covariance at the fitted point (the model now holds
+        # the eager fit), assembled on the card and on the CPU: what
+        # pint_tpu's CPU re-assembly of it would change here
+        outs = {}
+        for label, where in (("card", run.dev), ("cpu", "cpu")):
+            f = WLSFitter(dtoas, dmodel, device=where)
+            step = build_wls_step(dmodel, f.resids.batch, names,
+                                  f.track_mode)
+            outs[label] = step(np.zeros(len(names)), f.resids.pdict)
+        sd = {k: np.sqrt(np.diag(np.asarray(
+            o["Sigma_n"], np.float64))) / np.asarray(o["norms"], np.float64)
+              for k, o in outs.items()}
+        rel = np.abs(sd["card"] / sd["cpu"] - 1.0)
+        rec.update(card_vs_cpu_assembly_unc_max_rel=float(np.max(rel)),
+                   card_vs_cpu_assembly_worst_param=names[
+                       int(np.argmax(rel))],
+                   e_min=float(outs["card"]["e_min"]))
+        if not (dev <= FIT_SIGMA_TOL and unc <= UNC_TOL):
+            raise AssertionError(f"fused vs eager: {dev} sigma, {unc} unc")
+
+    with phase("dd_fit_profile", {}) as rec:
+        holder = {}
+
+        def setup():
+            restore(dmodel, start)
+            holder["f"] = WLSFitter(dtoas, dmodel, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(maxiter=DD_MAXITER),
+            run.out_dir, out_name="dd_fit_profile", setup=setup))
+        # the fused loop's least device work: per Gauss-Newton iteration
+        # the solve reads the (N, P+1) whitened design matrix once and
+        # forms its Gram (2 N (P+1)^2 float64 operations)
+        it = holder["f"].fitresult.iterations
+        n_rows, n_col = dtoas.ntoas, len(names) + 1
+        t_ops = it * 2.0 * n_rows * n_col**2 / PEAK_OPS_PER_S["float64"]
+        t_bytes = it * 8.0 * n_rows * n_col / MEM_BYTES_PER_S
+        rec.update(loop_iterations=it,
+                   loop_bound_ms=1e3 * max(t_ops, t_bytes),
+                   loop_bound_by="operations" if t_ops >= t_bytes
+                   else "bytes")
+
+    with phase("dd_reference", {}) as rec:
+        with open(DD_REF_JSON) as f:
+            ref = json.load(f)
+        rmodel, rtoas = dd_load(torch, DD_REF_TIM, REF_DMX_BINS,
+                                perturb=ref["perturb"])
+        KeplerE.launches = 0
+        rfit, rchi2, _ = dd_fit(torch, run.dev, rmodel, rtoas)
+        rv, ru = fit_state(rmodel, rfit.fit_params)
+        dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
+        gap = abs(rchi2 - ref["chi2"]) / ref["chi2"]
+        rec.update(ntoas=rtoas.ntoas, n_fit=len(rfit.fit_params),
+                   status=rfit.fitresult.status.name,
+                   rung=rfit.fitresult.rung, chi2=rchi2,
+                   chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
+                   max_sigma_gap=dev, max_unc_rel_gap=unc,
+                   ref_status=ref["status"], launches=KeplerE.launches)
+        if rfit.fit_params != ref["fit_params"] or not (
+                dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
+                and rec["launches"] > 0):
+            raise AssertionError(
+                f"DD reference: {dev} sigma, {unc} unc, chi2 gap {gap}")
+
     emit({"kernels": [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
-        "launches": launches, "max_abs_err": kernel_rec["max_abs_frac_err"],
+        "launches": launches + dd_launches["qs_phase_frac"],
+        "launches_by_path": {"j0740_grid": launches,
+                             "dd_fit": dd_launches["qs_phase_frac"]},
+        "max_abs_err": kernel_rec["max_abs_frac_err"],
         "ms": kernel_rec["ms"], "plain_ms": kernel_rec["plain_ms"],
         "bound_ms": kernel_rec["bound_ms"],
-        "bound_by": kernel_rec["bound_by"], "library_ms": None}]})
+        "bound_by": kernel_rec["bound_by"], "library_ms": None}, {
+        "name": "kepler_E", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/kepler.cu",
+        "replaces": "pint_tpu/models/binary_orbits.py:49",
+        "launches": dd_launches["kepler_E"],
+        "launches_by_path": {"j0740_grid": 0,
+                             "dd_fit": dd_launches["kepler_E"]},
+        "max_abs_err": kepler_rec["max_abs_err"],
+        "ms": kepler_rec["ms"], "plain_ms": kepler_rec["plain_ms"],
+        "bound_ms": kepler_rec["bound_ms"],
+        "bound_by": kepler_rec["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -23,8 +23,10 @@
 //   mode 0: to_f64(round_nearest(total).frac)
 //   mode 1: to_f64(total - from_f64(pulse_number))
 //   mode 2: the four words of total
-// plus freq = sum_k (F_k + dF_k) dt^k / k! and dt64 in float64, which the
-// wrapper's tangent rule reads.
+// plus, in float64, dt64 and slope = d frac / d shift as pint_tpu's
+// word-level autodiff gives it: the secant frequency sum_k F_k dt^k/(k+1)!
+// of the F words plus the exact derivative sum_k dF_k dt^k/k! of the
+// offsets' term.  The wrapper's tangent rule reads both.
 //
 // What bounds it: arithmetic.  The plain version does ~2.3k float32 and
 // ~60 float64 elementwise operations per row (the QS products renormalize
@@ -193,7 +195,7 @@ __global__ void qs_phase_frac_kernel(
     const double* __restrict__ pulse_number,
     const double* __restrict__ shift, const double* __restrict__ dF,
     const double* __restrict__ other, double* __restrict__ out,
-    float* __restrict__ words, double* __restrict__ freq,
+    float* __restrict__ words, double* __restrict__ slope,
     double* __restrict__ dt64_out, int64_t G, int64_t N, int mode) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= G * N) return;
@@ -230,17 +232,19 @@ __global__ void qs_phase_frac_kernel(
     if (facts[k] != 1.0) ck = qs_mul_w(ck, (float)(1.0 / facts[k]));
     acc = qs_add(qs_mul(acc, dt), ck);
   }
-  // the fit offsets' Taylor term, and the frequency, in float64
+  // the fit offsets' Taylor term in float64
   double coef[kMaxTerms + 1];
   coef[0] = 0.0;
   for (int k = 0; k < K; ++k) coef[k + 1] = dF[g * K + k];
   acc = qs_add(acc, qs_from_f64(taylor_horner(dt64, coef, K + 1)));
-  for (int k = 0; k < K; ++k) {
+  // d frac / d shift: secant of the F words + derivative of the offsets
+  double sec = 0.0, der = 0.0;
+  for (int k = K - 1; k >= 0; --k) {
     const float* c = f_w + 4 * k;
-    const QS fk = {{c[0], c[1], c[2], c[3]}};
-    coef[k] = qs_to_f64(fk) + dF[g * K + k];
+    sec = sec * dt64 / (k + 2.0) + qs_to_f64(QS{{c[0], c[1], c[2], c[3]}});
+    der = der * dt64 / (k + 1.0) + dF[g * K + k];
   }
-  freq[row] = taylor_horner(dt64, coef, K);
+  slope[row] = sec + der;
   dt64_out[row] = dt64;
 
   // PhaseCalc.phase: zeros + spin [+ other] [- TZR]
@@ -269,7 +273,7 @@ extern "C" int qs_phase_frac(const int64_t* tdb_day, const float* frac_w,
                              const float* f_w, int K, const float* tzr_w,
                              const double* pulse_number, const double* shift,
                              const double* dF, const double* other,
-                             double* out, float* words, double* freq,
+                             double* out, float* words, double* slope,
                              double* dt64, int64_t G, int64_t N, int mode,
                              void* stream) {
   if (K < 1 || K > kMaxTerms || mode < 0 || mode > 2 || G < 1 || N < 1)
@@ -279,7 +283,7 @@ extern "C" int qs_phase_frac(const int64_t* tdb_day, const float* frac_w,
   const unsigned blocks = (unsigned)((rows + threads - 1) / threads);
   qs_phase_frac_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       tdb_day, frac_w, pep_day, pep_w, f_w, K, tzr_w, pulse_number, shift,
-      dF, other, out, words, freq, dt64, G, N, mode);
+      dF, other, out, words, slope, dt64, G, N, mode);
   return (int)cudaGetLastError();
 }
 

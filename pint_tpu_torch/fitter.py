@@ -1,29 +1,40 @@
 """Weighted-least-squares fitting on the device, with autodiff design matrices.
 
-Port of the parts of :mod:`pint_tpu.fitter` that the chi2 grid reaches:
-the whitened, two-stage column-normalized WLS solve (reference
-`fit_wls_svd`, `src/pint/fitter.py:2551`) by SVD or by
-the normal-equations eigh kernel, the residual function whose forward-mode
-jacobian is the design matrix, and the split assembly that computes the
-linear-parameter columns once and differentiates only the nonlinear core.
-The fitters' ``fit_toas`` loops are not ported yet (see ROADMAP.md).
+Port of the WLS part of :mod:`pint_tpu.fitter`: the whitened, two-stage
+column-normalized WLS solve (reference `fit_wls_svd`,
+`src/pint/fitter.py:2551`) by SVD or by the normal-equations eigh
+kernel, the residual function whose forward-mode jacobian is the design
+matrix, the split assembly that computes the linear-parameter columns
+once and differentiates only the nonlinear core, and
+:meth:`WLSFitter.fit_toas`: on CUDA the fused Gauss-Newton loop
+(:func:`build_fused_fit`, loop state on the card, one fetch, a host
+float64 SVD final step), on the CPU the guarded eager step loop
+(:func:`build_wls_step`), with the convergence sentinel
+(:func:`sentinel_advance`, :class:`FitStatus`) and the fused -> eager
+degradation rung.  The damped-LM rescue rung, GLS and the other fitters
+are not ported yet (see ROADMAP.md).
 
 Everything here is plain PyTorch on the batch's device; the phase chain
-inside the residual function is the ``qs_phase_frac`` kernel.  The
-jacobians are ``torch.func.jacfwd`` (a ``vmap`` of ``jvp`` over basis
-tangents): the primal evaluation runs once and every tangent lane goes
-through the kernel wrapper's analytic tangent rule.
+inside the residual function is the ``qs_phase_frac`` kernel and the DD
+family's Kepler solve the ``kepler_E`` kernel.  The jacobians are
+``torch.func.jacfwd`` (a ``vmap`` of ``jvp`` over basis tangents): the
+primal evaluation runs once and every tangent lane goes through the
+kernel wrappers' analytic tangent rules.
 """
 
 from __future__ import annotations
 
+import enum
+import time
 import warnings
-from typing import List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.func import jacfwd
 
+from pint_tpu_torch.exceptions import (ConvergenceFailure, DegeneracyWarning,
+                                       PintTpuWarning)
 from pint_tpu_torch.models.timing_model import TimingModel, pv
 from pint_tpu_torch.residuals import Residuals, raw_phase_resids
 from pint_tpu_torch.toabatch import TOABatch
@@ -31,11 +42,77 @@ from pint_tpu_torch.utils import normalize_designmatrix
 
 __all__ = ["Fitter", "WLSFitter", "fit_wls_svd", "fit_wls_eigh",
            "masked_eigh_inverse", "wls_solve", "build_resid_sec_fn",
-           "build_whitened_assembly"]
+           "build_whitened_assembly", "build_wls_step", "build_fused_fit",
+           "FitStatus", "FitSummary", "FitDegradedWarning",
+           "sentinel_advance", "denormalize_covariance"]
 
 #: float64 machine epsilon: the H100, like the CPU, has IEEE float64, so
 #: the degeneracy thresholds are those of pint_tpu's CPU backend
 EPS_F64 = float(np.finfo(np.float64).eps)
+F64 = torch.float64
+
+
+class FitStatus(enum.IntEnum):
+    """Terminal state of one fit attempt (:class:`pint_tpu.fitter.FitStatus`),
+    computed on the device by the fused loop's convergence sentinel and
+    mirrored by the eager loop.
+
+    * CONVERGED: consecutive-chi2 tolerance met.
+    * MAXITER: iteration budget exhausted with finite, non-diverging chi2.
+    * DIVERGED: chi2 rose for ``diverge_streak`` consecutive iterations,
+      or produced no new best for ``stall_iters`` iterations (the period-2
+      oscillation a consecutive-increase test alone misses), or the
+      eager step search found no acceptable step.
+    * NONFINITE: chi2 (or the solver output feeding it) went NaN/inf.
+
+    DIVERGED and NONFINITE start the degradation chain in
+    ``Fitter._fit_fused``."""
+
+    CONVERGED = 0
+    MAXITER = 1
+    DIVERGED = 2
+    NONFINITE = 3
+
+
+#: sentinel code for "still iterating" (never escapes the loop)
+_RUNNING = -1
+
+
+class FitDegradedWarning(PintTpuWarning):
+    """A fit rung failed (DIVERGED/NONFINITE) and the engine is falling
+    back to the next rung of the degradation chain."""
+
+
+def sentinel_advance(x, chi2, prev, best_x, best_chi2, inc_streak,
+                     stall_streak, tol_chi2, diverge_streak, stall_iters):
+    """One iteration of the convergence sentinel
+    (:func:`pint_tpu.fitter.sentinel_advance`): the best-so-far, streak
+    and :class:`FitStatus` bookkeeping of the fused loop, on tensors of
+    the loop's device, without a host read.  ``chi2`` is the objective at
+    ``x`` BEFORE the step is applied; NaN compares False everywhere
+    below, so a non-finite chi2 can neither extend a streak nor claim the
+    best slot.  Returns ``(best_x, best_chi2, inc_streak, stall_streak,
+    status)`` with ``status`` one of the FitStatus codes or ``_RUNNING``
+    (int32 tensors)."""
+    def code(v):
+        return torch.full_like(inc_streak, int(v))
+
+    nonfinite = torch.logical_not(torch.isfinite(chi2))
+    converged = torch.abs(prev - chi2) < tol_chi2
+    inc_streak = torch.where(chi2 > prev + tol_chi2, inc_streak + 1, code(0))
+    stall_streak = torch.where(chi2 < best_chi2 - tol_chi2, code(0),
+                               stall_streak + 1)
+    better = chi2 < best_chi2
+    best_x = torch.where(better, x, best_x)
+    best_chi2 = torch.where(better, chi2, best_chi2)
+    diverged = torch.logical_or(inc_streak >= diverge_streak,
+                                stall_streak >= stall_iters)
+    status = torch.where(
+        nonfinite, code(FitStatus.NONFINITE),
+        torch.where(converged, code(FitStatus.CONVERGED),
+                    torch.where(diverged, code(FitStatus.DIVERGED),
+                                code(_RUNNING))))
+    return best_x, best_chi2, inc_streak, stall_streak, status
 
 
 def _whiten_normalize(M, r_sec, sigma_sec):
@@ -56,7 +133,17 @@ def fit_wls_svd(M, r_sec, sigma_sec, threshold: Optional[float] = None):
     threshold.  Returns ``(dpars, Sigma_n, norms, n_bad)``; the true
     covariance is ``Sigma_n / outer(norms, norms)``."""
     Mn, rw, norms = _whiten_normalize(M, r_sec, sigma_sec)
-    U, S, Vh = torch.linalg.svd(Mn, full_matrices=False)
+    try:
+        U, S, Vh = torch.linalg.svd(Mn, full_matrices=False)
+    except torch.linalg.LinAlgError:
+        # non-finite input: NaN out, as XLA's SVD returns it
+        k = min(Mn.shape[-2:])
+        U = torch.full((*Mn.shape[:-1], k), float("nan"), dtype=Mn.dtype,
+                       device=Mn.device)
+        S = torch.full((*Mn.shape[:-2], k), float("nan"), dtype=Mn.dtype,
+                       device=Mn.device)
+        Vh = torch.full((*Mn.shape[:-2], k, Mn.shape[-1]), float("nan"),
+                        dtype=Mn.dtype, device=Mn.device)
     if threshold is None:
         threshold = EPS_F64 * max(M.shape)
     bad = S <= threshold * S[0]
@@ -83,7 +170,14 @@ def masked_eigh_inverse(G, threshold, n_rows):
     ``G = Mn^T Mn``: relative singular-value cutoff plus the eigh noise
     floor ``eps * P * e_max``.  Returns ``(V, einv, n_bad)`` with
     ``pinv(G) = (V * einv) @ V.T``."""
-    e, V = torch.linalg.eigh(G)
+    try:
+        e, V = torch.linalg.eigh(G)
+    except torch.linalg.LinAlgError:
+        # a poisoned (non-finite) normal matrix: NaN out, as XLA's eigh
+        # returns it, so the fit's sentinel reports NONFINITE
+        e = torch.full(G.shape[:-1], float("nan"), dtype=G.dtype,
+                       device=G.device)
+        V = torch.full_like(G, float("nan"))
     S = torch.sqrt(torch.clamp(e, min=0.0))
     if threshold is None:
         threshold = EPS_F64 * max(n_rows, G.shape[0])
@@ -91,6 +185,12 @@ def masked_eigh_inverse(G, threshold, n_rows):
     bad = (S <= threshold * S[-1]) | (e <= efloor)
     einv = torch.where(bad, 0.0, 1.0 / torch.where(bad, 1.0, e))
     return V, einv, torch.sum(bad)
+
+
+#: the eager split assembly refreshes its cached linear columns when the
+#: nonlinear offsets' predicted model change, sum_j max|J_j| |dx_j|,
+#: exceeds this [s] (:data:`pint_tpu.fitter.SPLIT_REFRESH_DRIFT_SEC`)
+SPLIT_REFRESH_DRIFT_SEC = 0.05
 
 
 def _default_wls_kernel(device):
@@ -144,9 +244,11 @@ def _make_assembly(model: TimingModel, names: Sequence[str], combined,
     FD...) come from a jacfwd restricted to that block (``.lin_cols``),
     which a caller computes once and passes to ``.inline_with_cols`` for
     every Gauss-Newton step; only the nonlinear core is re-differentiated
-    per step.  ``"full"``: one jacfwd over everything (also used when no
-    parameter is linear).  The eager, cache-refreshing assembly of
-    pint_tpu's ``fit_toas`` comes with that fitter loop."""
+    per step.  Called directly (the eager fit loop), the split assembly
+    caches the columns itself, as pint_tpu's does: they are refreshed
+    when ``p`` is a new object or the nonlinear offsets' predicted model
+    drift exceeds ``SPLIT_REFRESH_DRIFT_SEC``.  ``"full"``: one jacfwd
+    over everything (also used when no parameter is linear)."""
     names = list(names)
     design_matrix = _resolve_design_matrix(design_matrix)
     lin_names, nl_names = model.partition_linear_params(names)
@@ -172,6 +274,10 @@ def _make_assembly(model: TimingModel, names: Sequence[str], combined,
         return assemble_inline
 
     # ---------------- split path ----------------
+    def offc_dev(p):
+        return offc.device if offc is not None else \
+            next(iter(p["const"].values())).device
+
     lin_set = set(lin_names)
     nl_pos = [i for i, n in enumerate(names) if n not in lin_set]
     lin_pos = [i for i, n in enumerate(names) if n in lin_set]
@@ -214,13 +320,38 @@ def _make_assembly(model: TimingModel, names: Sequence[str], combined,
     def assemble_inline(x, p):
         return inline_with_cols(x, p, lin_cols(x, p))
 
-    assemble_inline.inline = assemble_inline
-    assemble_inline.lin_cols = lin_cols
-    assemble_inline.inline_with_cols = inline_with_cols
-    assemble_inline.split = True
-    assemble_inline.lin_names, assemble_inline.nl_names = lin_names, nl_names
-    assemble_inline.design_matrix = "split"
-    return assemble_inline
+    state: dict = {}
+
+    def assemble(x, p):
+        # x arrives as host numpy from the eager loop (or a tensor); the
+        # cache test reads the host copy, so it costs no device read
+        x_h = np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor)
+                         else x, np.float64)
+        xt = torch.as_tensor(x_h, device=offc_dev(p))
+        x_nl_h = x_h[nl_pos]
+        hit = state.get("p") is p
+        if hit and n_nl:
+            drift = float(np.sum(state["nl_scale"]
+                                 * np.abs(x_nl_h - state["x_nl"])))
+            hit = drift <= SPLIT_REFRESH_DRIFT_SEC
+        if not hit:
+            x_nl, x_lin = _split_x(xt)
+            cols = jacfwd(resid_parts, argnums=1)(x_nl, x_lin, p)
+            nl_scale = np.zeros(0)
+            if n_nl:
+                Jnl = jacfwd(resid_parts, argnums=0)(x_nl, x_lin, p)
+                nl_scale = torch.amax(torch.abs(Jnl), dim=0).cpu().numpy()
+            state.update(p=p, cols=cols, x_nl=x_nl_h.copy(),
+                         nl_scale=nl_scale)
+        return inline_with_cols(xt, p, state["cols"])
+
+    assemble.inline = assemble_inline
+    assemble.lin_cols = lin_cols
+    assemble.inline_with_cols = inline_with_cols
+    assemble.split = True
+    assemble.lin_names, assemble.nl_names = lin_names, nl_names
+    assemble.design_matrix = "split"
+    return assemble
 
 
 def build_whitened_assembly(model: TimingModel, batch: TOABatch,
@@ -242,11 +373,41 @@ def build_whitened_assembly(model: TimingModel, batch: TOABatch,
                           offc, design_matrix)
 
 
-def wls_solve(r, M, sigma, offc, kern, npar, threshold=None):
-    """One WLS solve + chi2 from a whitened assembly (the device path of
-    :func:`pint_tpu.fitter.wls_solve`): chi2 is evaluated at x with the
-    offset profiled out."""
-    dpars, Sigma_n, norms, n_bad = kern(M, r, sigma, threshold)
+def _nan_solution(P: int):
+    """The all-NaN stand-in for an impossible host solve (dpars, Sigma_n,
+    norms, n_bad), with finite norms so denormalization stays defined."""
+    nan = torch.full((P,), float("nan"), dtype=F64)
+    return nan, torch.full((P, P), float("nan"), dtype=F64), \
+        torch.ones(P, dtype=F64), torch.zeros((), dtype=torch.int64)
+
+
+def wls_solve(r, M, sigma, offc, kern, npar, threshold=None,
+              host: bool = False):
+    """One WLS solve + chi2 from a whitened assembly
+    (:func:`pint_tpu.fitter.wls_solve`): chi2 is evaluated at x with the
+    offset profiled out.
+
+    ``host=False`` is the device path of grids and of the CPU eager step
+    (``e_min`` is inf, never consulted).  ``host=True`` is the host
+    finish of an accelerator fit, on CPU float64 tensors: a non-finite
+    assembly or a failed factorization gives an all-NaN result that the
+    fit guards judge instead of an exception, and ``e_min`` is the
+    smallest kept eigenvalue of the normalized Gram (1/||Sigma_n||_2),
+    the conditioning figure the fit reports in ``fit_info``."""
+    if host:
+        finite_in = bool(torch.all(torch.isfinite(M))
+                         and torch.all(torch.isfinite(r))
+                         and torch.all(torch.isfinite(sigma)))
+        solution = None
+        if finite_in:
+            try:
+                solution = kern(M, r, sigma, threshold)
+            except torch.linalg.LinAlgError:
+                solution = None
+        dpars, Sigma_n, norms, n_bad = solution if solution is not None \
+            else _nan_solution(M.shape[1])
+    else:
+        dpars, Sigma_n, norms, n_bad = kern(M, r, sigma, threshold)
     if offc is not None:
         w = offc / sigma**2
         off = torch.sum(r * w) / torch.sum(w * offc)
@@ -255,15 +416,259 @@ def wls_solve(r, M, sigma, offc, kern, npar, threshold=None):
         off = torch.zeros((), dtype=r.dtype, device=r.device)
         r_off = r
     chi2 = torch.sum((r_off / sigma) ** 2)
+    e_min = float("inf")
+    if host:
+        if bool(torch.all(torch.isfinite(Sigma_n))):
+            smax = float(torch.linalg.eigvalsh(Sigma_n)[-1])
+            e_min = 1.0 / smax if smax > 0 else float("inf")
+        else:
+            e_min = float("nan")  # poisoned solve: compares False
     return {"dx": dpars[:npar], "offset": off, "chi2": chi2,
             "Sigma_n": Sigma_n[:npar, :npar], "norms": norms[:npar],
-            "resid_sec": r, "n_bad": n_bad}
+            "resid_sec": r, "n_bad": n_bad, "e_min": e_min}
+
+
+def _np(t) -> np.ndarray:
+    """A tensor (any device) or array as host float64 numpy."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _fetch_host(r, M, sigma, offc):
+    """The whitened system as CPU tensors, in ONE device-to-host transfer
+    of the flattened parts (already-CPU inputs pass through)."""
+    if r.device.type == "cpu":
+        return r, M, sigma, offc
+    parts = [r.reshape(-1), M.reshape(-1), sigma.reshape(-1)]
+    if offc is not None:
+        parts.append(offc.reshape(-1))
+    flat = torch.cat(parts).cpu()
+    n, m = r.shape[0], M.numel()
+    offc_h = None if offc is None else flat[n + m + n:]
+    return (flat[:n], flat[n:n + m].reshape(M.shape),
+            flat[n + m:n + m + n], offc_h)
+
+
+def build_wls_step(model: TimingModel, batch: TOABatch,
+                   fit_params: Sequence[str], track_mode: str,
+                   threshold: Optional[float] = None,
+                   include_offset: bool = True,
+                   design_matrix: Optional[str] = None):
+    """The Gauss-Newton step ``(x, p) -> dict`` for a frozen
+    model structure (:func:`pint_tpu.fitter.build_wls_step`).
+
+    ``x`` is the free-parameter offset vector (device units, offsets
+    from the params dict's reference values; host numpy or a tensor);
+    the dict holds ``dx`` (the step, offset column dropped), ``chi2``
+    (at x, offset profiled out), ``Sigma_n``/``norms`` (the normalized
+    covariance and column norms), ``resid_sec``, ``n_bad`` and ``e_min``.
+
+    With the batch on an accelerator the device assembles (residuals +
+    jacfwd), the system comes to the host in one transfer, and the solve
+    is the reference's float64 SVD recipe on the CPU.  With the batch on
+    the CPU the whole step is the SVD recipe there.
+
+    pint_tpu re-assembles the final covariance on the CPU when the
+    smallest kept eigenvalue is small (``_exact_assemble_factory``): its
+    TPU's emulated float64 left ~1e-11 relative noise in the design
+    matrix.  The H100's float64 is IEEE, and there that pass changes the
+    DD fit's uncertainties by ~1e-10 relative (PERF.md), so the port
+    takes the final covariance from the device assembly."""
+    names = list(fit_params)
+    assemble = build_whitened_assembly(model, batch, names, track_mode,
+                                       include_offset,
+                                       design_matrix=design_matrix)
+
+    def _assemble(x, p):
+        if not assemble.split:
+            x = torch.as_tensor(_np(x), dtype=F64, device=batch.device)
+        with torch.no_grad():
+            return assemble(x, p)
+
+    if batch.device.type == "cpu":
+        def step(x, p):
+            r, M, sigma, offc = _assemble(x, p)
+            with torch.no_grad():
+                return wls_solve(r, M, sigma, offc, fit_wls_svd, len(names),
+                                 threshold)
+
+        return step
+
+    def step(x, p):
+        return wls_solve(*_fetch_host(*_assemble(x, p)), fit_wls_svd,
+                         len(names), threshold, host=True)
+
+    return step
+
+
+#: fused-sentinel defaults (:mod:`pint_tpu.fitter`): DIVERGED after this
+#: many CONSECUTIVE chi2 increases (each beyond tol_chi2) ...
+FUSED_DIVERGE_STREAK = 3
+#: ... or after this many consecutive iterations with no new best chi2
+#: (the period-2 oscillation detector)
+FUSED_STALL_ITERS = 6
+
+
+def build_fused_fit(model: TimingModel, batch: TOABatch,
+                    fit_params: Sequence[str], track_mode: str, *,
+                    threshold: Optional[float] = None,
+                    include_offset: bool = True, maxiter: int = 2,
+                    tol_chi2: float = 1e-8,
+                    design_matrix: Optional[str] = None):
+    """A whole iterated WLS Gauss-Newton fit with its loop state on the
+    device and ONE device-to-host transfer
+    (:func:`pint_tpu.fitter.build_fused_fit`, whose ``lax.while_loop``
+    becomes a Python loop over device tensors).
+
+    The split assembly's linear columns are computed once per fit.  Each
+    iteration: whitened assembly -> :func:`fit_wls_eigh` -> offset-
+    profiled chi2 -> :func:`sentinel_advance` -> x += dx, all on the
+    device; the only host read per iteration is the int32 status that
+    stands in for the while_loop's early exit.  The loop exits on
+    CONVERGED, DIVERGED, NONFINITE or ``maxiter``; on DIVERGED/NONFINITE
+    it returns the best-so-far x.  After the loop: the final assembly at
+    x, one transfer of the flat vector, the host float64 SVD solve
+    (:func:`wls_solve` on CPU tensors) whose covariance is the fit's, and
+    the final exact Gauss-Newton step with chi2 updated by its
+    linearization.  pint_tpu's CPU re-assembly of the final covariance
+    is not taken (see :func:`build_wls_step`).
+
+    Returns ``fit(p) -> (x, out)`` with ``out`` the host
+    :func:`wls_solve` dict plus ``status`` (:class:`FitStatus`),
+    ``iterations``, ``best_chi2`` and ``seconds``: host-clock seconds of
+    the device loop up to the fetch (``loop``, which waits for the
+    device) and of the host solve and final step (``host_solve``)."""
+    names = list(fit_params)
+    npar = len(names)
+    assemble = build_whitened_assembly(model, batch, names, track_mode,
+                                       include_offset,
+                                       design_matrix=design_matrix)
+    n_rows = batch.ntoas
+    ncol = npar + (1 if include_offset else 0)
+    host_offc = torch.ones(n_rows, dtype=F64) if include_offset else None
+    dev = batch.device
+
+    def run(p):
+        zeros = torch.zeros(npar, dtype=F64, device=dev)
+        if assemble.split:
+            cols = assemble.lin_cols(zeros, p)
+
+            def _asm(x):
+                return assemble.inline_with_cols(x, p, cols)
+        else:
+            def _asm(x):
+                return assemble.inline(x, p)
+
+        inf = torch.full((), float("inf"), dtype=F64, device=dev)
+        i32 = torch.zeros((), dtype=torch.int32, device=dev)
+        x, prev, best_x, best_chi2 = zeros, inf, zeros, inf
+        inc_streak, stall_streak, i = i32, i32, i32
+        status = i32 + _RUNNING
+        for _ in range(maxiter):
+            r, M, sigma, offc = _asm(x)
+            dpars = fit_wls_eigh(M, r, sigma, threshold)[0]
+            if offc is not None:
+                w = offc / sigma**2
+                off = torch.sum(r * w) / torch.sum(w * offc)
+                chi2 = torch.sum(((r - off * offc) / sigma) ** 2)
+            else:
+                chi2 = torch.sum((r / sigma) ** 2)
+            best_x, best_chi2, inc_streak, stall_streak, status = \
+                sentinel_advance(x, chi2, prev, best_x, best_chi2,
+                                 inc_streak, stall_streak, tol_chi2,
+                                 FUSED_DIVERGE_STREAK, FUSED_STALL_ITERS)
+            x, prev, i = x + dpars[:npar], chi2, i + 1
+            # the while_loop's exit test: the one host read per iteration
+            if int(status) != _RUNNING:
+                break
+        status = torch.where(status == _RUNNING,
+                             i32 + int(FitStatus.MAXITER), status)
+        # failed runs hand back the best finite iterate, never the
+        # poisoned/oscillating last one
+        ok = (status == FitStatus.CONVERGED) | (status == FitStatus.MAXITER)
+        x = torch.where(ok, x, best_x)
+        r, M, sigma, _ = _asm(x)
+        tail = torch.stack([status.to(F64), i.to(F64), best_chi2])
+        return torch.cat([x, r, sigma, M.reshape(-1), tail])
+
+    def fit(p):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            flat = run(p).cpu()
+        t1 = time.perf_counter()
+        x = flat[:npar]
+        r = flat[npar:npar + n_rows]
+        sigma = flat[npar + n_rows:npar + 2 * n_rows]
+        M = flat[npar + 2 * n_rows:-3].reshape(n_rows, ncol)
+        status = FitStatus(int(flat[-3]))
+        iterations = int(flat[-2])
+        best_chi2 = float(flat[-1])
+        out = wls_solve(r, M, sigma, host_offc, fit_wls_svd, npar,
+                        threshold, host=True)
+        if status in (FitStatus.CONVERGED, FitStatus.MAXITER) and \
+                not np.isfinite(float(out["chi2"])):
+            # the sentinel judged the device chi2; a non-finite host
+            # solve makes the fit NONFINITE regardless
+            status = FitStatus.NONFINITE
+        out.update(status=status, iterations=iterations,
+                   best_chi2=best_chi2)
+        # the final exact Gauss-Newton step from the device trajectory's
+        # end, with residuals and chi2 updated by the linearization it is
+        # based on (dr = -M dx); skipped on DIVERGED/NONFINITE, whose x is
+        # a best-so-far diagnostic the degradation chain discards
+        x = x.numpy()
+        dx = _np(out["dx"])
+        if status in (FitStatus.CONVERGED, FitStatus.MAXITER) and \
+                np.all(np.isfinite(dx)):
+            x = x + dx
+            r_new = _np(out["resid_sec"]) - _np(M[:, :npar]) @ dx
+            s = _np(sigma)
+            if host_offc is not None:
+                w = 1.0 / s**2
+                off = float(np.sum(r_new * w) / np.sum(w))
+                out["chi2"] = float(np.sum(((r_new - off) / s) ** 2))
+                out["offset"] = off
+            else:
+                out["chi2"] = float(np.sum((r_new / s) ** 2))
+            out["resid_sec"] = r_new
+        out["seconds"] = {"loop": t1 - t0,
+                          "host_solve": time.perf_counter() - t1}
+        return x, out
+
+    fit.run = run
+    return fit
+
+
+def denormalize_covariance(Sigma_n, norms) -> np.ndarray:
+    """Host float64 covariance from the normalized one and the column
+    norms (:func:`pint_tpu.fitter.denormalize_covariance`)."""
+    norms = _np(norms).astype(np.float64)
+    return _np(Sigma_n).astype(np.float64) / np.outer(norms, norms)
+
+
+class FitSummary(NamedTuple):
+    """Post-fit record (:class:`pint_tpu.fitter.FitSummary`): ``converged``
+    is True for any non-failing finish (CONVERGED or MAXITER); ``status``,
+    ``rung`` ("fused"/"eager") and ``guard_trips`` are the guarded
+    engine's provenance."""
+
+    chi2: float
+    dof: int
+    iterations: int
+    converged: bool
+    status: FitStatus = FitStatus.CONVERGED
+    rung: str = ""
+    guard_trips: Optional[Dict[str, int]] = None
 
 
 class Fitter:
     """Base fitter (reference `Fitter`, `src/pint/fitter.py:116`):
     holds (toas, model, resids).  ``device`` (default ``"cuda"``) is where
-    the residuals' batch and params dict live."""
+    the residuals' batch and params dict live.  After a fit, parameter
+    values and uncertainties are written back into the model,
+    ``parameter_covariance_matrix`` holds the covariance and ``resids``
+    reflects the post-fit model."""
 
     def __init__(self, toas, model: TimingModel,
                  track_mode: Optional[str] = None,
@@ -279,6 +684,14 @@ class Fitter:
         self.device = self.resids.device
         self.track_mode = self.resids.track_mode
         self.design_matrix = _resolve_design_matrix(design_matrix)
+        self.fitresult: Optional[FitSummary] = None
+        self.parameter_covariance_matrix: Optional[np.ndarray] = None
+        self.covariance_params: List[str] = []
+        #: the last fit's final solve: dropped directions ``n_bad`` and
+        #: smallest kept normalized eigenvalue ``e_min``; after a fused
+        #: fit also ``seconds``, its wall split into the device loop, the
+        #: host solve and the write-back (host clock)
+        self.fit_info: Dict[str, object] = {}
 
     @property
     def fit_params(self) -> List[str]:
@@ -295,11 +708,294 @@ class Fitter:
         return out
 
     def fit_toas(self, maxiter: int = 2, **kw) -> float:
-        raise NotImplementedError(
-            "fit_toas is not ported yet; grid fits run through "
-            "pint_tpu_torch.gridutils.grid_chisq_flat")
+        raise NotImplementedError
+
+    # -- reporting --------------------------------------------------------
+    def update_model(self):
+        """Record fit provenance into the model (START/FINISH/NTOA/CHI2/
+        CHI2R/TRES), as the reference does post-fit."""
+        m, r = self.model, self.resids
+        mjds = _np(r.batch.tdbld)
+        m.START.value = f"{mjds.min():.4f}"
+        m.FINISH.value = f"{mjds.max():.4f}"
+        m.NTOA.value = str(self.toas.ntoas)
+        chi2 = r.calc_chi2()
+        m.CHI2.value = f"{chi2:.4f}"
+        m.CHI2R.value = f"{chi2 / r.dof:.6f}"
+        m.TRES.value = f"{r.rms_weighted() * 1e6:.4f}"
+
+    def _record_provenance(self, rung_statuses=None):
+        """Stamp which rung of the degradation chain produced the accepted
+        solution, its FitStatus and, after a degraded fit, every
+        attempted rung's status onto the model."""
+        fr = self.fitresult
+        self.model.fit_provenance = {
+            "fitter": type(self).__name__,
+            "rung": fr.rung,
+            "status": fr.status.name,
+            "rung_statuses": {k: v.name
+                              for k, v in (rung_statuses or {}).items()},
+        }
+
+    # -- steps ------------------------------------------------------------
+    def _device_pdict(self):
+        """The current params dict: the residuals' dict already lives on
+        the fitter's device."""
+        return self.resids.pdict
+
+    def _make_step(self, names, threshold, include_offset):
+        return build_wls_step(self.model, self.resids.batch, names,
+                              self.track_mode, threshold=threshold,
+                              include_offset=include_offset,
+                              design_matrix=self.design_matrix)
+
+    def _cached_step(self, names, threshold, include_offset):
+        """One step function reused across fits of the same structure."""
+        key = (tuple(names), threshold, include_offset, self.design_matrix)
+        if getattr(self, "_step_cache_key", None) != key:
+            self._step_cache_key = key
+            self._step_cache = self._make_step(names, threshold,
+                                               include_offset)
+        return self._step_cache
+
+    # -- fused whole-fit path ---------------------------------------------
+    def _fused_ok(self) -> bool:
+        """Whether fit_toas runs the fused device loop
+        (:func:`build_fused_fit`): on CUDA, keyed on the fitter's device,
+        as pint_tpu takes it on accelerators; the CPU keeps the eager
+        step loop."""
+        return self.device.type == "cuda"
+
+    def _cached_fused(self, names, threshold, include_offset, maxiter,
+                      tol_chi2):
+        key = (tuple(names), threshold, include_offset, maxiter, tol_chi2,
+               self.design_matrix)
+        if getattr(self, "_fused_cache_key", None) != key:
+            self._fused_cache_key = key
+            self._fused_cache = build_fused_fit(
+                self.model, self.resids.batch, names, self.track_mode,
+                threshold=threshold, include_offset=include_offset,
+                maxiter=maxiter, tol_chi2=tol_chi2,
+                design_matrix=self.design_matrix)
+        return self._fused_cache
+
+    def _fit_fused(self, maxiter, threshold, tol_chi2=1e-8) -> float:
+        m = self.model
+        names = self.fit_params
+        p = self._device_pdict()
+        include_offset = "PhaseOffset" not in m.components
+        fit = self._cached_fused(names, threshold, include_offset, maxiter,
+                                 tol_chi2)
+        x, out = fit(p)
+        status = out["status"]
+        self.fit_info = {"n_bad": int(out["n_bad"]),
+                         "e_min": float(out["e_min"]),
+                         "seconds": dict(out["seconds"])}
+        if status in (FitStatus.DIVERGED, FitStatus.NONFINITE):
+            # nothing has been written back to the model, so the eager
+            # rung restarts from the same state
+            return self._degraded_fit(status, maxiter, threshold, tol_chi2)
+        if int(out["n_bad"]):
+            warnings.warn(
+                f"{int(out['n_bad'])} degenerate parameter "
+                "combination(s) dropped by SVD threshold",
+                DegeneracyWarning)
+        Sigma = denormalize_covariance(out["Sigma_n"], out["norms"])
+        r = self.resids
+        seed_ok = (r.subtract_mean and r.use_weighted_mean) or \
+            (not r.subtract_mean and float(out["offset"]) == 0.0)
+        seed = (_np(out["resid_sec"]), float(out["offset"])) if seed_ok \
+            else None
+        t0 = time.perf_counter()
+        self._finalize(p, x, Sigma, names, resid_seed=seed)
+        self.fit_info["seconds"]["write_back"] = time.perf_counter() - t0
+        self.fitresult = FitSummary(
+            float(out["chi2"]), self.resids.dof, out["iterations"], True,
+            status=status, rung="fused", guard_trips={})
+        self._record_provenance()
+        return float(out["chi2"])
+
+    def _degraded_fit(self, fused_status, maxiter, threshold,
+                      tol_chi2) -> float:
+        """fused -> eager stepwise (:meth:`pint_tpu.fitter.Fitter.
+        _degraded_fit` without its damped-LM rung, which is not ported):
+        the eager rung gets one attempt; when it fails too,
+        :class:`~pint_tpu_torch.exceptions.ConvergenceFailure` carries the
+        statuses of the rungs tried."""
+        statuses = {"fused": fused_status}
+        warnings.warn(
+            f"fused fit ended {fused_status.name}; degrading to the "
+            "eager stepwise fitter", FitDegradedWarning)
+        try:
+            chi2 = self._fit_eager(maxiter=max(maxiter, 8),
+                                   threshold=threshold, tol_chi2=tol_chi2)
+            statuses["eager"] = st = self.fitresult.status
+        except ConvergenceFailure as e:
+            st = e.status if e.status is not None else FitStatus.NONFINITE
+            statuses["eager"] = st
+            chi2 = float("nan")
+        if np.isfinite(chi2) and st not in (FitStatus.DIVERGED,
+                                            FitStatus.NONFINITE):
+            self.fitresult = self.fitresult._replace(rung="eager")
+            self._record_provenance(statuses)
+            return chi2
+        raise ConvergenceFailure(
+            "fit failed through the degradation chain (fused -> eager; "
+            "the damped-LM rung is not ported): "
+            f"{ {k: v.name for k, v in statuses.items()} }",
+            status=st, rung_statuses=statuses)
+
+    # -- write-back -------------------------------------------------------
+    def _seed_resids(self, r_sec: np.ndarray, offset: float):
+        """Prime the post-fit residual cache from the fit's final assembly
+        (unsubtracted residuals [s] + profiled offset) instead of running
+        the residual pipeline again: with the default all-ones offset
+        regressor and 1/sigma^2 weights, the offset-profiled residuals ARE
+        the weighted-mean-subtracted residuals."""
+        r = self.resids
+        nt = r.batch.ntoas
+        r._phase_resids = np.asarray(
+            (r_sec[:nt] - offset) * float(self.model.F0.value))
+        r._chi2_cache = None
+
+    def _finalize(self, p: dict, x, Sigma: np.ndarray, names: List[str],
+                  resid_seed=None):
+        """Write the solution back into the host parameters and their
+        uncertainties, refresh the residuals and record the provenance.
+        ``x`` is host numpy, so the offsets fold back with no device
+        read."""
+        m = self.model
+        p2 = m.with_x(p, _np(x), names)
+        m.apply_deltas(p2)
+        diag = np.diag(np.asarray(Sigma))
+        if not np.all(np.isfinite(diag)):
+            # a poisoned solve must not write NaN uncertainties into the
+            # model as if they were measurements
+            bad = [n for n, v in zip(names, diag) if not np.isfinite(v)]
+            warnings.warn(
+                f"non-finite parameter covariance for {bad}; their "
+                "uncertainties are left unset", PintTpuWarning)
+        for i, n in enumerate(names):
+            if np.isfinite(diag[i]):
+                m[n].set_device_uncertainty(
+                    float(np.sqrt(max(diag[i], 0.0))))
+        self.parameter_covariance_matrix = np.asarray(Sigma)
+        self.covariance_params = list(names)
+        self.resids.update()
+        if resid_seed is not None:
+            self._seed_resids(*resid_seed)
+        self.update_model()
 
 
 class WLSFitter(Fitter):
     """Iterated linear WLS (reference `WLSFitter`,
-    `src/pint/fitter.py:1703`)."""
+    `src/pint/fitter.py:1703`; :class:`pint_tpu.fitter.WLSFitter`): on
+    CUDA the fused device loop, on the CPU the guarded eager step loop,
+    whose steps that raise chi2 beyond ``max_chi2_increase`` are
+    backtracked by halving down to ``min_lambda``.  A fit whose chi2
+    goes non-finite raises :class:`~pint_tpu_torch.exceptions.
+    ConvergenceFailure` instead of returning the poisoned number."""
+
+    def fit_toas(self, maxiter: int = 2, threshold: Optional[float] = None,
+                 tol_chi2: float = 1e-8, min_lambda: float = 1e-3,
+                 max_chi2_increase: float = 1e-2) -> float:
+        if self._fused_ok():
+            return self._fit_fused(maxiter, threshold, tol_chi2)
+        return self._fit_eager(maxiter=maxiter, threshold=threshold,
+                               tol_chi2=tol_chi2, min_lambda=min_lambda,
+                               max_chi2_increase=max_chi2_increase)
+
+    def _fit_eager(self, maxiter: int = 2,
+                   threshold: Optional[float] = None,
+                   tol_chi2: float = 1e-8, min_lambda: float = 1e-3,
+                   max_chi2_increase: float = 1e-2) -> float:
+        """The guarded eager step loop (also the degradation chain's
+        second rung).  Each accepted trial's step output doubles as the
+        next iteration's linearization and, at the end, as the final
+        solve."""
+        m = self.model
+        names = self.fit_params
+        p = self._device_pdict()
+        include_offset = "PhaseOffset" not in m.components
+        step = self._cached_step(names, threshold, include_offset)
+        guard_trips: Dict[str, int] = {}
+
+        def trip(name):
+            guard_trips[name] = guard_trips.get(name, 0) + 1
+
+        x = np.zeros(len(names))
+        out = step(x, p)
+        chi2 = float(out["chi2"])
+        if not np.isfinite(chi2):
+            trip("eager_nonfinite")
+            raise ConvergenceFailure(
+                f"chi2 is non-finite ({chi2}) at the start point: "
+                "poisoned uncertainties or residuals (check the TOA "
+                "validation policy)", status=FitStatus.NONFINITE)
+        status = FitStatus.MAXITER
+        it = -1
+        for it in range(maxiter):
+            if int(out["n_bad"]):
+                warnings.warn(
+                    f"{int(out['n_bad'])} degenerate parameter "
+                    "combination(s) dropped by SVD threshold",
+                    DegeneracyWarning)
+            dx = _np(out["dx"])
+            if not np.all(np.isfinite(dx)):
+                # a NaN/inf step cannot be walked
+                trip("eager_nonfinite_step")
+                status = FitStatus.NONFINITE
+                break
+            lam = 1.0
+            trial = None
+            while True:
+                cand = step(x + lam * dx, p)
+                t_chi2 = float(cand["chi2"])
+                if np.isfinite(t_chi2) and \
+                        t_chi2 <= chi2 + max_chi2_increase:
+                    trial = cand
+                    break
+                trip("eager_backtrack")
+                lam *= 0.5
+                if lam < min_lambda:
+                    break
+            if trial is None:
+                # no acceptable step length even at min lambda: stop at
+                # the (finite) pre-step x instead of walking uphill
+                trip("eager_step_rejected")
+                status = FitStatus.DIVERGED
+                break
+            x = x + lam * dx
+            improvement = chi2 - t_chi2
+            chi2 = t_chi2
+            out = trial
+            if abs(improvement) < tol_chi2:
+                status = FitStatus.CONVERGED
+                break
+        if status is FitStatus.NONFINITE:
+            raise ConvergenceFailure(
+                "WLS solve produced a non-finite step "
+                f"(iteration {it}); chi2 at the last good point: "
+                f"{chi2:.6g}", status=FitStatus.NONFINITE)
+        # `out` IS the step output at x (the last accepted trial), so it
+        # is the final solve too
+        self.fit_info = {"n_bad": int(out["n_bad"]),
+                         "e_min": float(out["e_min"])}
+        Sigma = denormalize_covariance(out["Sigma_n"], out["norms"])
+        r = self.resids
+        seed_ok = (r.subtract_mean and r.use_weighted_mean) or \
+            (not r.subtract_mean and float(out["offset"]) == 0.0)
+        seed = (_np(out["resid_sec"]), float(out["offset"])) \
+            if seed_ok else None
+        self._finalize(p, x, Sigma, names, resid_seed=seed)
+        if status is FitStatus.DIVERGED:
+            warnings.warn(
+                "no acceptable step length found (chi2 rises even at "
+                f"lambda={min_lambda:g}); returning the best point "
+                "found", PintTpuWarning)
+        self.fitresult = FitSummary(
+            float(out["chi2"]), self.resids.dof, it + 1,
+            status in (FitStatus.CONVERGED, FitStatus.MAXITER),
+            status=status, rung="eager", guard_trips=guard_trips)
+        self._record_provenance()
+        return float(out["chi2"])

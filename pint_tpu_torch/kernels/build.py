@@ -10,10 +10,12 @@ launch builds, or :func:`build_all` builds every source at once, one
 ``nvcc`` process per source, all started together.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
-``--fmad=false``: the kernels are chains of error-free transforms, and a
-contracted ``a*b+c`` (FMA) silently breaks them, as a value-changing
-rewrite would in XLA (:func:`pint_tpu.dd._guard`).  Never
-``--use_fast_math`` (it also flushes subnormals and reassociates).
+``--fmad=false``: ``qs_phase`` is a chain of error-free transforms, and
+a contracted ``a*b+c`` (FMA) silently breaks them, as a value-changing
+rewrite would in XLA (:func:`pint_tpu.dd._guard`); ``kepler`` keeps the
+flag so that each of its products and sums rounds on its own, as the
+plain version's separate PyTorch kernels do.  Never ``--use_fast_math``
+(it also flushes subnormals and reassociates).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 #: every kernel source of the package, by library name
-SOURCES = ("qs_phase",)
+SOURCES = ("qs_phase", "kepler")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

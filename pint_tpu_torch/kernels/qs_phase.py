@@ -11,13 +11,21 @@ fallback from one to the other.
 :class:`QSPhaseFrac` makes it a differentiable operation for
 ``torch.func``: forward mode through an analytic float64 tangent rule,
 
-    d frac = freq · d shift + Σ_k dt^{k+1}/(k+1)! · d δF_k + d other
+    d frac = slope · d shift + Σ_k dt^{k+1}/(k+1)! · d δF_k + d other,
+    slope  = Σ_k F_k dt^k/(k+1)! + Σ_k δF_k dt^k/k!
 
-(``freq`` = Σ (F_k + δF_k) dt^k/k!, both returned by the kernel), and a
+(``slope`` and ``dt`` are returned by the kernel), and a
 ``vmap`` rule that folds batched grid points into the kernel's row axis,
 so ``torch.func.vmap`` over a grid still makes one launch.  The forward
 runs once per primal evaluation however many tangent lanes
 ``torch.func.jacfwd`` pushes through the rule.
+
+``slope`` is pint_tpu's tangent, not the exact derivative
+Σ_k (F_k + δF_k) dt^k/k!: :mod:`pint_tpu` differentiates the
+quad-single Taylor sum word by word, and that tangent is the *secant*
+frequency Φ(dt)/dt = Σ_k F_k dt^k/(k+1)! of the reference values, while
+the float64 term of the fit offsets δF differentiates exactly.  The port
+gives the same tangent, so its design matrix matches the reference's.
 
 ``QSPhaseFrac.launches`` counts kernel launches (plain runs do not count).
 """
@@ -123,7 +131,7 @@ def _launch(spec: PhaseSpec, shift, dF, other):
     words = spec.mode == "words"
     out = torch.empty((*lead, N, 4) if words else (*lead, N),
                       dtype=F32 if words else F64, device=dev)
-    freq = torch.empty((*lead, N), dtype=F64, device=dev)
+    slope = torch.empty((*lead, N), dtype=F64, device=dev)
     dt64 = torch.empty((*lead, N), dtype=F64, device=dev)
     tdb_day, frac_w, pep_day, pep_w, f_w, tzr_w, pn = static
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -131,16 +139,16 @@ def _launch(spec: PhaseSpec, shift, dF, other):
         _ptr(tdb_day), _ptr(frac_w), _ptr(pep_day), _ptr(pep_w), _ptr(f_w),
         K, _ptr(tzr_w), _ptr(pn), _ptr(shift), _ptr(dF), _ptr(other),
         None if words else _ptr(out), _ptr(out) if words else None,
-        _ptr(freq), _ptr(dt64), G, N, MODES[spec.mode], stream)
+        _ptr(slope), _ptr(dt64), G, N, MODES[spec.mode], stream)
     if err != 0:
         raise RuntimeError("qs_phase_frac launch failed: "
                            + _lib().qs_phase_error_string(err).decode())
     QSPhaseFrac.launches += 1
-    return out, freq, dt64
+    return out, slope, dt64
 
 
 def run(spec: PhaseSpec, shift, dF, other):
-    """``(out, freq, dt64)``: the kernel on CUDA tensors, the plain
+    """``(out, slope, dt64)``: the kernel on CUDA tensors, the plain
     version on CPU tensors, and an error on anything else."""
     for t in (shift, dF, other, *spec.values()[:-1]):
         if t is not None and _is_wrapped(t):
@@ -167,8 +175,8 @@ def _to_front(x, d, B):
 
 
 class QSPhaseFrac(torch.autograd.Function):
-    """``(shift, dF, other, *static, mode) -> (frac, freq, dt64)`` with the
-    analytic forward-mode tangent of ``frac``; ``freq`` and ``dt64``
+    """``(shift, dF, other, *static, mode) -> (frac, slope, dt64)`` with
+    the analytic forward-mode tangent of ``frac``; ``slope`` and ``dt64``
     carry none.  ``static`` are the PhaseSpec tensors (tdb_day, frac_w,
     pep_day, pep_w, f_w, tzr_w, pulse_number): they pass through
     ``apply`` as arguments so that torch.func unwraps them before the
@@ -184,16 +192,16 @@ class QSPhaseFrac(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, freq, dt64 = output
-        ctx.mark_non_differentiable(freq, dt64)
-        ctx.save_for_forward(freq, dt64)
+        _, slope, dt64 = output
+        ctx.mark_non_differentiable(slope, dt64)
+        ctx.save_for_forward(slope, dt64)
 
     @staticmethod
     def jvp(ctx, dshift, ddF, dother, *_static_tangents):
-        freq, dt64 = ctx.saved_tensors
-        out = torch.zeros_like(freq)
+        slope, dt64 = ctx.saved_tensors
+        out = torch.zeros_like(dt64)
         if dshift is not None:
-            out = out + freq * dshift
+            out = out + slope * dshift
         if ddF is not None:
             pk = dt64                           # dt^{k+1} / (k+1)!
             for k in range(ddF.shape[-1]):

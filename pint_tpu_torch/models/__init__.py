@@ -33,6 +33,7 @@ from pint_tpu_torch.models.timing_model import (  # noqa: F401
 from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     absolute_phase,
     astrometry,
+    binary_dd,
     binary_ell1,
     dispersion,
     frequency_dependent,

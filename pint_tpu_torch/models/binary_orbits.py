@@ -4,12 +4,19 @@ Port of the parts of :mod:`pint_tpu.models.binary_orbits` that the ELL1
 family uses (reference `OrbitPB`/`OrbitFBX`,
 `src/pint/models/stand_alone_psr_binaries/binary_orbits.py`):
 orbit counts and frequency from PB/PBDOT or the FBn series, the ORBWAVE
-Fourier variations, and the straight-through saturation
-:func:`clip_unit`.  The Kepler solve (``kepler_E``) and the true anomaly
-are not ported yet (the DD family needs them).
+Fourier variations, the straight-through saturation :func:`clip_unit`,
+the plain Kepler solve :func:`kepler_E` and the continuous true anomaly.
+
+:func:`kepler_E` here is the plain PyTorch version of the ``kepler_E``
+CUDA kernel (``pint_tpu_torch/csrc/kepler.cu``); the DD family calls the
+kernel's wrapper :func:`pint_tpu_torch.kernels.kepler.kepler_E_op`, which
+carries pint_tpu's implicit-function tangent and runs this function on
+CPU tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,6 +56,35 @@ def clip_unit(v):
     outside [0, 1) keeps a finite delay AND a live design-matrix column
     pointing back into the physical region."""
     return _ClipUnit.apply(torch.as_tensor(v, dtype=torch.float64))
+
+
+#: Newton steps of the Kepler solve (each doubles the converged digits
+#: from the E0 = M + e sin M start; ample for e < 0.95)
+KEPLER_NEWTON_STEPS = 12
+
+
+def kepler_E(M, e):
+    """Solve E - e sin(E) = M for the eccentric anomaly by a fixed count of
+    Newton steps in float64 (:func:`pint_tpu.models.binary_orbits.kepler_E`,
+    its primal).  e is clipped into [0, 1 - 1e-9] first, so an unphysical
+    eccentricity gives a finite answer instead of the hyperbolic NaN.
+    Autodiff through this function differentiates the iteration; the
+    kernel's wrapper gives the implicit-function tangent instead."""
+    e = torch.clamp(e, 0.0, UNIT_MAX)
+    E = M + e * torch.sin(M)
+    for _ in range(KEPLER_NEWTON_STEPS):
+        E = E - (E - e * torch.sin(E) - M) / (1.0 - e * torch.cos(E))
+    return E
+
+
+def true_anomaly_continuous(E, e, orbits, M):
+    """True anomaly, continuous across orbits (reference `nu`,
+    `binary_generic.py:536`): the principal value from the half-angle
+    form, unwrapped by the integer orbit count."""
+    nu = 2.0 * torch.atan2(torch.sqrt(1.0 + e) * torch.sin(E / 2.0),
+                           torch.sqrt(1.0 - e) * torch.cos(E / 2.0))
+    nu = torch.where(nu < 0.0, nu + 2.0 * math.pi, nu)
+    return 2.0 * math.pi * orbits + nu - M
 
 
 def orbits_and_freq(p: dict, dt, fb_names):

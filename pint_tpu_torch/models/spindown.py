@@ -96,9 +96,13 @@ def phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF,
     Shapes: ``tdb_day`` (N,) int64, ``frac_w`` (N, 3) f32, ``pep_day``
     f64 scalar, ``pep_w`` (4,) f32, ``f_w`` (K, 4) f32, ``shift`` and
     ``other`` (..., N) f64, ``dF`` (..., K) f64, ``tzr_w`` (4,) f32,
-    ``pulse_number`` (N,) f64.  Returns ``(out, freq, dt64)`` with
-    ``freq`` = Σ(F_k + δF_k) dt^k/k! and ``dt64`` = dt [s], both f64
-    (..., N): the tangent rule of the kernel's wrapper reads them.
+    ``pulse_number`` (N,) f64.  Returns ``(out, slope, dt64)`` with
+    ``dt64`` = dt [s] and ``slope`` = d out / d shift as pint_tpu's
+    word-level autodiff gives it: the secant frequency
+    Σ_k F_k dt^k/(k+1)! of the F words (not the derivative
+    Σ_k F_k dt^k/k!) plus the exact Σ_k δF_k dt^k/k! of the offsets'
+    float64 term; both f64 (..., N), read by the tangent rule of the
+    kernel's wrapper.
 
     Autodiff flows through the words, as it does in :mod:`pint_tpu`.
     """
@@ -114,8 +118,11 @@ def phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF,
         total = qs.sub(total, qs.QS(*[torch.broadcast_to(tzr_w[k],
                                                          total.w0.shape)
                                       for k in range(4)]))
-    f64 = qs.to_f64(qs.QS(*[f_w[:, j] for j in range(4)]))
-    freq = taylor_horner(dt64, [f64[k] + dFk[k] for k in range(K)])
+    F = qs.to_f64(qs.QS(*[f_w[:, j] for j in range(4)]))
+    sec = der = torch.zeros_like(dt64)
+    for k in reversed(range(K)):
+        sec = sec * dt64 / (k + 2.0) + F[k]
+        der = der * dt64 / (k + 1.0) + dFk[k]
     if mode == "words":
         out = torch.stack(total.words, dim=-1)
     elif mode == "nearest":
@@ -126,7 +133,7 @@ def phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF,
         out = qs.to_f64(qs.sub(total, qs.from_f64_device(pn)))
     else:
         raise ValueError(f"unknown phase mode {mode!r}")
-    return out, freq, dt64
+    return out, sec + der, dt64
 
 
 class Spindown(PhaseComponent):

@@ -531,6 +531,42 @@ class TimingModel:
             p["const"]["__tzrphase__"] = w[0].detach().clone()
         return p
 
+    def apply_deltas(self, p: dict):
+        """Fold the (post-fit) offsets of ``p["delta"]`` back into the host
+        parameters and zero them (:meth:`pint_tpu.models.timing_model.
+        TimingModel.apply_deltas`).  Tensor leaves come to the host in one
+        batched transfer; host float64 arithmetic is exact at offset
+        scales.  An MJD parameter moves its fraction by the offset [days]."""
+        delta = p["delta"]
+        tkeys = [k for k, v in delta.items() if isinstance(v, torch.Tensor)]
+        host_delta = {}
+        if tkeys:
+            parts = [delta[k].detach().reshape(-1).to(torch.float64)
+                     for k in tkeys]
+            packed = torch.cat([t.to(parts[0].device) for t in parts])
+            packed = packed.cpu().numpy()
+            off = 0
+            for k, t in zip(tkeys, parts):
+                n = t.numel()
+                host_delta[k] = packed[off:off + n].reshape(
+                    tuple(delta[k].shape))
+                off += n
+        for c in self.components.values():
+            for par in c.params.values():
+                if not (par.on_device and par.name in delta):
+                    continue
+                d = host_delta.get(par.name)
+                if d is None:
+                    d = np.asarray(delta[par.name], np.float64)
+                if not np.any(d):
+                    continue
+                if isinstance(par, MJDParam):
+                    dv_ = par.device_value
+                    par.set_device_value([dv_[0], dv_[1] + float(d)])
+                else:
+                    par.set_device_value(np.asarray(par.device_value) + d)
+                delta[par.name] = np.zeros_like(d)
+
     # free-vector <-> delta mapping (device units; offsets from const).
     def x0(self, p: dict, names: Optional[Sequence[str]] = None) -> torch.Tensor:
         names = self.free_params if names is None else names

@@ -116,6 +116,15 @@ class Residuals:
         """Residuals in seconds."""
         return self.phase_resids / float(self.model.F0.value)
 
+    def update(self):
+        """Re-evaluate after model changes: a fresh params dict on the
+        residuals' device, and the residual and chi2 caches dropped."""
+        self.pdict = self.model.build_pdict(
+            self.toas, tzr_toas=self.model.make_tzr_toas_or_none(),
+            device=self.device)
+        self._phase_resids = None
+        self._chi2_cache = None
+
     def rms_weighted(self) -> float:
         w = 1.0 / (self.get_data_error() * 1e-6) ** 2
         r = self.time_resids
@@ -124,7 +133,7 @@ class Residuals:
 
     def calc_chi2(self) -> float:
         """Weighted chi2 (white noise: the correlated-noise Woodbury form
-        is not ported yet)."""
+        is not ported yet), cached until the next :meth:`update`."""
         if self.model.has_correlated_errors:
             raise NotImplementedError("correlated noise is not ported")
         if self._chi2_cache is None:

@@ -17,12 +17,16 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else
     ``"cuda"``.  Asking for CUDA where there is none raises — the port
-    never falls back to the CPU quietly; pass ``device="cpu"`` for that."""
+    never falls back to the CPU quietly; pass ``device="cpu"`` for that.
+    A CUDA device comes back with its index (``cuda`` -> ``cuda:0``), as
+    tensors report theirs, so devices compare equal to tensors'."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "pint_tpu_torch runs on CUDA by default and no CUDA device is "
             'available; pass device="cpu" to run on the CPU')
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

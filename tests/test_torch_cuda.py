@@ -6,12 +6,16 @@ them with it switched off, from the repository root::
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-* ``qs_phase_frac``: frac, freq, dt64 and words bit-identical to the
+* ``qs_phase_frac``: frac, slope, dt64 and words bit-identical to the
   plain version in every mode, one launch per call, no fallback;
 * ``torch.func.vmap`` over ``jacfwd`` through ``QSPhaseFrac`` on the card
   gives the CPU plain version's values, one launch per primal;
 * the chi2 grid on the card on the committed 200-TOA set within 1e-6
-  relative of pint_tpu's stored chi2.
+  relative of pint_tpu's stored chi2;
+* ``kepler_E``: E within 1e-13 rad of the plain version, one launch per
+  call, ``vmap(jacfwd)`` one launch per primal, no fallback;
+* ``fit_toas`` on the card (the fused loop) on the committed 200-TOA DD
+  set within the fit-parity bars of pint_tpu's stored eager fit.
 """
 
 import json
@@ -77,7 +81,7 @@ def test_kernel_bit_identical_to_plain(inputs):
         torch.cuda.synchronize()
         assert QSPhaseFrac.launches == before + 1
         p = s.plain(*c)
-        for name, a, b in zip(("out", "freq", "dt64"), k, p):
+        for name, a, b in zip(("out", "slope", "dt64"), k, p):
             assert torch.equal(a, b), (mode, name)
 
 
@@ -137,3 +141,79 @@ def test_grid_on_card_matches_reference():
     rel = float(np.max(np.abs(chi2 - ref["chi2"]) / np.asarray(ref["chi2"])))
     print(f"card grid chi2 vs pint_tpu: max relative gap {rel:.3e}")
     assert rel <= 1e-6
+
+
+def _kepler_inputs(dev):
+    rng = np.random.default_rng(20261017)
+    M = torch.from_numpy(rng.uniform(0.0, 2.0 * np.pi, (5, 4096))).to(dev)
+    e = torch.tensor([0.0, 1e-5, 0.1, 0.5, 0.9], dtype=torch.float64,
+                     device=dev)[:, None]
+    return M, e
+
+
+def test_kepler_kernel_matches_plain():
+    dev = _card()
+    from pint_tpu_torch.kernels.kepler import KeplerE, kepler_E_op
+    from pint_tpu_torch.models.binary_orbits import kepler_E
+
+    M, e = _kepler_inputs(dev)
+    before = KeplerE.launches
+    k = kepler_E_op(M, e)
+    torch.cuda.synchronize()
+    assert KeplerE.launches == before + 1
+    err = float(torch.max(torch.abs(k - kepler_E(M, e))))
+    print(f"kepler_E on the card: max |E - E_plain| = {err:.3e} rad")
+    assert err <= 1e-13
+    with pytest.raises(ValueError):      # float32: refused, not run
+        kepler_E_op(M.float(), e)
+    with pytest.raises(ValueError):      # e on another device
+        KeplerE.apply(M, e.cpu())
+
+
+def test_kepler_vmap_jacfwd_on_card():
+    dev = _card()
+    from pint_tpu_torch.kernels.kepler import KeplerE, kepler_E_op
+    from pint_tpu_torch.models.binary_orbits import kepler_E
+
+    M, e = _kepler_inputs(dev)
+    xs = torch.tensor([[1.0, 0.0], [1.01, 0.05]], dtype=torch.float64,
+                      device=dev)
+
+    def f(kep):
+        return lambda x: kep(M[3] * x[0], e[3] + x[1])
+
+    before = KeplerE.launches
+    J = torch.func.vmap(torch.func.jacfwd(f(kepler_E_op)))(xs)
+    torch.cuda.synchronize()
+    assert KeplerE.launches == before + 1
+    Jp = torch.func.vmap(torch.func.jacfwd(f(kepler_E)))(xs)
+    rel = float(torch.max(torch.abs(J - Jp) / torch.abs(Jp)))
+    assert rel <= 1e-12
+
+
+def test_dd_fit_on_card_matches_reference():
+    dev = _card()
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.kernels.kepler import KeplerE
+
+    with open(data.DD_REF_JSON) as f:
+        ref = json.load(f)
+    model, toas = data.load_torch(data.DD_REF_TIM, par=data.dd_par_lines())
+    data.perturb_dd(model)
+    fitter = WLSFitter(toas, model)
+    assert fitter.device.type == dev.type and fitter._fused_ok()
+    before = KeplerE.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
+    assert KeplerE.launches > before
+    assert fitter.fitresult.rung == "fused"
+    dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
+                                   - np.asarray(v))))
+                  / ref["uncertainties"][n] for n, v in ref["values"].items())
+    unc = max(abs(model[n].device_uncertainty / u - 1.0)
+              for n, u in ref["uncertainties"].items())
+    gap = abs(chi2 - ref["chi2"]) / ref["chi2"]
+    print(f"card DD fit vs pint_tpu: {dev_sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6

@@ -4,7 +4,8 @@
   ``pint_tpu`` (an AST scan of every import statement).
 * A fresh interpreter loads par/tim, forms residuals and runs the chi2
   grid with the port on the CPU, and ends with no ``jax`` and no
-  ``pint_tpu`` module loaded.
+  ``pint_tpu`` module loaded; another simulates, writes and fits the DD
+  set (``fit_toas``) the same way.
 * Without a CUDA device, every entry point called without ``device``
   raises instead of running on the CPU.
 * ``chip_smoke.py`` fails without a card, and in a directory that holds
@@ -87,13 +88,45 @@ print("LEAKED", leaked)
 """
 
 
-def test_port_runs_without_jax_loaded():
+_CHILD_DD = r"""
+import os, sys, warnings
+import numpy as np
+sys.path.insert(0, {repo!r})
+from pint_tpu_torch.examples import dd_realistic_par, simulate_dd_realistic
+from pint_tpu_torch.fitter import WLSFitter
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.toa import get_TOAs, write_tim
+_, toas = simulate_dd_realistic(ntoas=60, dmx_bins=4, device="cpu")
+tim = os.path.join({tmp!r}, "dd.tim")
+write_tim(tim, toas)
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(dd_realistic_par(dmx_bins=4).splitlines())
+    toas = get_TOAs(tim, model=model)
+    model.PB.value += 1e-7
+    chi2 = WLSFitter(toas, model, device="cpu").fit_toas(maxiter=2)
+assert np.isfinite(chi2) and model.CHI2.value is not None
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
+print("LEAKED", leaked)
+"""
+
+
+def _run_child(code):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(repo=REPO, tim=data.REF_TIM)],
+        [sys.executable, "-c", code],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LEAKED []" in res.stdout, res.stdout
+
+
+def test_port_runs_without_jax_loaded():
+    _run_child(_CHILD.format(repo=REPO, tim=data.REF_TIM))
+
+
+def test_dd_fit_runs_without_jax_loaded(tmp_path):
+    _run_child(_CHILD_DD.format(repo=REPO, tmp=str(tmp_path)))
 
 
 def test_entry_points_need_a_device_without_cuda():

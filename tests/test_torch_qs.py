@@ -7,9 +7,9 @@
   kernel): fraction bit-identical to the JAX spin phase + TZR + rounding
   chain; its autodiff through the words bit-identical to ``jax.jvp``.
 * ``QSPhaseFrac`` (plain forward on the CPU, analytic tangent rule): the
-  tangent equals the exact float64 derivative to 1e-13; against
-  ``jax.jacfwd`` it differs by what word-level autodiff loses (ROADMAP.md
-  queue C); its vmap rule matches the unbatched call.
+  tangent equals its rule, pint_tpu's (the secant spin frequency on
+  d shift, ROADMAP.md queue C), to 1e-13 and ``jax.jacfwd`` of pint_tpu's
+  chain to 1e-12; its vmap rule matches the unbatched call.
 
 The kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -306,7 +306,7 @@ def test_phase_frac_plain_bit_identical(phase_inputs):
     bit-identical (bar: equal bits; the issue's fallback bar is 1e-12)."""
     d = phase_inputs
     s = _spec(d)
-    out, freq, dt64 = phase_frac_plain(
+    out, _, dt64 = phase_frac_plain(
         s.tdb_day, s.frac_w, s.pep_day, s.pep_w, s.f_w,
         torch.from_numpy(d["shift"]), torch.from_numpy(d["dF"]),
         torch.from_numpy(d["other"]), s.tzr_w)
@@ -348,11 +348,13 @@ def test_word_autodiff_bit_identical(phase_inputs):
 
 
 def test_tangent_rule_exact_and_vs_jacfwd(phase_inputs):
-    """QSPhaseFrac's analytic tangent (plain forward on the CPU) vs the
-    exact float64 derivative F(dt)·dshift + Σ dt^{k+1}/(k+1)!·ddF_k +
-    dother (bar 1e-13 relative), and vs jax.jacfwd of pint_tpu's chain,
-    whose word-level tangent arithmetic loses part of the F1·dt term
-    (bar: that term, twice, plus 1e-12)."""
+    """QSPhaseFrac's analytic tangent (plain forward on the CPU) vs its
+    rule, pint_tpu's tangent (S(dt) + δF0 + δF1·dt)·dshift +
+    Σ dt^{k+1}/(k+1)!·ddF_k + dother with the secant frequency
+    S(dt) = F0 + F1·dt/2 (bar 1e-13 relative); vs jax.jacfwd of
+    pint_tpu's chain, which that rule reproduces (bar 1e-12); and vs the
+    exact derivative, from which it differs by the secant's F1·dt/2 term
+    only."""
     d = phase_inputs
     s = _spec(d)
     prim = tuple(torch.from_numpy(d[k]) for k in ("shift", "dF", "other"))
@@ -360,13 +362,16 @@ def test_tangent_rule_exact_and_vs_jacfwd(phase_inputs):
                                                          "other"))
     _, k_tan = torch.func.jvp(lambda a, b, c: QSPhaseFrac.call(s, a, b, c)[0],
                               prim, tang)
-    _, freq, dt64 = phase_frac_plain(s.tdb_day, s.frac_w, s.pep_day,
+    _, _, dt64 = phase_frac_plain(s.tdb_day, s.frac_w, s.pep_day,
                                      s.pep_w, s.f_w, *prim, s.tzr_w)
     dt, ts, tdF, to = (dt64.numpy(), d["t_shift"], d["t_dF"], d["t_other"])
     Fk = d["f_w"].astype(np.float64).sum(axis=1)
+    rest = dt * tdF[:, :1] + dt * dt / 2 * tdF[:, 1:] + to
+    secant = Fk[0] + Fk[1] * dt / 2 + d["dF"][:, :1] + d["dF"][:, 1:] * dt
+    rule = secant * ts + rest
     exact = ((Fk[0] + d["dF"][:, :1]) + (Fk[1] + d["dF"][:, 1:]) * dt) * ts \
-        + dt * tdF[:, :1] + dt * dt / 2 * tdF[:, 1:] + to
-    rel_exact = np.max(np.abs(k_tan.numpy() - exact) / np.abs(exact))
+        + rest
+    rel_rule = np.max(np.abs(k_tan.numpy() - rule) / np.abs(rule))
     j_tan = []
     for g in range(G_PTS):
         _, jt = jax.jvp(lambda a, b, c: _jax_frac(d, g, a, b, c)[0],
@@ -376,14 +381,16 @@ def test_tangent_rule_exact_and_vs_jacfwd(phase_inputs):
                               ("shift", "dF", "other")))
         j_tan.append(np.asarray(jt))
     j_tan = np.stack(j_tan)
-    gap = np.abs(k_tan.numpy() - j_tan)
-    lost = np.abs((Fk[1] + d["dF"][:, 1:]) * dt * ts)
-    rel_jax = np.max(gap / np.abs(exact))
-    print(f"tangent rule vs exact: {rel_exact:.3e} (bar 1e-13); vs "
-          f"jax.jacfwd: {rel_jax:.3e} (word autodiff loses up to "
-          f"{np.max(lost / np.abs(exact)):.3e} of the F1*dt term)")
-    assert rel_exact <= 1e-13
-    assert np.all(gap <= 2.0 * lost + 1e-12 * np.abs(exact))
+    rel_jax = np.max(np.abs(k_tan.numpy() - j_tan) / np.abs(rule))
+    half = np.abs(Fk[1] * dt / 2 * ts)
+    print(f"tangent rule: {rel_rule:.3e} (bar 1e-13); vs jax.jacfwd: "
+          f"{rel_jax:.3e} (bar 1e-12); vs the exact derivative up to "
+          f"{np.max(np.abs(k_tan.numpy() - exact) / np.abs(exact)):.3e}, "
+          f"the secant's F1*dt/2 term")
+    assert rel_rule <= 1e-13
+    assert rel_jax <= 1e-12
+    assert np.all(np.abs(k_tan.numpy() - exact)
+                  <= half + 1e-13 * np.abs(exact))
 
 
 def test_function_vmap_and_jacfwd_plumbing(phase_inputs):

@@ -1,7 +1,10 @@
-"""Shared inputs of the ``test_torch_*`` parity tests: one small simulated
-J0740-class data set, written once as a tim file that both
-:mod:`pint_tpu` and :mod:`pint_tpu_torch` load, and the pint_tpu objects
-built from it (one JAX build per test module).
+"""Shared inputs of the ``test_torch_*`` parity tests: small simulated
+data sets, written once as tim files that both :mod:`pint_tpu` and
+:mod:`pint_tpu_torch` load, and the pint_tpu objects built from them (one
+JAX build per test module).  Two sets: the J0740-class ELL1 set below,
+and a DD set (``dd_realistic_par(dmx_bins=8)``, the same receivers and
+sub-bands) with pint_tpu's eager ``fit_toas(maxiter=3)`` from a
+perturbed start stored beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -31,12 +34,21 @@ DMX_BINS = 8
 #: channel offsets [MHz] within each receiver band
 SUBBANDS_MHZ = np.array([-37.5, -12.5, 12.5, 37.5])
 
-#: the committed copy of the set and pint_tpu's grid chi2 on it (written
-#: by ``python tests/torch_port_data.py``); ``chip_smoke.py`` holds the
-#: card's grid against them
+#: the committed copy of the set and pint_tpu's grid chi2 on it (written,
+#: with the DD pair below, by ``python tests/torch_port_data.py``);
+#: ``chip_smoke.py`` holds the card's grid and fit against them
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 REF_TIM = os.path.join(DATA_DIR, "j0740_sim_200.tim")
 REF_JSON = os.path.join(DATA_DIR, "j0740_sim_200_grid_chi2.json")
+
+#: the committed DD set and pint_tpu's eager fit on it
+DD_REF_TIM = os.path.join(DATA_DIR, "dd_sim_200.tim")
+DD_REF_JSON = os.path.join(DATA_DIR, "dd_sim_200_fit.json")
+DD_MAXITER = 3
+#: the start of the DD fit: offsets [par units] from the simulated truth,
+#: as pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
+DD_PERTURB = {"PB": 1e-7, "A1": 3e-6, "ECC": 1e-6, "OM": 3e-4,
+              "F0": 1e-10}
 
 #: the bench's 3x3 M2/SINI grid (bench.py:bench_headline_grid)
 GRID = {
@@ -75,15 +87,88 @@ def write_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
     return path
 
 
-def load_jax(timfile: str, grid: bool = False):
-    """(model, toas) of pint_tpu from the par string and ``timfile``;
-    ``grid=True`` freezes M2 and SINI as the bench does."""
+def dd_par_lines():
+    from pint_tpu_torch.examples import dd_realistic_par
+
+    return dd_realistic_par(dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                            center_mjd=CENTER_MJD).splitlines()
+
+
+def write_dd_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the DD set with pint_tpu and write it to ``path``."""
+    from pint_tpu.models import get_model
+    from pint_tpu.simulation import make_fake_toas_uniform
+    from pint_tpu.toa import write_tim
+    from pint_tpu_torch.examples import RECEIVERS, receiver_freqs
+
+    band, freqs = receiver_freqs(ntoas)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_par_lines())
+        toas = make_fake_toas_uniform(
+            CENTER_MJD - SPAN_DAYS / 2, CENTER_MJD + SPAN_DAYS / 2, ntoas,
+            model, obs="gbt", error_us=1.0, freq_mhz=freqs,
+            add_noise=True, seed=seed)
+    for b_mhz, fl in zip(band, toas.flags):
+        fl["fe"] = RECEIVERS[float(b_mhz)]
+    write_tim(path, toas)
+    return path
+
+
+def perturb_dd(model):
+    """Move the model to the DD fit's start (:data:`DD_PERTURB`)."""
+    for name, d in DD_PERTURB.items():
+        model[name].value += d
+
+
+def device_values(model, names) -> dict:
+    """Device values of ``names`` (an MJD parameter's as [day, frac]), as
+    plain floats for JSON."""
+    def val(n):
+        v = model[n].device_value
+        return [float(x) for x in v] if np.ndim(v) else float(v)
+
+    return {n: val(n) for n in names}
+
+
+def fit_record(model, names) -> dict:
+    """Device values and uncertainties of ``names`` after a fit."""
+    return {"values": device_values(model, names),
+            "uncertainties": {n: float(model[n].device_uncertainty)
+                              for n in names}}
+
+
+def jax_dd_fit(timfile: str) -> dict:
+    """pint_tpu's eager WLS fit (JAX on the CPU) of the DD set from the
+    perturbed start: the record that DD_REF_JSON holds."""
+    from pint_tpu.fitter import WLSFitter
+
+    model, toas = load_jax(timfile, par=dd_par_lines())
+    perturb_dd(model)
+    fitter = WLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params)
+    chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
+    fr = fitter.fitresult
+    return {"what": "pint_tpu WLSFitter.fit_toas(maxiter=3), eager, JAX on "
+                    "the CPU, on dd_sim_200.tim (dd_realistic_par("
+                    "dmx_bins=8)) from the perturbed start",
+            "ntoas": toas.ntoas, "maxiter": DD_MAXITER,
+            "perturb": DD_PERTURB, "fit_params": fitter.fit_params,
+            "start": start, **fit_record(model, fitter.fit_params),
+            "chi2": float(chi2), "status": fr.status.name,
+            "iterations": fr.iterations, "rung": fr.rung}
+
+
+def load_jax(timfile: str, grid: bool = False, par=None):
+    """(model, toas) of pint_tpu from the par lines (default the J0740
+    set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
+    bench does."""
     from pint_tpu.models import get_model
     from pint_tpu.toa import get_TOAs
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(par_lines())
+        model = get_model(par or par_lines())
         toas = get_TOAs(timfile, model=model)
     if grid:
         model.M2.frozen = True
@@ -91,14 +176,14 @@ def load_jax(timfile: str, grid: bool = False):
     return model, toas
 
 
-def load_torch(timfile: str, grid: bool = False):
+def load_torch(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu_torch from the same inputs."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.toa import get_TOAs
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(par_lines())
+        model = get_model(par or par_lines())
         toas = get_TOAs(timfile, model=model)
     if grid:
         model.M2.frozen = True
@@ -116,6 +201,23 @@ def tree_numpy(tree):
 def sim_tim(tmp_path_factory, name: str = "j0740_sim.tim") -> str:
     d = tmp_path_factory.mktemp("torch_port")
     return write_sim_tim(os.path.join(str(d), name))
+
+
+def dd_sim_tim(tmp_path_factory, name: str = "dd_sim.tim") -> str:
+    d = tmp_path_factory.mktemp("torch_port_dd")
+    return write_dd_sim_tim(os.path.join(str(d), name))
+
+
+def write_dd_reference() -> dict:
+    """Write DD_REF_TIM and pint_tpu's eager fit on it to DD_REF_JSON;
+    returns the JSON record."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_dd_sim_tim(DD_REF_TIM)
+    rec = jax_dd_fit(DD_REF_TIM)
+    with open(DD_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
 
 
 def write_reference(maxiter: int = 2) -> dict:
@@ -147,3 +249,4 @@ def write_reference(maxiter: int = 2) -> dict:
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(DATA_DIR)))
     print(json.dumps(write_reference()["chi2"]))
+    print(json.dumps(write_dd_reference()["chi2"]))
