@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid
-and the full-width DD fit.
+"""Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid,
+the full-width DD fit and the full-width GLS fit with a NANOGrav-style
+noise model.
 
 Run from the repository root, with no arguments::
 
@@ -9,8 +10,9 @@ Run from the repository root, with no arguments::
 Phases, each printing one JSON line with its numbers and seconds:
 
 1. device: the card (``nvidia-smi`` name and power limit);
-2. build: every CUDA kernel of the package (``qs_phase``, ``kepler``),
-   compiled with nvcc for sm_90a, one nvcc process per source at once;
+2. build: every CUDA kernel of the package (``qs_phase``, ``kepler``,
+   ``delay_chain``), compiled with nvcc for sm_90a, one nvcc process per
+   source at once;
 3. qs_phase_frac: the kernel against its plain PyTorch version on the
    card, at the main path's shapes (the bench tim's 12,500 TOAs at the 9
    grid points): fractions, tangents, the TZR words mode, kernel and
@@ -39,18 +41,42 @@ Phases, each printing one JSON line with its numbers and seconds:
    from the same start (median wall, launches per fit); status, chi2/dof
    and the pulls of the orbit and spin against the simulated truth;
    kepler_E: the kernel against its plain version on the card, on the DD
-   path's own M and e and on a sweep of e x 4096 M: E, tangents, times,
-   the least possible time on this card;
+   path's own M and e (from the delay_chain kernel, which solves Kepler's
+   equation inside the chain on the paths) and on a sweep of e x 4096 M:
+   E, tangents, times, the least possible time on this card;
    dd_fused_vs_eager: the same fit through the eager rung on the card
    (values within 1e-3 sigma, uncertainties within 1e-3 relative), and
    the final covariance at the fitted point assembled on the card against
-   the same assembled on the CPU (the figure on which the port leaves out
-   pint_tpu's CPU re-assembly of it);
+   the same assembled on the CPU;
    dd_fit_profile: one warm fit under torch.profiler;
    dd_reference: the committed 200-TOA DD set fitted on the card, against
    pint_tpu's eager fit stored beside it (``tests/data/dd_sim_200*``):
    values within 1e-3 sigma, uncertainties within 1e-3 relative, chi2
    within 1e-6 relative.
+6. gls_main_path: the third path, at full width (``dd_gls_nanograv``):
+   ``get_model(dd_noise_realistic_par())`` -> 12,500 epoch-clustered TOAs
+   simulated on the card with EFAC/EQUAD-scaled white noise and one
+   realization of ECORR and red noise -> ``write_tim`` -> ``get_TOAs`` ->
+   the perturbed start -> ``GLSFitter.fit_toas(maxiter=3)`` on the card,
+   launch counts zeroed just before and read just after, the plain
+   component delays counted (none may run); three warm fits (median wall,
+   launches per fit, the ``fit_info["seconds"]`` split); status, chi2/dof,
+   pulls, peak memory;
+   delay_chain: the kernel against the plain component delays on the card
+   on the three paths' full-width models: delay within 1e-12 s, every
+   jacfwd column within 1e-10 relative, the DD orbit's E bit-equal to the
+   kepler_E kernel's; kernel and plain times, the least possible time on
+   this card, launches per grid call, DD fit and GLS fit;
+   gls_card_vs_host: the final GLS solve at the fitted point on the card
+   against the same solve on the CPU (step in sigma, uncertainties,
+   chi2), each timed;
+   gls_fit_profile: one warm GLS fit under torch.profiler (idle share,
+   kernels, the top kernels, copies by direction);
+   gls_reference: the committed 200-TOA GLS set fitted on the card,
+   against pint_tpu's GLS fit stored beside it
+   (``tests/data/dd_gls_sim_200*``): values within 1e-3 sigma,
+   uncertainties within 1e-3 relative, chi2 within 1e-6 relative, the
+   noise realizations within 1e-4 of their rms.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -81,6 +107,10 @@ REF_DMX_BINS = 8
 DD_TIM = os.path.join(REPO, "build", "dd_realistic_12500.tim")
 DD_REF_TIM = os.path.join(REPO, "tests", "data", "dd_sim_200.tim")
 DD_REF_JSON = os.path.join(REPO, "tests", "data", "dd_sim_200_fit.json")
+GLS_TIM = os.path.join(REPO, "build", "dd_gls_12500.tim")
+GLS_REF_TIM = os.path.join(REPO, "tests", "data", "dd_gls_sim_200.tim")
+GLS_REF_JSON = os.path.join(REPO, "tests", "data",
+                            "dd_gls_sim_200_gls_fit.json")
 DD_MAXITER = 3
 #: the DD fit's start: offsets [par units] from the simulated truth, as
 #: pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
@@ -100,6 +130,8 @@ SEED = 20261016
 #: as one operation)
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+#: float64 matrix products on the tensor cores (H100 SXM data sheet)
+PEAK_F64_MATMUL_PER_S = 67e12
 
 #: bars of this run
 FRAC_TOL_CYCLES = 1e-12
@@ -109,12 +141,17 @@ KEPLER_TOL_RAD = 1e-13
 FIT_SIGMA_TOL = 1e-3
 UNC_TOL = 1e-3
 PULL_MAX = 5.0
+DELAY_TOL_S = 1e-12
+COLUMN_TOL = 1e-10
+#: the noise realizations share the offset direction, which lies in the
+#: near-degenerate DM/offset/FD subspace (tests/test_torch_gls.py)
+NOISE_RESID_TOL = 1e-4
 
 
 class Run(NamedTuple):
     """Where the phases run and at what size: the card and the full width
-    of both paths (TOAs, DMX bins, fit parameters), the grid's tim, and
-    where the DD tim and the profiles are written."""
+    of the paths (TOAs, DMX bins, fit parameters), the grid's tim, and
+    where the DD and GLS tims and the profiles are written."""
 
     dev: str = "cuda"
     tim: str = TIM
@@ -122,6 +159,7 @@ class Run(NamedTuple):
     dmx_bins: int = 70
     nfit: int = 86
     dd_tim: str = DD_TIM
+    gls_tim: str = GLS_TIM
     out_dir: str = OUT_DIR
 
 
@@ -204,6 +242,9 @@ def device_kernel_ms(torch, fn, name: str, reps: int = 20):
 #: (the rest is PyTorch's elementwise and indexing kernels)
 FAMILIES = (("qs_phase_frac", ("qs_phase",)),
             ("kepler_E", ("kepler_E",)),
+            ("delay_chain", ("delay_chain",)),
+            ("svd", ("gesvd", "svdj", "bdsqr", "gebrd", "orgbr", "ormbr")),
+            ("cholesky", ("potrf", "trsm", "trsv")),
             ("eigh", ("sytrd", "ormtr", "orgtr", "syevd", "stedc", "steqr",
                       "larf", "syhemv", "lansy")),
             ("copies", ("Memcpy", "Memset")),
@@ -235,9 +276,11 @@ def profile_grid(torch, fn, out_dir: str, top: int = 8,
     with open(os.path.join(out_dir, f"{out_name}.json"), "w") as f:
         json.dump([{"name": k, "count": n, "ms": t * 1e-3}
                    for k, (n, t) in ranked], f, indent=1)
+    copies = {d: sum(1 for ev in kernels if d in ev.name)
+              for d in ("HtoD", "DtoH", "DtoD")}
     return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
             "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
-            "cuda_kernels": len(kernels),
+            "cuda_kernels": len(kernels), "copies_by_direction": copies,
             "families": {f: {"count": c, "ms": ms}
                          for f, (c, ms) in families.items()},
             "top_kernels": [{"name": k[:80], "count": n, "ms": t * 1e-3}
@@ -484,23 +527,15 @@ def fit_state(model, names):
 
 def check_kepler(torch, fitter, rec: dict) -> None:
     """kepler_E against its plain version on the card: on the DD path's own
-    M and e (captured from one residual evaluation) and on a sweep of e x
-    4096 M in [0, 2pi); E, tangents, times, bound."""
+    M and e (the delay_chain kernel's, from one primal launch) and on a
+    sweep of e x 4096 M in [0, 2pi); E, tangents, times, bound."""
     from pint_tpu_torch.kernels import kepler as kk
-    from pint_tpu_torch.models import binary_dd
     from pint_tpu_torch.models.binary_orbits import kepler_E
 
     dev = fitter.device
-    captured = []
-    real = binary_dd.kepler_E_op
-    binary_dd.kepler_E_op = lambda M, e: (captured.append((M, e)),
-                                          real(M, e))[1]
-    try:
-        with torch.no_grad():
-            fitter.resids._fn(fitter.resids.pdict)
-    finally:
-        binary_dd.kepler_E_op = real
-    M_main, e_main = captured[0]
+    r = fitter.resids
+    _, aux = chain_aux(fitter.model.calc, r.pdict, r.batch)
+    M_main, e_main = aux[0].contiguous(), aux[1].contiguous()
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     f64 = torch.float64
     M_sw = (torch.rand(len(KEPLER_E_SWEEP), 4096, generator=gen, dtype=f64)
@@ -553,6 +588,168 @@ def check_kepler(torch, fitter, rec: dict) -> None:
                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def chain_aux(calc, p, batch):
+    """``(delay, aux)`` of one primal launch of the delay_chain kernel,
+    ``aux`` the (3, N) M, e and E of a DD binary's Kepler solve."""
+    from pint_tpu_torch.kernels.delay_chain import delay_chain_aux
+
+    return delay_chain_aux(calc, p, batch)
+
+
+@contextlib.contextmanager
+def plain_delays():
+    """Counts the plain component-delay chains run inside the block
+    (``PhaseCalc.delay_plain``): on the card's paths there must be none."""
+    from pint_tpu_torch.models.timing_model import PhaseCalc
+
+    count = {"calls": 0}
+    real = PhaseCalc.delay_plain
+
+    def counted(self, p, batch):
+        count["calls"] += 1
+        return real(self, p, batch)
+
+    PhaseCalc.delay_plain = counted
+    try:
+        yield count
+    finally:
+        PhaseCalc.delay_plain = real
+
+
+def check_delay_chain(torch, label: str, model, fitter, rec: dict):
+    """delay_chain against the plain component delays on one path's
+    full-width model and TOAs: the delay, every jacfwd column, and for a
+    DD binary E against the kepler_E kernel on the kernel's own M, e."""
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels.kepler import kepler_E_op
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = fitter.fit_params
+    x0 = model.x0(p, names).to(b.device)
+    with torch.no_grad():
+        k = calc.delay(p, b)
+        plain = calc.delay_plain(p, b)
+    err = float(torch.max(torch.abs(k - plain)))
+    Jk = torch.func.jacfwd(lambda x: calc.delay(
+        model.with_x(p, x, names), b))(x0)
+    Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
+        model.with_x(p, x, names), b))(x0)
+    scale = torch.amax(torch.abs(Jp), dim=0)
+    per_col = torch.amax(torch.abs(Jk - Jp), dim=0) / torch.where(
+        scale > 0, scale, 1.0)
+    worst = int(torch.argmax(per_col))
+    out = {"ntoas": b.ntoas, "theta_slots": calc.chain_layout.P,
+           "max_abs_delay_err_s": err,
+           "delay_bit_equal": bool(torch.equal(k, plain)),
+           "max_rel_column_err": float(per_col[worst]),
+           "worst_column": names[worst]}
+    if calc.chain_layout.cfg[1] == dc.DD:
+        _, aux = chain_aux(calc, p, b)
+        out["E_bit_equal_to_kepler_E"] = bool(torch.equal(
+            kepler_E_op(aux[0].contiguous(), aux[1].contiguous()), aux[2]))
+    rec[label] = out
+    if not (err <= DELAY_TOL_S and out["max_rel_column_err"] <= COLUMN_TOL
+            and out.get("E_bit_equal_to_kepler_E", True)):
+        raise AssertionError(f"delay_chain vs plain on {label}: {out}")
+    return err
+
+
+def time_delay_chain(torch, model, fitter, lanes, rec: dict) -> None:
+    """The delay_chain kernel's device time at one path's shapes: the
+    primal launch and the tangent launch at each lane count of the path's
+    jacfwds; the plain version's time; the least possible time of the
+    primal on this card (bytes and operations of the plain version, the
+    Kepler solve's counted through its plain version)."""
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.models import binary_dd
+    from pint_tpu_torch.models.binary_orbits import kepler_E
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    lay = calc.chain_layout
+    rows = [t.contiguous() for t in dc.row_inputs(lay, p, b)]
+    with torch.no_grad():
+        theta = lay.theta(p)
+
+    def primal():
+        return dc.DelayChain.apply(theta, lay, *rows)
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    rec["primal_call_ms"] = time_ms(torch, primal)
+    rec["primal_device_ms"] = device_kernel_ms(torch, primal,
+                                               "delay_chain_primal")
+    tangent = {}
+    for L in lanes:
+        dth = torch.randn(L, lay.P, generator=gen,
+                          dtype=torch.float64).to(theta.device)
+        th = theta.expand(L, lay.P)
+
+        def tan():
+            return dc.DelayChainTangent.apply(th, dth, lay, *rows)
+
+        tangent[str(L)] = device_kernel_ms(torch, tan, "delay_chain_tangent")
+    rec["tangent_device_ms_by_lanes"] = tangent
+    with torch.no_grad():
+        rec["plain_ms"] = time_ms(
+            torch, lambda: calc.delay_plain(p, b), reps=5)
+        real = binary_dd.kepler_E_op
+        binary_dd.kepler_E_op = kepler_E
+        try:
+            ops = count_ops(torch, lambda: calc.delay_plain(p, b), extra=(
+                "sin", "cos", "log", "sqrt", "atan2", "floor", "clamp",
+                "pow", "exp", "isfinite"))
+        finally:
+            binary_dd.kepler_E_op = real
+    N = b.ntoas
+    nbytes = (sum(t.numel() * t.element_size() for t in rows)
+              + theta.numel() * 8 + N * 8)
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
+                for dt, n in ops.items())
+    rec.update(ms=rec["primal_device_ms"] if rec["primal_device_ms"]
+               is not None else rec["primal_call_ms"],
+               ops=ops, bytes=nbytes, bytes_ms=1e3 * t_bytes,
+               ops_ms=1e3 * t_ops, bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def gls_load(torch, tim: str, dmx_bins: int, perturb=None):
+    """par + tim -> (model at the perturbed start, toas) of the GLS
+    configuration, as a user loads them."""
+    import warnings
+
+    from pint_tpu_torch.examples import dd_noise_realistic_par
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_noise_realistic_par(
+            dmx_bins=dmx_bins).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in (DD_PERTURB if perturb is None else perturb).items():
+        model[name].value += d
+    return model, toas
+
+
+def gls_fit(torch, dev: str, model, toas):
+    """A fresh ``GLSFitter`` on ``dev`` and its ``fit_toas(maxiter=3)``,
+    timed around the fit with a synchronize."""
+    import warnings
+
+    from pint_tpu_torch.fitter import GLSFitter
+
+    fitter = GLSFitter(toas, model, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
+    torch.cuda.synchronize()
+    return fitter, chi2, time.perf_counter() - t0
+
+
 def main(run: Run = Run()) -> int:
     import torch
 
@@ -588,6 +785,7 @@ def main(run: Run = Run()) -> int:
 
     from pint_tpu_torch.gridutils import grid_chisq_flat
     from pint_tpu_torch.kernels import qs_phase
+    from pint_tpu_torch.kernels.delay_chain import DelayChain
     from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
 
     grid = {"M2": np.repeat(np.array(GRID_M2), 3),
@@ -602,6 +800,7 @@ def main(run: Run = Run()) -> int:
 
     # -- 4. the main path, as a user drives it --------------------------------
     QSPhaseFrac.launches = 0
+    DelayChain.launches = 0
     with phase("main_path", {}) as rec:
         t0 = time.perf_counter()
         model, toas, fitter = load(torch, run.dev, run.tim, run.dmx_bins)
@@ -611,15 +810,19 @@ def main(run: Run = Run()) -> int:
         torch.cuda.synchronize()
         rec["grid_cold_s"] = time.perf_counter() - t0
         launches = QSPhaseFrac.launches
+        grid_chain = DelayChain.launches
         rec.update(ntoas=toas.ntoas, n_free=len(model.free_params),
                    n_fit=len(fitter.fit_params), grid_points=len(chi2),
-                   chi2=chi2.tolist(), launches=launches,
+                   chi2=chi2.tolist(), launches={
+                       "qs_phase_frac": launches, "delay_chain": grid_chain},
                    device=str(fitter.device))
         # read after the count: residuals launch the kernel once more
         rec["prefit_rms_us"] = float(np.std(fitter.resids.time_resids)) * 1e6
         rec["pulse_period_us"] = 1e6 / float(model.F0.value)
-    if launches <= 0:
-        raise AssertionError("the main path never launched qs_phase_frac")
+    if launches <= 0 or grid_chain <= 0:
+        raise AssertionError("the main path skipped a kernel: "
+                             f"qs_phase_frac {launches}, delay_chain "
+                             f"{grid_chain}")
     if chi2.shape != (9,) or not np.all(np.isfinite(chi2)):
         raise AssertionError(f"bad grid chi2 {chi2}")
     if toas.ntoas != run.ntoas or len(fitter.fit_params) != run.nfit:
@@ -629,19 +832,31 @@ def main(run: Run = Run()) -> int:
         walls = []
         for _ in range(3):
             QSPhaseFrac.launches = 0
+            DelayChain.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             warm = grid_chisq_flat(fitter, grid, maxiter=2)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        grid_call_launches = {"qs_phase_frac": QSPhaseFrac.launches,
+                              "delay_chain": DelayChain.launches}
         rec.update(grid_warm_s=median(walls), grid_walls_s=walls,
-                   launches_per_grid_call=QSPhaseFrac.launches,
+                   launches_per_grid_call=grid_call_launches,
                    max_abs_chi2_change=float(np.max(np.abs(warm - chi2))),
                    peak_mem_bytes=torch.cuda.max_memory_allocated())
 
     with phase("grid_profile", {}) as rec:
         rec.update(profile_grid(torch, lambda: grid_chisq_flat(
             fitter, grid, maxiter=2), run.out_dir))
+        # K6's least work per grid call: each point's Gauss-Newton
+        # iterations form the (N, P+1) design matrix's Gram once
+        n_col = len(fitter.fit_params) + 1
+        ops = len(chi2) * 2 * 2.0 * toas.ntoas * n_col**2
+        nbytes = len(chi2) * 2 * 8.0 * toas.ntoas * n_col
+        rec.update(solve_bound_ms=1e3 * max(ops / PEAK_F64_MATMUL_PER_S,
+                                            nbytes / MEM_BYTES_PER_S),
+                   solve_bound_by="operations" if ops / PEAK_F64_MATMUL_PER_S
+                   >= nbytes / MEM_BYTES_PER_S else "bytes")
 
     # the same grid with the phase chain run by the plain version
     with phase("plain_grid", {}) as rec:
@@ -703,12 +918,16 @@ def main(run: Run = Run()) -> int:
         torch.cuda.reset_peak_memory_stats()
         QSPhaseFrac.launches = 0
         KeplerE.launches = 0
+        DelayChain.launches = 0
         t0 = time.perf_counter()
         dfit, dchi2, fit_s = dd_fit(torch, run.dev, dmodel, dtoas)
         rec.update(fit_cold_s=fit_s,
                    fitter_and_fit_s=time.perf_counter() - t0)
+        # the Kepler solve of the DD orbit runs inside the delay_chain
+        # kernel on this path, so kepler_E itself is not launched here
         dd_launches = {"kepler_E": KeplerE.launches,
-                       "qs_phase_frac": QSPhaseFrac.launches}
+                       "qs_phase_frac": QSPhaseFrac.launches,
+                       "delay_chain": DelayChain.launches}
         fr = dfit.fitresult
         names = dfit.fit_params
         pulls = {n: device_offset(dmodel[n].device_value,
@@ -728,13 +947,15 @@ def main(run: Run = Run()) -> int:
             wf = WLSFitter(dtoas, dmodel, device=run.dev)
             QSPhaseFrac.launches = 0
             KeplerE.launches = 0
+            DelayChain.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             wchi2 = wf.fit_toas(maxiter=DD_MAXITER)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             per_fit.append({"kepler_E": KeplerE.launches,
-                            "qs_phase_frac": QSPhaseFrac.launches})
+                            "qs_phase_frac": QSPhaseFrac.launches,
+                            "delay_chain": DelayChain.launches})
             splits.append(wf.fit_info["seconds"])
         # the warm fits' wall split (fitter.build_fused_fit): device loop
         # up to the fetch, host solve + final step, write-back, and the
@@ -747,6 +968,7 @@ def main(run: Run = Run()) -> int:
                                               zip(splits, walls)])
                                    for k in splits[0]},
                    warm_chi2_change=abs(wchi2 - dchi2))
+        rec_dd_per_fit = per_fit
     if dtoas.ntoas != run.ntoas or len(names) != run.nfit:
         raise AssertionError("not the full-width DD configuration")
     if fr.rung != "fused" or fr.status.name not in ("CONVERGED", "MAXITER"):
@@ -756,12 +978,13 @@ def main(run: Run = Run()) -> int:
     bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
     if bad:
         raise AssertionError(f"DD fit pulls {bad}")
-    if dd_launches["kepler_E"] <= 0 or dd_launches["qs_phase_frac"] <= 0:
+    if dd_launches["delay_chain"] <= 0 or dd_launches["qs_phase_frac"] <= 0:
         raise AssertionError(f"the DD path skipped a kernel: {dd_launches}")
 
     with phase("kepler_E", {}) as kepler_rec:
         check_kepler(torch, dfit, kepler_rec)
         kepler_rec["launches"] = dd_launches["kepler_E"]
+        kepler_rec["solved_on_the_paths_by"] = "delay_chain"
 
     with phase("dd_fused_vs_eager", {}) as rec:
         restore(dmodel, start)
@@ -821,7 +1044,7 @@ def main(run: Run = Run()) -> int:
             ref = json.load(f)
         rmodel, rtoas = dd_load(torch, DD_REF_TIM, REF_DMX_BINS,
                                 perturb=ref["perturb"])
-        KeplerE.launches = 0
+        DelayChain.launches = 0
         rfit, rchi2, _ = dd_fit(torch, run.dev, rmodel, rtoas)
         rv, ru = fit_state(rmodel, rfit.fit_params)
         dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
@@ -831,20 +1054,206 @@ def main(run: Run = Run()) -> int:
                    rung=rfit.fitresult.rung, chi2=rchi2,
                    chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
                    max_sigma_gap=dev, max_unc_rel_gap=unc,
-                   ref_status=ref["status"], launches=KeplerE.launches)
+                   ref_status=ref["status"], launches=DelayChain.launches)
         if rfit.fit_params != ref["fit_params"] or not (
                 dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
                 and rec["launches"] > 0):
             raise AssertionError(
                 f"DD reference: {dev} sigma, {unc} unc, chi2 gap {gap}")
 
+    # -- 6. the GLS slice: simulate -> tim -> GLSFitter.fit_toas ------------
+    from pint_tpu_torch.examples import simulate_dd_noise_realistic
+    from pint_tpu_torch.fitter import (_host_noise_basis,
+                                       build_whitened_assembly, gls_solve)
+
+    with phase("gls_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        gtruth, gsim = simulate_dd_noise_realistic(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        write_tim(run.gls_tim, gsim)
+        t0 = time.perf_counter()
+        gmodel, gtoas = gls_load(torch, run.gls_tim, run.dmx_bins)
+        rec["setup_s"] = time.perf_counter() - t0
+        gstart = snapshot(gmodel)
+        torch.cuda.reset_peak_memory_stats()
+        QSPhaseFrac.launches = 0
+        DelayChain.launches = 0
+        with plain_delays() as plain:
+            gfit, gchi2, fit_s = gls_fit(torch, run.dev, gmodel, gtoas)
+        gls_launches = {"qs_phase_frac": QSPhaseFrac.launches,
+                        "delay_chain": DelayChain.launches}
+        fr = gfit.fitresult
+        gnames = gfit.fit_params
+        gp = gfit.resids.pdict
+        U = gmodel.noise_basis(gp)
+        pulls = {n: device_offset(gmodel[n].device_value,
+                                  gtruth[n].device_value)
+                 / gmodel[n].device_uncertainty for n in DD_PULL_PARAMS}
+        rec.update(ntoas=gtoas.ntoas, n_fit=len(gnames),
+                   noise_basis_shape=list(U.shape),
+                   ecorr_block=list(gmodel.ecorr_block(gp)),
+                   status=fr.status.name, iterations=fr.iterations,
+                   rung=fr.rung, chi2=gchi2, dof=fr.dof,
+                   chi2_per_dof=gchi2 / fr.dof, fit_cold_s=fit_s,
+                   fit_info=gfit.fit_info, launches=gls_launches,
+                   plain_delay_chains=plain["calls"], pulls=pulls,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(gfit.device))
+        gls_vals, gls_uncs = fit_state(gmodel, gnames)
+        walls, per_fit, splits = [], [], []
+        for _ in range(3):
+            restore(gmodel, gstart)
+            QSPhaseFrac.launches = 0
+            DelayChain.launches = 0
+            wf, _, w = gls_fit(torch, run.dev, gmodel, gtoas)
+            walls.append(w)
+            per_fit.append({"qs_phase_frac": QSPhaseFrac.launches,
+                            "delay_chain": DelayChain.launches})
+            splits.append(dict(wf.fit_info["seconds"]))
+        rec.update(fit_warm_s=median(walls), fit_walls_s=walls,
+                   launches_per_warm_fit=per_fit, fit_warm_split_s=splits,
+                   fit_warm_share={k: median([sp[k] / w for sp, w in
+                                              zip(splits, walls)])
+                                   for k in splits[0]})
+    if gtoas.ntoas != run.ntoas or len(gnames) != run.nfit:
+        raise AssertionError("not the full-width GLS configuration")
+    if fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"GLS fit ended {fr.status.name}")
+    if not 0.6 < gchi2 / fr.dof < 1.6:
+        raise AssertionError(f"GLS fit chi2/dof {gchi2 / fr.dof}")
+    bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
+    if bad:
+        raise AssertionError(f"GLS fit pulls {bad}")
+    if gls_launches["delay_chain"] <= 0 or gls_launches["qs_phase_frac"] <= 0 \
+            or plain["calls"]:
+        raise AssertionError(f"the GLS path skipped a kernel: {gls_launches}"
+                             f", {plain['calls']} plain delay chains")
+
+    with phase("delay_chain", {}) as chain_rec:
+        errs = [check_delay_chain(torch, label, m, f, chain_rec)
+                for label, m, f in (("j0740_grid", model, fitter),
+                                    ("dd_fit", dmodel, dfit),
+                                    ("gls_fit", gmodel, gfit))]
+        lin, nl = gmodel.partition_linear_params(gnames)
+        time_delay_chain(torch, gmodel, gfit, (len(nl), len(lin)),
+                         chain_rec)
+        chain_rec.update(
+            max_abs_err=max(errs),
+            launches={"j0740_grid": grid_chain,
+                      "dd_fit": dd_launches["delay_chain"],
+                      "gls_fit": gls_launches["delay_chain"]},
+            launches_per_grid_call=grid_call_launches["delay_chain"],
+            launches_per_warm_dd_fit=[f["delay_chain"] for f in
+                                      rec_dd_per_fit],
+            launches_per_warm_gls_fit=[f["delay_chain"] for f in per_fit])
+
+    with phase("gls_card_vs_host", {}) as rec:
+        # the final solve at the fitted point (the model holds the last
+        # warm fit), on the card and on the CPU from the same assembly
+        asm = build_whitened_assembly(gmodel, gfit.resids.batch, gnames,
+                                      gfit.track_mode, include_offset=True)
+        gp = gfit.resids.pdict
+        with torch.no_grad():
+            parts = asm.inline(torch.zeros(len(gnames), dtype=torch.float64,
+                                           device=gfit.device), gp)
+            noise = (gmodel.noise_basis(gp), gmodel.noise_weights(gp))
+            esl = gmodel.ecorr_block(gp)
+            card_args = (*parts, *noise, esl, len(gnames))
+            # the host's noise basis from the params dict's blocks, as
+            # pint_tpu's host solve takes it
+            host_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                              for a in card_args)
+            host_args = host_args[:4] + (torch.from_numpy(
+                _host_noise_basis(gmodel, gp)),) + host_args[5:]
+            outs = {"card": gls_solve(*card_args),
+                    "host": gls_solve(*host_args)}
+            card_ms = time_ms(torch, lambda: gls_solve(*card_args), reps=5)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                gls_solve(*host_args)
+            host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        sd = {k: np.sqrt(np.diag(np.asarray(o["Sigma_n"].cpu(), np.float64)))
+              / np.asarray(o["norms"].cpu(), np.float64)
+              for k, o in outs.items()}
+        dx = {k: np.asarray(o["dx"].cpu(), np.float64) for k, o in outs.items()}
+        sig_gap = float(np.max(np.abs(dx["card"] - dx["host"]) / sd["host"]))
+        unc_gap = float(np.max(np.abs(sd["card"] / sd["host"] - 1.0)))
+        chi2_gap = abs(float(outs["card"]["chi2"])
+                       / float(outs["host"]["chi2"]) - 1.0)
+        # K6's least work for this solve: [M | U] read once, the coupling
+        # block G_DK = D^T K and the Schur block's Gram (2 n m k each)
+        n_rows = gfit.resids.batch.ntoas
+        nk = len(gnames) + 1 + int(U.shape[1]) - (esl[1] - esl[0])
+        nd = esl[1] - esl[0]
+        ops = 2.0 * n_rows * nk * nd + 2.0 * n_rows * nk * nk
+        nbytes = 8.0 * n_rows * (len(gnames) + 1 + int(U.shape[1]))
+        t_ops, t_bytes = ops / PEAK_F64_MATMUL_PER_S, nbytes / MEM_BYTES_PER_S
+        rec.update(solve_bound_ms=1e3 * max(t_ops, t_bytes),
+                   solve_bound_by="operations" if t_ops >= t_bytes
+                   else "bytes")
+        rec.update(step_max_sigma_gap=sig_gap, unc_max_rel_gap=unc_gap,
+                   chi2_rel_gap=chi2_gap, card_solve_ms=card_ms,
+                   host_solve_ms=host_ms,
+                   n_bad={k: int(o["n_bad"]) for k, o in outs.items()},
+                   e_min={k: float(o["e_min"]) for k, o in outs.items()},
+                   schur_columns=len(gnames) + 1 + int(U.shape[1])
+                   - (esl[1] - esl[0]))
+        if not (sig_gap <= FIT_SIGMA_TOL and unc_gap <= UNC_TOL
+                and chi2_gap <= CHI2_TOL):
+            raise AssertionError(f"GLS card vs host: {sig_gap} sigma, "
+                                 f"{unc_gap} unc, chi2 {chi2_gap}")
+
+    with phase("gls_fit_profile", {}) as rec:
+        holder = {}
+
+        def gsetup():
+            restore(gmodel, gstart)
+            from pint_tpu_torch.fitter import GLSFitter
+            holder["f"] = GLSFitter(gtoas, gmodel, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(maxiter=DD_MAXITER),
+            run.out_dir, out_name="gls_fit_profile", setup=gsetup))
+
+    with phase("gls_reference", {}) as rec:
+        with open(GLS_REF_JSON) as f:
+            ref = json.load(f)
+        rmodel, rtoas = gls_load(torch, GLS_REF_TIM, REF_DMX_BINS,
+                                 perturb=ref["perturb"])
+        DelayChain.launches = 0
+        rfit, rchi2, _ = gls_fit(torch, run.dev, rmodel, rtoas)
+        rv, ru = fit_state(rmodel, rfit.fit_params)
+        dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
+        gap = abs(rchi2 - ref["chi2"]) / ref["chi2"]
+        noise_gap = max(
+            float(np.max(np.abs(rfit.noise_resids[k] - np.asarray(v)))
+                  / np.std(v)) for k, v in ref["noise_resids"].items())
+        rec.update(ntoas=rtoas.ntoas, n_fit=len(rfit.fit_params),
+                   status=rfit.fitresult.status.name,
+                   rung=rfit.fitresult.rung, chi2=rchi2,
+                   chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
+                   max_sigma_gap=dev, max_unc_rel_gap=unc,
+                   noise_resid_max_gap_of_rms=noise_gap,
+                   ref_status=ref["status"], launches=DelayChain.launches)
+        if rfit.fit_params != ref["fit_params"] or not (
+                dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
+                and noise_gap <= NOISE_RESID_TOL and rec["launches"] > 0):
+            raise AssertionError(
+                f"GLS reference: {dev} sigma, {unc} unc, chi2 gap {gap}, "
+                f"noise {noise_gap}")
+
     emit({"kernels": [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
-        "launches": launches + dd_launches["qs_phase_frac"],
+        "launches": launches + dd_launches["qs_phase_frac"]
+        + gls_launches["qs_phase_frac"],
         "launches_by_path": {"j0740_grid": launches,
-                             "dd_fit": dd_launches["qs_phase_frac"]},
+                             "dd_fit": dd_launches["qs_phase_frac"],
+                             "gls_fit": gls_launches["qs_phase_frac"]},
         "max_abs_err": kernel_rec["max_abs_frac_err"],
         "ms": kernel_rec["ms"], "plain_ms": kernel_rec["plain_ms"],
         "bound_ms": kernel_rec["bound_ms"],
@@ -854,11 +1263,22 @@ def main(run: Run = Run()) -> int:
         "replaces": "pint_tpu/models/binary_orbits.py:49",
         "launches": dd_launches["kepler_E"],
         "launches_by_path": {"j0740_grid": 0,
-                             "dd_fit": dd_launches["kepler_E"]},
+                             "dd_fit": dd_launches["kepler_E"],
+                             "gls_fit": 0},
+        "solved_on_the_paths_by": "delay_chain",
         "max_abs_err": kepler_rec["max_abs_err"],
         "ms": kepler_rec["ms"], "plain_ms": kepler_rec["plain_ms"],
         "bound_ms": kepler_rec["bound_ms"],
-        "bound_by": kepler_rec["bound_by"], "library_ms": None}]})
+        "bound_by": kepler_rec["bound_by"], "library_ms": None}, {
+        "name": "delay_chain", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/delay_chain.cu",
+        "replaces": "pint_tpu/models/astrometry.py:76",
+        "launches": sum(chain_rec["launches"].values()),
+        "launches_by_path": chain_rec["launches"],
+        "max_abs_err": chain_rec["max_abs_err"],
+        "ms": chain_rec["ms"], "plain_ms": chain_rec["plain_ms"],
+        "bound_ms": chain_rec["bound_ms"],
+        "bound_by": chain_rec["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,8 @@
 Both take plain numpy leaves (``jax.tree.map(np.asarray, tree)`` of a
 :mod:`pint_tpu` params dict, or a :class:`pint_tpu.toabatch.TOABatch`'s
 ``_asdict()`` likewise) and return the port's tensors on ``device`` with
-the same dtypes, leaf for leaf.  The port builds both itself from par/tim
+the same dtypes, leaf for leaf: the noise model's leaves too (the basis
+blocks, the Fourier frequencies, the int32 ECORR column maps).  The port builds both itself from par/tim
 files as well (:meth:`pint_tpu_torch.models.timing_model.TimingModel.build_pdict`,
 :meth:`pint_tpu_torch.toa.TOAs.to_batch`); the tests hold each against the
 converted :mod:`pint_tpu` one.

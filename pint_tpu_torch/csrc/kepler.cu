@@ -8,11 +8,8 @@
 // Its plain PyTorch version is pint_tpu_torch.models.binary_orbits.kepler_E;
 // the wrapper is pint_tpu_torch/kernels/kepler.py.
 //
-// One thread per element; every element is independent.  Per element, in
-// the operation order of the plain version:
-//   e_c = clamp(e, 0, 1 - 1e-9)        (NaN stays NaN, as torch.clamp)
-//   E   = M + e_c sin M
-//   12 x  E = E - ((E - e_c sin E) - M) / (1 - e_c cos E)
+// One thread per element; every element is independent.  The Newton
+// solve itself is in kepler.cuh, which delay_chain.cu shares.
 //
 // What bounds it: the bytes.  Counted as the plain version dispatches it
 // (one operation per sin, cos, add, sub, mul, div and clamp), an element
@@ -32,10 +29,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "kepler.cuh"
 
-constexpr double kUnitMax = 1.0 - 1e-9;
-constexpr int kNewtonSteps = 12;
+namespace {
 
 __global__ void kepler_E_kernel(const double* __restrict__ M,
                                 const double* __restrict__ e,
@@ -43,19 +39,7 @@ __global__ void kepler_E_kernel(const double* __restrict__ M,
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const double m = M[i];
-    const double ei = e[i];
-    // torch.clamp order: below the floor -> floor, above the ceiling ->
-    // ceiling, NaN passes through
-    const double ec = ei < 0.0 ? 0.0 : (ei > kUnitMax ? kUnitMax : ei);
-    double x = m + ec * sin(m);
-#pragma unroll
-    for (int k = 0; k < kNewtonSteps; ++k) {
-      double s, c;
-      sincos(x, &s, &c);
-      x = x - ((x - ec * s) - m) / (1.0 - ec * c);
-    }
-    E[i] = x;
+    E[i] = ptkepler::solve(M[i], ptkepler::clamp_unit(e[i]));
   }
 }
 

@@ -37,146 +37,26 @@
 // The design is the simple one: one thread per row, registers only, no
 // shared memory, no tensor cores.
 //
-// Compile with --fmad=false and never --use_fast_math: a contracted
-// a*b+c (FMA) or a reassociated sum silently breaks the error-free
-// transforms (the CUDA form of the hazard pint_tpu.dd._guard fences).
-// Rounding to nearest integer is rintf/rint (half to even, as torch.round
-// and jnp.round), never roundf.
+// The QS arithmetic (K1, K2) lives in qs.cuh, shared with delay_chain.cu;
+// like every kernel that includes it, this one is compiled with
+// --fmad=false and never --use_fast_math (see qs.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "qs.cuh"
+
 namespace {
 
-struct QS {
-  float w[4];
-};
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = a + b;
-  const float bb = s - a;
-  e = (a - (s - bb)) + (b - bb);
-}
-
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float t = 4097.0f * a;
-  hi = t - (t - a);
-  lo = a - hi;
-}
-
-__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
-  p = a * b;
-  float ahi, alo, bhi, blo;
-  split(a, ahi, alo);
-  split(b, bhi, blo);
-  e = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo;
-}
-
-// pint_tpu.qs._distill: three bottom-up passes of chained two_sums
-template <int N>
-__device__ __forceinline__ QS renorm(float (&ws)[N]) {
-#pragma unroll
-  for (int pass = 0; pass < 3; ++pass) {
-    float out[N];
-    float s = ws[N - 1];
-#pragma unroll
-    for (int i = N - 2; i >= 0; --i) {
-      float e;
-      two_sum(ws[i], s, s, e);
-      out[i + 1] = e;
-    }
-    out[0] = s;
-#pragma unroll
-    for (int i = 0; i < N; ++i) ws[i] = out[i];
-  }
-  QS q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q.w[i] = ws[i];
-  return q;
-}
-
-__device__ __forceinline__ QS qs_neg(const QS& a) {
-  QS q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q.w[i] = -a.w[i];
-  return q;
-}
-
-__device__ __forceinline__ QS qs_add(const QS& a, const QS& b) {
-  float s0, e0, s1, e1, s2, e2;
-  two_sum(a.w[0], b.w[0], s0, e0);
-  two_sum(a.w[1], b.w[1], s1, e1);
-  two_sum(a.w[2], b.w[2], s2, e2);
-  const float s3 = a.w[3] + b.w[3];
-  float ws[7] = {s0, s1, e0, s2, e1, s3, e2};
-  return renorm<7>(ws);
-}
-
-__device__ __forceinline__ QS qs_add_w(const QS& q, float w) {
-  float s0, s1, s2, s3, e;
-  two_sum(q.w[0], w, s0, e);
-  two_sum(q.w[1], e, s1, e);
-  two_sum(q.w[2], e, s2, e);
-  two_sum(q.w[3], e, s3, e);
-  float ws[5] = {s0, s1, s2, s3, e};
-  return renorm<5>(ws);
-}
-
-__device__ __forceinline__ QS qs_mul_w(const QS& q, float w) {
-  float p0, e0, p1, e1, p2, e2;
-  two_prod(q.w[0], w, p0, e0);
-  two_prod(q.w[1], w, p1, e1);
-  two_prod(q.w[2], w, p2, e2);
-  const float p3 = q.w[3] * w;
-  float ws[7] = {p0, p1, e0, p2, e1, p3, e2};
-  return renorm<7>(ws);
-}
-
-__device__ __forceinline__ QS qs_mul(const QS& a, const QS& b) {
-  float p00, e00, p01, e01, p10, e10, p02, e02, p11, e11, p20, e20;
-  two_prod(a.w[0], b.w[0], p00, e00);
-  two_prod(a.w[0], b.w[1], p01, e01);
-  two_prod(a.w[1], b.w[0], p10, e10);
-  two_prod(a.w[0], b.w[2], p02, e02);
-  two_prod(a.w[1], b.w[1], p11, e11);
-  two_prod(a.w[2], b.w[0], p20, e20);
-  // order-3 terms: plain products (errors below 2^-96)
-  const float t3 = (a.w[0] * b.w[3] + a.w[3] * b.w[0]) +
-                   (a.w[1] * b.w[2] + a.w[2] * b.w[1]);
-  // order-4: below target precision but nearly free
-  const float t4 = a.w[1] * b.w[3] + a.w[2] * b.w[2] + a.w[3] * b.w[1];
-  float ws[14] = {p00, p01, p10, e00, p02, p11, p20,
-                  e01, e10, t3,  e02, e11, e20, t4};
-  return renorm<14>(ws);
-}
-
-// pint_tpu.qs.from_f64_device: exact three-word split, then renormalize
-__device__ __forceinline__ QS qs_from_f64(double x) {
-  const float w0 = (float)x;
-  const double r = x - (double)w0;
-  const float w1 = (float)r;
-  const double r2 = r - (double)w1;
-  const float w2 = (float)r2;
-  float ws[4] = {w0, w1, w2, 0.0f};
-  return renorm<4>(ws);
-}
-
-// pint_tpu.qs.to_f64: ((w0 + w1) + w2) + w3 in float64
-__device__ __forceinline__ double qs_to_f64(const QS& q) {
-  return (double)q.w[0] + (double)q.w[1] + (double)q.w[2] + (double)q.w[3];
-}
-
-// pint_tpu.qs.round_nearest, fraction only
-__device__ __forceinline__ QS qs_round_frac(QS r) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float nk = rintf(r.w[0]);
-    r = qs_add_w(r, -nk);
-  }
-  const double adj = rint(qs_to_f64(r));
-  return qs_add_w(r, -1.0f * (float)adj);
-}
+using ptqs::QS;
+using ptqs::qs_add;
+using ptqs::qs_from_f64;
+using ptqs::qs_mul;
+using ptqs::qs_mul_w;
+using ptqs::qs_neg;
+using ptqs::qs_round_frac;
+using ptqs::qs_to_f64;
 
 // pint_tpu.utils.taylor_horner in float64: sum_k c_k dt^k / k!
 __device__ __forceinline__ double taylor_horner(double dt, const double* c,
@@ -202,13 +82,9 @@ __global__ void qs_phase_frac_kernel(
   const int64_t g = row / N;
   const int64_t n = row - g * N;
 
-  // (t_TDB - PEPOCH) in days: exact f64 integer-day difference, then f32
-  const float dday = (float)((double)tdb_day[n] - pep_day[0]);
-  QS dt = {{dday, frac_w[3 * n], frac_w[3 * n + 1], 0.0f}};
-  dt = qs_add(dt, QS{{frac_w[3 * n + 2], 0.0f, 0.0f, 0.0f}});
-  dt = qs_add(dt, qs_neg(QS{{pep_w[0], pep_w[1], pep_w[2], pep_w[3]}}));
-  dt = qs_mul_w(dt, 86400.0f);
-  dt = qs_add(dt, qs_from_f64(shift[row]));
+  // (t_TDB - PEPOCH) [s] + shift, in QS
+  const QS dt = ptqs::dt_seconds_qs(tdb_day[n], frac_w + 3 * n, pep_day[0],
+                                    pep_w, shift[row]);
   const double dt64 = qs_to_f64(dt);
 
   // spin phase: Taylor-Horner over [0, F0, ..., F_{K-1}] in QS

@@ -1,6 +1,7 @@
 """Shared example configurations: the par strings of
-:mod:`pint_tpu.examples`, and the simulated full-width DD data set that
-``chip_smoke.py`` fits."""
+:mod:`pint_tpu.examples`, and the simulated full-width DD data sets that
+``chip_smoke.py`` fits: white noise only (WLS), and with a NANOGrav-style
+noise model (GLS)."""
 
 from __future__ import annotations
 
@@ -139,4 +140,89 @@ def simulate_dd_realistic(ntoas: int = 12500, seed: int = 0,
             add_noise=True, seed=seed, device=device)
     for b_mhz, fl in zip(band, toas.flags):
         fl["fe"] = RECEIVERS[float(b_mhz)]
+    return model, toas
+
+
+#: NANOGrav 15-yr-style noise model of the GLS configuration, frozen as in
+#: a NANOGrav GLS fit: EFAC/EQUAD/ECORR per receiver (RECEIVERS order),
+#: power-law red noise with 30 Fourier modes
+NOISE_EFAC = (1.1, 1.05, 1.2)
+NOISE_EQUAD_US = (0.2, 0.2, 0.2)
+NOISE_ECORR_US = (0.4, 0.3, 0.5)
+NOISE_RED = {"TNREDAMP": -13.7, "TNREDGAM": 3.5, "TNREDC": 30}
+#: the GLS set's epochs: four sub-band TOAs 0.1 s apart, inside ECORR's
+#: 1 s quantization window
+TOAS_PER_EPOCH = 4
+EPOCH_SPACING_S = 0.1
+
+
+def dd_noise_realistic_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                           center_mjd: float = 54975.0) -> str:
+    """:func:`dd_realistic_par` (86 free timing parameters) plus the
+    frozen noise lines of the ``dd_gls_nanograv`` configuration."""
+    lines = []
+    for fe, efac, equad, ecorr in zip(RECEIVERS.values(), NOISE_EFAC,
+                                      NOISE_EQUAD_US, NOISE_ECORR_US):
+        lines += [f"EFAC -fe {fe} {efac}", f"EQUAD -fe {fe} {equad}",
+                  f"ECORR -fe {fe} {ecorr}"]
+    lines += [f"{k} {v}" for k, v in NOISE_RED.items()]
+    return "\n".join([dd_realistic_par(dmx_bins, span_days, center_mjd)]
+                     + lines)
+
+
+def epoch_toas(ntoas: int, span_days: float = 4550.0,
+               center_mjd: float = 54975.0):
+    """(MJDs, per-TOA band [MHz], per-TOA frequency [MHz]) of the GLS set:
+    ``ntoas / 4`` observing epochs evenly over the span, each one receiver
+    in turn (RECEIVERS order) with its four sub-bands 0.1 s apart."""
+    nep = ntoas // TOAS_PER_EPOCH
+    if nep * TOAS_PER_EPOCH != ntoas:
+        raise ValueError(f"ntoas must be a multiple of {TOAS_PER_EPOCH}")
+    ep = np.linspace(center_mjd - span_days / 2, center_mjd + span_days / 2,
+                     nep)
+    k = np.arange(TOAS_PER_EPOCH)
+    mjds = (ep[:, None] + k[None, :] * EPOCH_SPACING_S / 86400.0).ravel()
+    band = np.repeat(np.resize(list(RECEIVERS), nep), TOAS_PER_EPOCH)
+    freqs = band + np.tile(np.asarray(SUBBANDS_MHZ), nep)
+    return mjds, band, freqs
+
+
+def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
+                                dmx_bins: int = 70,
+                                span_days: float = 4550.0,
+                                center_mjd: float = 54975.0, device=None):
+    """(model, TOAs) of the full-width ``dd_gls_nanograv`` configuration:
+    epoch-clustered TOAs (:func:`epoch_toas`) from gbt, put on integer
+    model phases (``zero_residuals``), white noise scaled by EFAC/EQUAD
+    (numpy ``default_rng(seed + 1)``) and one realization of the ECORR and
+    red noise (``add_correlated_noise``, seed ``seed``), as pint_tpu's GLS
+    tests build epoch-clustered TOAs (``get_TOAs_array`` +
+    ``zero_residuals``).  The residuals run on ``device`` (default
+    ``"cuda"``)."""
+    from pint_tpu_torch import mjd as mjdmod
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.simulation import add_correlated_noise, zero_residuals
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    mjds, band, freqs = epoch_toas(ntoas, span_days, center_mjd)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_noise_realistic_par(
+            dmx_bins=dmx_bins, span_days=span_days,
+            center_mjd=center_mjd).splitlines())
+        toas = get_TOAs_array(mjds, obs="gbt", errors_us=1.0,
+                              freqs_mhz=freqs, ephem="DE421", planets=False)
+        for b_mhz, fl in zip(band, toas.flags):
+            fl["fe"] = RECEIVERS[float(b_mhz)]
+        toas = zero_residuals(toas, model, device=device)
+        sigma_us = Residuals(toas, model, device=device).get_data_error()
+        rng = np.random.default_rng(seed + 1)
+        toas.utc = mjdmod.add_sec(
+            toas.utc, rng.standard_normal(ntoas) * sigma_us * 1e-6)
+        toas.compute_TDBs(ephem="DE421")
+        toas.compute_posvels(ephem="DE421", planets=False)
+        toas = add_correlated_noise(toas, model, seed=seed, device=device)
+    for f in toas.flags:
+        f.setdefault("simulated", "1")
     return model, toas

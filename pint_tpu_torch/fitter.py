@@ -11,8 +11,11 @@ once and differentiates only the nonlinear core, and
 float64 SVD final step), on the CPU the guarded eager step loop
 (:func:`build_wls_step`), with the convergence sentinel
 (:func:`sentinel_advance`, :class:`FitStatus`) and the fused -> eager
-degradation rung.  The damped-LM rescue rung, GLS and the other fitters
-are not ported yet (see ROADMAP.md).
+degradation rung; and :class:`GLSFitter` (:func:`gls_solve`, with the
+ECORR block eliminated by its Schur complement), whose steps assemble
+and solve on the device in the eager loop.  The damped-LM rescue rung,
+the downhill fitters and noise-parameter fitting are not ported yet
+(see ROADMAP.md).
 
 Everything here is plain PyTorch on the batch's device; the phase chain
 inside the residual function is the ``qs_phase_frac`` kernel and the DD
@@ -40,7 +43,9 @@ from pint_tpu_torch.residuals import Residuals, raw_phase_resids
 from pint_tpu_torch.toabatch import TOABatch
 from pint_tpu_torch.utils import normalize_designmatrix
 
-__all__ = ["Fitter", "WLSFitter", "fit_wls_svd", "fit_wls_eigh",
+__all__ = ["Fitter", "WLSFitter", "GLSFitter", "fit_wls_svd",
+           "fit_wls_eigh", "gls_solve", "build_gls_step",
+           "build_gls_fullcov_step",
            "masked_eigh_inverse", "wls_solve", "build_resid_sec_fn",
            "build_whitened_assembly", "build_wls_step", "build_fused_fit",
            "FitStatus", "FitSummary", "FitDegradedWarning",
@@ -450,6 +455,18 @@ def _fetch_host(r, M, sigma, offc):
             flat[n + m:n + m + n], offc_h)
 
 
+def _step_assembler(assemble, batch: TOABatch):
+    """``(x, p) -> (r, M, sigma, offc)`` of an eager step: ``x`` host
+    numpy or a tensor, no autograd graph kept."""
+    def _assemble(x, p):
+        if not assemble.split:
+            x = torch.as_tensor(_np(x), dtype=F64, device=batch.device)
+        with torch.no_grad():
+            return assemble(x, p)
+
+    return _assemble
+
+
 def build_wls_step(model: TimingModel, batch: TOABatch,
                    fit_params: Sequence[str], track_mode: str,
                    threshold: Optional[float] = None,
@@ -476,15 +493,9 @@ def build_wls_step(model: TimingModel, batch: TOABatch,
     DD fit's uncertainties by ~1e-10 relative (PERF.md), so the port
     takes the final covariance from the device assembly."""
     names = list(fit_params)
-    assemble = build_whitened_assembly(model, batch, names, track_mode,
-                                       include_offset,
-                                       design_matrix=design_matrix)
-
-    def _assemble(x, p):
-        if not assemble.split:
-            x = torch.as_tensor(_np(x), dtype=F64, device=batch.device)
-        with torch.no_grad():
-            return assemble(x, p)
+    _assemble = _step_assembler(build_whitened_assembly(
+        model, batch, names, track_mode, include_offset,
+        design_matrix=design_matrix), batch)
 
     if batch.device.type == "cpu":
         def step(x, p):
@@ -500,6 +511,310 @@ def build_wls_step(model: TimingModel, batch: TOABatch,
                          len(names), threshold, host=True)
 
     return step
+
+
+def _nan_gls_out(r, npar: int) -> dict:
+    """The all-NaN GLS solve dict (:func:`pint_tpu.fitter._nan_gls_out`):
+    norms finite so denormalization stays defined, and no
+    ``noise_ampls`` key, which :meth:`Fitter._store_noise` reads as
+    "drop stale realizations"."""
+    dev = r.device
+    nan = float("nan")
+    return {"dx": torch.full((npar,), nan, dtype=F64, device=dev),
+            "offset": torch.full((), nan, dtype=F64, device=dev),
+            "chi2": torch.full((), nan, dtype=F64, device=dev),
+            "Sigma_n": torch.full((npar, npar), nan, dtype=F64, device=dev),
+            "norms": torch.ones(npar, dtype=F64, device=dev),
+            "resid_sec": r, "n_bad": torch.zeros((), dtype=torch.int64),
+            "e_min": nan}
+
+
+def _svd(B):
+    """SVD with a poisoned (non-finite) matrix giving NaNs, as XLA's
+    does, instead of an exception."""
+    try:
+        return torch.linalg.svd(B, full_matrices=False)
+    except torch.linalg.LinAlgError:
+        k = min(B.shape)
+        nan = float("nan")
+        return (torch.full((B.shape[0], k), nan, dtype=B.dtype,
+                           device=B.device),
+                torch.full((k,), nan, dtype=B.dtype, device=B.device),
+                torch.full((k, B.shape[1]), nan, dtype=B.dtype,
+                           device=B.device))
+
+
+def _sqrt_solve(B, rhs, thr):
+    """The thresholded solve of the normal equations B^T B x = B^T rhs
+    through the SVD of B: eigenvalues e = s^2, those <= ``thr`` dropped.
+    Returns ``(x, V, einv, e, bad)`` with pinv(B^T B) = (V * einv) @ V.T."""
+    Ub, sv, Vh = _svd(B)
+    e = sv**2
+    bad = e <= thr
+    sinv = torch.where(bad, 0.0, 1.0 / torch.where(bad, 1.0, sv))
+    return Vh.T @ (sinv * (Ub.T @ rhs)), Vh.T, sinv**2, e, bad
+
+
+def gls_solve(r, M, sigma, offc, U, phi, esl, npar: int,
+              threshold: Optional[float] = None) -> dict:
+    """The GLS linear solve + Woodbury chi2 on the tensors' device
+    (:func:`pint_tpu.fitter.gls_solve` with ``xp`` the true-IEEE CPU
+    backend's: the H100's float64 is IEEE too, so the port solves where
+    the assembly lives, as pint_tpu does on the CPU).
+
+    The normal matrix is that of ``[M | U]`` with the diagonal prior
+    ``1/phi`` on the basis columns (zero, a flat prior, on the timing
+    columns), in diagonally preconditioned coordinates; its eigenvalues
+    at or below ``threshold`` (an ABSOLUTE cutoff there, default eps * P,
+    since a strong noise prior inflates the largest eigenvalue by many
+    orders) are dropped.  With ``esl`` (the ECORR column range of ``U``)
+    the ECORR block is eliminated through its exactly diagonal Gram
+    (Schur complement), so the remaining system is the timing + Fourier
+    block only, and chi2 uses the matching per-epoch Sherman-Morrison.
+    chi2 is r^T C^-1 r at x with the offset profiled out in the same
+    C^-1 metric.  Returns the :func:`wls_solve` keys plus ``noise_ampls``
+    (the basis amplitudes); ``e_min`` is the smallest kept eigenvalue.
+
+    pint_tpu eigendecomposes the normal matrix itself.  The port takes
+    the SVD of its square root (the stacked whitened design matrix and
+    the square root of the prior; for the Schur complement, the design
+    matrix with each ECORR epoch's share projected out), whose squared
+    singular values are the same eigenvalues, thresholded alike.  A
+    NANOGrav-width model is nearly degenerate in DM, the offset and FD1-4
+    over three receivers (smallest eigenvalue ~1e-11 of ~1e3): forming
+    the normal matrix rounds that direction at ~1e-3 relative, so an eigh
+    solve there moves by ~1e-3 sigma between two machines' roundings,
+    pint_tpu's included (PERF.md); the SVD of the square root keeps it to
+    ~1e-9, so the card and the host give one answer."""
+    from pint_tpu_torch.utils import woodbury_dot, woodbury_dot_split
+
+    dev = r.device
+    if phi is not None:
+        # a zero prior variance would make 1/phi infinite: pin those
+        # columns to ~zero amplitude instead of poisoning the solve
+        phi = torch.where(phi > 0.0, phi, 1e-30)
+    ntm = M.shape[1]
+    Mfull = M if U is None else torch.cat([M, U], dim=1)
+    P = Mfull.shape[1]
+    Mn, rw, norms = _whiten_normalize(Mfull, r, sigma)
+    zeros = torch.zeros(ntm, dtype=F64, device=dev)
+    phiinv = torch.zeros(P, dtype=F64, device=dev) if phi is None else \
+        torch.cat([zeros, 1.0 / phi])
+    prior = (torch.sqrt(phiinv) / norms) ** 2
+    thr = EPS_F64 * P if threshold is None else threshold
+    if esl is None:
+        B = torch.cat([Mn, torch.diag(torch.sqrt(prior))])
+        rhs = torch.cat([rw, torch.zeros(P, dtype=F64, device=dev)])
+        sol, V, einv, e, bad = _sqrt_solve(B, rhs, thr)
+        sol = sol / norms
+    else:
+        dlo, dhi = ntm + esl[0], ntm + esl[1]
+        kidx = torch.cat([torch.arange(dlo), torch.arange(dhi, P)]).to(dev)
+        didx = torch.arange(dlo, dhi, device=dev)
+        K = Mn[:, kidx]
+        D = Mn[:, didx]
+        b_D = D.T @ rw
+        # D's Gram block is exactly diagonal (disjoint supports); unit
+        # column normalization makes its diagonal 1, so D D^T projects
+        # and W = I - D diag(c) D^T with c = 1 - sqrt(p/(1+p)) squares
+        # to I - D diag(1/(1+p)) D^T: W K's Gram is the Schur complement
+        # K^T K - G_DK^T diag(1/d_D) G_DK, and W rw its right-hand side
+        d_D = 1.0 + prior[didx]
+        c = 1.0 - torch.sqrt(prior[didx] / d_D)
+        G_DK = D.T @ K
+        Kw = K - D @ (c[:, None] * G_DK)
+        rww = rw - D @ (c * b_D)
+        nk = K.shape[1]
+        B = torch.cat([Kw, torch.diag(torch.sqrt(prior[kidx]))])
+        rhs = torch.cat([rww, torch.zeros(nk, dtype=F64, device=dev)])
+        sol_K, V, einv, e, bad = _sqrt_solve(B, rhs, thr)
+        sol_D = (b_D - G_DK @ sol_K) / d_D
+        sol = torch.zeros(P, dtype=F64, device=dev)
+        sol[kidx] = sol_K
+        sol[didx] = sol_D
+        sol = sol / norms
+    # (A^-1)_KK is the Schur-complement inverse, and the timing columns
+    # are the first npar entries of K
+    Sigma_n = (V * einv) @ V.T
+    off = torch.zeros((), dtype=F64, device=dev)
+    if phi is None:
+        if offc is not None:
+            w = offc / sigma**2
+            off = torch.sum(r * w) / torch.sum(w * offc)
+        chi2 = torch.sum(((r - off * offc if offc is not None else r)
+                          / sigma) ** 2)
+    else:
+        if esl is None:
+            def cdot(a, b):
+                return woodbury_dot(sigma**2, U, phi, a, b)[0]
+        else:
+            Ue = U[:, esl[0]:esl[1]]
+            phie = phi[esl[0]:esl[1]]
+            Uf = torch.cat([U[:, :esl[0]], U[:, esl[1]:]], dim=1)
+            phif = torch.cat([phi[:esl[0]], phi[esl[1]:]])
+
+            def cdot(a, b):
+                return woodbury_dot_split(sigma**2, Ue, phie, Uf, phif,
+                                          a, b)[0]
+        if offc is not None:
+            off = cdot(offc, r) / cdot(offc, offc)
+        r_off = r - off * offc if offc is not None else r
+        chi2 = cdot(r_off, r_off)
+    return {"dx": sol[:npar], "offset": off, "chi2": chi2,
+            "Sigma_n": Sigma_n[:npar, :npar], "norms": norms[:npar],
+            "noise_ampls": sol[ntm:], "resid_sec": r,
+            "n_bad": torch.sum(bad),
+            "e_min": float(torch.min(torch.where(bad, float("inf"), e)))}
+
+
+def _timed(seconds: dict, key: str, dev: torch.device, fn, *args):
+    """``fn(*args)``, its host-clock seconds added to ``seconds[key]``
+    (after a synchronize on CUDA, so the device work is counted)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def build_gls_step(model: TimingModel, batch: TOABatch,
+                   fit_params: Sequence[str], track_mode: str,
+                   threshold: Optional[float] = None,
+                   include_offset: bool = True,
+                   design_matrix: Optional[str] = None):
+    """The GLS Gauss-Newton step ``(x, p) -> dict`` (reference
+    `GLSFitter.fit_toas` basis path + `get_gls_mtcm_mtcy`,
+    `src/pint/fitter.py:1841,2618`; :func:`pint_tpu.fitter.build_gls_step`):
+    the whitened assembly and :func:`gls_solve`, both on the batch's
+    device.  The noise basis and the ECORR block's column range are taken
+    once per basis (keyed on the identity of the params dict's basis
+    leaves); the prior variances are recomputed every step.  A
+    non-finite assembly or a failed factorization gives the all-NaN dict
+    that the fit guards judge.  ``step.seconds`` accumulates host-clock
+    seconds of the assembly and of the solve."""
+    names = list(fit_params)
+    npar = len(names)
+    _assemble = _step_assembler(build_whitened_assembly(
+        model, batch, names, track_mode, include_offset,
+        design_matrix=design_matrix), batch)
+    cache: dict = {}
+    dev = batch.device
+
+    def noise(p):
+        leaves = [p["const"].get(c.basis_pytree_name)
+                  for c in model.correlated_noise_components]
+        hit = ("leaves" in cache and len(cache["leaves"]) == len(leaves)
+               and all(a is b for a, b in zip(cache["leaves"], leaves)))
+        if not hit:
+            cache["leaves"] = leaves
+            cache["U"] = model.noise_basis(p)
+            cache["esl"] = model.ecorr_block(p)
+        with torch.no_grad():
+            phi = model.noise_weights(p)
+        return cache["U"], phi, cache["esl"]
+
+    def solve(r, M, sigma, offc, p):
+        U, phi, esl = noise(p)
+        with torch.no_grad():
+            if not bool(torch.all(torch.isfinite(M))
+                        & torch.all(torch.isfinite(r))
+                        & torch.all(torch.isfinite(sigma))):
+                return _nan_gls_out(r, npar)
+            try:
+                return gls_solve(r, M, sigma, offc, U, phi, esl, npar,
+                                 threshold)
+            except torch.linalg.LinAlgError:
+                return _nan_gls_out(r, npar)
+
+    def step(x, p):
+        r, M, sigma, offc = _timed(step.seconds, "assemble", dev,
+                                   _assemble, x, p)
+        return _timed(step.seconds, "solve", dev, solve, r, M, sigma, offc,
+                      p)
+
+    step.seconds = {}
+    return step
+
+
+def build_gls_fullcov_step(model: TimingModel, batch: TOABatch,
+                           fit_params: Sequence[str], track_mode: str,
+                           threshold: Optional[float] = None,
+                           include_offset: bool = True,
+                           design_matrix: Optional[str] = None):
+    """The dense-covariance GLS step (reference `GLSFitter.fit_toas`
+    ``full_cov=True`` + `get_gls_mtcm_mtcy_fullcov`,
+    `src/pint/fitter.py:2601`; :func:`pint_tpu.fitter.
+    build_gls_fullcov_step`): C = N + U Phi U^T formed and
+    Cholesky-factored, M^T C^-1 M dx = M^T C^-1 r (solved, as
+    :func:`gls_solve` solves, through the SVD of its square root
+    L^-1 M).  O(N^2) memory: the cross-check of the basis path."""
+    names = list(fit_params)
+    npar = len(names)
+    _assemble = _step_assembler(build_whitened_assembly(
+        model, batch, names, track_mode, include_offset,
+        design_matrix=design_matrix), batch)
+
+    def solve(r, M, sigma, offc, p):
+        from pint_tpu_torch.utils import _cho_factor, _cho_solve
+
+        U = model.noise_basis(p)
+        phi = model.noise_weights(p)
+        C = torch.diag(sigma**2)
+        if phi is not None:
+            phi = torch.where(phi > 0.0, phi, 0.0)
+            C = C + (U * phi) @ U.T
+        L = _cho_factor(C)
+
+        def csolve(b):
+            return _cho_solve(L, b)
+
+        # two-stage range-safe column normalization (see fit_wls_svd)
+        Mw = M / sigma[:, None]
+        cmax = torch.amax(torch.abs(Mw), dim=0)
+        cmax = torch.where(cmax == 0.0, 1.0, cmax)
+        _, nc = normalize_designmatrix(Mw / cmax)
+        norms = cmax * nc
+        Mn = M / norms
+        # the normal matrix Mn^T C^-1 Mn through the SVD of its square
+        # root L^-1 Mn, with the same ABSOLUTE eigenvalue cutoff as
+        # build_gls_step's (see gls_solve)
+        Lt = torch.linalg.solve_triangular(L, torch.cat(
+            [Mn, r[:, None]], dim=1), upper=False)
+        thr = EPS_F64 * Mn.shape[1] if threshold is None else threshold
+        sol, V, einv, e, bad = _sqrt_solve(Lt[:, :-1], Lt[:, -1], thr)
+        sol = sol / norms
+        Sigma_n = (V * einv) @ V.T
+        off = torch.zeros((), dtype=F64, device=r.device)
+        if offc is not None:
+            Cio = csolve(offc)
+            off = (Cio @ r) / (Cio @ offc)
+        r_off = r - off * offc if offc is not None else r
+        chi2 = r_off @ csolve(r_off)
+        return {"dx": sol[:npar], "offset": off, "chi2": chi2,
+                "Sigma_n": Sigma_n[:npar, :npar], "norms": norms[:npar],
+                "resid_sec": r, "n_bad": torch.sum(bad),
+                "e_min": float(torch.min(torch.where(bad, float("inf"),
+                                                     e)))}
+
+    def step(x, p):
+        r, M, sigma, offc = _assemble(x, p)
+        with torch.no_grad():
+            return solve(r, M, sigma, offc, p)
+
+    return step
+
+
+def _host_noise_basis(model: TimingModel, p: dict):
+    """The concatenated noise basis U as host float64 numpy from a params
+    dict (:func:`pint_tpu.fitter._host_noise_basis`); None without
+    correlated components."""
+    comps = [c for c in model.correlated_noise_components
+             if c.basis_pytree_name in p["const"]]
+    if not comps:
+        return None
+    return np.concatenate([_np(p["const"][c.basis_pytree_name]).astype(
+        np.float64) for c in comps], axis=1)
 
 
 #: fused-sentinel defaults (:mod:`pint_tpu.fitter`): DIVERGED after this
@@ -688,10 +1003,16 @@ class Fitter:
         self.parameter_covariance_matrix: Optional[np.ndarray] = None
         self.covariance_params: List[str] = []
         #: the last fit's final solve: dropped directions ``n_bad`` and
-        #: smallest kept normalized eigenvalue ``e_min``; after a fused
-        #: fit also ``seconds``, its wall split into the device loop, the
-        #: host solve and the write-back (host clock)
+        #: smallest kept normalized eigenvalue ``e_min``; ``seconds``, its
+        #: wall split (host clock): after a fused fit into the device
+        #: loop, the host solve and the write-back, after an eager fit
+        #: into the steps (and, for GLS, their assembly and solve) and the
+        #: write-back
         self.fit_info: Dict[str, object] = {}
+        #: after a GLS fit: per correlated noise component, the basis
+        #: amplitudes and their realization U @ a [s] (host numpy)
+        self.noise_ampls: Dict[str, np.ndarray] = {}
+        self.noise_resids: Dict[str, np.ndarray] = {}
 
     @property
     def fit_params(self) -> List[str]:
@@ -846,6 +1167,27 @@ class Fitter:
             status=st, rung_statuses=statuses)
 
     # -- write-back -------------------------------------------------------
+    def _store_noise(self, out: dict, p: dict):
+        """Per-component noise realizations from the solve's basis
+        amplitudes (reference `fitter.py:1952-1968`;
+        :meth:`pint_tpu.fitter.Fitter._store_noise`), each U @ a formed on
+        the basis's device.  A solve without amplitudes (WLS, the
+        full-covariance path, a failed solve) drops stale ones."""
+        self.noise_ampls = {}
+        self.noise_resids = {}
+        if "noise_ampls" not in out:
+            return
+        ampls = out["noise_ampls"]
+        k = 0
+        for c in self.model.correlated_noise_components:
+            U = p["const"][c.basis_pytree_name]
+            w = U.shape[1]
+            a = torch.as_tensor(ampls[k:k + w], device=U.device)
+            self.noise_ampls[type(c).__name__] = _np(a)
+            with torch.no_grad():
+                self.noise_resids[type(c).__name__] = _np(U @ a)
+            k += w
+
     def _seed_resids(self, r_sec: np.ndarray, offset: float):
         """Prime the post-fit residual cache from the fit's final assembly
         (unsubtracted residuals [s] + profiled offset) instead of running
@@ -923,6 +1265,9 @@ class WLSFitter(Fitter):
         def trip(name):
             guard_trips[name] = guard_trips.get(name, 0) + 1
 
+        t_start = time.perf_counter()
+        if hasattr(step, "seconds"):
+            step.seconds.clear()
         x = np.zeros(len(names))
         out = step(x, p)
         chi2 = float(out["chi2"])
@@ -979,15 +1324,24 @@ class WLSFitter(Fitter):
                 f"{chi2:.6g}", status=FitStatus.NONFINITE)
         # `out` IS the step output at x (the last accepted trial), so it
         # is the final solve too
+        seconds = {"steps": time.perf_counter() - t_start,
+                   **getattr(step, "seconds", {})}
         self.fit_info = {"n_bad": int(out["n_bad"]),
-                         "e_min": float(out["e_min"])}
+                         "e_min": float(out["e_min"]), "seconds": seconds}
+        t0 = time.perf_counter()
         Sigma = denormalize_covariance(out["Sigma_n"], out["norms"])
+        self._store_noise(out, p)
+        # seed the post-fit residuals from the final assembly; not under
+        # correlated noise, whose offset is profiled in the C^-1 metric
+        # rather than the weighted mean the residuals subtract
         r = self.resids
-        seed_ok = (r.subtract_mean and r.use_weighted_mean) or \
-            (not r.subtract_mean and float(out["offset"]) == 0.0)
+        seed_ok = not self.model.has_correlated_errors and (
+            (r.subtract_mean and r.use_weighted_mean) or
+            (not r.subtract_mean and float(out["offset"]) == 0.0))
         seed = (_np(out["resid_sec"]), float(out["offset"])) \
             if seed_ok else None
         self._finalize(p, x, Sigma, names, resid_seed=seed)
+        seconds["write_back"] = time.perf_counter() - t0
         if status is FitStatus.DIVERGED:
             warnings.warn(
                 "no acceptable step length found (chi2 rises even at "
@@ -999,3 +1353,38 @@ class WLSFitter(Fitter):
             status=status, rung="eager", guard_trips=guard_trips)
         self._record_provenance()
         return float(out["chi2"])
+
+
+class GLSFitter(WLSFitter):
+    """Generalized least squares over the augmented [timing | noise-basis]
+    design matrix (reference `GLSFitter`, `src/pint/fitter.py:1821`;
+    :class:`pint_tpu.fitter.GLSFitter`); chi2 is the Woodbury
+    r^T C^-1 r.  Also valid (and equal to WLS) with no correlated
+    components.  Every step assembles and solves on the fitter's device
+    (:func:`build_gls_step`), in the guarded eager loop.
+
+    ``fit_toas(full_cov=True)`` switches to the dense-covariance solve
+    (:func:`build_gls_fullcov_step`), the O(N^2) cross-check of the basis
+    path."""
+
+    #: selected by fit_toas(full_cov=...); invalidates the cached step
+    full_cov = False
+
+    def fit_toas(self, maxiter: int = 2, *, full_cov: bool = False,
+                 **kw) -> float:
+        if full_cov != self.full_cov:
+            self.full_cov = full_cov
+            self._step_cache_key = None
+        return super().fit_toas(maxiter=maxiter, **kw)
+
+    def _make_step(self, names, threshold, include_offset):
+        build = build_gls_fullcov_step if self.full_cov else build_gls_step
+        return build(self.model, self.resids.batch, names, self.track_mode,
+                     threshold=threshold, include_offset=include_offset,
+                     design_matrix=self.design_matrix)
+
+    def _fused_ok(self) -> bool:
+        # never fused, as in pint_tpu: the GLS fit is the eager step loop
+        # on every device (a fused GLS loop is not a feature of the
+        # reference)
+        return False

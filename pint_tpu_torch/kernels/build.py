@@ -10,11 +10,13 @@ launch builds, or :func:`build_all` builds every source at once, one
 ``nvcc`` process per source, all started together.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
-``--fmad=false``: ``qs_phase`` is a chain of error-free transforms, and
-a contracted ``a*b+c`` (FMA) silently breaks them, as a value-changing
-rewrite would in XLA (:func:`pint_tpu.dd._guard`); ``kepler`` keeps the
-flag so that each of its products and sums rounds on its own, as the
-plain version's separate PyTorch kernels do.  Never ``--use_fast_math``
+``--fmad=false``: ``qs_phase`` and ``delay_chain`` run chains of
+error-free transforms (``csrc/qs.cuh``), and a contracted ``a*b+c``
+(FMA) silently breaks them, as a value-changing rewrite would in XLA
+(:func:`pint_tpu.dd._guard`); every kernel keeps the flag so that each of
+its products and sums rounds on its own, as the plain version's separate
+PyTorch kernels do.  The shared headers ``csrc/*.cuh`` are found with
+``-I csrc`` and are part of every library's hash.  Never ``--use_fast_math``
 (it also flushes subnormals and reassociates).
 """
 
@@ -35,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 #: every kernel source of the package, by library name
-SOURCES = ("qs_phase", "kepler")
+SOURCES = ("qs_phase", "kepler", "delay_chain")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +59,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -69,7 +76,8 @@ def _start(name: str):
         return None, out, None
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out, tmp

@@ -38,6 +38,7 @@ from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     dispersion,
     frequency_dependent,
     jump,
+    noise_model,
     solar_system_shapiro,
     spindown,
 )

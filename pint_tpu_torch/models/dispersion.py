@@ -29,6 +29,8 @@ from pint_tpu_torch.toabatch import TOABatch
 from pint_tpu_torch.utils import taylor_horner
 
 SECS_PER_YEAR = 365.25 * 86400.0
+#: the delay kernel's DMX bin index (kernels/delay_chain.py DMX_INDEX)
+DMX_INDEX = "__dmxidx__"
 
 
 def dispersion_delay(dm, freq_mhz):
@@ -141,13 +143,28 @@ class DispersionDMX(DelayComponent):
                 raise ValueError(f"{n} needs DMXR1_{idx} and DMXR2_{idx}")
 
     def mask_entries(self, toas):
+        """Each range's TOA mask ``DMX_####__rangemask`` (the plain
+        version's), and the (N, 2) int32 bins of each TOA (-1 for none)
+        that the delay kernel reads, ``__dmxidx__``: ranges are inclusive,
+        so a TOA on the boundary two ranges share lies in both.  The index
+        is left out where three ranges overlap on a TOA, and the kernel
+        then refuses the model."""
         out = super().mask_entries(toas)
         m = toas.utc.mjd_float
-        for n in self.dmx_names():
+        index = np.full((len(m), 2), -1, np.int32)
+        fits = True
+        for i, n in enumerate(self.dmx_names()):
             idx = n.split("_")[1]
             r1 = self.params[f"DMXR1_{idx}"].mjd_float
             r2 = self.params[f"DMXR2_{idx}"].mjd_float
-            out[f"{n}__rangemask"] = ((m >= r1) & (m <= r2)).astype(np.float64)
+            sel = (m >= r1) & (m <= r2)
+            out[f"{n}__rangemask"] = sel.astype(np.float64)
+            fits = fits and not np.any(sel & (index[:, 1] >= 0))
+            second = sel & (index[:, 0] >= 0)
+            index[second, 1] = i
+            index[sel & ~second, 0] = i
+        if fits:
+            out[DMX_INDEX] = index
         return out
 
     def linear_params(self):

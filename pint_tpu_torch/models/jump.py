@@ -9,6 +9,7 @@ masks in the params dict, so the device side is one dense masked sum.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pint_tpu_torch import qs
@@ -20,6 +21,9 @@ from pint_tpu_torch.models.timing_model import (
     zeros_rows,
 )
 from pint_tpu_torch.toabatch import TOABatch
+
+#: the delay kernel's DelayJump bits (kernels/delay_chain.py JUMP_BITS)
+JUMP_BITS = "__delayjumpbits__"
 
 
 class PhaseJump(PhaseComponent):
@@ -97,6 +101,19 @@ class DelayJump(DelayComponent):
 
     def linear_params(self):
         return [jp.name for jp in self.jumps]
+
+    def mask_entries(self, toas):
+        """The jumps' TOA masks, and their membership bits per TOA (bit j
+        for the j-th jump with a value) that the delay kernel reads."""
+        out = super().mask_entries(toas)
+        js = [jp for jp in self.jumps if jp.value is not None]
+        if len(js) <= 31:
+            bits = np.zeros(toas.ntoas, np.int32)
+            for j, jp in enumerate(js):
+                bits |= out[jp.mask_pytree_name].astype(bool).astype(
+                    np.int32) << j
+            out[JUMP_BITS] = bits
+        return out
 
     def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
         total = zeros_rows(batch)

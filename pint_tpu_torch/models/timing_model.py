@@ -14,9 +14,12 @@ data-dependent Python control flow, so the composition runs under
 ``torch.func.vmap``/``jvp``/``jacfwd``: the design matrix is forward-mode
 autodiff of the residual function, as in :mod:`pint_tpu`.
 
-The spin phase, TZR subtraction and pulse rounding run as one CUDA kernel
-(:meth:`PhaseCalc.phase_frac`, :mod:`pint_tpu_torch.kernels.qs_phase`);
-:meth:`PhaseCalc.phase` keeps the plain quad-single form of the same sum.
+The delay chain runs as one CUDA kernel (:meth:`PhaseCalc.delay`,
+:mod:`pint_tpu_torch.kernels.delay_chain`; the components' own delays are
+its plain version), and so do the spin phase, TZR subtraction and pulse
+rounding (:meth:`PhaseCalc.phase_frac`,
+:mod:`pint_tpu_torch.kernels.qs_phase`); :meth:`PhaseCalc.phase` keeps
+the plain quad-single form of the same sum.
 """
 
 from __future__ import annotations
@@ -237,17 +240,37 @@ class PhaseCalc:
                  phase_components: Sequence[PhaseComponent]):
         self.delay_components = list(delay_components)
         self.phase_components = list(phase_components)
+        self._chain_layout = None
 
-    def delay(self, p: dict, batch: TOABatch,
-              upto: Optional[str] = None) -> torch.Tensor:
-        """Total delay [s], accumulated in DEFAULT_ORDER.  ``upto``: stop
-        before the named component category (exclusive)."""
+    def delay(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        """Total delay [s], accumulated in DEFAULT_ORDER: the
+        ``delay_chain`` kernel on a CUDA batch, :meth:`delay_plain` on a
+        CPU batch (:func:`pint_tpu_torch.kernels.delay_chain.delay_chain`).
+        Differentiable (forward mode) in everything that ``p["delta"]``
+        reaches."""
+        from pint_tpu_torch.kernels.delay_chain import delay_chain
+
+        return delay_chain(self, p, batch)
+
+    def delay_plain(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        """The plain PyTorch version of the delay kernel: each component's
+        delay, given the delay accumulated before it."""
         d = zeros_rows(batch)
         for comp in self.delay_components:
-            if upto is not None and comp.category == upto:
-                break
             d = d + comp.delay(p, batch, d)
         return d
+
+    @property
+    def chain_layout(self):
+        """The delay kernel's θ layout of these components (built once);
+        raises ``NotImplementedError`` for a component it does not
+        cover."""
+        if self._chain_layout is None:
+            from pint_tpu_torch.kernels.delay_chain import ChainLayout
+
+            self._chain_layout = ChainLayout.from_components(
+                self.delay_components)
+        return self._chain_layout
 
     def phase(self, p: dict, batch: TOABatch,
               subtract_tzr: bool = True, is_tzr: bool = False):
@@ -503,6 +526,8 @@ class TimingModel:
             const.update(c.derived_device_entries())
             if toas is not None:
                 mask.update(c.mask_entries(toas))
+                if getattr(c, "introduces_correlated_errors", False):
+                    const.update(c.basis_entries(toas))
             if tzr_toas is not None:
                 tzr_mask.update(c.mask_entries(tzr_toas))
         return {"const": const, "delta": delta, "mask": mask}, tzr_mask
@@ -522,7 +547,12 @@ class TimingModel:
                 raise ValueError(
                     f"TZR batch lives on {self.tzr_batch.device}, the "
                     f"params dict on {dev}: call attach_tzr(device=...)")
-            p_tzr = {"const": p["const"], "delta": p["delta"],
+            # the phase chain never reads the noise-basis blocks
+            basis = {c.basis_pytree_name
+                     for c in self.correlated_noise_components}
+            p_tzr = {"const": {k: v for k, v in p["const"].items()
+                               if k not in basis},
+                     "delta": p["delta"],
                      "mask": pdict_from_numpy({"mask": tzr_mask},
                                               dev)["mask"]}
             with torch.no_grad():
@@ -594,12 +624,58 @@ class TimingModel:
                    for c in self.noise_components)
 
     def scaled_toa_uncertainty(self, p: dict, batch: TOABatch):
-        """Per-TOA uncertainties [us] after white-noise rescaling (none of
-        the noise components is ported yet, so this is the batch's)."""
+        """Per-TOA uncertainties [us] after white-noise rescaling
+        (EFAC/EQUAD; reference ``scaled_toa_uncertainty``,
+        `src/pint/models/noise_model.py:79`)."""
         sigma = batch.error_us
         for c in self.noise_components:
             sigma = c.scaled_sigma_us(p, batch, sigma)
         return sigma
+
+    @property
+    def correlated_noise_components(self):
+        return [c for c in self.noise_components
+                if c.introduces_correlated_errors]
+
+    def noise_basis(self, p: dict):
+        """(ntoas, K) concatenated noise basis (reference
+        ``noise_model_designmatrix``,
+        `src/pint/models/timing_model.py:1844`) on the params dict's
+        device; None without correlated components.  The per-component
+        blocks ride in ``p["const"]`` (host-built by :meth:`build_pdict`)."""
+        mats = [p["const"][c.basis_pytree_name]
+                for c in self.correlated_noise_components
+                if c.basis_pytree_name in p["const"]]
+        return torch.cat(mats, dim=1) if mats else None
+
+    def noise_weights(self, p: dict):
+        """(K,) prior variances [s^2] matching :meth:`noise_basis`'s
+        columns (reference ``noise_model_basis_weight``, ibid:1922),
+        differentiable in the noise parameters."""
+        ws = [c.noise_weights(p) for c in self.correlated_noise_components
+              if c.basis_pytree_name in p["const"]]
+        return torch.cat(ws) if ws else None
+
+    def ecorr_block(self, p: dict):
+        """(lo, hi) column range of a verified-disjoint ECORR block within
+        :meth:`noise_basis`, or None.  Disjointness (every TOA in at most
+        one quantization epoch) makes the block's Gram matrix exactly
+        diagonal, so GLS solves eliminate it in closed form and chi2 uses
+        the per-epoch Sherman-Morrison (``utils.woodbury_dot_split``).
+        One device reduction and one scalar read per block."""
+        sl = None
+        off = 0
+        for c in self.correlated_noise_components:
+            nm = c.basis_pytree_name
+            if nm not in p["const"]:
+                continue
+            Ub = torch.as_tensor(p["const"][nm])
+            w = Ub.shape[1]
+            if (getattr(c, "diag_gram", False) and w and sl is None
+                    and int(torch.max(torch.sum(Ub != 0.0, dim=1))) <= 1):
+                sl = (off, off + w)
+            off += w
+        return sl
 
     # -- physics ----------------------------------------------------------
     @property

@@ -131,21 +131,56 @@ class Residuals:
         mean = np.sum(r * w) / np.sum(w)
         return float(np.sqrt(np.sum(w * (r - mean) ** 2) / np.sum(w)))
 
-    def calc_chi2(self) -> float:
-        """Weighted chi2 (white noise: the correlated-noise Woodbury form
-        is not ported yet), cached until the next :meth:`update`."""
+    def _noise_basis_filtered(self):
+        """(U, phi) on the residuals' device with zero-prior-variance
+        columns dropped: the single source for every correlated-noise
+        consumer here (:meth:`pint_tpu.residuals.Residuals.
+        _noise_basis_filtered`)."""
+        with torch.no_grad():
+            U = self.model.noise_basis(self.pdict)
+            phi = self.model.noise_weights(self.pdict)
+        keep = phi > 0  # zero prior variance = column not present
+        return U[:, keep], phi[keep]
+
+    def _gaussian_quadratic(self, r: np.ndarray):
+        """(r^T C^-1 r, logdet C) under the full noise model: the white
+        diagonal, or the Woodbury form over the noise basis when
+        correlated components are present (reference `calc_chi2`
+        dispatch, `src/pint/residuals.py:646-748`), on the residuals'
+        device."""
+        sigma_s = np.asarray(self.get_data_error(), np.float64) * 1e-6
         if self.model.has_correlated_errors:
-            raise NotImplementedError("correlated noise is not ported")
+            from pint_tpu_torch.utils import woodbury_dot
+
+            U, phi = self._noise_basis_filtered()
+            rt = torch.as_tensor(np.asarray(r, np.float64), device=U.device)
+            st = torch.as_tensor(sigma_s, device=U.device)
+            with torch.no_grad():
+                dot, logdet = woodbury_dot(st**2, U, phi, rt, rt)
+            return float(dot), float(logdet)
+        return (float(np.sum((r / sigma_s) ** 2)),
+                float(2.0 * np.sum(np.log(sigma_s))))
+
+    def calc_chi2(self) -> float:
+        """Weighted chi2 (the Woodbury form r^T C^-1 r with correlated
+        noise), cached until the next :meth:`update`."""
         if self._chi2_cache is None:
-            sigma_s = np.asarray(self.get_data_error(), np.float64) * 1e-6
-            self._chi2_cache = float(np.sum((self.time_resids / sigma_s) ** 2))
+            self._chi2_cache = self._gaussian_quadratic(self.time_resids)[0]
         return self._chi2_cache
 
     def get_data_error(self) -> np.ndarray:
-        """Scaled uncertainties [us]."""
+        """Scaled uncertainties [us] (EFAC/EQUAD applied)."""
         with torch.no_grad():
             return self.model.scaled_toa_uncertainty(
                 self.pdict, self.batch).cpu().numpy()
+
+    def lnlikelihood(self) -> float:
+        """Gaussian log-likelihood of the residuals under the full noise
+        model, -(chi2 + logdet C + N ln 2pi)/2 (reference `lnlikelihood`,
+        `src/pint/residuals.py:792`)."""
+        r = self.time_resids
+        dot, logdet = self._gaussian_quadratic(r)
+        return float(-0.5 * (dot + logdet + len(r) * np.log(2.0 * np.pi)))
 
     @property
     def dof(self) -> int:

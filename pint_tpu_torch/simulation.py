@@ -6,9 +6,12 @@ arrival times from a model by the reference's `zero_residuals` iteration
 (start from a uniform grid, evaluate model residuals with "nearest"
 tracking and no mean subtraction, shift the TOAs by -residual, repeat
 until |residual| < tol), so the arrival times sit on integer model
-phases; optional white measurement noise is then added.  The residuals
-run on ``device`` (default ``"cuda"``), the TOA bookkeeping on the host.
-The rest of pint_tpu's simulation module is not ported yet.
+phases; optional white measurement noise (EFAC/EQUAD-scaled when the
+model has white-noise components) is then added, and
+:func:`add_correlated_noise` adds one realization of the correlated noise.
+The residuals run on ``device`` (default ``"cuda"``), the TOA bookkeeping
+on the host.  The rest of pint_tpu's simulation module is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from pint_tpu_torch.residuals import build_resid_fn
 from pint_tpu_torch.toa import TOAs, get_TOAs_array
 from pint_tpu_torch.utils import resolve_device
 
-__all__ = ["zero_residuals", "make_fake_toas_uniform"]
+__all__ = ["zero_residuals", "make_fake_toas_uniform", "add_correlated_noise"]
 
 
 def zero_residuals(toas: TOAs, model: TimingModel, maxiter: int = 10,
@@ -93,4 +96,30 @@ def make_fake_toas_uniform(startMJD: float, endMJD: float, ntoas: int,
         toas.compute_posvels(ephem=ephem, planets=planets)
     for f in toas.flags:
         f.setdefault("simulated", "1")
+    return toas
+
+
+def add_correlated_noise(toas: TOAs, model: TimingModel,
+                         seed: Optional[int] = None, device=None) -> TOAs:
+    """Shift TOAs by one realization of the model's correlated noise
+    (ECORR epochs, red-noise Fourier modes): delay = U @ (sqrt(phi) z)
+    with z ~ N(0, I) from numpy's ``default_rng(seed)``, so a seed gives
+    the realization of :func:`pint_tpu.simulation.add_correlated_noise`
+    (reference `make_fake_toas(..., add_correlated_noise=True)`,
+    `src/pint/simulation.py:126-170`).  The product runs on ``device``
+    (default ``"cuda"``), where the residuals' basis lives."""
+    from pint_tpu_torch.residuals import Residuals
+
+    if not model.has_correlated_errors:
+        raise ValueError("model has no correlated noise components")
+    rng = np.random.default_rng(seed)
+    r = Residuals(toas, model, device=device)
+    with torch.no_grad():
+        U = model.noise_basis(r.pdict)
+        phi = model.noise_weights(r.pdict)
+        z = torch.as_tensor(rng.standard_normal(U.shape[1]), device=U.device)
+        delay_sec = (U @ (torch.sqrt(torch.clamp(phi, min=0.0)) * z)).cpu()
+    toas.utc = mjdmod.add_sec(toas.utc, delay_sec.numpy())
+    toas.compute_TDBs(ephem=toas.ephem)
+    toas.compute_posvels(ephem=toas.ephem, planets=toas.planets)
     return toas

@@ -1,7 +1,8 @@
 """Shared numeric helpers (host + device).
 
 Port of :mod:`pint_tpu.utils`.  The device half (Taylor-Horner series,
-design-matrix column normalization, the device choice) is PyTorch; the
+design-matrix column normalization, the Woodbury and Sherman-Morrison
+products of the GLS noise model, the device choice) is PyTorch; the
 host half (``PosVel``, ``split_prefixed_name``, ...) is a copy of the
 numpy-only helpers of :mod:`pint_tpu.utils`.
 """
@@ -58,6 +59,103 @@ def normalize_designmatrix(M, params=None):
     norms = xp.sqrt(xp.sum(M * M, axis=0))
     safe = xp.where(norms == 0.0, 1.0, norms)
     return M / safe, safe
+
+
+def sherman_morrison_dot(Ndiag, U, phi, x, y):
+    """x^T C^-1 y and logdet C for C = diag(Ndiag) + phi U U^T, U with
+    DISJOINT columns (the ECORR quantization basis), where the
+    Sherman-Morrison update per column is exact and independent
+    (:func:`pint_tpu.utils.sherman_morrison_dot`, reference
+    `utils.py:3047`).  Returns (dot, logdet)."""
+    Ninv_x = x / Ndiag
+    Ninv_y = y / Ndiag
+    dot = torch.sum(x * Ninv_y)
+    logdet = torch.sum(torch.log(Ndiag))
+    Utx = U.T @ Ninv_x
+    Uty = U.T @ Ninv_y
+    UtNU = torch.sum((U * U).T / Ndiag, dim=1)
+    denom = 1.0 + phi * UtNU
+    dot = dot - torch.sum(phi * Utx * Uty / denom)
+    logdet = logdet + torch.sum(torch.log(denom))
+    return dot, logdet
+
+
+def woodbury_dot(Ndiag, U, Phidiag, x, y):
+    """x^T C^-1 y and logdet C for C = diag(Ndiag) + U diag(Phidiag) U^T
+    (:func:`pint_tpu.utils.woodbury_dot`, reference `utils.py:3097`).
+    Returns (dot, logdet)."""
+    Ninv_x = x / Ndiag
+    Ninv_y = y / Ndiag
+    UtNx = U.T @ Ninv_x
+    UtNy = U.T @ Ninv_y
+    Sigma = (U.T / Ndiag) @ U + torch.diag(1.0 / Phidiag)
+    cf = _cho_factor(Sigma)
+    expval = _cho_solve(cf, UtNy)
+    dot = torch.sum(x * Ninv_y) - UtNx @ expval
+    logdet = (torch.sum(torch.log(Ndiag)) + torch.sum(torch.log(Phidiag))
+              + 2.0 * torch.sum(torch.log(_diag_of(cf))))
+    return dot, logdet
+
+
+def ecorr_ninv_apply(Ndiag, Ue, phie, X):
+    """``(diag(N) + Ue diag(phie) Ue^T)^-1 X`` for DISJOINT 0/1 indicator
+    columns ``Ue`` (the ECORR quantization basis): the Sherman-Morrison
+    update per column is exact and independent, so the inverse applies
+    as two matrix products, with no factorization
+    (:func:`pint_tpu.utils.ecorr_ninv_apply`).  ``X`` is a vector or an
+    (N, m) matrix."""
+    vec = X.ndim == 1
+    Xm = X[:, None] if vec else X
+    Ninv_X = Xm / Ndiag[:, None]
+    s = torch.sum((Ue * Ue).T / Ndiag, dim=1)          # (k,)
+    coef = phie / (1.0 + phie * s)                     # (k,)
+    NinvUe = Ue / Ndiag[:, None]
+    out = Ninv_X - NinvUe @ (coef[:, None] * (Ue.T @ Ninv_X))
+    return out[:, 0] if vec else out
+
+
+def woodbury_dot_split(Ndiag, Ue, phie, Uf, phif, x, y):
+    """``x^T C^-1 y`` and ``logdet C`` for
+    ``C = diag(N) + Ue diag(phie) Ue^T + Uf diag(phif) Uf^T``, ``Ue`` the
+    disjoint ECORR block (eliminated in closed form by
+    :func:`ecorr_ninv_apply`) and ``Uf`` the dense bases (Fourier red/DM),
+    so the only factorization is a Cholesky of the small (nfourier,
+    nfourier) inner matrix (:func:`pint_tpu.utils.woodbury_dot_split`).
+    Equal to :func:`woodbury_dot` with ``U = [Ue | Uf]``."""
+    Cinv_y = ecorr_ninv_apply(Ndiag, Ue, phie, y)
+    s = torch.sum((Ue * Ue).T / Ndiag, dim=1)
+    logdet = torch.sum(torch.log(Ndiag)) + torch.sum(torch.log1p(phie * s))
+    dot = torch.sum(x * Cinv_y)
+    if Uf.shape[1] == 0:
+        return dot, logdet
+    Cinv_x = ecorr_ninv_apply(Ndiag, Ue, phie, x)
+    CinvUf = ecorr_ninv_apply(Ndiag, Ue, phie, Uf)
+    Sigma = Uf.T @ CinvUf + torch.diag(1.0 / phif)
+    cf = _cho_factor(Sigma)
+    a = Uf.T @ Cinv_x
+    b = Uf.T @ Cinv_y
+    dot = dot - a @ _cho_solve(cf, b)
+    logdet = logdet + torch.sum(torch.log(phif)) \
+        + 2.0 * torch.sum(torch.log(_diag_of(cf)))
+    return dot, logdet
+
+
+def _cho_factor(A):
+    """The lower Cholesky factor of a symmetric positive-definite A."""
+    return torch.linalg.cholesky(A)
+
+
+def _cho_solve(L, b):
+    """A^-1 b from A's lower Cholesky factor L (two triangular solves)."""
+    vec = b.ndim == 1
+    B = b[:, None] if vec else b
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    out = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return out[:, 0] if vec else out
+
+
+def _diag_of(L):
+    return torch.diagonal(L)
 
 
 class PosVel(NamedTuple):

@@ -1,4 +1,4 @@
-"""pint_tpu_torch's CUDA kernel on the card (skipped without one).
+"""pint_tpu_torch's CUDA kernels on the card (skipped without one).
 
 These tests import neither jax nor pint_tpu, so they run on a machine
 that has only PyTorch for CUDA; the root conftest imports jax, so run
@@ -15,7 +15,13 @@ them with it switched off, from the repository root::
 * ``kepler_E``: E within 1e-13 rad of the plain version, one launch per
   call, ``vmap(jacfwd)`` one launch per primal, no fallback;
 * ``fit_toas`` on the card (the fused loop) on the committed 200-TOA DD
-  set within the fit-parity bars of pint_tpu's stored eager fit.
+  set within the fit-parity bars of pint_tpu's stored eager fit;
+* ``delay_chain``: the delay within 1e-12 s and its jacfwd columns within
+  1e-10 relative of the plain component delays on the ELL1 and DD sets,
+  one primal and one tangent launch per jacfwd, the DD orbit's E
+  bit-equal to ``kepler_E``'s; refused inputs and components raise;
+* ``GLSFitter.fit_toas`` on the card on the committed GLS set within the
+  fit-parity bars of pint_tpu's stored GLS fit.
 """
 
 import json
@@ -194,7 +200,7 @@ def test_kepler_vmap_jacfwd_on_card():
 def test_dd_fit_on_card_matches_reference():
     dev = _card()
     from pint_tpu_torch.fitter import WLSFitter
-    from pint_tpu_torch.kernels.kepler import KeplerE
+    from pint_tpu_torch.kernels.delay_chain import DelayChain
 
     with open(data.DD_REF_JSON) as f:
         ref = json.load(f)
@@ -202,11 +208,12 @@ def test_dd_fit_on_card_matches_reference():
     data.perturb_dd(model)
     fitter = WLSFitter(toas, model)
     assert fitter.device.type == dev.type and fitter._fused_ok()
-    before = KeplerE.launches
+    before = DelayChain.launches
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
-    assert KeplerE.launches > before
+    # the DD orbit's Kepler solve runs inside the delay_chain kernel
+    assert DelayChain.launches > before
     assert fitter.fitresult.rung == "fused"
     dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
                                    - np.asarray(v))))
@@ -215,5 +222,99 @@ def test_dd_fit_on_card_matches_reference():
               for n, u in ref["uncertainties"].items())
     gap = abs(chi2 - ref["chi2"]) / ref["chi2"]
     print(f"card DD fit vs pint_tpu: {dev_sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["ELL1", "DD"])
+def test_delay_chain_matches_plain(case):
+    """The delay_chain kernel against the plain component delays on the
+    card: delay within 1e-12 s, every jacfwd column within 1e-10
+    relative, one primal and one tangent launch per jacfwd, the DD
+    orbit's E bit-equal to the kepler_E kernel's on the same M and e."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels.kepler import kepler_E_op
+    from pint_tpu_torch.residuals import Residuals
+
+    from pint_tpu_torch.examples import j0740_realistic_par
+
+    par, tim = (j0740_realistic_par(
+        dmx_bins=data.DMX_BINS, span_days=data.SPAN_DAYS,
+        center_mjd=data.CENTER_MJD).splitlines(), data.REF_TIM) \
+        if case == "ELL1" else (data.dd_par_lines(), data.DD_REF_TIM)
+    model, toas = data.load_torch(tim, par=par)
+    r = Residuals(toas, model, device=dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = model.free_params
+    x0 = model.x0(p, names).to(dev)
+    with torch.no_grad():
+        before = dc.DelayChain.launches
+        k = calc.delay(p, b)
+        torch.cuda.synchronize()
+        assert dc.DelayChain.launches == before + 1
+        err = float(torch.max(torch.abs(k - calc.delay_plain(p, b))))
+    before = dc.DelayChain.launches
+    Jk = torch.func.jacfwd(lambda x: calc.delay(
+        model.with_x(p, x, names), b))(x0)
+    assert dc.DelayChain.launches == before + 2
+    Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
+        model.with_x(p, x, names), b))(x0)
+    scale = torch.amax(torch.abs(Jp), 0)
+    rel = float(torch.max(torch.amax(torch.abs(Jk - Jp), 0)
+                          / torch.where(scale > 0, scale, 1.0)))
+    print(f"{case}: delay {err:.3e} s, columns {rel:.3e} relative")
+    assert err <= 1e-12 and rel <= 1e-10
+    if case == "DD":
+        _, aux = dc.delay_chain_aux(calc, p, b)
+        assert torch.equal(kepler_E_op(aux[0], aux[1]), aux[2])
+
+
+def test_delay_chain_refuses_what_it_does_not_cover():
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.residuals import Residuals
+
+    model, toas = data.load_torch(data.DD_REF_TIM, par=data.dd_par_lines())
+    r = Residuals(toas, model, device=dev)
+    lay = model.calc.chain_layout
+    rows = dc.row_inputs(lay, r.pdict, r.batch)
+    theta = lay.theta(r.pdict)
+    with pytest.raises(ValueError):      # float32 theta: refused, not run
+        dc.DelayChain.apply(theta.float(), lay, *rows)
+    with pytest.raises(ValueError):      # theta on another device
+        dc.DelayChain.apply(theta.cpu(), lay, *rows)
+    model.PLANET_SHAPIRO.value = True
+    with pytest.raises(NotImplementedError, match="PLANET_SHAPIRO"):
+        model.calc.delay(r.pdict, r.batch)
+
+
+def test_gls_fit_on_card_matches_reference():
+    """GLSFitter on the card on the committed GLS set: pint_tpu's stored
+    fit within 1e-3 sigma, 1e-3 relative in the uncertainties and 1e-6
+    in chi2; every delay through the kernel."""
+    dev = _card()
+    from pint_tpu_torch.fitter import GLSFitter
+    from pint_tpu_torch.kernels.delay_chain import DelayChain
+
+    with open(data.GLS_REF_JSON) as f:
+        ref = json.load(f)
+    model, toas = data.load_torch(data.GLS_REF_TIM,
+                                  par=data.dd_gls_par_lines())
+    data.perturb_dd(model)
+    fitter = GLSFitter(toas, model)
+    assert fitter.device.type == dev.type
+    before = DelayChain.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
+    assert DelayChain.launches > before
+    dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
+                                   - np.asarray(v))))
+                  / ref["uncertainties"][n] for n, v in ref["values"].items())
+    unc = max(abs(model[n].device_uncertainty / u - 1.0)
+              for n, u in ref["uncertainties"].items())
+    gap = abs(chi2 - ref["chi2"]) / ref["chi2"]
+    print(f"card GLS fit vs pint_tpu: {dev_sig:.3e} sigma, unc {unc:.3e}, "
           f"chi2 {gap:.3e}")
     assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6

@@ -4,8 +4,9 @@
   ``pint_tpu`` (an AST scan of every import statement).
 * A fresh interpreter loads par/tim, forms residuals and runs the chi2
   grid with the port on the CPU, and ends with no ``jax`` and no
-  ``pint_tpu`` module loaded; another simulates, writes and fits the DD
-  set (``fit_toas``) the same way.
+  ``pint_tpu`` module loaded; others simulate, write and fit the DD set
+  (``WLSFitter.fit_toas``) and the GLS set with its noise model
+  (``GLSFitter.fit_toas``) the same way.
 * Without a CUDA device, every entry point called without ``device``
   raises instead of running on the CPU.
 * ``chip_smoke.py`` fails without a card, and in a directory that holds
@@ -112,6 +113,33 @@ print("LEAKED", leaked)
 """
 
 
+_CHILD_GLS = r"""
+import os, sys, warnings
+import numpy as np
+sys.path.insert(0, {repo!r})
+from pint_tpu_torch.examples import (dd_noise_realistic_par,
+                                     simulate_dd_noise_realistic)
+from pint_tpu_torch.fitter import GLSFitter
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.toa import get_TOAs, write_tim
+_, toas = simulate_dd_noise_realistic(ntoas=48, dmx_bins=4, device="cpu")
+tim = os.path.join({tmp!r}, "gls.tim")
+write_tim(tim, toas)
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(dd_noise_realistic_par(dmx_bins=4).splitlines())
+    toas = get_TOAs(tim, model=model)
+    model.PB.value += 1e-7
+    fitter = GLSFitter(toas, model, device="cpu")
+    chi2 = fitter.fit_toas(maxiter=2)
+assert np.isfinite(chi2) and set(fitter.noise_resids) == {{
+    "EcorrNoise", "PLRedNoise"}}
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
+print("LEAKED", leaked)
+"""
+
+
 def _run_child(code):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
@@ -129,25 +157,38 @@ def test_dd_fit_runs_without_jax_loaded(tmp_path):
     _run_child(_CHILD_DD.format(repo=REPO, tmp=str(tmp_path)))
 
 
+def test_gls_fit_runs_without_jax_loaded(tmp_path):
+    _run_child(_CHILD_GLS.format(repo=REPO, tmp=str(tmp_path)))
+
+
 def test_entry_points_need_a_device_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from pint_tpu_torch.convert import pdict_from_numpy
-    from pint_tpu_torch.examples import j0740_realistic_par
-    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.examples import (j0740_realistic_par,
+                                         simulate_dd_noise_realistic)
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.simulation import add_correlated_noise
     from pint_tpu_torch.toa import get_TOAs
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         model = get_model(j0740_realistic_par(dmx_bins=8).splitlines())
         toas = get_TOAs(data.REF_TIM, model=model)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gmodel = get_model(data.dd_gls_par_lines())
+        gtoas = get_TOAs(data.GLS_REF_TIM, model=gmodel)
     calls = [lambda: toas.to_batch(),
              lambda: model.build_pdict(toas),
              lambda: model.attach_tzr(toas),
              lambda: Residuals(toas, model),
              lambda: WLSFitter(toas, model),
+             lambda: GLSFitter(gtoas, gmodel),
+             lambda: add_correlated_noise(gtoas, gmodel, seed=0),
+             lambda: simulate_dd_noise_realistic(ntoas=8, dmx_bins=2),
              lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}})]
     for call in calls:
         with pytest.raises(RuntimeError, match="device"):

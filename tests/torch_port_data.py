@@ -1,10 +1,13 @@
 """Shared inputs of the ``test_torch_*`` parity tests: small simulated
 data sets, written once as tim files that both :mod:`pint_tpu` and
 :mod:`pint_tpu_torch` load, and the pint_tpu objects built from them (one
-JAX build per test module).  Two sets: the J0740-class ELL1 set below,
-and a DD set (``dd_realistic_par(dmx_bins=8)``, the same receivers and
+JAX build per test module).  Three sets: the J0740-class ELL1 set below;
+a DD set (``dd_realistic_par(dmx_bins=8)``, the same receivers and
 sub-bands) with pint_tpu's eager ``fit_toas(maxiter=3)`` from a
-perturbed start stored beside it.
+perturbed start stored beside it; and a GLS set
+(``dd_noise_realistic_par(dmx_bins=8)``: EFAC/EQUAD/ECORR per receiver
+and power-law red noise, 50 epochs of four TOAs) with pint_tpu's
+``GLSFitter.fit_toas(maxiter=3)`` from the same start beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -159,6 +162,90 @@ def jax_dd_fit(timfile: str) -> dict:
             "iterations": fr.iterations, "rung": fr.rung}
 
 
+#: the committed GLS set (``dd_noise_realistic_par(dmx_bins=8)``, 50
+#: epochs of four sub-band TOAs) and pint_tpu's eager GLS fit on it
+GLS_REF_TIM = os.path.join(DATA_DIR, "dd_gls_sim_200.tim")
+GLS_REF_JSON = os.path.join(DATA_DIR, "dd_gls_sim_200_gls_fit.json")
+
+
+def dd_gls_par_lines():
+    from pint_tpu_torch.examples import dd_noise_realistic_par
+
+    return dd_noise_realistic_par(dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                                  center_mjd=CENTER_MJD).splitlines()
+
+
+def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the GLS set with pint_tpu, as
+    ``pint_tpu_torch.examples.simulate_dd_noise_realistic`` does with the
+    port (the epochs of ``epoch_toas``; EFAC/EQUAD-scaled white noise from
+    ``default_rng(seed + 1)``; one realization of ECORR and red noise with
+    ``seed``), and write it to ``path``."""
+    from pint_tpu import mjd as mjdmod
+    from pint_tpu.models import get_model
+    from pint_tpu.residuals import Residuals
+    from pint_tpu.simulation import add_correlated_noise, zero_residuals
+    from pint_tpu.toa import get_TOAs_array, write_tim
+    from pint_tpu_torch.examples import RECEIVERS, epoch_toas
+
+    mjds, band, freqs = epoch_toas(ntoas, SPAN_DAYS, CENTER_MJD)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_gls_par_lines())
+        toas = get_TOAs_array(mjds, obs="gbt", errors_us=1.0,
+                              freqs_mhz=freqs, ephem="DE421", planets=False)
+        for b_mhz, fl in zip(band, toas.flags):
+            fl["fe"] = RECEIVERS[float(b_mhz)]
+        toas = zero_residuals(toas, model)
+        sigma_us = np.asarray(Residuals(toas, model).get_data_error())
+        rng = np.random.default_rng(seed + 1)
+        toas.utc = mjdmod.add_sec(
+            toas.utc, rng.standard_normal(ntoas) * sigma_us * 1e-6)
+        toas.compute_TDBs(ephem="DE421")
+        toas.compute_posvels(ephem="DE421", planets=False)
+        toas = add_correlated_noise(toas, model, seed=seed)
+    for f in toas.flags:
+        f.setdefault("simulated", "1")
+    write_tim(path, toas)
+    return path
+
+
+def jax_gls_fit(timfile: str) -> dict:
+    """pint_tpu's eager GLS fit (JAX on the CPU) of the GLS set from the
+    perturbed DD start: the record that GLS_REF_JSON holds, with the
+    per-component noise realizations."""
+    from pint_tpu.fitter import GLSFitter
+
+    model, toas = load_jax(timfile, par=dd_gls_par_lines())
+    perturb_dd(model)
+    fitter = GLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params)
+    chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
+    fr = fitter.fitresult
+    return {"what": "pint_tpu GLSFitter.fit_toas(maxiter=3), eager, JAX on "
+                    "the CPU, on dd_gls_sim_200.tim (dd_noise_realistic_par("
+                    "dmx_bins=8)) from the perturbed DD start",
+            "ntoas": toas.ntoas, "maxiter": DD_MAXITER,
+            "perturb": DD_PERTURB, "fit_params": fitter.fit_params,
+            "start": start, **fit_record(model, fitter.fit_params),
+            "chi2": float(chi2), "status": fr.status.name,
+            "iterations": fr.iterations, "rung": fr.rung,
+            "noise_resids": {k: np.asarray(v).tolist()
+                             for k, v in fitter.noise_resids.items()}}
+
+
+def write_gls_reference() -> dict:
+    """Write GLS_REF_TIM and pint_tpu's GLS fit on it to GLS_REF_JSON;
+    returns the JSON record."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_dd_gls_sim_tim(GLS_REF_TIM)
+    rec = jax_gls_fit(GLS_REF_TIM)
+    with open(GLS_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -250,3 +337,4 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(DATA_DIR)))
     print(json.dumps(write_reference()["chi2"]))
     print(json.dumps(write_dd_reference()["chi2"]))
+    print(json.dumps(write_gls_reference()["chi2"]))
