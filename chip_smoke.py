@@ -65,8 +65,14 @@ Phases, each printing one JSON line with its numbers and seconds:
    delay_chain: the kernel against the plain component delays on the card
    on the three paths' full-width models: delay within 1e-12 s, every
    jacfwd column within 1e-10 relative, the DD orbit's E bit-equal to the
-   kepler_E kernel's; kernel and plain times, the least possible time on
-   this card, launches per grid call, DD fit and GLS fit;
+   kepler_E kernel's, the multi-lane tangent launch bit-equal to the
+   single-lane one at lanes 1, 3, 10, 76 and P; the primal and the
+   tangent launch timed at the GLS path's 1 x 10 and 1 x 76 lanes and
+   the grid's 9 x 10 and 9 x 76, every lanes-per-thread in turns (1, 2,
+   4, 4, 2, 1), each with its least possible time on this card;
+   the grid's 9 x 76 tangents through vmap(jvp) against the plain
+   version's; ptxas's registers and spills of every kernel; launches per
+   grid call, DD fit and GLS fit;
    gls_card_vs_host: the final GLS solve at the fitted point on the card
    against the same solve on the CPU (step in sigma, uncertainties,
    chi2), each timed;
@@ -133,6 +139,15 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 #: float64 matrix products on the tensor cores (H100 SXM data sheet)
 PEAK_F64_MATMUL_PER_S = 67e12
 
+#: lane counts at which the multi-lane tangent launch is held bit-equal
+#: to the single-lane one (and at the model's P), and the grid's θ sets
+LANE_COUNTS = (1, 3, 10, 76)
+GRID_POINTS = 9
+
+#: the kernels that every path launches (kepler_E's solve runs inside
+#: delay_chain on the paths)
+ON_PATHS = ("qs_phase_frac", "delay_chain_primal", "delay_chain_tangent")
+
 #: bars of this run
 FRAC_TOL_CYCLES = 1e-12
 TANGENT_TOL = 1e-12
@@ -169,9 +184,14 @@ def emit(obj) -> None:
 
 @contextlib.contextmanager
 def phase(name: str, out: dict):
-    t0 = time.perf_counter()
+    """Runs the block and prints ``out`` as the phase's line, with its
+    seconds and the profiler traces retried, or irregular, inside it."""
+    t0, retries = time.perf_counter(), PROFILER_RETRIES[0]
+    irregular = len(PROFILER_IRREGULAR)
     yield out
     out["seconds"] = time.perf_counter() - t0
+    out["profiler_retries"] = PROFILER_RETRIES[0] - retries
+    out["profiler_irregular_traces"] = PROFILER_IRREGULAR[irregular:]
     emit({"phase": name, **out})
 
 
@@ -230,12 +250,40 @@ def cuda_kernels(torch, fn, reps: int = 1, setup=None):
             if ev.device_type == torch.autograd.DeviceType.CUDA], wall
 
 
+#: profiler traces taken for one timing before it gives up
+PROFILER_TRIES = 3
+#: traces taken again for want of the kernel's events, in this run
+PROFILER_RETRIES = [0]
+#: traces whose count of the kernel's events was not one per call, in
+#: this run: [events, calls, distinct kernel names]
+PROFILER_IRREGULAR = []
+
+
 def device_kernel_ms(torch, fn, name: str, reps: int = 20):
-    """Mean device time [ms] per call of ``fn()`` of the CUDA kernels whose
-    name contains ``name``; None if the trace holds none."""
-    events, _ = cuda_kernels(torch, fn, reps)
-    total_us = sum(ev.device_time_total for ev in events if name in ev.name)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    """Median device time [ms] of the one CUDA kernel whose name contains
+    ``name`` that each call of ``fn()`` launches, over a trace of
+    ``reps`` calls.  A trace now and then comes back with some of the
+    kernel's events missing, or with events of the trace before it: the
+    median of the kernel named most often is kept if it has at least half
+    of the events, else the trace is taken again, up to PROFILER_TRIES
+    traces (None if none had enough).  Each trace taken again counts in
+    PROFILER_RETRIES, each with another count than ``reps`` is listed in
+    PROFILER_IRREGULAR."""
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            PROFILER_RETRIES[0] += 1
+        events, _ = cuda_kernels(torch, fn, reps)
+        by_name = {}
+        for ev in events:
+            if name in ev.name:
+                by_name.setdefault(ev.name, []).append(ev.device_time_total)
+        n = sum(len(t) for t in by_name.values())
+        if n != reps:
+            PROFILER_IRREGULAR.append([n, reps, len(by_name)])
+        times = max(by_name.values(), key=len, default=[])
+        if 2 * len(times) >= reps:
+            return median(times) / 1e3
+    return None
 
 
 #: kernel families of the grid's device time, by kernel-name substring
@@ -287,12 +335,26 @@ def profile_grid(torch, fn, out_dir: str, top: int = 8,
                             for k, (n, t) in ranked[:top]]}
 
 
+_UNCOUNTED = [False]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The operations dispatched inside the block are left out of
+    :func:`count_ops`."""
+    _UNCOUNTED[0] = True
+    try:
+        yield
+    finally:
+        _UNCOUNTED[0] = False
+
+
 def count_ops(torch, fn, extra=()):
     """Elementwise arithmetic operations of ``fn()`` by result dtype: one
     per output element of every add/sub/mul/div/neg/round/conversion the
     plain version dispatches, and of the ops named in ``extra`` (each
     sin or cos counted as ONE operation, so the bound stays a lower
-    bound)."""
+    bound); none inside :func:`uncounted`."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arith = {"add", "sub", "mul", "div", "neg", "round", "rsub",
@@ -303,7 +365,7 @@ def count_ops(torch, fn, extra=()):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if func.overloadpacket.__name__ in arith \
-                    and isinstance(out, torch.Tensor):
+                    and isinstance(out, torch.Tensor) and not _UNCOUNTED[0]:
                 dt = str(out.dtype).replace("torch.", "")
                 counts[dt] = counts.get(dt, 0) + out.numel()
             return out
@@ -311,6 +373,12 @@ def count_ops(torch, fn, extra=()):
     with Count():
         fn()
     return counts
+
+
+def ops_seconds(ops: dict) -> float:
+    """Seconds of ``ops`` (by dtype) at this card's peak rate for each."""
+    return sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
+               for dt, n in ops.items())
 
 
 def load(torch, dev: str, tim: str, dmx_bins: int):
@@ -446,8 +514,7 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
               + 4 * 4 + 4 * K * 4 + 8                           # consts
               + 3 * 8 * G * N)                                  # out
     t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
-                for dt, n in ops.items())
+    t_ops = ops_seconds(ops)
     rec.update(ms=dev_ms if dev_ms is not None else call_ms,
                plain_ms=plain_ms, ops=ops, bytes=nbytes,
                bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops,
@@ -578,8 +645,7 @@ def check_kepler(torch, fitter, rec: dict) -> None:
                     extra=("sin", "cos", "clamp"))
     nbytes = 8 * (M_main.numel() + e_main.numel() + M_main.numel())
     t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
-                for dt, n in ops.items())
+    t_ops = ops_seconds(ops)
     rec.update(wrapper_call_ms=call_ms, device_kernel_ms=dev_ms,
                ms=dev_ms if dev_ms is not None else call_ms,
                plain_ms=plain_ms, ops=ops, bytes=nbytes,
@@ -616,6 +682,30 @@ def plain_delays():
         PhaseCalc.delay_plain = real
 
 
+def zero_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from pint_tpu_torch.kernels.delay_chain import (DelayChain,
+                                                    DelayChainTangent)
+    from pint_tpu_torch.kernels.kepler import KeplerE
+    from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
+
+    for k in (QSPhaseFrac, KeplerE, DelayChain, DelayChainTangent):
+        k.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count, by the name of its kernel line."""
+    from pint_tpu_torch.kernels.delay_chain import (DelayChain,
+                                                    DelayChainTangent)
+    from pint_tpu_torch.kernels.kepler import KeplerE
+    from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
+
+    return {"qs_phase_frac": QSPhaseFrac.launches,
+            "kepler_E": KeplerE.launches,
+            "delay_chain_primal": DelayChain.launches,
+            "delay_chain_tangent": DelayChainTangent.launches}
+
+
 def check_delay_chain(torch, label: str, model, fitter, rec: dict):
     """delay_chain against the plain component delays on one path's
     full-width model and TOAs: the delay, every jacfwd column, and for a
@@ -648,70 +738,323 @@ def check_delay_chain(torch, label: str, model, fitter, rec: dict):
         _, aux = chain_aux(calc, p, b)
         out["E_bit_equal_to_kepler_E"] = bool(torch.equal(
             kepler_E_op(aux[0].contiguous(), aux[1].contiguous()), aux[2]))
+    # every lanes-per-thread against the single-lane kernel on random
+    # tangents of two θ sets, a ragged last lane block included
+    lay, rows, _, thetas, _ = chain_inputs(torch, model, fitter, 2)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    equal = {}
+    for K in LANE_COUNTS + (lay.P,):
+        dth = torch.randn(2, K, lay.P, generator=gen,
+                          dtype=torch.float64).to(b.device)
+        one = dc.run(lay, thetas, dth, rows, lanes=1)
+        equal[str(K)] = all(
+            torch.equal(dc.run(lay, thetas, dth, rows, lanes=L), one)
+            for L in dc.KERNEL_LANES[1:])
+    out["lanes_bit_equal_to_single_lane"] = equal
     rec[label] = out
     if not (err <= DELAY_TOL_S and out["max_rel_column_err"] <= COLUMN_TOL
-            and out.get("E_bit_equal_to_kepler_E", True)):
+            and out.get("E_bit_equal_to_kepler_E", True)
+            and all(equal.values())):
         raise AssertionError(f"delay_chain vs plain on {label}: {out}")
     return err
 
 
-def time_delay_chain(torch, model, fitter, lanes, rec: dict) -> None:
-    """The delay_chain kernel's device time at one path's shapes: the
-    primal launch and the tangent launch at each lane count of the path's
-    jacfwds; the plain version's time; the least possible time of the
-    primal on this card (bytes and operations of the plain version, the
-    Kepler solve's counted through its plain version)."""
+def chain_inputs(torch, model, fitter, points: int = 1):
+    """The delay_chain kernel's inputs on one path at full width: its
+    layout and rows, ``points`` fit points (the fitter's, then points a
+    hair away, as a grid's), their θ sets (points, P), and the θ tangents
+    of the fit parameters, (P, n_fit): one jacfwd lane each."""
     from pint_tpu_torch.kernels import delay_chain as dc
+
+    r = fitter.resids
+    p, b, lay = r.pdict, r.batch, model.calc.chain_layout
+    names = fitter.fit_params
+    rows = [t.contiguous() for t in dc.row_inputs(lay, p, b)]
+    x0 = model.x0(p, names).to(b.device)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    X = x0 + 1e-9 * torch.randn(points, len(names), generator=gen,
+                                dtype=torch.float64).to(b.device)
+    X[0] = x0
+    with torch.no_grad():
+        thetas = torch.stack([lay.theta(model.with_x(p, x, names))
+                              for x in X])
+    T = torch.func.jacfwd(lambda x: lay.theta(model.with_x(p, x, names)))(x0)
+    return lay, rows, X, thetas, T
+
+
+#: what count_ops counts besides the four arithmetic operations
+CHAIN_EXTRA_OPS = ("sin", "cos", "log", "sqrt", "atan2", "floor", "clamp",
+                   "pow", "exp", "isfinite")
+
+
+def tangent_counts(torch, model, fitter, params, lanes: int) -> dict:
+    """count_ops of the plain delay's ``jvp`` on one path's rows under
+    ``vmap`` over ``lanes`` tangents (0: the delay alone), in which only
+    ``params`` carry a tangent (the others' are never formed, as if
+    exactly-zero tangents were skipped).  The binary's t - epoch tangent
+    is counted as the kernel forms it, d dt = d shift = -d delay - 86400
+    d epoch, and not through the quad-single words that the plain ``jvp``
+    carries it in."""
+    from pint_tpu_torch.models import binary_dd, binary_ell1, spindown
+    from pint_tpu_torch.models.timing_model import mjd_parts
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    x0 = model.x0(p, params).to(b.device)
+    real_dt = spindown.dt_seconds_qs
+
+    def analytic_dt(p_, batch, delay, epoch_name):
+        # counts the shift, whose tangent is the kernel's d dt, and not the
+        # quad-single words (the value and tangent returned are the plain's)
+        _, _, ddays = mjd_parts(p_, epoch_name)
+        shift = -delay - ddays * spindown.SECS_PER_DAY  # noqa: F841
+        with uncounted():
+            return real_dt(p_, batch, delay, epoch_name)
+
+    def f(x):
+        return calc.delay_plain(model.with_x(p, x, params), b)
+
+    V = torch.ones(lanes, len(params), dtype=torch.float64, device=b.device)
+    fn = (lambda: f(x0)) if lanes == 0 else (lambda: torch.func.vmap(
+        lambda v: torch.func.jvp(f, (x0,), (v,))[1])(V))
+    binary_dd.dt_seconds_qs = binary_ell1.dt_seconds_qs = analytic_dt
+    try:
+        with torch.no_grad():
+            return count_ops(torch, fn, CHAIN_EXTRA_OPS)
+    finally:
+        binary_dd.dt_seconds_qs = binary_ell1.dt_seconds_qs = real_dt
+
+
+def lane_ops(torch, model, fitter, params) -> dict:
+    """What one more tangent lane adds to the plain ``jvp`` in which only
+    ``params`` carry tangents: c(2) - c(1) of :func:`tangent_counts`."""
+    c1, c2 = (tangent_counts(torch, model, fitter, params, k) for k in (1, 2))
+    return {dt: n - c1.get(dt, 0) for dt, n in c2.items()
+            if n - c1.get(dt, 0) > 0}
+
+
+def chain_ops(torch, model, fitter):
+    """The arithmetic the delay chain needs on one path's rows, by result
+    dtype, counted from the plain version.  ``primal``: once per θ set
+    and row, its Kepler solve counted through the plain kepler_E.
+    ``shared``: the tangents' work that no lane owns (each
+    transcendental's derivative factor: cos x of sin x, the square root's
+    2 sqrt x, the atan2 denominator, the Kepler solve's sin E and
+    1 / (1 - e cos E)), once per θ set and row.  ``lane``: what one more
+    tangent lane adds (:func:`lane_ops`).  The derivative factors stay
+    unbatched under ``vmap``: shared = c(1) - c(0) - lane."""
     from pint_tpu_torch.models import binary_dd
     from pint_tpu_torch.models.binary_orbits import kepler_E
 
     r = fitter.resids
     p, b, calc = r.pdict, r.batch, model.calc
-    lay = calc.chain_layout
-    rows = [t.contiguous() for t in dc.row_inputs(lay, p, b)]
-    with torch.no_grad():
-        theta = lay.theta(p)
+    names = fitter.fit_params
+    real_E = binary_dd.kepler_E_op
+    binary_dd.kepler_E_op = kepler_E
+    try:
+        with torch.no_grad():
+            primal = count_ops(torch, lambda: calc.delay_plain(p, b),
+                               CHAIN_EXTRA_OPS)
+    finally:
+        binary_dd.kepler_E_op = real_E
+    c0, c1 = (tangent_counts(torch, model, fitter, names, k) for k in (0, 1))
+    lane = lane_ops(torch, model, fitter, names)
+    shared = {dt: n - c0.get(dt, 0) - lane.get(dt, 0)
+              for dt, n in c1.items()
+              if n - c0.get(dt, 0) - lane.get(dt, 0) > 0}
+    return primal, shared, lane
+
+
+def lane_ops_zeros_skipped(torch, model, fitter, params) -> float:
+    """A lane's float64 operations, averaged over ``params``, were the
+    exactly-zero tangents skipped: each family of parameters (DMX_0001,
+    DMX_0002, ... is one) carrying tangents alone, as a lane block of
+    that family would (the lanes of a jacfwd are in parameter order)."""
+    import re
+
+    fams = {}
+    for n in params:
+        fams.setdefault(re.sub(r"_?\d+$", "", n), []).append(n)
+    return sum(len(ns) * lane_ops(torch, model, fitter, ns).get("float64", 0)
+               for ns in fams.values()) / len(params)
+
+
+def chain_bound(ops, G: int, K: int, N: int, P: int, row_bytes: int) -> dict:
+    """The least time of one launch over G θ sets and N rows: the primal
+    (K = 0) or K tangent lanes per θ set.  Operations (``ops`` as
+    :func:`chain_ops` returns them): the primal once per θ set and row,
+    and with tangents the shared derivative factors once per θ set and
+    row and each lane's own tangent; bytes: the rows, θ and its tangents
+    read once, the output written once."""
+    primal, shared, lane = ops
+    total = {}
+    for part, times in ((primal, G), (shared, G if K else 0),
+                        (lane, G * K)):
+        for dt, n in part.items():
+            total[dt] = total.get(dt, 0) + times * n
+    t_ops = ops_seconds(total)
+    nbytes = row_bytes + 8 * G * P * (1 + K) + 8 * G * max(K, 1) * N
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    return dict(ops=total, bytes=nbytes, ops_ms=1e3 * t_ops,
+                bytes_ms=1e3 * t_bytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def mean_or_none(xs):
+    return None if any(x is None for x in xs) else sum(xs) / len(xs)
+
+
+def time_delay_chain(torch, model, fitter, points: int, rec: dict) -> None:
+    """The delay_chain kernel's device time at one path's shapes, over
+    ``points`` θ sets: the primal launch, and the tangent launch at the
+    lane counts of the path's jacfwds (its nonlinear and its linear fit
+    parameters) at every lanes-per-thread, taken in turns (1, 2, 4, 4, 2,
+    1) in this call; each launch's least time on this card, its
+    reach of it; the plain version's time of the primal."""
+    from pint_tpu_torch.kernels import delay_chain as dc
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    lay, rows, X, thetas, T = chain_inputs(torch, model, fitter, points)
+    names = fitter.fit_params
+    lin, nl = model.partition_linear_params(names)
+    ops = chain_ops(torch, model, fitter)
+    row_bytes = sum(t.numel() * t.element_size() for t in rows)
+    N, P = b.ntoas, lay.P
+    # a thread of L lanes does the primal and the shared factors once and
+    # each lane's tangent L times: by the counts (float32 at its own
+    # rate), the most that L lanes per thread save against L = 1
+    row_s, lane_s = ops_seconds(ops[0]) + ops_seconds(ops[1]), \
+        ops_seconds(ops[2])
+    rec.update(theta_sets=points, ntoas=N, theta_slots=P,
+               ops_primal_per_theta_set=ops[0],
+               ops_shared_per_theta_set=ops[1],
+               ops_per_tangent_lane=ops[2],
+               speedup_vs_single_lane_by_ops={
+                   **{str(L): (row_s + lane_s) / (row_s / L + lane_s)
+                      for L in dc.KERNEL_LANES[1:]},
+                   "unbounded": (row_s + lane_s) / lane_s})
 
     def primal():
-        return dc.DelayChain.apply(theta, lay, *rows)
+        return dc.run(lay, thetas, None, rows)
 
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    rec["primal_call_ms"] = time_ms(torch, primal)
-    rec["primal_device_ms"] = device_kernel_ms(torch, primal,
-                                               "delay_chain_primal")
-    tangent = {}
-    for L in lanes:
-        dth = torch.randn(L, lay.P, generator=gen,
-                          dtype=torch.float64).to(theta.device)
-        th = theta.expand(L, lay.P)
-
-        def tan():
-            return dc.DelayChainTangent.apply(th, dth, lay, *rows)
-
-        tangent[str(L)] = device_kernel_ms(torch, tan, "delay_chain_tangent")
-    rec["tangent_device_ms_by_lanes"] = tangent
+    ms = device_kernel_ms(torch, primal, "delay_chain_primal")
+    bound = chain_bound(ops, points, 0, N, P, row_bytes)
     with torch.no_grad():
-        rec["plain_ms"] = time_ms(
-            torch, lambda: calc.delay_plain(p, b), reps=5)
-        real = binary_dd.kepler_E_op
-        binary_dd.kepler_E_op = kepler_E
-        try:
-            ops = count_ops(torch, lambda: calc.delay_plain(p, b), extra=(
-                "sin", "cos", "log", "sqrt", "atan2", "floor", "clamp",
-                "pow", "exp", "isfinite"))
-        finally:
-            binary_dd.kepler_E_op = real
-    N = b.ntoas
-    nbytes = (sum(t.numel() * t.element_size() for t in rows)
-              + theta.numel() * 8 + N * 8)
-    t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
-                for dt, n in ops.items())
-    rec.update(ms=rec["primal_device_ms"] if rec["primal_device_ms"]
-               is not None else rec["primal_call_ms"],
-               ops=ops, bytes=nbytes, bytes_ms=1e3 * t_bytes,
-               ops_ms=1e3 * t_ops, bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if points == 1:
+            plain = lambda: calc.delay_plain(p, b)  # noqa: E731
+        else:
+            plain = lambda: torch.func.vmap(  # noqa: E731
+                lambda x: calc.delay_plain(model.with_x(p, x, names), b))(X)
+        plain_ms = time_ms(torch, plain, reps=5)
+    rec["primal"] = dict(device_ms=ms, call_ms=time_ms(torch, primal),
+                         plain_ms=plain_ms, **bound,
+                         reach=None if ms is None else bound["bound_ms"] / ms)
+    order = dc.KERNEL_LANES + dc.KERNEL_LANES[::-1]
+    rec["tangent"] = {}
+    for label, params in (("nonlinear", nl), ("linear", lin)):
+        idx = [names.index(n) for n in params]
+        K = len(idx)
+        dth = T[:, idx].T.contiguous().expand(points, K, P).contiguous()
+        times = {str(L): [] for L in dc.KERNEL_LANES}
+        for L in order:
+            times[str(L)].append(device_kernel_ms(
+                torch, lambda: dc.run(lay, thetas, dth, rows, lanes=L),
+                "delay_chain_tangent"))
+        mean = {L: mean_or_none(t) for L, t in times.items()}
+        L = dc.lanes_per_thread(points, K)
+        new = mean[str(L)]
+        one = mean["1"]
+        tb = chain_bound(ops, points, K, N, P, row_bytes)
+        # the launch's time as rows / L x (primal + shared) + lanes x a
+        # lane's tangent, from L = 2 and 4: the lanes' share, and what
+        # L = 1 would take against the lanes' share alone
+        t2, t4 = mean["2"], mean["4"]
+        lanes_ms = None if None in (t2, t4) else 2.0 * t4 - t2
+        rec["tangent"][str(K)] = dict(
+            params=label, lanes=K, device_ms_by_lanes_per_thread=times,
+            lanes_per_thread=L, ms=new, single_lane_ms=one,
+            speedup_vs_single_lane=None if None in (new, one) else one / new,
+            **tb, reach=None if new is None else tb["bound_ms"] / new,
+            single_lane_reach=None if one is None else tb["bound_ms"] / one,
+            ops_per_lane_zero_tangents_skipped={"float64": (
+                lane_ops_zeros_skipped(torch, model, fitter, params))},
+            lanes_share_ms_at_L4=lanes_ms,
+            speedup_vs_single_lane_unbounded_by_time=None
+            if one is None or not lanes_ms or lanes_ms <= 0
+            else one / lanes_ms)
+
+
+def tangent_vs_plain(torch, model, fitter, points: int, rec: dict) -> None:
+    """The grid's tangents as a user's code reaches them: ``vmap`` over
+    ``points`` fit points of the ``jvp`` of ``PhaseCalc.delay`` along the
+    linear fit parameters (one tangent launch of points x lanes), against
+    the same of the plain version: max abs and relative error, the
+    launches, the plain version's time."""
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    _, _, X, _, _ = chain_inputs(torch, model, fitter, points)
+    names = fitter.fit_params
+    lin, _ = model.partition_linear_params(names)
+    E = torch.eye(len(names), dtype=torch.float64,
+                  device=b.device)[[names.index(n) for n in lin]]
+
+    def lanes(delay):
+        def f(x):
+            return delay(model.with_x(p, x, names), b)
+        return lambda: torch.func.vmap(lambda x: torch.func.vmap(
+            lambda v: torch.func.jvp(f, (x,), (v,))[1])(E))(X)
+
+    with torch.no_grad():
+        before = counts()
+        k = lanes(calc.delay)()
+        after = counts()
+        plain = lanes(calc.delay_plain)
+        want = plain()
+        err = torch.abs(k - want)
+        scale = torch.amax(torch.abs(want), dim=-1, keepdim=True)
+        rec.update(theta_sets=points, lanes=len(lin),
+                   launches={k_: after[k_] - before[k_] for k_ in (
+                       "delay_chain_primal", "delay_chain_tangent")},
+                   max_abs_err=float(torch.max(err)),
+                   max_rel_column_err=float(torch.max(
+                       torch.amax(err, dim=-1, keepdim=True)
+                       / torch.where(scale > 0, scale, 1.0))),
+                   plain_ms=time_ms(torch, plain, reps=3))
+    if not rec["max_rel_column_err"] <= COLUMN_TOL:
+        raise AssertionError(f"delay_chain tangent vs plain jvp: {rec}")
+
+
+def chain_registers(build_log: str) -> dict:
+    """ptxas's registers, stack and spills of every delay_chain kernel
+    (nvcc -Xptxas=-v), by kernel: primal/tangent, binary family, lanes
+    per thread."""
+    import re
+
+    fams = {"0": "none", "1": "ELL1", "2": "DD"}
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line or "Compiling entry" in line:
+            # a kernel of ours, or another function (a libdevice callee)
+            m = re.search(r"delay_chain_(primal|tangent_lanes|tangent)"
+                          r"ILi(\d)E(?:Li(\d)E)?", line)
+            cur = None if m is None else out.setdefault(
+                f"{fams[m.group(2)]}/" + ("primal" if m.group(1) == "primal"
+                                          else f"tangent_L{m.group(3) or 1}"),
+                {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def gls_load(torch, tim: str, dmx_bins: int, perturb=None):
@@ -799,8 +1142,7 @@ def main(run: Run = Run()) -> int:
         check_kernel(torch, np, model, fitter, grid, kernel_rec)
 
     # -- 4. the main path, as a user drives it --------------------------------
-    QSPhaseFrac.launches = 0
-    DelayChain.launches = 0
+    zero_counts()
     with phase("main_path", {}) as rec:
         t0 = time.perf_counter()
         model, toas, fitter = load(torch, run.dev, run.tim, run.dmx_bins)
@@ -809,20 +1151,17 @@ def main(run: Run = Run()) -> int:
         chi2 = grid_chisq_flat(fitter, grid, maxiter=2)
         torch.cuda.synchronize()
         rec["grid_cold_s"] = time.perf_counter() - t0
-        launches = QSPhaseFrac.launches
-        grid_chain = DelayChain.launches
+        grid_launches = counts()
         rec.update(ntoas=toas.ntoas, n_free=len(model.free_params),
                    n_fit=len(fitter.fit_params), grid_points=len(chi2),
-                   chi2=chi2.tolist(), launches={
-                       "qs_phase_frac": launches, "delay_chain": grid_chain},
+                   chi2=chi2.tolist(), launches=grid_launches,
                    device=str(fitter.device))
         # read after the count: residuals launch the kernel once more
         rec["prefit_rms_us"] = float(np.std(fitter.resids.time_resids)) * 1e6
         rec["pulse_period_us"] = 1e6 / float(model.F0.value)
-    if launches <= 0 or grid_chain <= 0:
-        raise AssertionError("the main path skipped a kernel: "
-                             f"qs_phase_frac {launches}, delay_chain "
-                             f"{grid_chain}")
+    if min(grid_launches[k] for k in ON_PATHS) <= 0:
+        raise AssertionError(f"the main path skipped a kernel: "
+                             f"{grid_launches}")
     if chi2.shape != (9,) or not np.all(np.isfinite(chi2)):
         raise AssertionError(f"bad grid chi2 {chi2}")
     if toas.ntoas != run.ntoas or len(fitter.fit_params) != run.nfit:
@@ -831,15 +1170,13 @@ def main(run: Run = Run()) -> int:
     with phase("grid_timing", {}) as rec:
         walls = []
         for _ in range(3):
-            QSPhaseFrac.launches = 0
-            DelayChain.launches = 0
+            zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             warm = grid_chisq_flat(fitter, grid, maxiter=2)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        grid_call_launches = {"qs_phase_frac": QSPhaseFrac.launches,
-                              "delay_chain": DelayChain.launches}
+        grid_call_launches = counts()
         rec.update(grid_warm_s=median(walls), grid_walls_s=walls,
                    launches_per_grid_call=grid_call_launches,
                    max_abs_chi2_change=float(np.max(np.abs(warm - chi2))),
@@ -900,7 +1237,6 @@ def main(run: Run = Run()) -> int:
     # -- 5. the DD slice: simulate -> tim -> fit_toas, as a user drives it ----
     from pint_tpu_torch.examples import simulate_dd_realistic
     from pint_tpu_torch.fitter import WLSFitter, build_wls_step
-    from pint_tpu_torch.kernels.kepler import KeplerE
     from pint_tpu_torch.toa import write_tim
 
     with phase("dd_main_path", {}) as rec:
@@ -916,18 +1252,14 @@ def main(run: Run = Run()) -> int:
         rec["setup_s"] = time.perf_counter() - t0
         start = snapshot(dmodel)
         torch.cuda.reset_peak_memory_stats()
-        QSPhaseFrac.launches = 0
-        KeplerE.launches = 0
-        DelayChain.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         dfit, dchi2, fit_s = dd_fit(torch, run.dev, dmodel, dtoas)
         rec.update(fit_cold_s=fit_s,
                    fitter_and_fit_s=time.perf_counter() - t0)
         # the Kepler solve of the DD orbit runs inside the delay_chain
         # kernel on this path, so kepler_E itself is not launched here
-        dd_launches = {"kepler_E": KeplerE.launches,
-                       "qs_phase_frac": QSPhaseFrac.launches,
-                       "delay_chain": DelayChain.launches}
+        dd_launches = counts()
         fr = dfit.fitresult
         names = dfit.fit_params
         pulls = {n: device_offset(dmodel[n].device_value,
@@ -945,17 +1277,13 @@ def main(run: Run = Run()) -> int:
         for _ in range(3):
             restore(dmodel, start)
             wf = WLSFitter(dtoas, dmodel, device=run.dev)
-            QSPhaseFrac.launches = 0
-            KeplerE.launches = 0
-            DelayChain.launches = 0
+            zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             wchi2 = wf.fit_toas(maxiter=DD_MAXITER)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            per_fit.append({"kepler_E": KeplerE.launches,
-                            "qs_phase_frac": QSPhaseFrac.launches,
-                            "delay_chain": DelayChain.launches})
+            per_fit.append(counts())
             splits.append(wf.fit_info["seconds"])
         # the warm fits' wall split (fitter.build_fused_fit): device loop
         # up to the fetch, host solve + final step, write-back, and the
@@ -978,7 +1306,7 @@ def main(run: Run = Run()) -> int:
     bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
     if bad:
         raise AssertionError(f"DD fit pulls {bad}")
-    if dd_launches["delay_chain"] <= 0 or dd_launches["qs_phase_frac"] <= 0:
+    if min(dd_launches[k] for k in ON_PATHS) <= 0:
         raise AssertionError(f"the DD path skipped a kernel: {dd_launches}")
 
     with phase("kepler_E", {}) as kepler_rec:
@@ -1078,12 +1406,10 @@ def main(run: Run = Run()) -> int:
         rec["setup_s"] = time.perf_counter() - t0
         gstart = snapshot(gmodel)
         torch.cuda.reset_peak_memory_stats()
-        QSPhaseFrac.launches = 0
-        DelayChain.launches = 0
+        zero_counts()
         with plain_delays() as plain:
             gfit, gchi2, fit_s = gls_fit(torch, run.dev, gmodel, gtoas)
-        gls_launches = {"qs_phase_frac": QSPhaseFrac.launches,
-                        "delay_chain": DelayChain.launches}
+        gls_launches = counts()
         fr = gfit.fitresult
         gnames = gfit.fit_params
         gp = gfit.resids.pdict
@@ -1105,12 +1431,10 @@ def main(run: Run = Run()) -> int:
         walls, per_fit, splits = [], [], []
         for _ in range(3):
             restore(gmodel, gstart)
-            QSPhaseFrac.launches = 0
-            DelayChain.launches = 0
+            zero_counts()
             wf, _, w = gls_fit(torch, run.dev, gmodel, gtoas)
             walls.append(w)
-            per_fit.append({"qs_phase_frac": QSPhaseFrac.launches,
-                            "delay_chain": DelayChain.launches})
+            per_fit.append(counts())
             splits.append(dict(wf.fit_info["seconds"]))
         rec.update(fit_warm_s=median(walls), fit_walls_s=walls,
                    launches_per_warm_fit=per_fit, fit_warm_split_s=splits,
@@ -1126,28 +1450,43 @@ def main(run: Run = Run()) -> int:
     bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
     if bad:
         raise AssertionError(f"GLS fit pulls {bad}")
-    if gls_launches["delay_chain"] <= 0 or gls_launches["qs_phase_frac"] <= 0 \
-            or plain["calls"]:
+    if min(gls_launches[k] for k in ON_PATHS) <= 0 or plain["calls"]:
         raise AssertionError(f"the GLS path skipped a kernel: {gls_launches}"
                              f", {plain['calls']} plain delay chains")
 
     with phase("delay_chain", {}) as chain_rec:
+        from pint_tpu_torch.kernels import delay_chain as dc
+
         errs = [check_delay_chain(torch, label, m, f, chain_rec)
                 for label, m, f in (("j0740_grid", model, fitter),
                                     ("dd_fit", dmodel, dfit),
                                     ("gls_fit", gmodel, gfit))]
-        lin, nl = gmodel.partition_linear_params(gnames)
-        time_delay_chain(torch, gmodel, gfit, (len(nl), len(lin)),
-                         chain_rec)
+        chain_rec["timing"] = {}
+        for label, m, f, points in (("gls_fit", gmodel, gfit, 1),
+                                    ("j0740_grid", model, fitter,
+                                     GRID_POINTS)):
+            chain_rec["timing"][label] = {}
+            time_delay_chain(torch, m, f, points,
+                             chain_rec["timing"][label])
+        chain_rec["grid_tangent_vs_plain"] = {}
+        tangent_vs_plain(torch, model, fitter, GRID_POINTS,
+                         chain_rec["grid_tangent_vs_plain"])
+        chain_rec["registers"] = chain_registers(
+            kbuild.build_log("delay_chain"))
         chain_rec.update(
             max_abs_err=max(errs),
-            launches={"j0740_grid": grid_chain,
-                      "dd_fit": dd_launches["delay_chain"],
-                      "gls_fit": gls_launches["delay_chain"]},
-            launches_per_grid_call=grid_call_launches["delay_chain"],
-            launches_per_warm_dd_fit=[f["delay_chain"] for f in
-                                      rec_dd_per_fit],
-            launches_per_warm_gls_fit=[f["delay_chain"] for f in per_fit])
+            launches={k: {"j0740_grid": grid_launches[k],
+                          "dd_fit": dd_launches[k],
+                          "gls_fit": gls_launches[k]}
+                      for k in ("delay_chain_primal", "delay_chain_tangent")},
+            launches_per_grid_call={k: grid_call_launches[k] for k in (
+                "delay_chain_primal", "delay_chain_tangent")},
+            launches_per_warm_dd_fit=[
+                f["delay_chain_primal"] + f["delay_chain_tangent"]
+                for f in rec_dd_per_fit],
+            launches_per_warm_gls_fit=[
+                f["delay_chain_primal"] + f["delay_chain_tangent"]
+                for f in per_fit])
 
     with phase("gls_card_vs_host", {}) as rec:
         # the final solve at the fitted point (the model holds the last
@@ -1245,15 +1584,18 @@ def main(run: Run = Run()) -> int:
                 f"GLS reference: {dev} sigma, {unc} unc, chi2 gap {gap}, "
                 f"noise {noise_gap}")
 
+    def by_path(name):
+        by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
+              "gls_fit": gls_launches[name]}
+        return {"launches": sum(by.values()), "launches_by_path": by}
+
+    grid_t = chain_rec["timing"]["j0740_grid"]
+    grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
     emit({"kernels": [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
-        "launches": launches + dd_launches["qs_phase_frac"]
-        + gls_launches["qs_phase_frac"],
-        "launches_by_path": {"j0740_grid": launches,
-                             "dd_fit": dd_launches["qs_phase_frac"],
-                             "gls_fit": gls_launches["qs_phase_frac"]},
+        **by_path("qs_phase_frac"),
         "max_abs_err": kernel_rec["max_abs_frac_err"],
         "ms": kernel_rec["ms"], "plain_ms": kernel_rec["plain_ms"],
         "bound_ms": kernel_rec["bound_ms"],
@@ -1261,24 +1603,33 @@ def main(run: Run = Run()) -> int:
         "name": "kepler_E", "route": "cuda",
         "source": "pint_tpu_torch/csrc/kepler.cu",
         "replaces": "pint_tpu/models/binary_orbits.py:49",
-        "launches": dd_launches["kepler_E"],
-        "launches_by_path": {"j0740_grid": 0,
-                             "dd_fit": dd_launches["kepler_E"],
-                             "gls_fit": 0},
+        **by_path("kepler_E"),
         "solved_on_the_paths_by": "delay_chain",
         "max_abs_err": kepler_rec["max_abs_err"],
         "ms": kepler_rec["ms"], "plain_ms": kepler_rec["plain_ms"],
         "bound_ms": kepler_rec["bound_ms"],
         "bound_by": kepler_rec["bound_by"], "library_ms": None}, {
-        "name": "delay_chain", "route": "cuda",
+        "name": "delay_chain_primal", "route": "cuda",
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
-        "launches": sum(chain_rec["launches"].values()),
-        "launches_by_path": chain_rec["launches"],
+        **by_path("delay_chain_primal"),
         "max_abs_err": chain_rec["max_abs_err"],
-        "ms": chain_rec["ms"], "plain_ms": chain_rec["plain_ms"],
-        "bound_ms": chain_rec["bound_ms"],
-        "bound_by": chain_rec["bound_by"], "library_ms": None}]})
+        "theta_sets": GRID_POINTS,
+        "ms": grid_t["primal"]["device_ms"],
+        "plain_ms": grid_t["primal"]["plain_ms"],
+        "bound_ms": grid_t["primal"]["bound_ms"],
+        "bound_by": grid_t["primal"]["bound_by"], "library_ms": None}, {
+        "name": "delay_chain_tangent", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/delay_chain.cu",
+        "replaces": "pint_tpu/models/astrometry.py:76",
+        **by_path("delay_chain_tangent"),
+        "max_abs_err": chain_rec["grid_tangent_vs_plain"]["max_abs_err"],
+        "theta_sets": GRID_POINTS, "lanes": grid_lin["lanes"],
+        "lanes_per_thread": grid_lin["lanes_per_thread"],
+        "ms": grid_lin["ms"], "single_lane_ms": grid_lin["single_lane_ms"],
+        "plain_ms": chain_rec["grid_tangent_vs_plain"]["plain_ms"],
+        "bound_ms": grid_lin["bound_ms"], "bound_by": grid_lin["bound_by"],
+        "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,10 @@
 // The delay chain of one TOA row: every delay component of a timing model
 // that the delay_chain kernel covers, in DEFAULT_ORDER, in float64,
 // written once over a scalar type T: `double` gives the delay, `Dual`
-// (value, tangent) gives the delay and its forward-mode tangent.
+// (value, tangent) gives the delay and one forward-mode tangent, and
+// `DualN<L>` (one value, L tangents) gives the delay and L tangents that
+// share it, so that the primal work (the transcendentals, the Kepler
+// solve, the quad-single t - epoch) is done once for L lanes.
 //
 // Device code of these JAX functions of pint_tpu (no Pallas kernel there:
 // XLA compiles them from jnp, one elementwise op at a time):
@@ -22,6 +25,15 @@
 // d dt = d shift = -d delay - 86400 d epoch.  The Kepler solve is
 // kepler.cuh's (bit-equal to the kepler_E kernel); its tangent is
 // pint_tpu's implicit-function rule dE = (dM + sin E de) / (1 - e cos E).
+//
+// DualN<L> forms each lane's tangent by exactly Dual's operations in
+// Dual's order (a division stays a division per lane, not a product with
+// a shared reciprocal), so that built without FMA contraction every lane
+// is bit-equal to a Dual run on that lane alone
+// (tests/test_torch_delay_chain_host.py on the host, the card tests on
+// the GPU).  What is shared is the value and each derivative's factor:
+// cos x for sin x, the square root, the atan2 denominator, the Kepler
+// solve with sin E and 1 / (1 - e cos E).
 
 #pragma once
 
@@ -39,10 +51,19 @@ struct Dual {
   double v, d;
 };
 
+// one value and L tangent lanes
+template <int L>
+struct DualN {
+  double v;
+  double d[L];
+};
+
 PT_HD double val(double x) { return x; }
 PT_HD double val(const Dual& x) { return x.v; }
-PT_HD double tan_of(double) { return 0.0; }
-PT_HD double tan_of(const Dual& x) { return x.d; }
+template <int L>
+PT_HD double val(const DualN<L>& x) {
+  return x.v;
+}
 
 PT_HD Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
 PT_HD Dual operator+(Dual a, double b) { return {a.v + b, a.d}; }
@@ -66,6 +87,97 @@ PT_HD Dual operator/(double a, Dual b) {
   return {q, -q * b.d / b.v};
 }
 
+// DualN<L>: Dual's operations, lane by lane
+#define PT_LANES _Pragma("unroll") for (int l = 0; l < L; ++l)
+
+template <int L>
+PT_HD DualN<L> operator+(const DualN<L>& a, const DualN<L>& b) {
+  DualN<L> r;
+  r.v = a.v + b.v;
+  PT_LANES r.d[l] = a.d[l] + b.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator+(DualN<L> a, double b) {
+  a.v = a.v + b;
+  return a;
+}
+template <int L>
+PT_HD DualN<L> operator+(double a, DualN<L> b) {
+  b.v = a + b.v;
+  return b;
+}
+template <int L>
+PT_HD DualN<L> operator-(const DualN<L>& a, const DualN<L>& b) {
+  DualN<L> r;
+  r.v = a.v - b.v;
+  PT_LANES r.d[l] = a.d[l] - b.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator-(DualN<L> a, double b) {
+  a.v = a.v - b;
+  return a;
+}
+template <int L>
+PT_HD DualN<L> operator-(double a, const DualN<L>& b) {
+  DualN<L> r;
+  r.v = a - b.v;
+  PT_LANES r.d[l] = -b.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator-(const DualN<L>& a) {
+  DualN<L> r;
+  r.v = -a.v;
+  PT_LANES r.d[l] = -a.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator*(const DualN<L>& a, const DualN<L>& b) {
+  DualN<L> r;
+  r.v = a.v * b.v;
+  PT_LANES r.d[l] = a.d[l] * b.v + a.v * b.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator*(const DualN<L>& a, double b) {
+  DualN<L> r;
+  r.v = a.v * b;
+  PT_LANES r.d[l] = a.d[l] * b;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator*(double a, const DualN<L>& b) {
+  DualN<L> r;
+  r.v = a * b.v;
+  PT_LANES r.d[l] = a * b.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator/(const DualN<L>& a, const DualN<L>& b) {
+  DualN<L> r;
+  const double q = a.v / b.v;
+  r.v = q;
+  PT_LANES r.d[l] = (a.d[l] - q * b.d[l]) / b.v;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator/(const DualN<L>& a, double b) {
+  DualN<L> r;
+  r.v = a.v / b;
+  PT_LANES r.d[l] = a.d[l] / b;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> operator/(double a, const DualN<L>& b) {
+  DualN<L> r;
+  const double q = a / b.v;
+  r.v = q;
+  PT_LANES r.d[l] = -q * b.d[l] / b.v;
+  return r;
+}
+
 PT_HD double f_sin(double x) { return sin(x); }
 PT_HD double f_cos(double x) { return cos(x); }
 PT_HD double f_log(double x) { return log(x); }
@@ -85,24 +197,114 @@ PT_HD Dual f_atan2(Dual y, Dual x) {
   return {atan2(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
 }
 
+template <int L>
+PT_HD DualN<L> f_sin(const DualN<L>& x) {
+  DualN<L> r;
+  const double c = cos(x.v);
+  r.v = sin(x.v);
+  PT_LANES r.d[l] = c * x.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_cos(const DualN<L>& x) {
+  DualN<L> r;
+  const double ms = -sin(x.v);
+  r.v = cos(x.v);
+  PT_LANES r.d[l] = ms * x.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_log(const DualN<L>& x) {
+  DualN<L> r;
+  r.v = log(x.v);
+  PT_LANES r.d[l] = x.d[l] / x.v;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_sqrt(const DualN<L>& x) {
+  DualN<L> r;
+  const double s = sqrt(x.v);
+  const double s2 = 2.0 * s;
+  r.v = s;
+  PT_LANES r.d[l] = x.d[l] / s2;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_floor(const DualN<L>& x) {
+  DualN<L> r;
+  r.v = floor(x.v);
+  PT_LANES r.d[l] = 0.0;
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_atan2(const DualN<L>& y, const DualN<L>& x) {
+  DualN<L> r;
+  const double den = x.v * x.v + y.v * y.v;
+  r.v = atan2(y.v, x.v);
+  PT_LANES r.d[l] = (x.v * y.d[l] - y.v * x.d[l]) / den;
+  return r;
+}
+
 // pint_tpu's clip_unit: clamp into [0, 1 - 1e-9], tangent straight through
 PT_HD double clip_unit(double x) { return ptkepler::clamp_unit(x); }
 PT_HD Dual clip_unit(Dual x) { return {ptkepler::clamp_unit(x.v), x.d}; }
+template <int L>
+PT_HD DualN<L> clip_unit(DualN<L> x) {
+  x.v = ptkepler::clamp_unit(x.v);
+  return x;
+}
+
+// a constant: the value, no tangent
+PT_HD void set_const(double& r, double v) { r = v; }
+PT_HD void set_const(Dual& r, double v) { r = {v, 0.0}; }
+template <int L>
+PT_HD void set_const(DualN<L>& r, double v) {
+  r.v = v;
+  PT_LANES r.d[l] = 0.0;
+}
+template <typename T>
+PT_HD T make(double v) {
+  T r;
+  set_const(r, v);
+  return r;
+}
 
 // torch.clamp(x, min=lo): the tangent where x >= lo, else none
 PT_HD double clamp_min(double x, double lo) { return x < lo ? lo : x; }
-PT_HD Dual clamp_min(Dual x, double lo) {
-  return x.v < lo ? Dual{lo, 0.0} : (x.v >= lo ? x : Dual{x.v, 0.0});
+template <typename T>
+PT_HD T clamp_min(const T& x, double lo) {
+  return x.v < lo ? make<T>(lo) : (x.v >= lo ? x : make<T>(x.v));
 }
 
+// value v with the tangent of t (the binary's QS dt)
+PT_HD double with_value(double v, double) { return v; }
 template <typename T>
-PT_HD T make(double v, double d);
-template <>
-PT_HD double make<double>(double v, double) { return v; }
-template <>
-PT_HD Dual make<Dual>(double v, double d) { return {v, d}; }
+PT_HD T with_value(double v, T t) {
+  t.v = v;
+  return t;
+}
 
-// the parameter vector theta, and for Dual its tangent
+// E of the Kepler solve with its implicit-function tangent
+// dE = ((0 + dM) + sin E de) / (1 - e cos E), inv = 1 / (1 - e cos E)
+PT_HD double implicit_E(double Ev, double, double, double, double) {
+  return Ev;
+}
+PT_HD Dual implicit_E(double Ev, const Dual& M, const Dual& e, double sE,
+                      double inv) {
+  return {Ev, ((0.0 + M.d) + sE * e.d) * inv};
+}
+template <int L>
+PT_HD DualN<L> implicit_E(double Ev, const DualN<L>& M, const DualN<L>& e,
+                          double sE, double inv) {
+  DualN<L> r;
+  r.v = Ev;
+  PT_LANES r.d[l] = ((0.0 + M.d[l]) + sE * e.d[l]) * inv;
+  return r;
+}
+
+#undef PT_LANES
+
+// the parameter vector theta, and for Dual / DualN its tangents
 template <typename T>
 struct Theta;
 template <>
@@ -115,6 +317,20 @@ struct Theta<Dual> {
   const double* v;
   const double* d;
   PT_HD Dual operator[](int i) const { return {v[i], d[i]}; }
+};
+// d holds the L lanes' tangents of theta, lane l's slot i at d[l * P + i]
+template <int L>
+struct Theta<DualN<L>> {
+  const double* v;
+  const double* d;
+  int P;
+  PT_HD DualN<L> operator[](int i) const {
+    DualN<L> r;
+    r.v = v[i];
+#pragma unroll
+    for (int l = 0; l < L; ++l) r.d[l] = d[l * P + i];
+    return r;
+  }
 };
 
 // -- the model's layout ---------------------------------------------------
@@ -192,10 +408,37 @@ struct Row {
   int32_t jbits;        // DelayJump membership bits
 };
 
+// the per-row inputs as the kernels receive them (kernels/delay_chain.py
+// ROWS), and one row of them
+struct RowData {
+  const int64_t* __restrict__ tdb_day;
+  const double* __restrict__ tdb_frac;
+  const float* __restrict__ frac_w;
+  const double* __restrict__ pos;
+  const double* __restrict__ sun;
+  const double* __restrict__ freq;
+  const int32_t* __restrict__ dmx;
+  const int32_t* __restrict__ jbits;
+};
+
+PT_HD Row load_row(const RowData& rd, int64_t n) {
+  Row r;
+  r.day = rd.tdb_day[n];
+  r.frac = rd.tdb_frac[n];
+  r.frac_w = rd.frac_w + 3 * n;
+  r.pos = rd.pos + 3 * n;
+  r.sun = rd.sun + 3 * n;
+  r.freq = rd.freq[n];
+  r.dmx0 = rd.dmx != nullptr ? rd.dmx[2 * n] : -1;
+  r.dmx1 = rd.dmx != nullptr ? rd.dmx[2 * n + 1] : -1;
+  r.jbits = rd.jbits != nullptr ? rd.jbits[n] : 0;
+  return r;
+}
+
 // K * dm / f^2 with infinite-frequency rows zeroed
 template <typename T>
 PT_HD T dispersion(const T& dm, double freq) {
-  if (!isfinite(freq)) return make<T>(0.0, 0.0);
+  if (!isfinite(freq)) return make<T>(0.0);
   return (kDMconst * dm) / (freq * freq);
 }
 
@@ -221,7 +464,7 @@ PT_HD T astrometry(const ChainCfg& c, const Theta<T>& th, const Row& r,
     const T pm_ra = th[o + 6] * kMasToRad;
     const T pm_dec = th[o + 7] * kMasToRad;
     const T dt_yr = (((double)r.day + r.frac) - th[o + 9]) / 365.25;
-    const T e_ra[3] = {-sa, ca, make<T>(0.0, 0.0)};
+    const T e_ra[3] = {-sa, ca, make<T>(0.0)};
     const T e_dec[3] = {-sd * ca, -sd * sa, cd};
     T n[3];
 #pragma unroll
@@ -247,7 +490,7 @@ template <typename T>
 PT_HD T sun_shapiro(const Row& r, const T (&L)[3]) {
   const double rr =
       sqrt(r.sun[0] * r.sun[0] + r.sun[1] * r.sun[1] + r.sun[2] * r.sun[2]);
-  if (!(rr > 0.0)) return make<T>(0.0, 0.0);
+  if (!(rr > 0.0)) return make<T>(0.0);
   const T rcos = r.sun[0] * L[0] + r.sun[1] * L[1] + r.sun[2] * L[2];
   return (-2.0 * kTsun) * f_log((rr - rcos) / kAuLs);
 }
@@ -270,7 +513,7 @@ PT_HD T binary_dt(const Theta<T>& th, int o, const Row& r, const T& delay) {
                        (float)val(th[o + bWords + 3])};
   const ptqs::QS q =
       ptqs::dt_seconds_qs(r.day, r.frac_w, val(th[o + bDay0]), ew, val(shift));
-  return make<T>(ptqs::qs_to_f64(q), tan_of(shift));
+  return with_value(ptqs::qs_to_f64(q), shift);
 }
 
 // BinaryELL1.delay (PB/PBDOT orbit)
@@ -297,7 +540,7 @@ PT_HD T ell1(const ChainCfg& c, const Theta<T>& th, const Row& r,
                   (-e1 / 2.0 + (e1 * (e2 * e2)) / 2.0) + (e1 * e1 * e1) / 3.0,
                   -(3.0 / 4.0) * e1 * e2,
                   -e1 * (e2 * e2) + (e1 * e1 * e1) / 3.0};
-  T s0 = make<T>(0.0, 0.0), s1 = s0, s2 = s0;
+  T s0 = make<T>(0.0), s1 = s0, s2 = s0;
   for (int k = 1; k <= 4; ++k) {
     const T kp = (double)k * Phi;
     const T s = f_sin(kp), cc = f_cos(kp);
@@ -334,7 +577,7 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
   const double ec = ptkepler::clamp_unit(val(e));
   const double Ev = ptkepler::solve(val(M), ec);
   const double inv = 1.0 / (1.0 - ec * cos(Ev));
-  const T E = make<T>(Ev, ((0.0 + tan_of(M)) + sin(Ev) * tan_of(e)) * inv);
+  const T E = implicit_E(Ev, M, e, sin(Ev), inv);
   if (aux != nullptr) {
     aux[0] = val(M);
     aux[1] = val(e);
@@ -392,11 +635,11 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
 template <typename T, int BIN>
 PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
                   double* aux) {
-  T d = make<T>(0.0, 0.0);
+  T d = make<T>(0.0);
   T L[3] = {d, d, d};
   if (c.flags & kAstro) d = d + astrometry(c, th, r, L);
   if (c.flags & kJump) {
-    T tot = make<T>(0.0, 0.0);
+    T tot = make<T>(0.0);
     for (int j = 0; j < c.njump; ++j)
       if ((r.jbits >> j) & 1) tot = tot - th[c.o_jump + j];
     d = d + tot;
@@ -416,14 +659,14 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
   if (c.flags & kDMX) {
     // the plain version's masked sum: two nonzero terms add exactly in
     // either order
-    T dm = r.dmx0 >= 0 ? th[c.o_dmx + r.dmx0] : make<T>(0.0, 0.0);
+    T dm = r.dmx0 >= 0 ? th[c.o_dmx + r.dmx0] : make<T>(0.0);
     if (r.dmx1 >= 0) dm = dm + th[c.o_dmx + r.dmx1];
     d = d + dispersion(dm, r.freq);
   }
   if (BIN == kELL1) d = d + ell1(c, th, r, d);
   if (BIN == kDD) d = d + dd(c, th, r, d, aux);
   if (c.flags & kFD) {
-    T out = make<T>(0.0, 0.0);
+    T out = make<T>(0.0);
     if (isfinite(r.freq)) {
       const double lf = log(r.freq / 1000.0);
       double term = 1.0;

@@ -17,7 +17,9 @@ error-free transforms (``csrc/qs.cuh``), and a contracted ``a*b+c``
 its products and sums rounds on its own, as the plain version's separate
 PyTorch kernels do.  The shared headers ``csrc/*.cuh`` are found with
 ``-I csrc`` and are part of every library's hash.  Never ``--use_fast_math``
-(it also flushes subnormals and reassociates).
+(it also flushes subnormals and reassociates).  ``-Xptxas=-v`` reports
+each kernel's registers, stack and spills; the build's output is kept
+beside the library as ``<library>.log`` (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 #: every kernel source of the package, by library name
 SOURCES = ("qs_phase", "kepler", "delay_chain")
@@ -91,6 +94,8 @@ def _finish(name: str, proc, out: str, tmp: str) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(f"nvcc failed to build {name}:\n{log}")
+    with open(out + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)
 
 
@@ -108,6 +113,17 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return {n: started[n][1] for n in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output of the build of kernel ``name`` (ptxas's registers,
+    stack and spills per kernel); empty if the library was built before
+    logs were kept."""
+    path = library_path(name) + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

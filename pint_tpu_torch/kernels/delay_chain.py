@@ -19,15 +19,20 @@ TOA (two: inclusive ranges that share a boundary both hold a TOA on it)
 and int32 DelayJump bits, built once on the host from the masks.
 
 :class:`DelayChain` makes it differentiable in θ: ``jvp`` is the kernel's
-tangent launch (a dual-number instantiation of the same row function),
-``backward`` the tangent launch with unit tangents reduced against the
-incoming gradient, and the ``vmap`` rules fold batched θ (grid points)
-and batched tangents (jacfwd lanes) into the kernel's θ-set axis, so a
-jacfwd over any number of parameters costs one primal and one tangent
-launch.
+tangent launch (the same row function over a number type that carries
+one value and several tangents), ``backward`` the tangent launch with
+the P unit tangents reduced against the incoming gradient.  The tangent
+launch takes θ ``(G, P)`` and its tangents ``(G, K, P)``: G θ sets (grid
+points), each with K tangent lanes that share it (jacfwd lanes), so the
+primal work is done once per θ set and row and each thread carries
+several lanes (:func:`lanes_per_thread`).  The ``vmap`` rules fold a
+batched θ into the θ-set axis and a batch of tangents of one θ into the
+lane axis, so a jacfwd over any number of parameters costs one primal
+and one tangent launch.
 
-``DelayChain.launches`` counts kernel launches, primal and tangent (plain
-runs do not count).
+``DelayChain.launches`` counts the primal kernel's launches and
+``DelayChainTangent.launches`` the tangent kernel's (plain runs do not
+count).
 """
 
 from __future__ import annotations
@@ -51,6 +56,18 @@ JUMP_BITS = "__delayjumpbits__"
 
 #: DelayJump members the int32 bit mask can carry
 MAX_JUMPS = 31
+
+#: tangent lanes per thread of the tangent launch that csrc/delay_chain.cu
+#: compiles (1 is the single-lane kernel the others are held bit-equal to)
+KERNEL_LANES = (1, 2, 4)
+
+
+def lanes_per_thread(G: int, K: int) -> int:
+    """The lanes each thread of a tangent launch over G θ sets of K lanes
+    carries: 4, or 2 where G K < 64 (one θ set's ten nonlinear lanes),
+    whose launch would hold too few threads to fill the card (PERF.md,
+    K4)."""
+    return 4 if G * K >= 64 else 2
 
 
 class ChainCfg(ctypes.Structure):
@@ -291,8 +308,8 @@ def _lib():
     lib = load("delay_chain")
     if getattr(lib, "_argtypes_set", False):
         return lib
-    lib.delay_chain.argtypes = [_c_void_p] * 12 + [ChainCfg, _c_int64,
-                                                   _c_int64, _c_void_p]
+    lib.delay_chain.argtypes = [_c_void_p] * 12 + [
+        ChainCfg, _c_int64, _c_int64, _c_int64, ctypes.c_int, _c_void_p]
     lib.delay_chain.restype = ctypes.c_int
     lib.delay_chain_error_string.argtypes = [ctypes.c_int]
     lib.delay_chain_error_string.restype = ctypes.c_char_p
@@ -322,47 +339,63 @@ def _check_rows(rows, dev):
     return N
 
 
-def _launch(layout: ChainLayout, theta, dtheta, rows, aux: bool = False):
-    """One launch on ``theta`` (..., P) [and ``dtheta`` (..., P)]: the
-    (..., N) delay, or with ``dtheta`` its (..., N) tangent; with ``aux``
-    also the (3, ..., N) M, e, E of a DD/BT binary."""
+def _launch(layout: ChainLayout, theta, dtheta, rows, aux: bool = False,
+            lanes: Optional[int] = None):
+    """One launch on ``theta`` (..., P): the (..., N) delay (with ``aux``
+    also the (3, ..., N) M, e, E of a DD/BT binary); or, with ``dtheta``
+    (..., K, P), the (..., K, N) tangents of its K lanes, each thread
+    carrying ``lanes`` of them (by default :func:`lanes_per_thread`)."""
     dev = theta.device
     N = _check_rows(rows, dev)
     P = layout.P
+    lead = theta.shape[:-1]
     if theta.dtype != F64 or theta.shape[-1] != P or (
-            dtheta is not None and (dtheta.dtype != F64
-                                    or dtheta.device != dev
-                                    or dtheta.shape[-1] != P)):
-        raise ValueError(f"delay_chain: theta and its tangent must be "
-                         f"float64 (..., {P}) on {dev}")
-    lead = theta.shape[:-1] if dtheta is None else torch.broadcast_shapes(
-        theta.shape[:-1], dtheta.shape[:-1])
+            dtheta is not None and (
+                dtheta.dtype != F64 or dtheta.device != dev
+                or dtheta.dim() != theta.dim() + 1
+                or dtheta.shape[:-2] != lead or dtheta.shape[-1] != P)):
+        raise ValueError(f"delay_chain: theta must be float64 (..., {P}) "
+                         f"on {dev} and its tangent (..., K, {P}) with the "
+                         f"same leading axes, got {tuple(theta.shape)} and "
+                         f"{None if dtheta is None else tuple(dtheta.shape)}")
     G = 1
     for s in lead:
         G *= s
-    theta = theta.expand(*lead, P).contiguous()
-    if dtheta is not None:
-        dtheta = dtheta.expand(*lead, P).contiguous()
+    K = 0 if dtheta is None else dtheta.shape[-2]
+    if lanes is None:
+        lanes = lanes_per_thread(G, K)
+    if lanes not in KERNEL_LANES:
+        raise ValueError(f"delay_chain: lanes per thread must be one of "
+                         f"{KERNEL_LANES}, got {lanes}")
+    theta = theta.contiguous()
     rows = [t.contiguous() for t in rows]
-    out = torch.empty((*lead, N), dtype=F64, device=dev)
+    if dtheta is None:
+        out = torch.empty((*lead, N), dtype=F64, device=dev)
+    else:
+        dtheta = dtheta.contiguous()
+        out = torch.empty((*lead, K, N), dtype=F64, device=dev)
     aux_t = torch.empty((3, *lead, N), dtype=F64, device=dev) if aux \
         else None
-    if G == 0:
+    if G == 0 or (dtheta is not None and K == 0):
         return out, aux_t
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().delay_chain(
         *[_ptr(t) for t in rows], theta.data_ptr(),
         None if dtheta is None else dtheta.data_ptr(), out.data_ptr(),
         None if aux_t is None else aux_t.data_ptr(), layout.ctypes_cfg(),
-        G, N, stream)
+        G, K, N, lanes, stream)
     if err != 0:
         raise RuntimeError("delay_chain launch failed: "
                            + _lib().delay_chain_error_string(err).decode())
-    DelayChain.launches += 1
+    if dtheta is None:
+        DelayChain.launches += 1
+    else:
+        DelayChainTangent.launches += 1
     return out, aux_t
 
 
-def run(layout: ChainLayout, theta, dtheta, rows):
+def run(layout: ChainLayout, theta, dtheta, rows,
+        lanes: Optional[int] = None):
     """The kernel on CUDA tensors; an error on anything else (the plain
     version is the components', which :func:`delay_chain` takes for a
     CPU batch)."""
@@ -376,7 +409,7 @@ def run(layout: ChainLayout, theta, dtheta, rows):
             f"delay_chain: the kernel runs on CUDA tensors, not "
             f"{theta.device}; PhaseCalc.delay takes the plain version on "
             "the CPU")
-    return _launch(layout, theta, dtheta, rows)[0]
+    return _launch(layout, theta, dtheta, rows, lanes=lanes)[0]
 
 
 def _front(x, d, B):
@@ -390,8 +423,12 @@ def _no_batched_rows(in_dims, name):
 
 
 class DelayChainTangent(torch.autograd.Function):
-    """``(theta, dtheta, layout, *rows) -> (..., N)`` tangent of the delay
-    along ``dtheta``: the kernel's tangent launch."""
+    """``(theta (..., P), dtheta (..., K, P), layout, *rows) -> (..., K,
+    N)`` tangents of the delay along the K lanes of ``dtheta``: the
+    kernel's tangent launch."""
+
+    #: tangent kernel launches in this process
+    launches = 0
 
     @staticmethod
     def forward(theta, dtheta, layout, *rows):
@@ -405,8 +442,17 @@ class DelayChainTangent(torch.autograd.Function):
     def vmap(info, in_dims, theta, dtheta, layout, *rows):
         _no_batched_rows(in_dims[2:], "delay_chain")
         B = info.batch_size
-        return DelayChainTangent.apply(_front(theta, in_dims[0], B),
-                                       _front(dtheta, in_dims[1], B),
+        td, dd = in_dims[:2]
+        if td is None and dd is not None:
+            # tangents of one θ (jacfwd lanes): more lanes of each θ set
+            d = dtheta.movedim(dd, -3)                  # (..., B, K, P)
+            out = DelayChainTangent.apply(theta, d.flatten(-3, -2), layout,
+                                          *rows)         # (..., B K, N)
+            out = out.unflatten(-2, (B, d.shape[-2]))   # (..., B, K, N)
+            return out, out.dim() - 3
+        # a batch of θ (grid points): more θ sets, each with its lanes
+        return DelayChainTangent.apply(_front(theta, td, B),
+                                       _front(dtheta, dd, B),
                                        layout, *rows), 0
 
 
@@ -418,8 +464,8 @@ class DelayChain(torch.autograd.Function):
     :data:`ROWS`; they pass through ``apply`` so that torch.func unwraps
     them before the kernel reads their pointers."""
 
-    #: kernel launches in this process, primal and tangent (plain runs
-    #: are not counted)
+    #: primal kernel launches in this process (plain runs are not
+    #: counted; the tangent launches are DelayChainTangent.launches)
     launches = 0
 
     @staticmethod
@@ -438,17 +484,17 @@ class DelayChain(torch.autograd.Function):
         theta, *rows = ctx.saved_tensors
         if dtheta is None:
             return None
-        return DelayChainTangent.apply(theta, dtheta, ctx.layout, *rows)
+        return DelayChainTangent.apply(theta, dtheta.unsqueeze(-2),
+                                       ctx.layout, *rows).squeeze(-2)
 
     @staticmethod
     def backward(ctx, g):
         theta, *rows = ctx.saved_tensors
         P = theta.shape[-1]
         eye = torch.eye(P, dtype=F64, device=theta.device)
-        lead = theta.shape[:-1]
         J = DelayChainTangent.apply(
-            theta[..., None, :].expand(*lead, P, P),
-            eye.expand(*lead, P, P), ctx.layout, *rows)   # (..., P, N)
+            theta, eye.expand(*theta.shape[:-1], P, P), ctx.layout,
+            *rows)                                       # (..., P, N)
         return (torch.matmul(J, g[..., :, None])[..., 0], None,
                 *[None] * len(rows))
 

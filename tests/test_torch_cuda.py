@@ -20,6 +20,12 @@ them with it switched off, from the repository root::
   1e-10 relative of the plain component delays on the ELL1 and DD sets,
   one primal and one tangent launch per jacfwd, the DD orbit's E
   bit-equal to ``kepler_E``'s; refused inputs and components raise;
+  the multi-lane tangent launch bit-equal to the single-lane one at
+  lanes 1, 3, 10, 76 and P on the J0740, DD and GLS models; a vmap over
+  9 grid points of a jacfwd is one primal and one tangent launch; and
+  ``backward`` against the plain version's reverse mode within 5e-9 of
+  sum |J||g| (the plain reverse mode through the quad-single t - epoch
+  is float32-grade);
 * ``GLSFitter.fit_toas`` on the card on the committed GLS set within the
   fit-parity bars of pint_tpu's stored GLS fit.
 """
@@ -254,10 +260,11 @@ def test_delay_chain_matches_plain(case):
         torch.cuda.synchronize()
         assert dc.DelayChain.launches == before + 1
         err = float(torch.max(torch.abs(k - calc.delay_plain(p, b))))
-    before = dc.DelayChain.launches
+    before = (dc.DelayChain.launches, dc.DelayChainTangent.launches)
     Jk = torch.func.jacfwd(lambda x: calc.delay(
         model.with_x(p, x, names), b))(x0)
-    assert dc.DelayChain.launches == before + 2
+    assert (dc.DelayChain.launches, dc.DelayChainTangent.launches) == (
+        before[0] + 1, before[1] + 1)
     Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
         model.with_x(p, x, names), b))(x0)
     scale = torch.amax(torch.abs(Jp), 0)
@@ -268,6 +275,113 @@ def test_delay_chain_matches_plain(case):
     if case == "DD":
         _, aux = dc.delay_chain_aux(calc, p, b)
         assert torch.equal(kepler_E_op(aux[0], aux[1]), aux[2])
+
+
+def _chain_model(case, dev):
+    """(model, Residuals) of one path's model on the committed 200-TOA
+    set, on ``dev``."""
+    from pint_tpu_torch.examples import j0740_realistic_par
+    from pint_tpu_torch.residuals import Residuals
+
+    par, tim = {
+        "J0740": (lambda: j0740_realistic_par(
+            dmx_bins=data.DMX_BINS, span_days=data.SPAN_DAYS,
+            center_mjd=data.CENTER_MJD).splitlines(), data.REF_TIM),
+        "DD": (data.dd_par_lines, data.DD_REF_TIM),
+        "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM)}[case]
+    model, toas = data.load_torch(tim, par=par())
+    return model, Residuals(toas, model, device=dev)
+
+
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+def test_delay_chain_lanes_bit_equal_to_single_lane(case):
+    """The multi-lane tangent launch (every lanes-per-thread) against the
+    single-lane one, on two θ sets: bit-equal at lanes 1, 3, 10, 76 and
+    P, a ragged last lane block included."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+
+    model, r = _chain_model(case, dev)
+    lay = model.calc.chain_layout
+    rows = dc.row_inputs(lay, r.pdict, r.batch)
+    names = model.free_params
+    x0 = model.x0(r.pdict, names).to(dev)
+    rng = np.random.default_rng(20261017)
+    with torch.no_grad():
+        thetas = torch.stack([lay.theta(model.with_x(r.pdict, x, names))
+                              for x in (x0, x0 + 1e-9 * torch.from_numpy(
+                                  rng.standard_normal(len(names))).to(dev))])
+    for K in (1, 3, 10, 76, lay.P):
+        dth = torch.from_numpy(rng.standard_normal((2, K, lay.P))).to(dev)
+        before = dc.DelayChainTangent.launches
+        one = dc.run(lay, thetas, dth, rows, lanes=1)
+        for L in dc.KERNEL_LANES[1:]:
+            many = dc.run(lay, thetas, dth, rows, lanes=L)
+            assert torch.equal(many, one), (K, L)
+        torch.cuda.synchronize()
+        assert dc.DelayChainTangent.launches == before + len(dc.KERNEL_LANES)
+        assert torch.all(torch.isfinite(one))
+
+
+def test_delay_chain_vmap_grid_one_tangent_launch():
+    """vmap over 9 grid points of a jacfwd: one primal and one tangent
+    launch (9 θ sets, each with its lanes), each point's columns within
+    1e-10 of the plain version's."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+
+    model, r = _chain_model("J0740", dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = model.free_params
+    rng = np.random.default_rng(20261018)
+    X = model.x0(p, names).to(dev) + 1e-9 * torch.from_numpy(
+        rng.standard_normal((9, len(names)))).to(dev)
+    before = (dc.DelayChain.launches, dc.DelayChainTangent.launches)
+    J = torch.func.vmap(torch.func.jacfwd(lambda x: calc.delay(
+        model.with_x(p, x, names), b)))(X)
+    torch.cuda.synchronize()
+    assert (dc.DelayChain.launches, dc.DelayChainTangent.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g in range(9):
+        Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
+            model.with_x(p, x, names), b))(X[g])
+        scale = torch.amax(torch.abs(Jp), 0)
+        rel = float(torch.max(torch.amax(torch.abs(J[g] - Jp), 0)
+                              / torch.where(scale > 0, scale, 1.0)))
+        assert rel <= 1e-10, (g, rel)
+
+
+@pytest.mark.parametrize("case", ["J0740", "DD"])
+def test_delay_chain_backward_matches_plain(case):
+    """Reverse mode through the kernel (one tangent launch with P unit
+    lanes) against the plain version's, within 5e-9 of sum |J||g|."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+
+    model, r = _chain_model(case, dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = model.free_params
+    x0 = model.x0(p, names).to(dev)
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        b.ntoas)).to(dev)
+
+    def grad(delay):
+        x = x0.clone().requires_grad_(True)
+        return torch.autograd.grad(
+            torch.sum(w * delay(model.with_x(p, x, names), b)), x)[0]
+
+    before = dc.DelayChainTangent.launches
+    gk = grad(calc.delay)
+    torch.cuda.synchronize()
+    assert dc.DelayChainTangent.launches == before + 1
+    gp = grad(calc.delay_plain)
+    Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
+        model.with_x(p, x, names), b))(x0)
+    scale = torch.abs(Jp).T @ torch.abs(w)
+    rel = float(torch.max(torch.abs(gk - gp)
+                          / torch.where(scale > 0, scale, 1.0)))
+    print(f"{case}: backward vs plain reverse mode {rel:.3e} of sum |J||g|")
+    assert rel <= 5e-9
 
 
 def test_delay_chain_refuses_what_it_does_not_cover():

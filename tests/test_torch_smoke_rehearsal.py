@@ -3,10 +3,10 @@
 ``chip_smoke.py`` runs only on a card.  Here its ``main()`` runs on the
 CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in), with the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
-profiler's CUDA trace, the nvcc build, the delay kernel's own launches
-and its auxiliary output, the count of plain delay chains that on the
-card must be zero) stubbed, the kernels' plain runs counted as their
-launches, and the fused rung taken as on CUDA.  It catches wrong paths,
+profiler's CUDA trace, the nvcc build and its ptxas report, the delay
+kernel's own launches and its auxiliary output, the count of plain delay chains that on the card must be zero)
+stubbed, the kernels' plain runs counted as their launches, and the
+fused rung taken as on CUDA.  It catches wrong paths,
 shapes, names and control flow in the script before a chip call does; it
 says nothing of the kernels' speed or of their CUDA source.
 """
@@ -76,6 +76,22 @@ def _cpu_chain_aux(calc, p, batch):
     return d, torch.stack(seen[0])
 
 
+#: nvcc -Xptxas=-v output of the shape ptxas prints, for the register
+#: report's parser
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125delay_chain_tangent_lanesILi2ELi4EEEvN7ptchain7RowDataEPKdS4_NS1_8ChainCfgEilPd' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125delay_chain_tangent_lanesILi2ELi4EEEvN7ptchain7RowDataEPKdS4_NS1_8ChainCfgEilPd
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 0 barriers, 512 bytes cmem[0]
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118delay_chain_primalILi1EEEvN7ptchain7RowDataEPKdNS1_8ChainCfgEllPdS6_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118delay_chain_primalILi1EEEvN7ptchain7RowDataEPKdNS1_8ChainCfgEllPdS6_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 512 bytes cmem[0]
+"""
+
+
 def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_rehearsal", os.path.join(REPO, "chip_smoke.py"))
@@ -111,6 +127,7 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                        os.environ.get("PINT_TPU_CLOCK_DIR",
                                       os.path.join(cache, "clock")))
     monkeypatch.setattr(build, "build_all", lambda *a, **k: {})
+    monkeypatch.setattr(build, "build_log", lambda name: PTXAS_LOG)
     monkeypatch.setattr(Fitter, "_fused_ok", lambda self: True)
     real_q, real_k = qs_phase.run, kepler.run
 
@@ -123,15 +140,25 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         return real_k(M, e)
 
     def chain(calc, p, batch):
+        # one primal launch, and a tangent launch where the parameters
+        # are under a torch.func transform (a jacfwd, or a vmap of one)
         delay_chain.DelayChain.launches += 1
+        if any(torch._C._functorch.is_functorch_wrapped_tensor(v)
+               for v in p["delta"].values()
+               if isinstance(v, torch.Tensor)):
+            delay_chain.DelayChainTangent.launches += 1
         return calc.delay_plain(p, batch)
 
-    def chain_run(layout, theta, dtheta, rows):
-        # the kernel's launches on CPU tensors, for the timing phase's
-        # shapes only: zeros of the output's shape
-        lead = theta.shape[:-1] if dtheta is None else \
-            torch.broadcast_shapes(theta.shape[:-1], dtheta.shape[:-1])
-        delay_chain.DelayChain.launches += 1
+    def chain_run(layout, theta, dtheta, rows, lanes=None):
+        # the kernel's launches on CPU tensors, for the timing and
+        # lanes phases' shapes only: zeros of the output's shape
+        if dtheta is None:
+            delay_chain.DelayChain.launches += 1
+            lead = theta.shape[:-1]
+        else:
+            assert dtheta.shape[:-2] == theta.shape[:-1]
+            delay_chain.DelayChainTangent.launches += 1
+            lead = dtheta.shape[:-1]
         return torch.zeros((*lead, rows[0].shape[0]), dtype=torch.float64)
 
     monkeypatch.setattr(qs_phase, "run", q_run)
@@ -147,6 +174,7 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         qs_phase.QSPhaseFrac.launches = 0
         kepler.KeplerE.launches = 0
         delay_chain.DelayChain.launches = 0
+        delay_chain.DelayChainTangent.launches = 0
     lines = capsys.readouterr().out.strip().splitlines()
     phases = [json.loads(ln)["phase"] for ln in lines if '"phase"' in ln]
     assert phases == ["device", "build", "qs_phase_frac", "main_path",
@@ -161,8 +189,9 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [k["name"] for k in kernels] == ["qs_phase_frac", "kepler_E",
-                                            "delay_chain"]
+    assert [k["name"] for k in kernels] == [
+        "qs_phase_frac", "kepler_E", "delay_chain_primal",
+        "delay_chain_tangent"]
     assert all(keys <= set(k) for k in kernels)
     # kepler_E's Kepler solve runs inside delay_chain on the card's paths
     # (on the CPU the plain DD delay still calls it)
@@ -171,6 +200,33 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(set(k["launches_by_path"]) == {"j0740_grid", "dd_fit",
                                               "gls_fit"} for k in kernels)
     assert kernels[1]["solved_on_the_paths_by"] == "delay_chain"
+    chain = next(rec for rec in map(json.loads, lines)
+                 if rec.get("phase") == "delay_chain")
+    assert chain["registers"] == {
+        "DD/tangent_L4": {"stack_bytes": 8, "spill_store_bytes": 0,
+                          "spill_load_bytes": 0, "registers": 168},
+        "ELL1/primal": {"stack_bytes": 0, "spill_store_bytes": 0,
+                        "spill_load_bytes": 0, "registers": 64}}
+    assert all("profiler_retries" in json.loads(ln) for ln in lines
+               if '"phase"' in ln)
+    for label, t in chain["timing"].items():
+        assert sorted(int(k) for k in t["tangent"]) == [10, 14], label
+        # a lane's tangent: float64 only (d dt is the kernel's analytic
+        # one, not the quad-single words), its derivative factors shared
+        assert set(t["ops_per_tangent_lane"]) == {"float64"}, label
+        assert t["ops_shared_per_theta_set"]["float64"] > 0, label
+        by_ops = t["speedup_vs_single_lane_by_ops"]
+        assert 1.0 < by_ops["2"] < by_ops["4"] < by_ops["unbounded"], label
+        for rec in t["tangent"].values():
+            assert set(rec["device_ms_by_lanes_per_thread"]) == {
+                "1", "2", "4"}
+            assert 0 <= rec["ops_per_lane_zero_tangents_skipped"][
+                "float64"] <= t["ops_per_tangent_lane"]["float64"], label
+            assert rec["bound_by"] == "operations"
+            assert len(rec["device_ms_by_lanes_per_thread"]["1"]) == 2
+    assert all(all(v.values()) if isinstance(v, dict) else True
+               for lab in ("j0740_grid", "dd_fit", "gls_fit")
+               for v in [chain[lab]["lanes_bit_equal_to_single_lane"]])
     gls = next(json.loads(ln) for ln in lines if '"gls_main_path"' in ln)
     assert set(gls["fit_warm_share"]) == {"steps", "assemble", "solve",
                                           "write_back"}
