@@ -11,8 +11,8 @@ Phases, each printing one JSON line with its numbers and seconds:
 
 1. device: the card (``nvidia-smi`` name and power limit);
 2. build: every CUDA kernel of the package (``qs_phase``, ``kepler``,
-   ``delay_chain``), compiled with nvcc for sm_90a, one nvcc process per
-   source at once;
+   ``delay_chain``, ``phase_chain``), compiled with nvcc for sm_90a, one
+   nvcc process per source at once;
 3. qs_phase_frac: the kernel against its plain PyTorch version on the
    card, at the main path's shapes (the bench tim's 12,500 TOAs at the 9
    grid points): fractions, tangents, the TZR words mode, kernel and
@@ -20,12 +20,15 @@ Phases, each printing one JSON line with its numbers and seconds:
 4. main_path: ``get_model(j0740_realistic_par())`` ->
    ``get_TOAs(bench_cache/j0740_bench_wide_12500.tim)`` -> ``WLSFitter`` ->
    ``grid_chisq_flat`` over the bench's 3x3 M2/SINI grid (maxiter=2), with
-   the kernels' launch counts zeroed just before and read just after;
+   the kernels' launch counts zeroed just before and read just after: the
+   fused ``phase_chain`` launches must run, the unfused ``qs_phase_frac``
+   and ``delay_chain`` ones must not;
    grid_timing: warm grid wall time (median of 3) and launches per call;
    grid_profile: one warm grid call under torch.profiler (device busy and
    idle share, kernel launches, the kernels that take the device time);
    plain_grid: the same grid with the phase chain run by the plain
-   version on the card; chi2 must agree within 1e-6 relative;
+   composition on the card (no kernel); chi2 must agree within 1e-6
+   relative;
    reference: the grid on the card on a small simulated J0740 set
    (``tests/data/j0740_sim_200.tim``), whose chi2 must agree within 1e-6
    relative with pint_tpu's, stored beside it by
@@ -73,6 +76,23 @@ Phases, each printing one JSON line with its numbers and seconds:
    the grid's 9 x 76 tangents through vmap(jvp) against the plain
    version's; ptxas's registers and spills of every kernel; launches per
    grid call, DD fit and GLS fit;
+   phase_chain: the fused kernel on the three paths' full-width models,
+   against the unfused card chain (the delay_chain kernel, PyTorch's
+   shift, the qs_phase_frac kernel and its tangent rule): frac, slope and
+   dt64 bit-equal at 9 θ sets in the nearest and pulse-number modes, the
+   TZR words bit-equal, the tangents through jvp bit-equal at lanes 1, 3,
+   10, 76 and P, the grid's vmap over 9 points of a jacfwd one primal and
+   one tangent launch and bit-equal, every lanes-per-thread bit-equal to
+   the single-lane launch; frac within 1e-12 cycles of the plain phase on
+   the delay_chain kernel's delay and within F0 x 1e-12 s of the plain
+   composition, the columns within 1e-10 relative of it; the fused
+   primal timed at the
+   grid's 9 θ sets and the GLS path's 1 against the unfused chain (CUDA
+   events around each whole chain, in turns), the fused tangent at 1 x 10,
+   1 x 76, 9 x 10 and 9 x 76 lanes against the delay_chain tangent launch
+   plus the unfused rule, each with its least possible time on this card;
+   ptxas's registers and spills; launches per grid call, DD fit and GLS
+   fit;
    gls_card_vs_host: the final GLS solve at the fitted point on the card
    against the same solve on the CPU (step in sigma, uncertainties,
    chi2), each timed;
@@ -144,9 +164,12 @@ PEAK_F64_MATMUL_PER_S = 67e12
 LANE_COUNTS = (1, 3, 10, 76)
 GRID_POINTS = 9
 
-#: the kernels that every path launches (kepler_E's solve runs inside
-#: delay_chain on the paths)
-ON_PATHS = ("qs_phase_frac", "delay_chain_primal", "delay_chain_tangent")
+#: the kernels that every path launches: the delay chain, the Kepler
+#: solve and the phase run inside the fused phase_chain launches
+ON_PATHS = ("phase_chain_primal", "phase_chain_tangent")
+#: the unfused kernels, which the paths no longer launch (each is held
+#: against its plain version in its own phase)
+OFF_PATHS = ("qs_phase_frac", "delay_chain_primal", "delay_chain_tangent")
 
 #: bars of this run
 FRAC_TOL_CYCLES = 1e-12
@@ -289,6 +312,7 @@ def device_kernel_ms(torch, fn, name: str, reps: int = 20):
 #: kernel families of the grid's device time, by kernel-name substring
 #: (the rest is PyTorch's elementwise and indexing kernels)
 FAMILIES = (("qs_phase_frac", ("qs_phase",)),
+            ("phase_chain", ("phase_chain",)),
             ("kepler_E", ("kepler_E",)),
             ("delay_chain", ("delay_chain",)),
             ("svd", ("gesvd", "svdj", "bdsqr", "gebrd", "orgbr", "ormbr")),
@@ -403,6 +427,16 @@ def load(torch, dev: str, tim: str, dmx_bins: int):
     return model, toas, fitter
 
 
+def tzr_pdict(torch, np, model, p: dict, dev):
+    """``p`` with the masks of the 1-row TZR batch, as
+    ``TimingModel.build_pdict`` forms the TZR phase."""
+    ptzr = dict(p)
+    ptzr["mask"] = {k: torch.as_tensor(np.asarray(v), device=dev)
+                    for k, v in model.build_pdict_numpy(
+                        None, model.make_tzr_toas_or_none())[1].items()}
+    return ptzr
+
+
 def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
     """qs_phase_frac against its plain version on the rows of the grid:
     outputs, tangents, TZR words, times, bound."""
@@ -482,10 +516,7 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
 
     # TZR words mode, on the 1-row TZR batch
     tb = model.tzr_batch
-    ptzr = dict(p)
-    ptzr["mask"] = {k: torch.as_tensor(np.asarray(v), device=dev)
-                    for k, v in model.build_pdict_numpy(
-                        None, model.make_tzr_toas_or_none())[1].items()}
+    ptzr = tzr_pdict(torch, np, model, p, dev)
     with torch.no_grad():
         delay_t = calc.delay(ptzr, tb)
         _, _, _, sh_t, dF_t = sd.kernel_inputs(ptzr, tb, delay_t)
@@ -682,28 +713,54 @@ def plain_delays():
         PhaseCalc.delay_plain = real
 
 
-def zero_counts() -> None:
-    """Every kernel's launch count to 0."""
+def _counted():
+    """Every kernel's launch counter, by the name of its kernel line."""
     from pint_tpu_torch.kernels.delay_chain import (DelayChain,
                                                     DelayChainTangent)
     from pint_tpu_torch.kernels.kepler import KeplerE
+    from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
+                                                    PhaseChainTangent)
     from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
 
-    for k in (QSPhaseFrac, KeplerE, DelayChain, DelayChainTangent):
+    return {"qs_phase_frac": QSPhaseFrac, "kepler_E": KeplerE,
+            "delay_chain_primal": DelayChain,
+            "delay_chain_tangent": DelayChainTangent,
+            "phase_chain_primal": PhaseChain,
+            "phase_chain_tangent": PhaseChainTangent}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0."""
+    for k in _counted().values():
         k.launches = 0
 
 
 def counts() -> dict:
     """Every kernel's launch count, by the name of its kernel line."""
-    from pint_tpu_torch.kernels.delay_chain import (DelayChain,
-                                                    DelayChainTangent)
-    from pint_tpu_torch.kernels.kepler import KeplerE
-    from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
+    return {name: k.launches for name, k in _counted().items()}
 
-    return {"qs_phase_frac": QSPhaseFrac.launches,
-            "kepler_E": KeplerE.launches,
-            "delay_chain_primal": DelayChain.launches,
-            "delay_chain_tangent": DelayChainTangent.launches}
+
+def check_path_launches(label: str, launches: dict) -> None:
+    """The path ran the fused kernels and none of the unfused ones."""
+    if min(launches[k] for k in ON_PATHS) <= 0 or any(
+            launches[k] for k in OFF_PATHS):
+        raise AssertionError(f"the {label} did not run the fused phase "
+                             f"chain alone: {launches}")
+
+
+@contextlib.contextmanager
+def plain_phase():
+    """The qs_phase_frac wrapper runs its plain version inside the block,
+    on any device: with the plain component delays, the phase chain is
+    then the plain composition with no kernel."""
+    from pint_tpu_torch.kernels import qs_phase
+
+    real = qs_phase.run
+    qs_phase.run = lambda s, a, b, c: s.plain(a, b, c)
+    try:
+        yield
+    finally:
+        qs_phase.run = real
 
 
 def check_delay_chain(torch, label: str, model, fitter, rec: dict):
@@ -1025,10 +1082,10 @@ def tangent_vs_plain(torch, model, fitter, points: int, rec: dict) -> None:
         raise AssertionError(f"delay_chain tangent vs plain jvp: {rec}")
 
 
-def chain_registers(build_log: str) -> dict:
-    """ptxas's registers, stack and spills of every delay_chain kernel
-    (nvcc -Xptxas=-v), by kernel: primal/tangent, binary family, lanes
-    per thread."""
+def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
+    """ptxas's registers, stack and spills of every delay_chain (or
+    phase_chain) kernel (nvcc -Xptxas=-v), by kernel: primal/tangent,
+    binary family, lanes per thread."""
     import re
 
     fams = {"0": "none", "1": "ELL1", "2": "DD"}
@@ -1036,7 +1093,7 @@ def chain_registers(build_log: str) -> dict:
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
             # a kernel of ours, or another function (a libdevice callee)
-            m = re.search(r"delay_chain_(primal|tangent_lanes|tangent)"
+            m = re.search(kernel + r"_(primal|tangent_lanes|tangent)"
                           r"ILi(\d)E(?:Li(\d)E)?", line)
             cur = None if m is None else out.setdefault(
                 f"{fams[m.group(2)]}/" + ("primal" if m.group(1) == "primal"
@@ -1055,6 +1112,364 @@ def chain_registers(build_log: str) -> dict:
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def fused_points(torch, model, fitter, X, mode: str = "nearest", pn=None):
+    """The fused launch's inputs at the fit points ``X``: its spec, θ
+    (points, P), other (points, N) and tensors (with the pulse numbers
+    ``pn`` in the use_pulse_numbers mode)."""
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels import phase_chain as pc
+
+    r = fitter.resids
+    p, b, names = r.pdict, r.batch, fitter.fit_params
+    with torch.no_grad():
+        ins = [pc.fused_inputs(model.calc, model.with_x(p, x, names), b,
+                               mode) for x in X]
+    spec, _, _, tensors = ins[0]
+    if pn is not None:
+        tensors = list(tensors)
+        tensors[len(dc.ROWS)] = pn
+    others = [o for _, _, o, _ in ins]
+    return (spec, torch.stack([t for _, t, _, _ in ins]),
+            None if others[0] is None else torch.stack(others), tensors)
+
+
+def unfused_points(torch, model, fitter, X, mode: str = "nearest",
+                   pn=None, delay=None):
+    """The unfused chain's qs_phase_frac inputs at the fit points ``X``:
+    (spec, shift (points, N), dF (points, K), other (points, N)), the
+    delay by ``delay`` (by default the delay_chain kernel)."""
+    import dataclasses
+
+    from pint_tpu_torch.kernels import phase_chain as pc
+
+    r = fitter.resids
+    p, b, names, calc = r.pdict, r.batch, fitter.fit_params, model.calc
+    with torch.no_grad():
+        ins = [pc.unfused_inputs(calc, model.with_x(p, x, names), b, mode,
+                                 delay=calc.delay if delay is None
+                                 else delay) for x in X]
+    spec = ins[0][0]
+    if pn is not None:
+        spec = dataclasses.replace(spec, pulse_number=pn)
+    stack = [None if ins[0][i] is None else
+             torch.stack([v[i] for v in ins]) for i in (1, 2, 3)]
+    return (spec, *stack)
+
+
+def check_phase_chain(torch, label: str, model, fitter, rec: dict):
+    """phase_chain against the unfused card chain (the delay_chain kernel,
+    PyTorch's shift, qs_phase_frac and its tangent rule) on one path's
+    full-width model and TOAs, and against the plain composition: the
+    primal at 9 θ sets in two modes, the TZR words, the tangents through
+    jvp at several lane counts, the grid's vmap of a jacfwd, every
+    lanes-per-thread against the single-lane launch.  frac is held within
+    FRAC_TOL_CYCLES of K3's plain version on the delay_chain kernel's
+    delay, and within F0 x DELAY_TOL_S (the delay chain's bar against the
+    plain delays, carried into the phase) of the plain composition.
+    Returns frac's largest gap to the plain composition [cycles]."""
+    import numpy as np
+
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    dev, N = b.device, b.ntoas
+    names = fitter.fit_params
+    _, _, X, _, _ = chain_inputs(torch, model, fitter, GRID_POINTS)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    f64 = torch.float64
+    pn = torch.round(torch.rand(N, generator=gen, dtype=f64) * 2e9
+                     - 1e9).to(dev)
+    pn[::17] = float("nan")
+    out = {"ntoas": N, "theta_sets": GRID_POINTS}
+    # the primal of one launch over 9 θ sets, at each point
+    primal = {}
+    for mode in ("nearest", "use_pulse_numbers"):
+        mpn = pn if mode == "use_pulse_numbers" else None
+        spec, thetas, others, tensors = fused_points(torch, model, fitter,
+                                                     X, mode, mpn)
+        with torch.no_grad():
+            fused = pc.run(spec, thetas, others, tensors)
+            want = qs_phase.run(*unfused_points(torch, model, fitter, X,
+                                                mode, mpn))
+        primal[mode] = {name: bool(torch.equal(a, w)) for name, a, w in
+                        zip(("out", "slope", "dt64"), fused, want)}
+    out["theta_slots"] = spec.P
+    out["primal_bit_equal_to_unfused"] = primal
+    # the TZR words on the 1-row TZR batch
+    ptzr = tzr_pdict(torch, np, model, p, dev)
+    with torch.no_grad():
+        kw = pc.fused(calc, ptzr, model.tzr_batch, "words",
+                      subtract_tzr=False)
+        uw = pc.unfused(calc, ptzr, model.tzr_batch, "words",
+                        subtract_tzr=False, delay=calc.delay)
+    out["tzr_words_bit_equal_to_unfused"] = bool(torch.equal(kw, uw))
+    out["tzr_words_match_pdict"] = bool(
+        torch.equal(kw[0], p["const"]["__tzrphase__"]))
+    # the plain composition
+    x0 = model.x0(p, names).to(dev)
+
+    def at(x):
+        return model.with_x(p, x, names)
+
+    def fused_f(x):
+        return pc.fused(calc, at(x), b, "nearest")
+
+    def unfused_f(x):
+        return pc.unfused(calc, at(x), b, "nearest", delay=calc.delay)
+
+    def plain_f(x):
+        return pc.unfused(calc, at(x), b, "nearest")
+
+    with torch.no_grad():
+        frac = fused_f(x0)
+        # the plain phase on the delay_chain kernel's delay (K3's plain
+        # version), and the plain composition (the components' own
+        # delays, which the delay chain meets within DELAY_TOL_S on the
+        # card, not to the bit: CUDA's libm)
+        qspec, shift, dF, other = pc.unfused_inputs(calc, p, b, "nearest",
+                                                    delay=calc.delay)
+        phase_err = float(torch.max(torch.abs(
+            frac - qspec.plain(shift, dF, other)[0])))
+        with plain_phase():
+            frac_err = float(torch.max(torch.abs(frac - plain_f(x0))))
+    frac_bar = float(model.F0.value) * DELAY_TOL_S
+    # tangents through the transforms along random fit-parameter
+    # directions: one primal and one tangent launch per jvp over K lanes
+    tangents, launches = {}, {}
+    for K in LANE_COUNTS + (len(names),):
+        V = torch.randn(K, len(names), generator=gen, dtype=f64).to(dev)
+
+        def along(fn):
+            return torch.func.vmap(lambda v: torch.func.jvp(
+                fn, (x0,), (v,))[1])(V)
+
+        before = counts()
+        kf = along(fused_f)
+        after = counts()
+        launches[str(K)] = [after[k] - before[k] for k in ON_PATHS]
+        tangents[str(K)] = bool(torch.equal(kf, along(unfused_f)))
+    out["tangents_bit_equal_to_unfused"] = tangents
+    out["tangent_launches"] = launches
+    # the grid's shape: a vmap over 9 points of a jacfwd
+    before = counts()
+    Jf = torch.func.vmap(torch.func.jacfwd(fused_f))(X)
+    after = counts()
+    out["grid_jacfwd_launches"] = [after[k] - before[k] for k in ON_PATHS]
+    out["grid_jacfwd_bit_equal_to_unfused"] = bool(torch.equal(
+        Jf, torch.func.vmap(torch.func.jacfwd(unfused_f))(X)))
+    with plain_phase():
+        Jp = torch.func.jacfwd(plain_f)(x0)
+    scale = torch.amax(torch.abs(Jp), dim=0)
+    per_col = torch.amax(torch.abs(Jf[0] - Jp), dim=0) / torch.where(
+        scale > 0, scale, 1.0)
+    worst = int(torch.argmax(per_col))
+    # every lanes-per-thread against the single-lane launch, on random
+    # tangents of θ and of other at two θ sets
+    spec, thetas, others, tensors = fused_points(torch, model, fitter, X[:2])
+    with torch.no_grad():
+        _, slope, dt64 = pc.run(spec, thetas, others, tensors)
+    equal = {}
+    for K in LANE_COUNTS + (spec.P,):
+        dth = torch.randn(2, K, spec.P, generator=gen, dtype=f64).to(dev)
+        dot = torch.randn(2, K, N, generator=gen, dtype=f64).to(dev)
+        one = pc.run(spec, thetas, None, tensors, dth, slope, dt64,
+                              dot, lanes=1)
+        equal[str(K)] = all(
+            torch.equal(pc.run(spec, thetas, None, tensors, dth,
+                                        slope, dt64, dot, lanes=L), one)
+            for L in dc.KERNEL_LANES[1:])
+    out.update(lanes_bit_equal_to_single_lane=equal,
+               max_abs_frac_err_vs_plain_phase=phase_err,
+               max_abs_frac_err_vs_plain=frac_err,
+               frac_bar_vs_plain_cycles=frac_bar,
+               max_rel_column_err_vs_plain=float(per_col[worst]),
+               worst_column=names[worst])
+    rec[label] = out
+    ok = (all(all(v.values()) for v in primal.values())
+          and out["tzr_words_bit_equal_to_unfused"]
+          and out["tzr_words_match_pdict"] and all(tangents.values())
+          and all(v == [1, 1] for v in launches.values())
+          and out["grid_jacfwd_launches"] == [1, 1]
+          and out["grid_jacfwd_bit_equal_to_unfused"]
+          and all(equal.values()) and phase_err <= FRAC_TOL_CYCLES
+          and frac_err <= frac_bar
+          and out["max_rel_column_err_vs_plain"] <= COLUMN_TOL)
+    if not ok:
+        raise AssertionError(f"phase_chain vs unfused on {label}: {out}")
+    return frac_err
+
+
+def first_time(rec: dict) -> float:
+    """A launch's device time from the profiler, or, where no trace held
+    its events, its call's time by CUDA events."""
+    return rec["device_ms"] if rec["device_ms"] is not None \
+        else rec["fused_chain_ms"]
+
+
+def in_turns(torch, fns: dict, reps: int = 25) -> dict:
+    """Median CUDA-event milliseconds of each of ``fns`` (name -> call),
+    taken in turns a, b, b, a and averaged."""
+    names = list(fns) + list(fns)[::-1]
+    times = {n: [] for n in fns}
+    for n in names:
+        times[n].append(time_ms(torch, fns[n], reps))
+    return {n: sum(t) / len(t) for n, t in times.items()}
+
+
+def time_phase_chain(torch, model, fitter, points: int, rec: dict) -> None:
+    """The fused launches' times at one path's shapes over ``points`` θ
+    sets, against the unfused chain they replace: the primal (the
+    delay_chain primal launch, PyTorch's shift, qs_phase_frac) and the
+    tangent at the lane counts of the path's jacfwds (the delay_chain
+    tangent launch, the shift's forward rule and QSPhaseFrac.jvp's
+    arithmetic), each whole chain timed with CUDA events in turns; the
+    fused kernels' device times; each launch's least time on this card
+    (the delay chain's counts plus the phase's, as the plain version
+    dispatches them) and its reach; the plain composition's times."""
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = fitter.fit_params
+    lin, nl = model.partition_linear_params(names)
+    _, _, X, _, _ = chain_inputs(torch, model, fitter, points)
+    spec, thetas, others, tensors = fused_points(torch, model, fitter, X)
+    qspec, shift, dF, other = unfused_points(torch, model, fitter, X)
+    lay, P4, Ks = spec.layout, spec.layout.P, spec.K
+    o_spin, o_pep = P4, P4 + Ks
+    rows = tensors[:len(dc.ROWS)]
+    theta4 = thetas[:, :P4].contiguous()
+    N, P = b.ntoas, spec.P
+    ops = chain_ops(torch, model, fitter)
+    with torch.no_grad():
+        k3_ops = count_ops(torch, lambda: qspec.plain(shift, dF, other))
+    row_bytes = sum(t.numel() * t.element_size() for t in rows)
+    const_bytes = sum(t.numel() * t.element_size()
+                      for t in tensors[len(dc.ROWS):] if t is not None)
+    other_bytes = 0 if others is None else 8 * points * N
+
+    def fused_primal():
+        return pc.run(spec, thetas, others, tensors)
+
+    def unfused_primal():
+        d = dc.run(lay, theta4, None, rows)
+        sh = (-d) - (thetas[:, o_pep, None] * 86400.0)
+        return qs_phase.run(qspec, sh, thetas[:, o_spin:o_pep], others)
+
+    def plain_primal():
+        def f(x):
+            return pc.unfused(calc, model.with_x(p, x, names), b, "nearest")
+        with plain_phase():
+            return torch.func.vmap(f)(X)
+
+    with torch.no_grad():
+        _, slope, dt64 = fused_primal()
+        turns = in_turns(torch, {"fused": fused_primal,
+                                 "unfused": unfused_primal})
+        plain_ms = time_ms(torch, plain_primal, reps=3)
+    dev_ms = device_kernel_ms(torch, fused_primal, "phase_chain_primal")
+    total = {dt: points * n for dt, n in ops[0].items()}
+    for dt, n in k3_ops.items():
+        total[dt] = total.get(dt, 0) + n
+    t_ops = ops_seconds(total)
+    nbytes = (row_bytes + const_bytes + 8 * points * P + other_bytes
+              + 3 * 8 * points * N)
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    rec.update(theta_sets=points, ntoas=N, theta_slots=P)
+    rec["primal"] = dict(
+        device_ms=dev_ms, fused_chain_ms=turns["fused"],
+        unfused_chain_ms=turns["unfused"], plain_ms=plain_ms, ops=total,
+        bytes=nbytes, ops_ms=1e3 * t_ops, bytes_ms=1e3 * t_bytes,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        reach=None if dev_ms is None else 1e3 * max(t_ops, t_bytes) / dev_ms)
+    # the tangent, at the path's nonlinear and linear lane counts
+    x0 = model.x0(p, names).to(b.device)
+    Tf = torch.func.jacfwd(lambda x: pc.fused_inputs(
+        calc, model.with_x(p, x, names), b, "nearest")[1])(x0)   # (P, n)
+    rec["tangent"] = {}
+    for label, params in (("nonlinear", nl), ("linear", lin)):
+        idx = [names.index(n) for n in params]
+        K = len(idx)
+        E = torch.eye(len(names), dtype=torch.float64, device=b.device)[idx]
+        dot = None
+        if others is not None:
+            with torch.no_grad():
+                dot = torch.func.vmap(lambda v: torch.func.jvp(
+                    lambda x: pc.fused_inputs(
+                        calc, model.with_x(p, x, names), b, "nearest")[2],
+                    (x0,), (v,))[1])(E)
+            dot = dot.expand(points, K, N).contiguous()
+        dth = Tf[:, idx].T.contiguous().expand(points, K, P).contiguous()
+        dth4 = dth[..., :P4].contiguous()
+
+        def fused_tangent():
+            return pc.run(spec, thetas, None, tensors, dth, slope,
+                                   dt64, dot)
+
+        def rule(dd):
+            # the shift's forward rule, then QSPhaseFrac.jvp's arithmetic
+            dshift = (-dd) - (dth[..., o_pep, None] * 86400.0)
+            out = torch.zeros_like(dt64)[:, None] + slope[:, None] * dshift
+            pk = dt64[:, None]
+            for k in range(Ks):
+                out = out + pk * dth[..., o_spin + k, None]
+                pk = pk * dt64[:, None] / (k + 2.0)
+            return out if dot is None else out + dot
+
+        def unfused_tangent():
+            return rule(dc.run(lay, theta4, dth4, rows))
+
+        def plain_tangent():
+            def f(x):
+                return pc.unfused(calc, model.with_x(p, x, names), b,
+                                  "nearest")
+            with plain_phase():
+                return torch.func.vmap(lambda x: torch.func.vmap(
+                    lambda v: torch.func.jvp(f, (x,), (v,))[1])(E))(X)
+
+        with torch.no_grad():
+            got = fused_tangent()
+            want = plain_tangent()
+            err = torch.abs(got - want)
+            scale = torch.amax(torch.abs(want), dim=-1, keepdim=True)
+            rel = float(torch.max(torch.amax(err, dim=-1, keepdim=True)
+                                  / torch.where(scale > 0, scale, 1.0)))
+            turns = in_turns(torch, {"fused": fused_tangent,
+                                     "unfused": unfused_tangent})
+            rule_ops = count_ops(torch, lambda: rule(
+                torch.zeros(points, K, N, dtype=torch.float64,
+                            device=b.device)))
+            t_plain = time_ms(torch, plain_tangent, reps=3)
+        ms = device_kernel_ms(torch, fused_tangent, "phase_chain_tangent")
+        tb = chain_bound(ops, points, K, N, P4, row_bytes)
+        tot = dict(tb["ops"])
+        for dt, n in rule_ops.items():
+            tot[dt] = tot.get(dt, 0) + n
+        t_ops = ops_seconds(tot)
+        nbytes = (row_bytes + const_bytes + 8 * points * P * (1 + K)
+                  + 16 * points * N + 8 * points * K * N
+                  * (1 if dot is None else 2))
+        t_bytes = nbytes / MEM_BYTES_PER_S
+        bound = 1e3 * max(t_ops, t_bytes)
+        rec["tangent"][str(K)] = dict(
+            params=label, lanes=K,
+            lanes_per_thread=dc.lanes_per_thread(points, K), device_ms=ms,
+            fused_chain_ms=turns["fused"], unfused_chain_ms=turns["unfused"],
+            plain_ms=t_plain, max_abs_err_vs_plain=float(torch.max(err)),
+            max_rel_column_err_vs_plain=rel, ops=tot, bytes=nbytes,
+            ops_ms=1e3 * t_ops, bytes_ms=1e3 * t_bytes, bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            reach=None if ms is None else bound / ms)
+        if not rel <= COLUMN_TOL:
+            raise AssertionError(f"phase_chain tangent vs plain: {rel}")
 
 
 def gls_load(torch, tim: str, dmx_bins: int, perturb=None):
@@ -1127,9 +1542,8 @@ def main(run: Run = Run()) -> int:
                             for k, v in libs.items()}
 
     from pint_tpu_torch.gridutils import grid_chisq_flat
-    from pint_tpu_torch.kernels import qs_phase
-    from pint_tpu_torch.kernels.delay_chain import DelayChain
-    from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
+    from pint_tpu_torch.kernels import phase_chain
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
 
     grid = {"M2": np.repeat(np.array(GRID_M2), 3),
             "SINI": np.tile(np.array(GRID_SINI), 3)}
@@ -1159,9 +1573,7 @@ def main(run: Run = Run()) -> int:
         # read after the count: residuals launch the kernel once more
         rec["prefit_rms_us"] = float(np.std(fitter.resids.time_resids)) * 1e6
         rec["pulse_period_us"] = 1e6 / float(model.F0.value)
-    if min(grid_launches[k] for k in ON_PATHS) <= 0:
-        raise AssertionError(f"the main path skipped a kernel: "
-                             f"{grid_launches}")
+    check_path_launches("main path", grid_launches)
     if chi2.shape != (9,) or not np.all(np.isfinite(chi2)):
         raise AssertionError(f"bad grid chi2 {chi2}")
     if toas.ntoas != run.ntoas or len(fitter.fit_params) != run.nfit:
@@ -1195,19 +1607,20 @@ def main(run: Run = Run()) -> int:
                    solve_bound_by="operations" if ops / PEAK_F64_MATMUL_PER_S
                    >= nbytes / MEM_BYTES_PER_S else "bytes")
 
-    # the same grid with the phase chain run by the plain version
+    # the same grid with the phase chain run by the plain composition
     with phase("plain_grid", {}) as rec:
-        real_run = qs_phase.run
-        qs_phase.run = lambda s, a, b, c: s.plain(a, b, c)
+        real_frac = phase_chain.phase_frac
+        phase_chain.phase_frac = phase_chain.unfused
         try:
-            QSPhaseFrac.launches = 0
-            t0 = time.perf_counter()
-            chi2_plain = grid_chisq_flat(fitter, grid, maxiter=2)
-            torch.cuda.synchronize()
-            rec["grid_plain_s"] = time.perf_counter() - t0
-            rec["launches"] = QSPhaseFrac.launches
+            with plain_phase():
+                zero_counts()
+                t0 = time.perf_counter()
+                chi2_plain = grid_chisq_flat(fitter, grid, maxiter=2)
+                torch.cuda.synchronize()
+                rec["grid_plain_s"] = time.perf_counter() - t0
+                rec["launches"] = sum(counts().values())
         finally:
-            qs_phase.run = real_run
+            phase_chain.phase_frac = real_frac
         gap = float(np.max(np.abs(chi2 - chi2_plain) / np.abs(chi2_plain)))
         rec.update(chi2_plain=chi2_plain.tolist(), max_rel_chi2_gap=gap)
         if rec["launches"] != 0 or not gap <= CHI2_TOL:
@@ -1218,7 +1631,7 @@ def main(run: Run = Run()) -> int:
         with open(REF_JSON) as f:
             ref = json.load(f)
         _, rtoas, rfit = load(torch, run.dev, REF_TIM, REF_DMX_BINS)
-        QSPhaseFrac.launches = 0
+        PhaseChain.launches = 0
         rchi2 = grid_chisq_flat(rfit, {k: np.asarray(v) for k, v in
                                        ref["grid"].items()},
                                 maxiter=ref["maxiter"])
@@ -1227,7 +1640,7 @@ def main(run: Run = Run()) -> int:
         rec.update(ntoas=rtoas.ntoas, n_fit=len(rfit.fit_params),
                    chi2=rchi2.tolist(), chi2_ref=want.tolist(),
                    ref_kernel=ref["kernel"], max_rel_chi2_gap=gap,
-                   launches=QSPhaseFrac.launches,
+                   launches=PhaseChain.launches,
                    prefit_rms_us=float(np.std(
                        rfit.resids.time_resids)) * 1e6)
         if rfit.fit_params != ref["fit_params"] or not gap <= CHI2_TOL \
@@ -1306,8 +1719,7 @@ def main(run: Run = Run()) -> int:
     bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
     if bad:
         raise AssertionError(f"DD fit pulls {bad}")
-    if min(dd_launches[k] for k in ON_PATHS) <= 0:
-        raise AssertionError(f"the DD path skipped a kernel: {dd_launches}")
+    check_path_launches("DD path", dd_launches)
 
     with phase("kepler_E", {}) as kepler_rec:
         check_kepler(torch, dfit, kepler_rec)
@@ -1372,7 +1784,7 @@ def main(run: Run = Run()) -> int:
             ref = json.load(f)
         rmodel, rtoas = dd_load(torch, DD_REF_TIM, REF_DMX_BINS,
                                 perturb=ref["perturb"])
-        DelayChain.launches = 0
+        PhaseChain.launches = 0
         rfit, rchi2, _ = dd_fit(torch, run.dev, rmodel, rtoas)
         rv, ru = fit_state(rmodel, rfit.fit_params)
         dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
@@ -1382,7 +1794,7 @@ def main(run: Run = Run()) -> int:
                    rung=rfit.fitresult.rung, chi2=rchi2,
                    chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
                    max_sigma_gap=dev, max_unc_rel_gap=unc,
-                   ref_status=ref["status"], launches=DelayChain.launches)
+                   ref_status=ref["status"], launches=PhaseChain.launches)
         if rfit.fit_params != ref["fit_params"] or not (
                 dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
                 and rec["launches"] > 0):
@@ -1450,9 +1862,10 @@ def main(run: Run = Run()) -> int:
     bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
     if bad:
         raise AssertionError(f"GLS fit pulls {bad}")
-    if min(gls_launches[k] for k in ON_PATHS) <= 0 or plain["calls"]:
-        raise AssertionError(f"the GLS path skipped a kernel: {gls_launches}"
-                             f", {plain['calls']} plain delay chains")
+    check_path_launches("GLS path", gls_launches)
+    if plain["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains on the "
+                             "GLS path")
 
     with phase("delay_chain", {}) as chain_rec:
         from pint_tpu_torch.kernels import delay_chain as dc
@@ -1473,20 +1886,33 @@ def main(run: Run = Run()) -> int:
                          chain_rec["grid_tangent_vs_plain"])
         chain_rec["registers"] = chain_registers(
             kbuild.build_log("delay_chain"))
-        chain_rec.update(
-            max_abs_err=max(errs),
+        chain_rec["max_abs_err"] = max(errs)
+
+    with phase("phase_chain", {}) as pc_rec:
+        errs = [check_phase_chain(torch, label, m, f, pc_rec)
+                for label, m, f in (("j0740_grid", model, fitter),
+                                    ("dd_fit", dmodel, dfit),
+                                    ("gls_fit", gmodel, gfit))]
+        pc_rec["timing"] = {}
+        for label, m, f, points in (("gls_fit", gmodel, gfit, 1),
+                                    ("j0740_grid", model, fitter,
+                                     GRID_POINTS)):
+            pc_rec["timing"][label] = {}
+            time_phase_chain(torch, m, f, points, pc_rec["timing"][label])
+        pc_rec["registers"] = chain_registers(
+            kbuild.build_log("phase_chain"), "phase_chain")
+        fused = ("phase_chain_primal", "phase_chain_tangent")
+        pc_rec.update(
+            max_abs_frac_err=max(errs),
             launches={k: {"j0740_grid": grid_launches[k],
                           "dd_fit": dd_launches[k],
                           "gls_fit": gls_launches[k]}
-                      for k in ("delay_chain_primal", "delay_chain_tangent")},
-            launches_per_grid_call={k: grid_call_launches[k] for k in (
-                "delay_chain_primal", "delay_chain_tangent")},
-            launches_per_warm_dd_fit=[
-                f["delay_chain_primal"] + f["delay_chain_tangent"]
-                for f in rec_dd_per_fit],
-            launches_per_warm_gls_fit=[
-                f["delay_chain_primal"] + f["delay_chain_tangent"]
-                for f in per_fit])
+                      for k in ON_PATHS + OFF_PATHS},
+            launches_per_grid_call=grid_call_launches,
+            launches_per_warm_dd_fit=[sum(f[k] for k in fused)
+                                      for f in rec_dd_per_fit],
+            launches_per_warm_gls_fit=[sum(f[k] for k in fused)
+                                       for f in per_fit])
 
     with phase("gls_card_vs_host", {}) as rec:
         # the final solve at the fitted point (the model holds the last
@@ -1562,7 +1988,7 @@ def main(run: Run = Run()) -> int:
             ref = json.load(f)
         rmodel, rtoas = gls_load(torch, GLS_REF_TIM, REF_DMX_BINS,
                                  perturb=ref["perturb"])
-        DelayChain.launches = 0
+        PhaseChain.launches = 0
         rfit, rchi2, _ = gls_fit(torch, run.dev, rmodel, rtoas)
         rv, ru = fit_state(rmodel, rfit.fit_params)
         dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
@@ -1576,7 +2002,7 @@ def main(run: Run = Run()) -> int:
                    chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
                    max_sigma_gap=dev, max_unc_rel_gap=unc,
                    noise_resid_max_gap_of_rms=noise_gap,
-                   ref_status=ref["status"], launches=DelayChain.launches)
+                   ref_status=ref["status"], launches=PhaseChain.launches)
         if rfit.fit_params != ref["fit_params"] or not (
                 dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
                 and noise_gap <= NOISE_RESID_TOL and rec["launches"] > 0):
@@ -1591,11 +2017,14 @@ def main(run: Run = Run()) -> int:
 
     grid_t = chain_rec["timing"]["j0740_grid"]
     grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
+    fused_t = pc_rec["timing"]["j0740_grid"]
+    fused_lin = max(fused_t["tangent"].values(), key=lambda t: t["lanes"])
     emit({"kernels": [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
         **by_path("qs_phase_frac"),
+        "fused_on_the_paths_into": "phase_chain_primal",
         "max_abs_err": kernel_rec["max_abs_frac_err"],
         "ms": kernel_rec["ms"], "plain_ms": kernel_rec["plain_ms"],
         "bound_ms": kernel_rec["bound_ms"],
@@ -1613,6 +2042,7 @@ def main(run: Run = Run()) -> int:
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
         **by_path("delay_chain_primal"),
+        "fused_on_the_paths_into": "phase_chain_primal",
         "max_abs_err": chain_rec["max_abs_err"],
         "theta_sets": GRID_POINTS,
         "ms": grid_t["primal"]["device_ms"],
@@ -1623,12 +2053,38 @@ def main(run: Run = Run()) -> int:
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
         **by_path("delay_chain_tangent"),
+        "fused_on_the_paths_into": "phase_chain_tangent",
         "max_abs_err": chain_rec["grid_tangent_vs_plain"]["max_abs_err"],
         "theta_sets": GRID_POINTS, "lanes": grid_lin["lanes"],
         "lanes_per_thread": grid_lin["lanes_per_thread"],
         "ms": grid_lin["ms"], "single_lane_ms": grid_lin["single_lane_ms"],
         "plain_ms": chain_rec["grid_tangent_vs_plain"]["plain_ms"],
         "bound_ms": grid_lin["bound_ms"], "bound_by": grid_lin["bound_by"],
+        "library_ms": None}, {
+        "name": "phase_chain_primal", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/phase_chain.cu",
+        "replaces": "pint_tpu/models/spindown.py:29",
+        **by_path("phase_chain_primal"),
+        "max_abs_err": pc_rec["max_abs_frac_err"],
+        "theta_sets": GRID_POINTS,
+        "ms": first_time(fused_t["primal"]),
+        "fused_chain_ms": fused_t["primal"]["fused_chain_ms"],
+        "unfused_chain_ms": fused_t["primal"]["unfused_chain_ms"],
+        "plain_ms": fused_t["primal"]["plain_ms"],
+        "bound_ms": fused_t["primal"]["bound_ms"],
+        "bound_by": fused_t["primal"]["bound_by"], "library_ms": None}, {
+        "name": "phase_chain_tangent", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/phase_chain.cu",
+        "replaces": "pint_tpu/models/spindown.py:29",
+        **by_path("phase_chain_tangent"),
+        "max_abs_err": fused_lin["max_abs_err_vs_plain"],
+        "theta_sets": GRID_POINTS, "lanes": fused_lin["lanes"],
+        "lanes_per_thread": fused_lin["lanes_per_thread"],
+        "ms": first_time(fused_lin),
+        "fused_chain_ms": fused_lin["fused_chain_ms"],
+        "unfused_chain_ms": fused_lin["unfused_chain_ms"],
+        "plain_ms": fused_lin["plain_ms"],
+        "bound_ms": fused_lin["bound_ms"], "bound_by": fused_lin["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

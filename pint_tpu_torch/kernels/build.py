@@ -10,8 +10,8 @@ launch builds, or :func:`build_all` builds every source at once, one
 ``nvcc`` process per source, all started together.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
-``--fmad=false``: ``qs_phase`` and ``delay_chain`` run chains of
-error-free transforms (``csrc/qs.cuh``), and a contracted ``a*b+c``
+``--fmad=false``: ``qs_phase``, ``delay_chain`` and ``phase_chain`` run
+chains of error-free transforms (``csrc/qs.cuh``), and a contracted ``a*b+c``
 (FMA) silently breaks them, as a value-changing rewrite would in XLA
 (:func:`pint_tpu.dd._guard`); every kernel keeps the flag so that each of
 its products and sums rounds on its own, as the plain version's separate
@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 #: every kernel source of the package, by library name
-SOURCES = ("qs_phase", "kepler", "delay_chain")
+SOURCES = ("qs_phase", "kepler", "delay_chain", "phase_chain")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -23,6 +23,7 @@ from pint_tpu_torch.models.timing_model import PhaseComponent
 class AbsPhase(PhaseComponent):
     register = True
     category = "absolute_phase"
+    phase_f64_reads_delay = False
 
     def __init__(self):
         super().__init__()

@@ -29,6 +29,7 @@ JUMP_BITS = "__delayjumpbits__"
 class PhaseJump(PhaseComponent):
     register = True
     category = "phase_jump"
+    phase_f64_reads_delay = False
 
     def add_jump(self, index=None, key=None, key_value=(), value=0.0,
                  frozen=True) -> MaskParam:

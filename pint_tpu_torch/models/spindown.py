@@ -10,7 +10,8 @@ phase = QS(Σ F_k dt^{k+1}/(k+1)!) + f64(Σ δF_k dt^{k+1}/(k+1)!).
 chain that the CUDA kernel ``pint_tpu_torch/csrc/qs_phase.cu`` fuses
 (epoch difference, spin Taylor series, the other phase components, TZR
 subtraction, nearest-pulse rounding); :mod:`pint_tpu_torch.kernels.qs_phase`
-wraps both.
+wraps both, and ``csrc/phase_chain.cu`` runs the same row function as the
+epilogue of the delay chain (:mod:`pint_tpu_torch.kernels.phase_chain`).
 """
 
 from __future__ import annotations
@@ -197,10 +198,11 @@ class Spindown(PhaseComponent):
                                       for n in names],
                         [dv(p, n) for n in names])
 
-    def kernel_inputs(self, p: dict, batch: TOABatch, delay):
-        """``(pep_day, pep_w, f_w, shift, dF)`` of the phase kernel:
-        PEPOCH's integer day and frac words, the (K, 4) F words, the f64
-        row shift ``-delay - δPEPOCH·86400`` [s] and the (K,) offsets."""
+    def spin_inputs(self, p: dict, batch: TOABatch):
+        """``(pep_day, pep_w, f_w, dF, ddays)`` of the phase kernels:
+        PEPOCH's integer day and frac words, the (K, 4) F words, the (K,)
+        float64 offsets and PEPOCH's fit offset [days] (a tensor, or
+        0.0 when PEPOCH carries none)."""
         self._require_epoch()
         names = self.f_names()
         day0, frac0_qs, ddays = mjd_parts(p, "PEPOCH")
@@ -208,5 +210,12 @@ class Spindown(PhaseComponent):
         dF = torch.stack([torch.as_tensor(dv(p, n), dtype=F64,
                                           device=batch.device)
                           for n in names])
+        return day0, torch.stack(frac0_qs.words), f_w, dF, ddays
+
+    def kernel_inputs(self, p: dict, batch: TOABatch, delay):
+        """``(pep_day, pep_w, f_w, shift, dF)`` of the phase kernel
+        ``qs_phase_frac``: :meth:`spin_inputs` with the f64 row shift
+        ``-delay - δPEPOCH·86400`` [s] in place of δPEPOCH."""
+        day0, pep_w, f_w, dF, ddays = self.spin_inputs(p, batch)
         shift = -delay - ddays * SECS_PER_DAY
-        return day0, torch.stack(frac0_qs.words), f_w, shift, dF
+        return day0, pep_w, f_w, shift, dF

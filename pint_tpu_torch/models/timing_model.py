@@ -16,10 +16,11 @@ autodiff of the residual function, as in :mod:`pint_tpu`.
 
 The delay chain runs as one CUDA kernel (:meth:`PhaseCalc.delay`,
 :mod:`pint_tpu_torch.kernels.delay_chain`; the components' own delays are
-its plain version), and so do the spin phase, TZR subtraction and pulse
-rounding (:meth:`PhaseCalc.phase_frac`,
-:mod:`pint_tpu_torch.kernels.qs_phase`); :meth:`PhaseCalc.phase` keeps
-the plain quad-single form of the same sum.
+its plain version), and the residual phase (:meth:`PhaseCalc.phase_frac`)
+as the delay chain with the spin phase, TZR subtraction and pulse
+rounding as its epilogue, one primal and one tangent launch
+(:mod:`pint_tpu_torch.kernels.phase_chain`); :meth:`PhaseCalc.phase`
+keeps the plain quad-single form of the same sum.
 """
 
 from __future__ import annotations
@@ -218,6 +219,12 @@ class PhaseComponent(Component):
     """A pulse-phase contribution [cycles], as a quad-single
     (:class:`pint_tpu_torch.qs.QS`)."""
 
+    #: whether :meth:`phase_f64` reads the accumulated delay: the fused
+    #: phase kernel forms the delay inside its launch and takes ``other``
+    #: as an input, so it refuses a component whose float64 phase needs
+    #: the delay
+    phase_f64_reads_delay = True
+
     def phase(self, p: dict, batch: TOABatch, delay: torch.Tensor,
               is_tzr: bool = False):
         raise NotImplementedError
@@ -311,28 +318,18 @@ class PhaseCalc:
 
     def phase_frac(self, p: dict, batch: TOABatch, mode: str,
                    subtract_tzr: bool = True):
-        """The phase kernel's output for this model: ``mode`` "nearest" ->
+        """The phase chain's output for this model: ``mode`` "nearest" ->
         (N,) fractional phase [cycles] after nearest-pulse rounding;
         "use_pulse_numbers" -> phase minus the batch's pulse numbers;
         "words" -> (N, 4) float32 words of the unrounded total phase.
+        On a CUDA batch the delay chain and the phase run fused in the
+        ``phase_chain`` kernel's launches; on a CPU batch as the plain
+        composition (:func:`pint_tpu_torch.kernels.phase_chain.phase_frac`).
         Differentiable (forward mode) in everything that ``p["delta"]``
-        reaches, through the kernel's analytic tangent rule."""
-        from pint_tpu_torch.kernels.qs_phase import qs_phase_frac
+        reaches, through the kernels' analytic tangent rules."""
+        from pint_tpu_torch.kernels.phase_chain import phase_frac
 
-        sd, others = self._kernel_layout()
-        delay = self.delay(p, batch)
-        pep_day, pep_w, f_w, shift, dF = sd.kernel_inputs(p, batch, delay)
-        other = None
-        for c in others:
-            ph = c.phase_f64(p, batch, delay)
-            if ph is not None:
-                other = ph if other is None else other + ph
-        tzr = p["const"].get("__tzrphase__") if subtract_tzr else None
-        return qs_phase_frac(batch.tdb_day, batch.tdb_frac_w, pep_day,
-                             pep_w, f_w, shift, dF, other=other, tzr_w=tzr,
-                             pulse_number=batch.pulse_number
-                             if mode == "use_pulse_numbers" else None,
-                             mode=mode)
+        return phase_frac(self, p, batch, mode, subtract_tzr)
 
 
 class TimingModel:

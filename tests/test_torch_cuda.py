@@ -27,7 +27,18 @@ them with it switched off, from the repository root::
   sum |J||g| (the plain reverse mode through the quad-single t - epoch
   is float32-grade);
 * ``GLSFitter.fit_toas`` on the card on the committed GLS set within the
-  fit-parity bars of pint_tpu's stored GLS fit.
+  fit-parity bars of pint_tpu's stored GLS fit;
+* ``phase_chain`` (the delay chain with the phase as its epilogue, the
+  paths' kernel since the fusion): on the J0740, DD and GLS models its
+  primal (frac, slope, dt64; words) bit-equal to the unfused card chain
+  (the delay_chain kernel, PyTorch's shift, qs_phase_frac) in every
+  mode at 1 and 9 θ sets, its tangents through jvp bit-equal to the
+  unfused chain's (the delay_chain tangent launch, the shift's forward
+  rule, QSPhaseFrac.jvp) at lanes 1, 3, 10, 76 and P with one primal and
+  one tangent launch each, every lanes-per-thread bit-equal to the
+  single-lane launch; a vmap over 9 grid points of a jacfwd is one primal
+  and one tangent launch; refused inputs raise.  The grid, DD and GLS
+  fits above run through it.
 """
 
 import json
@@ -145,11 +156,14 @@ def test_grid_on_card_matches_reference():
     model.SINI.frozen = True
     fitter = WLSFitter(toas, model)
     assert fitter.device.type == dev.type
-    before = QSPhaseFrac.launches
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+
+    before = PhaseChain.launches
     chi2 = grid_chisq_flat(fitter, {k: np.asarray(v) for k, v in
                                     ref["grid"].items()},
                            maxiter=ref["maxiter"])
-    assert QSPhaseFrac.launches > before
+    # the grid's phase chain runs fused (the delay chain and qs_phase)
+    assert PhaseChain.launches > before
     rel = float(np.max(np.abs(chi2 - ref["chi2"]) / np.asarray(ref["chi2"])))
     print(f"card grid chi2 vs pint_tpu: max relative gap {rel:.3e}")
     assert rel <= 1e-6
@@ -206,7 +220,7 @@ def test_kepler_vmap_jacfwd_on_card():
 def test_dd_fit_on_card_matches_reference():
     dev = _card()
     from pint_tpu_torch.fitter import WLSFitter
-    from pint_tpu_torch.kernels.delay_chain import DelayChain
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
 
     with open(data.DD_REF_JSON) as f:
         ref = json.load(f)
@@ -214,12 +228,13 @@ def test_dd_fit_on_card_matches_reference():
     data.perturb_dd(model)
     fitter = WLSFitter(toas, model)
     assert fitter.device.type == dev.type and fitter._fused_ok()
-    before = DelayChain.launches
+    before = PhaseChain.launches
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
-    # the DD orbit's Kepler solve runs inside the delay_chain kernel
-    assert DelayChain.launches > before
+    # the DD orbit's Kepler solve runs inside the delay chain's row
+    # function, fused into the phase_chain kernel
+    assert PhaseChain.launches > before
     assert fitter.fitresult.rung == "fused"
     dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
                                    - np.asarray(v))))
@@ -406,10 +421,10 @@ def test_delay_chain_refuses_what_it_does_not_cover():
 def test_gls_fit_on_card_matches_reference():
     """GLSFitter on the card on the committed GLS set: pint_tpu's stored
     fit within 1e-3 sigma, 1e-3 relative in the uncertainties and 1e-6
-    in chi2; every delay through the kernel."""
+    in chi2; every delay through the fused phase_chain kernel."""
     dev = _card()
     from pint_tpu_torch.fitter import GLSFitter
-    from pint_tpu_torch.kernels.delay_chain import DelayChain
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
 
     with open(data.GLS_REF_JSON) as f:
         ref = json.load(f)
@@ -418,11 +433,11 @@ def test_gls_fit_on_card_matches_reference():
     data.perturb_dd(model)
     fitter = GLSFitter(toas, model)
     assert fitter.device.type == dev.type
-    before = DelayChain.launches
+    before = PhaseChain.launches
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
-    assert DelayChain.launches > before
+    assert PhaseChain.launches > before
     dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
                                    - np.asarray(v))))
                   / ref["uncertainties"][n] for n, v in ref["values"].items())
@@ -432,3 +447,138 @@ def test_gls_fit_on_card_matches_reference():
     print(f"card GLS fit vs pint_tpu: {dev_sig:.3e} sigma, unc {unc:.3e}, "
           f"chi2 {gap:.3e}")
     assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+def _fused_case(case, dev):
+    """One path's model on its committed 200-TOA set on ``dev``, with 9
+    fit points a hair apart and seeded pulse numbers."""
+    model, r = _chain_model(case, dev)
+    names = model.free_params
+    rng = np.random.default_rng(20261019)
+    X = model.x0(r.pdict, names).to(dev) + 1e-9 * torch.from_numpy(
+        rng.standard_normal((9, len(names)))).to(dev)
+    pn = torch.from_numpy(np.round(rng.uniform(-1e9, 1e9, r.batch.ntoas)))
+    pn[::17] = float("nan")
+    return model, r, names, X, pn.to(dev), rng
+
+
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+def test_phase_chain_bit_equal_to_unfused_chain(case):
+    """The fused launches against the unfused card chain: the primal of
+    one launch over 1 and 9 θ sets in every mode (frac or the words,
+    slope, dt64), and the tangents of jvp along K random fit-parameter
+    directions, one primal and one tangent launch each."""
+    dev = _card()
+    import dataclasses
+
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+
+    model, r, names, X, pn, rng = _fused_case(case, dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+
+    def at(x):
+        return model.with_x(p, x, names)
+
+    for mode in ("nearest", "use_pulse_numbers", "words"):
+        for sets in (1, 9):
+            ins = [pc.fused_inputs(calc, at(x), b, mode) for x in X[:sets]]
+            spec, _, _, tensors = ins[0]
+            if mode == "use_pulse_numbers":
+                tensors[len(dc.ROWS)] = pn
+            with torch.no_grad():
+                fused = pc.run(spec, torch.stack([t for _, t, _, _ in ins]),
+                               torch.stack([o for _, _, o, _ in ins]),
+                               tensors)
+                for g, x in enumerate(X[:sets]):
+                    qspec, shift, dF, other = pc.unfused_inputs(
+                        calc, at(x), b, mode, delay=calc.delay)
+                    if mode == "use_pulse_numbers":
+                        qspec = dataclasses.replace(qspec, pulse_number=pn)
+                    want = qs_phase.run(qspec, shift, dF, other)
+                    for name, a, w in zip(("out", "slope", "dt64"), fused,
+                                          want):
+                        assert torch.equal(a[g], w), (mode, sets, g, name)
+    x0 = X[0]
+    for K in (1, 3, 10, 76, len(names)):
+        V = torch.from_numpy(rng.standard_normal((K, len(names)))).to(dev)
+
+        def along(fn):
+            return torch.func.vmap(lambda v: torch.func.jvp(
+                fn, (x0,), (v,))[1])(V)
+
+        before = (pc.PhaseChain.launches, pc.PhaseChainTangent.launches)
+        kf = along(lambda x: pc.fused(calc, at(x), b, "nearest"))
+        torch.cuda.synchronize()
+        assert (pc.PhaseChain.launches, pc.PhaseChainTangent.launches) == (
+            before[0] + 1, before[1] + 1)
+        ku = along(lambda x: pc.unfused(calc, at(x), b, "nearest",
+                                        delay=calc.delay))
+        assert torch.all(torch.isfinite(ku))
+        assert torch.equal(kf, ku), (K, float(torch.max(torch.abs(kf - ku))))
+
+
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+def test_phase_chain_lanes_bit_equal_to_single_lane(case):
+    """Every lanes-per-thread of the fused tangent launch against the
+    single-lane one on two θ sets, with random tangents of θ and of
+    other: bit-equal at lanes 1, 3, 10, 76 and P."""
+    dev = _card()
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels.delay_chain import KERNEL_LANES
+
+    model, r, names, X, _, rng = _fused_case(case, dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    ins = [pc.fused_inputs(calc, model.with_x(p, x, names), b, "nearest")
+           for x in X[:2]]
+    spec, _, _, tensors = ins[0]
+    with torch.no_grad():
+        thetas = torch.stack([t for _, t, _, _ in ins])
+        _, slope, dt64 = pc.run(spec, thetas, torch.stack(
+            [o for _, _, o, _ in ins]), tensors)
+    for K in (1, 3, 10, 76, spec.P):
+        dth = torch.from_numpy(rng.standard_normal((2, K, spec.P))).to(dev)
+        dot = torch.from_numpy(rng.standard_normal((2, K, b.ntoas))).to(dev)
+        one = pc.run(spec, thetas, None, tensors, dth, slope, dt64, dot,
+                     lanes=1)
+        assert torch.all(torch.isfinite(one))
+        for L in KERNEL_LANES[1:]:
+            many = pc.run(spec, thetas, None, tensors, dth, slope, dt64,
+                          dot, lanes=L)
+            assert torch.equal(many, one), (K, L)
+
+
+def test_phase_chain_vmap_grid_one_tangent_launch():
+    """vmap over 9 grid points of a jacfwd of the residual phase: one
+    primal and one tangent launch, bit-equal to the unfused chain's."""
+    dev = _card()
+    from pint_tpu_torch.kernels import phase_chain as pc
+
+    model, r, names, X, _, _ = _fused_case("J0740", dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    before = (pc.PhaseChain.launches, pc.PhaseChainTangent.launches)
+    J = torch.func.vmap(torch.func.jacfwd(lambda x: calc.phase_frac(
+        model.with_x(p, x, names), b, "nearest")))(X)
+    torch.cuda.synchronize()
+    assert (pc.PhaseChain.launches, pc.PhaseChainTangent.launches) == (
+        before[0] + 1, before[1] + 1)
+    Ju = torch.func.vmap(torch.func.jacfwd(lambda x: pc.unfused(
+        calc, model.with_x(p, x, names), b, "nearest", delay=calc.delay)))(X)
+    assert torch.equal(J, Ju)
+
+
+def test_phase_chain_refuses_what_it_does_not_take():
+    dev = _card()
+    from pint_tpu_torch.kernels import phase_chain as pc
+
+    model, r = _chain_model("DD", dev)
+    spec, theta, other, tensors = pc.fused_inputs(
+        model.calc, r.pdict, r.batch, "nearest")
+    with pytest.raises(ValueError):      # float32 theta: refused, not run
+        pc.PhaseChain.apply(theta.float(), other, spec, *tensors)
+    with pytest.raises(ValueError):      # theta on another device
+        pc.PhaseChain.apply(theta.cpu(), other, spec, *tensors)
+    with pytest.raises(ValueError):      # a pulse-number mode without them
+        pc.run(pc.PhaseChainSpec(spec.layout, spec.K, "use_pulse_numbers"),
+               theta, other, tensors)

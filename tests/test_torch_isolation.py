@@ -1,7 +1,8 @@
 """pint_tpu_torch stands alone: no jax, no pint_tpu, no quiet CPU fallback.
 
 * No file of ``pint_tpu_torch/``, nor ``chip_smoke.py``, imports ``jax`` or
-  ``pint_tpu`` (an AST scan of every import statement).
+  ``pint_tpu`` (an AST scan of every import statement, every kernel
+  wrapper among them).
 * A fresh interpreter loads par/tim, forms residuals and runs the chi2
   grid with the port on the CPU, and ends with no ``jax`` and no
   ``pint_tpu`` module loaded; others simulate, write and fit the DD set
@@ -60,6 +61,9 @@ def test_no_jax_or_reference_imports():
                     for n in names if _forbidden(n)]
     print(f"scanned {len(files)} files")
     assert len(files) > 30
+    # every kernel wrapper, the fused phase chain's included
+    for mod in ("qs_phase", "kepler", "delay_chain", "phase_chain"):
+        assert os.path.join(PKG, "kernels", f"{mod}.py") in files, mod
     assert not bad, bad
 
 

@@ -4,20 +4,27 @@
 CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in), with the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
 profiler's CUDA trace, the nvcc build and its ptxas report, the delay
-kernel's own launches and its auxiliary output, the count of plain delay chains that on the card must be zero)
-stubbed, the kernels' plain runs counted as their launches, and the
-fused rung taken as on CUDA.  It catches wrong paths,
-shapes, names and control flow in the script before a chip call does; it
-says nothing of the kernels' speed or of their CUDA source.
+kernel's auxiliary output, the count of plain delay chains that on the
+card must be zero) stubbed, the ``delay_chain`` and ``phase_chain``
+kernels' launches run by their host builds (``csrc/*_host.cpp``, built
+with g++; the test skips without it), the other kernels' plain runs
+counted as their launches, and the fused rung taken as on CUDA.  It
+catches wrong paths, shapes, names and control flow in the script
+before a chip call does; it says nothing of the kernels' speed or of
+their CUDA source.
 """
 
 import contextlib
+import ctypes
 import importlib.util
 import json
 import os
+import shutil
+import subprocess
 import time
 import types
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,7 +96,54 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118delay_chain_primalI
 ptxas info    : Function properties for _ZN12_GLOBAL__N_118delay_chain_primalILi1EEEvN7ptchain7RowDataEPKdNS1_8ChainCfgEllPdS6_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 0 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125phase_chain_tangent_lanesILi1ELi4EEEvN7ptchain7RowDataENS_11TangentDataEPKdS5_NS1_8ChainCfgEN12ptphasechain8PhaseCfgEilPd' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125phase_chain_tangent_lanesILi1ELi4EEEvN7ptchain7RowDataENS_11TangentDataEPKdS5_NS1_8ChainCfgEN12ptphasechain8PhaseCfgEilPd
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 512 bytes cmem[0]
 """
+
+
+def _host_libs(tmp_path):
+    """The host builds of the delay_chain and phase_chain kernels (g++,
+    no FMA contraction, as the kernels are built), loaded with ctypes."""
+    from pint_tpu_torch.kernels import delay_chain, phase_chain
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' row functions for "
+                    "the host")
+    csrc = os.path.join(REPO, "pint_tpu_torch", "csrc")
+    libs = []
+    for name in ("delay_chain_host", "phase_chain_host"):
+        out = str(tmp_path / f"lib{name}.so")
+        res = subprocess.run(
+            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+             "-fPIC", "-I", csrc, os.path.join(csrc, f"{name}.cpp"), "-o",
+             out], capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr
+        libs.append(ctypes.CDLL(out))
+    de, ph = libs
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    de.delay_chain_host.argtypes = [vp] * 11 + [
+        delay_chain.ChainCfg, i64, i64, i64, ctypes.c_int]
+    ph.phase_chain_host.argtypes = [vp] * 23 + [
+        delay_chain.ChainCfg, phase_chain.PhaseCfg, i64, i64, i64, i64, i64,
+        i64, ctypes.c_int]
+    de.delay_chain_host.restype = ph.phase_chain_host.restype = ctypes.c_int
+
+    class DelayLib:
+        @staticmethod
+        def delay_chain(*args):
+            ptrs, (cfg, G, K, N, lpt, _stream) = args[:12], args[12:]
+            assert ptrs[11] is None
+            return de.delay_chain_host(*ptrs[:11], cfg, G, K, N, lpt)
+
+    class PhaseLib:
+        @staticmethod
+        def phase_chain(*args):
+            return ph.phase_chain_host(*args[:-1])
+
+    return DelayLib, PhaseLib
 
 
 def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
@@ -98,7 +152,10 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from pint_tpu_torch.fitter import Fitter
-    from pint_tpu_torch.kernels import build, delay_chain, kepler, qs_phase
+    from pint_tpu_torch.kernels import (build, delay_chain, kepler,
+                                        phase_chain, qs_phase)
+
+    delay_lib, phase_lib = _host_libs(tmp_path)
 
     for name, value in (("is_available", lambda: True),
                         ("synchronize", lambda *a, **k: None),
@@ -140,49 +197,44 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         return real_k(M, e)
 
     def chain(calc, p, batch):
-        # one primal launch, and a tangent launch where the parameters
-        # are under a torch.func transform (a jacfwd, or a vmap of one)
-        delay_chain.DelayChain.launches += 1
-        if any(torch._C._functorch.is_functorch_wrapped_tensor(v)
-               for v in p["delta"].values()
-               if isinstance(v, torch.Tensor)):
-            delay_chain.DelayChainTangent.launches += 1
-        return calc.delay_plain(p, batch)
+        # the delay kernel's path as on CUDA, through its host build
+        lay = calc.chain_layout
+        return delay_chain.DelayChain.apply(
+            lay.theta(p), lay, *delay_chain.row_inputs(lay, p, batch))
 
-    def chain_run(layout, theta, dtheta, rows, lanes=None):
-        # the kernel's launches on CPU tensors, for the timing and
-        # lanes phases' shapes only: zeros of the output's shape
-        if dtheta is None:
-            delay_chain.DelayChain.launches += 1
-            lead = theta.shape[:-1]
-        else:
-            assert dtheta.shape[:-2] == theta.shape[:-1]
-            delay_chain.DelayChainTangent.launches += 1
-            lead = dtheta.shape[:-1]
-        return torch.zeros((*lead, rows[0].shape[0]), dtype=torch.float64)
+    class Stream:
+        cuda_stream = 0
 
     monkeypatch.setattr(qs_phase, "run", q_run)
     monkeypatch.setattr(kepler, "run", k_run)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
+    monkeypatch.setattr(delay_chain, "_lib", lambda: delay_lib)
     monkeypatch.setattr(delay_chain, "delay_chain", chain)
-    monkeypatch.setattr(delay_chain, "run", chain_run)
+    monkeypatch.setattr(delay_chain, "run", lambda layout, theta, dtheta,
+                        rows, lanes=None: delay_chain._launch(
+                            layout, theta, dtheta, rows, lanes=lanes)[0])
+    monkeypatch.setattr(phase_chain, "_lib", lambda: phase_lib)
+    monkeypatch.setattr(phase_chain, "run", phase_chain._launch)
+    monkeypatch.setattr(phase_chain, "phase_frac", phase_chain.fused)
     try:
         assert cs.main(cs.Run(
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
             dd_tim=str(tmp_path / "dd.tim"), gls_tim=str(tmp_path / "gls.tim"),
             out_dir=str(tmp_path / "out"))) == 0
     finally:
-        qs_phase.QSPhaseFrac.launches = 0
-        kepler.KeplerE.launches = 0
-        delay_chain.DelayChain.launches = 0
-        delay_chain.DelayChainTangent.launches = 0
+        for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
+                  delay_chain.DelayChain, delay_chain.DelayChainTangent,
+                  phase_chain.PhaseChain, phase_chain.PhaseChainTangent):
+            k.launches = 0
     lines = capsys.readouterr().out.strip().splitlines()
     phases = [json.loads(ln)["phase"] for ln in lines if '"phase"' in ln]
     assert phases == ["device", "build", "qs_phase_frac", "main_path",
                       "grid_timing", "grid_profile", "plain_grid",
                       "reference", "dd_main_path", "kepler_E",
                       "dd_fused_vs_eager", "dd_fit_profile", "dd_reference",
-                      "gls_main_path", "delay_chain", "gls_card_vs_host",
-                      "gls_fit_profile", "gls_reference"]
+                      "gls_main_path", "delay_chain", "phase_chain",
+                      "gls_card_vs_host", "gls_fit_profile",
+                      "gls_reference"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -191,15 +243,21 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in kernels] == [
         "qs_phase_frac", "kepler_E", "delay_chain_primal",
-        "delay_chain_tangent"]
+        "delay_chain_tangent", "phase_chain_primal", "phase_chain_tangent"]
     assert all(keys <= set(k) for k in kernels)
-    # kepler_E's Kepler solve runs inside delay_chain on the card's paths
-    # (on the CPU the plain DD delay still calls it)
-    on_paths = [k for k in kernels if k["name"] != "kepler_E"]
-    assert all(k["launches"] > 0 for k in on_paths)
+    # the paths run the fused phase chain alone: the delay chain, the
+    # Kepler solve and the phase run inside its launches
+    by_name = {k["name"]: k for k in kernels}
+    assert all(by_name[n]["launches"] > 0
+               for n in ("phase_chain_primal", "phase_chain_tangent"))
+    assert all(by_name[n]["launches"] == 0 for n in (
+        "qs_phase_frac", "delay_chain_primal", "delay_chain_tangent"))
     assert all(set(k["launches_by_path"]) == {"j0740_grid", "dd_fit",
                                               "gls_fit"} for k in kernels)
     assert kernels[1]["solved_on_the_paths_by"] == "delay_chain"
+    # no profiler trace here: the fused kernels' times are their calls'
+    assert all(isinstance(by_name[n]["ms"], float) and by_name[n][
+        "bound_ms"] > 0 for n in ("phase_chain_primal", "phase_chain_tangent"))
     chain = next(rec for rec in map(json.loads, lines)
                  if rec.get("phase") == "delay_chain")
     assert chain["registers"] == {
@@ -227,6 +285,25 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(all(v.values()) if isinstance(v, dict) else True
                for lab in ("j0740_grid", "dd_fit", "gls_fit")
                for v in [chain[lab]["lanes_bit_equal_to_single_lane"]])
+    fused = next(rec for rec in map(json.loads, lines)
+                 if rec.get("phase") == "phase_chain")
+    assert fused["registers"] == {
+        "ELL1/tangent_L4": {"stack_bytes": 16, "spill_store_bytes": 8,
+                            "spill_load_bytes": 8, "registers": 128}}
+    for lab in ("j0740_grid", "dd_fit", "gls_fit"):
+        rec = fused[lab]
+        assert all(all(v.values()) for v in
+                   rec["primal_bit_equal_to_unfused"].values()), lab
+        assert all(rec["tangents_bit_equal_to_unfused"].values()), lab
+        assert all(rec["lanes_bit_equal_to_single_lane"].values()), lab
+        assert rec["grid_jacfwd_launches"] == [1, 1], lab
+        assert rec["tzr_words_bit_equal_to_unfused"], lab
+    for label, t in fused["timing"].items():
+        assert sorted(int(k) for k in t["tangent"]) == [10, 14], label
+        assert t["primal"]["bound_by"] == "operations", label
+        for rec in t["tangent"].values():
+            assert rec["bound_ms"] > 0 and rec["unfused_chain_ms"] > 0
+    assert fused["launches_per_warm_dd_fit"][0] > 0
     gls = next(json.loads(ln) for ln in lines if '"gls_main_path"' in ln)
     assert set(gls["fit_warm_share"]) == {"steps", "assemble", "solve",
                                           "write_back"}
