@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid,
-the full-width DD fit and the full-width GLS fit with a NANOGrav-style
-noise model.
+the full-width DD fit, the full-width GLS fit with a NANOGrav-style
+noise model, and the full-width DDK fit in ecliptic coordinates.
 
 Run from the repository root, with no arguments::
 
@@ -65,19 +65,36 @@ Phases, each printing one JSON line with its numbers and seconds:
    component delays counted (none may run); three warm fits (median wall,
    launches per fit, the ``fit_info["seconds"]`` split); status, chi2/dof,
    pulls, peak memory;
+7. ddk_main_path: the fourth path, at full width (12,500 TOAs, 88 fit
+   parameters): ``simulate_ddk_ecliptic_realistic`` (ELONG/ELAT free,
+   frozen proper motion and parallax, the DDK binary with KIN and KOM
+   free; on the card) -> ``write_tim`` -> ``get_TOAs`` -> the perturbed
+   start -> ``WLSFitter.fit_toas(maxiter=3)``, the launch counts zeroed
+   just before the fitter is built and read just after the fit, the plain
+   component delays counted (none may run); three warm fits; status,
+   chi2/dof, the normal matrix's condition, the pulls of the orbit, spin,
+   KIN and KOM against the simulated truth;
+   ddk_fit_profile: one warm DDK fit under torch.profiler;
+   ddk_reference: the committed 200-TOA DDK set fitted on the card,
+   against pint_tpu's eager fit stored beside it
+   (``tests/data/ddk_ecl_sim_200*``) at the DD reference's bars;
    delay_chain: the kernel against the plain component delays on the card
-   on the three paths' full-width models: delay within 1e-12 s, every
+   on the four paths' full-width models and on the other DD and ELL1
+   variants of its row function (``examples.variant_par``: DDS, DDH,
+   DDGR, DDK in equatorial coordinates, ELL1H in its three modes, ELL1k;
+   each on the DD or the grid path's 12,500 TOAs): delay within 1e-12 s, every
    jacfwd column within 1e-10 relative, the DD orbit's E bit-equal to the
    kepler_E kernel's, the multi-lane tangent launch bit-equal to the
    single-lane one at lanes 1, 3, 10, 76 and P; the primal and the
    tangent launch timed at the GLS path's 1 x 10 and 1 x 76 lanes and
    the grid's 9 x 10 and 9 x 76, every lanes-per-thread in turns (1, 2,
-   4, 4, 2, 1), each with its least possible time on this card;
+   4, 4, 2, 1), each with its least possible time on this card, and the
+   DDK path's at 1 x 12 and 1 x 76;
    the grid's 9 x 76 tangents through vmap(jvp) against the plain
    version's; ptxas's registers and spills of every kernel; launches per
    grid call, DD fit and GLS fit;
-   phase_chain: the fused kernel on the three paths' full-width models,
-   against the unfused card chain (the delay_chain kernel, PyTorch's
+   phase_chain: the fused kernel on the four paths' full-width models and
+   the variants, against the unfused card chain (the delay_chain kernel, PyTorch's
    shift, the qs_phase_frac kernel and its tangent rule): frac, slope and
    dt64 bit-equal at 9 θ sets in the nearest and pulse-number modes, the
    TZR words bit-equal, the tangents through jvp bit-equal at lanes 1, 3,
@@ -89,10 +106,13 @@ Phases, each printing one JSON line with its numbers and seconds:
    primal timed at the
    grid's 9 θ sets and the GLS path's 1 against the unfused chain (CUDA
    events around each whole chain, in turns), the fused tangent at 1 x 10,
-   1 x 76, 9 x 10 and 9 x 76 lanes against the delay_chain tangent launch
-   plus the unfused rule, each with its least possible time on this card;
-   ptxas's registers and spills; launches per grid call, DD fit and GLS
-   fit;
+   1 x 76, 9 x 10 and 9 x 76 lanes (every lanes-per-thread in turns)
+   against the delay_chain tangent launch plus the unfused rule, each
+   with its least possible time on this card;
+   the kDDK instantiation at the DDK path's 1 θ set (primal) and 1 x 12
+   and 1 x 88 lanes (tangent);
+   ptxas's registers and spills; launches per grid call, DD fit, GLS fit
+   and DDK fit;
    gls_card_vs_host: the final GLS solve at the fitted point on the card
    against the same solve on the CPU (step in sigma, uncertainties,
    chi2), each timed;
@@ -137,14 +157,21 @@ GLS_TIM = os.path.join(REPO, "build", "dd_gls_12500.tim")
 GLS_REF_TIM = os.path.join(REPO, "tests", "data", "dd_gls_sim_200.tim")
 GLS_REF_JSON = os.path.join(REPO, "tests", "data",
                             "dd_gls_sim_200_gls_fit.json")
+DDK_TIM = os.path.join(REPO, "build", "ddk_ecl_12500.tim")
+DDK_REF_TIM = os.path.join(REPO, "tests", "data", "ddk_ecl_sim_200.tim")
+DDK_REF_JSON = os.path.join(REPO, "tests", "data",
+                            "ddk_ecl_sim_200_fit.json")
 DD_MAXITER = 3
 #: the DD fit's start: offsets [par units] from the simulated truth, as
 #: pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
 DD_PERTURB = {"PB": 1e-7, "A1": 3e-6, "ECC": 1e-6, "OM": 3e-4,
               "F0": 1e-10}
+#: the DDK fit's start: the DD fit's, with KIN and KOM moved [deg]
+DDK_PERTURB = {**DD_PERTURB, "KIN": 0.05, "KOM": 0.5}
 #: the parameters whose pulls test_recover_dd_orbit checks, but DM (70
 #: DMX bins over the whole span make DM degenerate)
 DD_PULL_PARAMS = ("F0", "F1", "PB", "A1", "T0", "ECC", "OM")
+DDK_PULL_PARAMS = DD_PULL_PARAMS + ("KIN", "KOM")
 KEPLER_E_SWEEP = (0.0, 1e-5, 0.1, 0.5, 0.9)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 GRID_M2 = (0.23, 0.25, 0.27)
@@ -189,7 +216,7 @@ NOISE_RESID_TOL = 1e-4
 class Run(NamedTuple):
     """Where the phases run and at what size: the card and the full width
     of the paths (TOAs, DMX bins, fit parameters), the grid's tim, and
-    where the DD and GLS tims and the profiles are written."""
+    where the DD, GLS and DDK tims and the profiles are written."""
 
     dev: str = "cuda"
     tim: str = TIM
@@ -199,6 +226,9 @@ class Run(NamedTuple):
     dd_tim: str = DD_TIM
     gls_tim: str = GLS_TIM
     out_dir: str = OUT_DIR
+    ddk_tim: str = DDK_TIM
+    #: the DDK path's fit parameters: the DD path's and KIN, KOM
+    ddk_nfit: int = 88
 
 
 def emit(obj) -> None:
@@ -553,9 +583,9 @@ def check_kernel(torch, np, model, fitter, grid, rec: dict) -> None:
                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def dd_load(torch, tim: str, dmx_bins: int, perturb=None):
+def dd_load(torch, tim: str, dmx_bins: int, perturb=None, par=None):
     """par + tim -> (model at the perturbed start, toas) of the DD
-    configuration, as a user loads them."""
+    configuration (or of ``par(dmx_bins=...)``), as a user loads them."""
     import warnings
 
     from pint_tpu_torch.examples import dd_realistic_par
@@ -564,7 +594,7 @@ def dd_load(torch, tim: str, dmx_bins: int, perturb=None):
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(dd_realistic_par(
+        model = get_model((par or dd_realistic_par)(
             dmx_bins=dmx_bins).splitlines())
         toas = get_TOAs(tim, model=model)
     for name, d in (DD_PERTURB if perturb is None else perturb).items():
@@ -583,7 +613,8 @@ def restore(model, snap) -> None:
         model[n].uncertainty = None
 
 
-def dd_fit(torch, dev: str, model, toas, eager: bool = False):
+def dd_fit(torch, dev: str, model, toas, eager: bool = False,
+           maxiter: int = DD_MAXITER):
     """A fresh ``WLSFitter`` on ``dev`` and its ``fit_toas(maxiter=3)``
     (or the eager rung), timed around the fit with a synchronize."""
     import warnings
@@ -595,8 +626,8 @@ def dd_fit(torch, dev: str, model, toas, eager: bool = False):
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        chi2 = fitter._fit_eager(maxiter=DD_MAXITER) if eager else \
-            fitter.fit_toas(maxiter=DD_MAXITER)
+        chi2 = fitter._fit_eager(maxiter=maxiter) if eager else \
+            fitter.fit_toas(maxiter=maxiter)
     torch.cuda.synchronize()
     return fitter, chi2, time.perf_counter() - t0
 
@@ -791,7 +822,7 @@ def check_delay_chain(torch, label: str, model, fitter, rec: dict):
            "delay_bit_equal": bool(torch.equal(k, plain)),
            "max_rel_column_err": float(per_col[worst]),
            "worst_column": names[worst]}
-    if calc.chain_layout.cfg[1] == dc.DD:
+    if calc.chain_layout.cfg[1] in dc.DD_FAMILY:
         _, aux = chain_aux(calc, p, b)
         out["E_bit_equal_to_kepler_E"] = bool(torch.equal(
             kepler_E_op(aux[0].contiguous(), aux[1].contiguous()), aux[2]))
@@ -1088,7 +1119,8 @@ def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
     binary family, lanes per thread."""
     import re
 
-    fams = {"0": "none", "1": "ELL1", "2": "DD"}
+    fams = {"0": "none", "1": "ELL1", "2": "DD", "3": "DDK", "4": "DDTM2",
+            "5": "ELL1H", "6": "ELL1K"}
     out, cur = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
@@ -1321,15 +1353,18 @@ def in_turns(torch, fns: dict, reps: int = 25) -> dict:
     return {n: sum(t) / len(t) for n, t in times.items()}
 
 
-def time_phase_chain(torch, model, fitter, points: int, rec: dict) -> None:
+def time_phase_chain(torch, model, fitter, points: int, rec: dict,
+                     sets=("nonlinear", "linear")) -> None:
     """The fused launches' times at one path's shapes over ``points`` θ
     sets, against the unfused chain they replace: the primal (the
     delay_chain primal launch, PyTorch's shift, qs_phase_frac) and the
-    tangent at the lane counts of the path's jacfwds (the delay_chain
-    tangent launch, the shift's forward rule and QSPhaseFrac.jvp's
-    arithmetic), each whole chain timed with CUDA events in turns; the
-    fused kernels' device times; each launch's least time on this card
-    (the delay chain's counts plus the phase's, as the plain version
+    tangent at the lane counts of the path's jacfwds (``sets``: its
+    nonlinear, linear or all fit parameters; the delay_chain tangent
+    launch, the shift's forward rule and QSPhaseFrac.jvp's arithmetic),
+    each whole chain timed with CUDA events in turns; the fused kernels'
+    device times (the tangent's at every lanes-per-thread too, in turns
+    1, 2, 4, 4, 2, 1); each launch's least time on this card (the
+    delay chain's counts plus the phase's, as the plain version
     dispatches them) and its reach; the plain composition's times."""
     from pint_tpu_torch.kernels import delay_chain as dc
     from pint_tpu_torch.kernels import phase_chain as pc
@@ -1395,7 +1430,8 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict) -> None:
     Tf = torch.func.jacfwd(lambda x: pc.fused_inputs(
         calc, model.with_x(p, x, names), b, "nearest")[1])(x0)   # (P, n)
     rec["tangent"] = {}
-    for label, params in (("nonlinear", nl), ("linear", lin)):
+    groups = {"nonlinear": nl, "linear": lin, "all": names}
+    for label, params in ((g, groups[g]) for g in sets):
         idx = [names.index(n) for n in params]
         K = len(idx)
         E = torch.eye(len(names), dtype=torch.float64, device=b.device)[idx]
@@ -1449,6 +1485,12 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict) -> None:
                             device=b.device)))
             t_plain = time_ms(torch, plain_tangent, reps=3)
         ms = device_kernel_ms(torch, fused_tangent, "phase_chain_tangent")
+        by_lanes = {str(L): [] for L in dc.KERNEL_LANES}
+        for L in dc.KERNEL_LANES + dc.KERNEL_LANES[::-1]:
+            by_lanes[str(L)].append(device_kernel_ms(
+                torch, lambda: pc.run(spec, thetas, None, tensors, dth,
+                                      slope, dt64, dot, lanes=L),
+                "phase_chain_tangent"))
         tb = chain_bound(ops, points, K, N, P4, row_bytes)
         tot = dict(tb["ops"])
         for dt, n in rule_ops.items():
@@ -1462,6 +1504,7 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict) -> None:
         rec["tangent"][str(K)] = dict(
             params=label, lanes=K,
             lanes_per_thread=dc.lanes_per_thread(points, K), device_ms=ms,
+            device_ms_by_lanes_per_thread=by_lanes,
             fused_chain_ms=turns["fused"], unfused_chain_ms=turns["unfused"],
             plain_ms=t_plain, max_abs_err_vs_plain=float(torch.max(err)),
             max_rel_column_err_vs_plain=rel, ops=tot, bytes=nbytes,
@@ -1506,6 +1549,30 @@ def gls_fit(torch, dev: str, model, toas):
         chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
     torch.cuda.synchronize()
     return fitter, chi2, time.perf_counter() - t0
+
+
+def variant_fitters(torch, run: Run, toas, dtoas):
+    """``(label, model, WLSFitter)`` of every DD and ELL1 variant of the
+    row function but the DDK path's own (``examples.variant_par``), on
+    the full-width TOAs of the DD path (the DD family) or of the grid
+    (the ELL1 family)."""
+    import warnings
+
+    from pint_tpu_torch.examples import VARIANTS, variant_par
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models import get_model
+
+    out = []
+    for kind in VARIANTS:
+        if kind == "DDK_ECL":
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m = get_model(variant_par(kind, dmx_bins=run.dmx_bins)
+                          .splitlines())
+        t = dtoas if kind.startswith("DD") else toas
+        out.append((kind, m, WLSFitter(t, m, device=run.dev)))
+    return out
 
 
 def main(run: Run = Run()) -> int:
@@ -1867,17 +1934,127 @@ def main(run: Run = Run()) -> int:
         raise AssertionError(f"{plain['calls']} plain delay chains on the "
                              "GLS path")
 
+    # -- 7. the DDK slice: ecliptic astrometry and the DDK binary ----------
+    from pint_tpu_torch.examples import (ddk_ecliptic_realistic_par,
+                                         simulate_ddk_ecliptic_realistic)
+
+    with phase("ddk_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        ktruth, ksim = simulate_ddk_ecliptic_realistic(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        write_tim(run.ddk_tim, ksim)
+        t0 = time.perf_counter()
+        kmodel, ktoas = dd_load(torch, run.ddk_tim, run.dmx_bins,
+                                perturb=DDK_PERTURB,
+                                par=ddk_ecliptic_realistic_par)
+        rec["setup_s"] = time.perf_counter() - t0
+        kstart = snapshot(kmodel)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain:
+            kfit, kchi2, fit_s = dd_fit(torch, run.dev, kmodel, ktoas)
+        ddk_launches = counts()
+        fr = kfit.fitresult
+        knames = kfit.fit_params
+        pulls = {n: device_offset(kmodel[n].device_value,
+                                  ktruth[n].device_value)
+                 / kmodel[n].device_uncertainty for n in DDK_PULL_PARAMS}
+        lin, nl = kmodel.partition_linear_params(knames)
+        rec.update(ntoas=ktoas.ntoas, n_fit=len(knames), n_nonlinear=len(nl),
+                   n_linear=len(lin),
+                   components=[c for c in kmodel.components
+                               if c.startswith(("Astrometry", "Binary"))],
+                   status=fr.status.name, iterations=fr.iterations,
+                   rung=fr.rung, chi2=kchi2, dof=fr.dof,
+                   chi2_per_dof=kchi2 / fr.dof, fit_cold_s=fit_s,
+                   **kfit.fit_info,
+                   normal_matrix_condition=1.0 / kfit.fit_info["e_min"],
+                   launches=ddk_launches, plain_delay_chains=plain["calls"],
+                   pulls=pulls,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(kfit.device))
+        walls, ddk_per_fit = [], []
+        for _ in range(3):
+            restore(kmodel, kstart)
+            wf = WLSFitter(ktoas, kmodel, device=run.dev)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wf.fit_toas(maxiter=DD_MAXITER)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            ddk_per_fit.append(counts())
+        rec.update(fit_warm_s=median(walls), fit_walls_s=walls,
+                   launches_per_warm_fit=ddk_per_fit)
+    if ktoas.ntoas != run.ntoas or len(knames) != run.ddk_nfit:
+        raise AssertionError("not the full-width DDK configuration")
+    if fr.rung != "fused" or fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"DDK fit ended {fr.status.name} on {fr.rung}")
+    if not 0.6 < kchi2 / fr.dof < 1.6:
+        raise AssertionError(f"DDK fit chi2/dof {kchi2 / fr.dof}")
+    bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
+    if bad:
+        raise AssertionError(f"DDK fit pulls {bad}")
+    check_path_launches("DDK path", ddk_launches)
+    if plain["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains on the "
+                             "DDK path")
+
+    with phase("ddk_fit_profile", {}) as rec:
+        kholder = {}
+
+        def ksetup():
+            restore(kmodel, kstart)
+            kholder["f"] = WLSFitter(ktoas, kmodel, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: kholder["f"].fit_toas(maxiter=DD_MAXITER),
+            run.out_dir, out_name="ddk_fit_profile", setup=ksetup))
+
+    with phase("ddk_reference", {}) as rec:
+        with open(DDK_REF_JSON) as f:
+            ref = json.load(f)
+        rmodel, rtoas = dd_load(torch, DDK_REF_TIM, REF_DMX_BINS,
+                                perturb=ref["perturb"],
+                                par=ddk_ecliptic_realistic_par)
+        PhaseChain.launches = 0
+        rfit, rchi2, _ = dd_fit(torch, run.dev, rmodel, rtoas,
+                                maxiter=ref["maxiter"])
+        rv, ru = fit_state(rmodel, rfit.fit_params)
+        dev, unc = fit_gaps(rv, ru, ref["values"], ref["uncertainties"])
+        gap = abs(rchi2 - ref["chi2"]) / ref["chi2"]
+        rec.update(ntoas=rtoas.ntoas, n_fit=len(rfit.fit_params),
+                   maxiter=ref["maxiter"],
+                   status=rfit.fitresult.status.name,
+                   rung=rfit.fitresult.rung, chi2=rchi2,
+                   chi2_ref=ref["chi2"], max_rel_chi2_gap=gap,
+                   max_sigma_gap=dev, max_unc_rel_gap=unc,
+                   ref_status=ref["status"], launches=PhaseChain.launches)
+        if rfit.fit_params != ref["fit_params"] or not (
+                dev <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
+                and rec["launches"] > 0):
+            raise AssertionError(
+                f"DDK reference: {dev} sigma, {unc} unc, chi2 gap {gap}")
+
+    # the other DD and ELL1 variants, each on its path's full-width TOAs
+    variants = variant_fitters(torch, run, toas, dtoas)
+
     with phase("delay_chain", {}) as chain_rec:
         from pint_tpu_torch.kernels import delay_chain as dc
 
         errs = [check_delay_chain(torch, label, m, f, chain_rec)
                 for label, m, f in (("j0740_grid", model, fitter),
                                     ("dd_fit", dmodel, dfit),
-                                    ("gls_fit", gmodel, gfit))]
+                                    ("gls_fit", gmodel, gfit),
+                                    ("ddk_fit", kmodel, kfit), *variants)]
         chain_rec["timing"] = {}
         for label, m, f, points in (("gls_fit", gmodel, gfit, 1),
                                     ("j0740_grid", model, fitter,
-                                     GRID_POINTS)):
+                                     GRID_POINTS),
+                                    ("ddk_fit", kmodel, kfit, 1)):
             chain_rec["timing"][label] = {}
             time_delay_chain(torch, m, f, points,
                              chain_rec["timing"][label])
@@ -1892,13 +2069,19 @@ def main(run: Run = Run()) -> int:
         errs = [check_phase_chain(torch, label, m, f, pc_rec)
                 for label, m, f in (("j0740_grid", model, fitter),
                                     ("dd_fit", dmodel, dfit),
-                                    ("gls_fit", gmodel, gfit))]
+                                    ("gls_fit", gmodel, gfit),
+                                    ("ddk_fit", kmodel, kfit), *variants)]
         pc_rec["timing"] = {}
         for label, m, f, points in (("gls_fit", gmodel, gfit, 1),
                                     ("j0740_grid", model, fitter,
                                      GRID_POINTS)):
             pc_rec["timing"][label] = {}
             time_phase_chain(torch, m, f, points, pc_rec["timing"][label])
+        # the kDDK instantiation at the DDK path's shapes: its nonlinear
+        # columns and all its columns
+        pc_rec["timing"]["ddk_fit"] = {}
+        time_phase_chain(torch, kmodel, kfit, 1, pc_rec["timing"]["ddk_fit"],
+                         sets=("nonlinear", "all"))
         pc_rec["registers"] = chain_registers(
             kbuild.build_log("phase_chain"), "phase_chain")
         fused = ("phase_chain_primal", "phase_chain_tangent")
@@ -1906,13 +2089,16 @@ def main(run: Run = Run()) -> int:
             max_abs_frac_err=max(errs),
             launches={k: {"j0740_grid": grid_launches[k],
                           "dd_fit": dd_launches[k],
-                          "gls_fit": gls_launches[k]}
+                          "gls_fit": gls_launches[k],
+                          "ddk_ecl_fit": ddk_launches[k]}
                       for k in ON_PATHS + OFF_PATHS},
             launches_per_grid_call=grid_call_launches,
             launches_per_warm_dd_fit=[sum(f[k] for k in fused)
                                       for f in rec_dd_per_fit],
             launches_per_warm_gls_fit=[sum(f[k] for k in fused)
-                                       for f in per_fit])
+                                       for f in per_fit],
+            launches_per_warm_ddk_fit=[sum(f[k] for k in fused)
+                                       for f in ddk_per_fit])
 
     with phase("gls_card_vs_host", {}) as rec:
         # the final solve at the fitted point (the model holds the last
@@ -2012,13 +2198,16 @@ def main(run: Run = Run()) -> int:
 
     def by_path(name):
         by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
-              "gls_fit": gls_launches[name]}
+              "gls_fit": gls_launches[name],
+              "ddk_ecl_fit": ddk_launches[name]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     grid_t = chain_rec["timing"]["j0740_grid"]
     grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
     fused_t = pc_rec["timing"]["j0740_grid"]
     fused_lin = max(fused_t["tangent"].values(), key=lambda t: t["lanes"])
+    ddk_t = pc_rec["timing"]["ddk_fit"]
+    ddk_all = max(ddk_t["tangent"].values(), key=lambda t: t["lanes"])
     emit({"kernels": [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
@@ -2072,7 +2261,9 @@ def main(run: Run = Run()) -> int:
         "unfused_chain_ms": fused_t["primal"]["unfused_chain_ms"],
         "plain_ms": fused_t["primal"]["plain_ms"],
         "bound_ms": fused_t["primal"]["bound_ms"],
-        "bound_by": fused_t["primal"]["bound_by"], "library_ms": None}, {
+        "bound_by": fused_t["primal"]["bound_by"], "library_ms": None,
+        "ddk_ecl_fit": {"theta_sets": 1, "ms": first_time(ddk_t["primal"]),
+                        "bound_ms": ddk_t["primal"]["bound_ms"]}}, {
         "name": "phase_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
@@ -2085,7 +2276,10 @@ def main(run: Run = Run()) -> int:
         "unfused_chain_ms": fused_lin["unfused_chain_ms"],
         "plain_ms": fused_lin["plain_ms"],
         "bound_ms": fused_lin["bound_ms"], "bound_by": fused_lin["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None,
+        "ddk_ecl_fit": {"theta_sets": 1, "lanes": ddk_all["lanes"],
+                        "ms": first_time(ddk_all),
+                        "bound_ms": ddk_all["bound_ms"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

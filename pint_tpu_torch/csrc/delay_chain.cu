@@ -9,7 +9,8 @@
 // pint_tpu_torch/kernels/delay_chain.py.
 //
 // Entry points, one row function (delay_chain.cuh) templated over the
-// scalar type, the binary family a template parameter (none, ELL1, DD/BT):
+// scalar type, the binary family a template parameter (none, ELL1, DD/BT,
+// DDK, DDS/DDH, ELL1H, ELL1k):
 //   primal:  out[g, n]        = delay(theta[g], row n)         (double)
 //   tangent: tangent[g, k, n] = d delay(theta[g], row n) . dtheta[g, k]
 // with theta (G, P) and dtheta (G, K, P): g runs over theta sets (the grid
@@ -220,18 +221,19 @@ extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cfg.binary) {
-    case ptchain::kNoBinary:
-      err = launch<ptchain::kNoBinary>(rd, theta, dtheta, cfg, (int)K, lpt, G,
-                                       N, out, aux, s);
-      break;
-    case ptchain::kELL1:
-      err = launch<ptchain::kELL1>(rd, theta, dtheta, cfg, (int)K, lpt, G, N,
-                                   out, aux, s);
-      break;
-    case ptchain::kDD:
-      err = launch<ptchain::kDD>(rd, theta, dtheta, cfg, (int)K, lpt, G, N,
-                                 out, aux, s);
-      break;
+#define PT_CASE(B)                                                           \
+  case ptchain::B:                                                           \
+    err = launch<ptchain::B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out, \
+                             aux, s);                                        \
+    break;
+    PT_CASE(kNoBinary)
+    PT_CASE(kELL1)
+    PT_CASE(kDD)
+    PT_CASE(kDDK)
+    PT_CASE(kDDTM2)
+    PT_CASE(kELL1H)
+    PT_CASE(kELL1K)
+#undef PT_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

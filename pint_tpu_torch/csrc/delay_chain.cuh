@@ -9,11 +9,15 @@
 // Device code of these JAX functions of pint_tpu (no Pallas kernel there:
 // XLA compiles them from jnp, one elementwise op at a time):
 //   K4  pint_tpu/models/astrometry.py  Astrometry.delay, _sincos
-//       (equatorial, PM and PX), solar_system_shapiro.py (the Sun)
+//       (equatorial and ecliptic, PM and PX: AstrometryEcliptic.psr_dir),
+//       solar_system_shapiro.py (the Sun)
 //       dispersion.py  DispersionDM (+ DM Taylor terms), DispersionDMX
 //       frequency_dependent.py  FD;  jump.py  DelayJump
-//       binary_ell1.py  BinaryELL1.delay (M2/SINI Shapiro)
-//       binary_dd.py  BinaryDDBase/BinaryDD/BinaryBT.delay
+//       binary_ell1.py  BinaryELL1.delay (M2/SINI Shapiro),
+//       BinaryELL1H.shapiro_delay, BinaryELL1k._eps / roemer_const
+//       binary_dd.py  BinaryDDBase/BinaryDD/BinaryBT.delay,
+//       BinaryDDK._kopeikin, and BinaryDDS/DDH/DDGR through the theta
+//       slots that kernels/delay_chain.py ChainLayout derives for them
 // The plain PyTorch versions are the component delays of
 // pint_tpu_torch/models/*.py, composed by PhaseCalc.delay_plain; each
 // expression below keeps their operation order, so the two agree to the
@@ -347,10 +351,21 @@ enum : int32_t {
   kBinShapiro = 128,  // the binary has M2 and SINI
   kOmegaFromNu = 256, // DD (omega advances with nu); BT: linear in time
   kAberration = 512,  // DD's A0/B0 aberration
+  kEcliptic = 1024,   // the astrometry is AstrometryEcliptic
+  kK96 = 2048,        // DDK: Kopeikin 1996 proper-motion terms
+  kStigma = 4096,     // ELL1H: the exact STIGMA form (else the H3/H4 sum)
 };
 
 // binary families (the kernels' template parameter)
-enum : int32_t { kNoBinary = 0, kELL1 = 1, kDD = 2 };
+enum : int32_t {
+  kNoBinary = 0,
+  kELL1 = 1,
+  kDD = 2,     // DD and BT (DDGR: its derived slots)
+  kDDK = 3,    // DDK: the Kopeikin terms per row
+  kDDTM2 = 4,  // DDS, DDH: the Shapiro slots hold TM2 [s] and sin i as is
+  kELL1H = 5,  // ELL1H: the orthometric Shapiro delay
+  kELL1K = 6,  // ELL1k: eps1, eps2 rotated and grown per row
+};
 
 // slot offsets within the binary block of theta
 enum : int32_t {
@@ -380,12 +395,48 @@ enum : int32_t {
   bDTH = 18,
   bA0 = 19,
   bB0 = 20,
+  // DDTM2: the Shapiro slots hold TM2 [s] and sin i (not clipped)
+  bTM2 = 15,
+  bSINI_RAW = 16,
+  // DDK: KIN in the SINI slot, sin and cos of KOM after B0
+  bKIN = 16,
+  bSKOM = 21,
+  bCKOM = 22,
+  // ELL1k: OMDOT and LNEDOT in the EPS1DOT, EPS2DOT slots
+  bOMDOT_K = 12,
+  bLNEDOT_K = 13,
+  // ELL1H: the Shapiro factor (-2 H3 / STIGMA^3, or -2 H3), then the
+  // STIGMA form's 1 + STIGMA^2, 2 STIGMA, STIGMA^2, or the sum's
+  // weights c_k sigma^(k - 3), k = 3 .. nharm
+  bH_FACTOR = 14,
+  bH_A = 15,
+  bH_B = 16,
+  bH_D = 17,
+  bH_W = 15,
+};
+
+// slots within the astrometry block of theta
+enum : int32_t {
+  aLonSin = 0,
+  aLonCos = 1,
+  aLonOffset = 2,
+  aLatSin = 3,
+  aLatCos = 4,
+  aLatOffset = 5,
+  aPMLon = 6,
+  aPMLat = 7,
+  aPX = 8,
+  aPosEpoch = 9,
+  // ecliptic: cos and sin of the obliquity (Python's math.cos/sin)
+  aEclCos = 10,
+  aEclSin = 11,
 };
 
 struct ChainCfg {
   int32_t flags, binary, P;
   int32_t ndm, ndmx, njump, nfd;
   int32_t o_astro, o_dm, o_dmx, o_jump, o_fd, o_bin;
+  int32_t nharm;  // ELL1H: the sum's highest harmonic
 };
 
 constexpr double kTwoPi = 6.283185307179586;   // 2.0 * math.pi
@@ -394,6 +445,7 @@ constexpr double kKpcLs = 102927125054.33899;  // 1 kpc in light-seconds
 constexpr double kAuLs = 499.00478383615643;   // AU / c
 constexpr double kTsun = 4.92549094830932e-06;  // GM_sun / c^3
 constexpr double kDMconst = 4149.377593360996;   // 1 / 2.41e-4
+constexpr double kSecsPerYear = 31557600.0;     // 365.25 * 86400
 
 // the per-row data
 struct Row {
@@ -444,26 +496,36 @@ PT_HD T dispersion(const T& dm, double freq) {
 
 // -- the components ---------------------------------------------------------
 
-// Astrometry.delay + psr_dir (equatorial); L is the pulsar direction
+// _sincos of the two sky angles: the host-exact reference sin/cos
+// rotated by the fit offsets
+template <typename T>
+PT_HD void sky_sincos(const Theta<T>& th, int o, T& sl, T& cl, T& sb,
+                      T& cb) {
+  const T dl = th[o + aLonOffset], db = th[o + aLatOffset];
+  const T sdl = f_sin(dl), cdl = f_cos(dl);
+  sl = th[o + aLonSin] * cdl + th[o + aLonCos] * sdl;
+  cl = th[o + aLonCos] * cdl - th[o + aLonSin] * sdl;
+  const T sdb = f_sin(db), cdb = f_cos(db);
+  sb = th[o + aLatSin] * cdb + th[o + aLatCos] * sdb;
+  cb = th[o + aLatCos] * cdb - th[o + aLatSin] * sdb;
+}
+
+// Astrometry.delay + psr_dir (equatorial, or ecliptic: propagated in the
+// ecliptic frame, then rotated by R_x(-obliquity)); L is the pulsar
+// direction (ICRS)
 template <typename T>
 PT_HD T astrometry(const ChainCfg& c, const Theta<T>& th, const Row& r,
                    T (&L)[3]) {
   const int o = c.o_astro;
-  // _sincos: host-exact reference sin/cos, rotated by the fit offset
-  const T dra = th[o + 2], ddec = th[o + 5];
-  const T sdr = f_sin(dra), cdr = f_cos(dra);
-  const T sa = th[o + 0] * cdr + th[o + 1] * sdr;
-  const T ca = th[o + 1] * cdr - th[o + 0] * sdr;
-  const T sdd = f_sin(ddec), cdd = f_cos(ddec);
-  const T sd = th[o + 3] * cdd + th[o + 4] * sdd;
-  const T cd = th[o + 4] * cdd - th[o + 3] * sdd;
+  T sa, ca, sd, cd;
+  sky_sincos(th, o, sa, ca, sd, cd);
   L[0] = cd * ca;
   L[1] = cd * sa;
   L[2] = sd;
   if (c.flags & kPM) {
-    const T pm_ra = th[o + 6] * kMasToRad;
-    const T pm_dec = th[o + 7] * kMasToRad;
-    const T dt_yr = (((double)r.day + r.frac) - th[o + 9]) / 365.25;
+    const T pm_ra = th[o + aPMLon] * kMasToRad;
+    const T pm_dec = th[o + aPMLat] * kMasToRad;
+    const T dt_yr = (((double)r.day + r.frac) - th[o + aPosEpoch]) / 365.25;
     const T e_ra[3] = {-sa, ca, make<T>(0.0)};
     const T e_dec[3] = {-sd * ca, -sd * sa, cd};
     T n[3];
@@ -474,13 +536,20 @@ PT_HD T astrometry(const ChainCfg& c, const Theta<T>& th, const Row& r,
 #pragma unroll
     for (int i = 0; i < 3; ++i) L[i] = n[i] / norm;
   }
+  if (c.flags & kEcliptic) {
+    const double ce = val(th[o + aEclCos]), se = val(th[o + aEclSin]);
+    const T y = L[1] * ce - L[2] * se;
+    const T z = L[1] * se + L[2] * ce;
+    L[1] = y;
+    L[2] = z;
+  }
   const T rdl = r.pos[0] * L[0] + r.pos[1] * L[1] + r.pos[2] * L[2];
   const double re_sqr =
       r.pos[0] * r.pos[0] + r.pos[1] * r.pos[1] + r.pos[2] * r.pos[2];
   T out = -rdl;
   // guard the 0/0 at exactly-barycentric TOAs
   if (re_sqr > 0.0)
-    out = out + 0.5 * (re_sqr * th[o + 8] / kKpcLs) *
+    out = out + 0.5 * (re_sqr * th[o + aPX] / kKpcLs) *
                     (1.0 - rdl * rdl / re_sqr);
   return out;
 }
@@ -516,8 +585,8 @@ PT_HD T binary_dt(const Theta<T>& th, int o, const Row& r, const T& delay) {
   return with_value(ptqs::qs_to_f64(q), shift);
 }
 
-// BinaryELL1.delay (PB/PBDOT orbit)
-template <typename T>
+// BinaryELL1 / ELL1H / ELL1k .delay (PB/PBDOT orbit)
+template <typename T, int BIN>
 PT_HD T ell1(const ChainCfg& c, const Theta<T>& th, const Row& r,
              const T& delay) {
   const int o = c.o_bin;
@@ -526,8 +595,18 @@ PT_HD T ell1(const ChainCfg& c, const Theta<T>& th, const Row& r,
   const T orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
   const T forb = (1.0 - pbdot * (dt / pb)) / pb;
   const T Phi = kTwoPi * (orbits - f_floor(orbits));
-  const T e1 = th[o + bEPS1] + dt * th[o + bEPS1DOT];
-  const T e2 = th[o + bEPS2] + dt * th[o + bEPS2DOT];
+  T e1, e2;
+  if (BIN == kELL1K) {
+    // BinaryELL1k._eps: rotated by OMDOT dt, grown by 1 + LNEDOT dt
+    const T wdt = th[o + bOMDOT_K] * dt;
+    const T co = f_cos(wdt), so = f_sin(wdt);
+    const T grow = 1.0 + th[o + bLNEDOT_K] * dt;
+    e1 = grow * (th[o + bEPS1] * co + th[o + bEPS2] * so);
+    e2 = grow * (th[o + bEPS2] * co - th[o + bEPS1] * so);
+  } else {
+    e1 = th[o + bEPS1] + dt * th[o + bEPS1DOT];
+    e2 = th[o + bEPS2] + dt * th[o + bEPS2DOT];
+  }
   const T a1 = th[o + bA1] + dt * th[o + bA1DOT];
   const T nhat = kTwoPi * forb;
   // roemer_harmonics
@@ -548,26 +627,90 @@ PT_HD T ell1(const ChainCfg& c, const Theta<T>& th, const Row& r,
     s1 = s1 + (double)k * (S[k - 1] * cc - C[k - 1] * s);
     s2 = s2 - (double)(k * k) * (S[k - 1] * s + C[k - 1] * cc);
   }
-  const T Dre = a1 * (s0 + 0.0);
+  // roemer_const: ELL1k keeps the time-varying -(3/2) eps1 term
+  const T Dre = BIN == kELL1K ? a1 * (s0 + (-1.5 * e1)) : a1 * (s0 + 0.0);
   const T Drep = a1 * s1;
   const T Drepp = a1 * s2;
   const T nD = nhat * Drep;
   const T delayI =
       Dre * (((1.0 - nD) + nD * nD) + ((0.5 * (nhat * nhat)) * Dre) * Drepp);
   if (!(c.flags & kBinShapiro)) return delayI + 0.0;
+  if (BIN == kELL1H) {
+    if (c.flags & kStigma) {
+      // Freire & Wex 2010 eq. 28, the factors of STIGMA from theta
+      const T bs = th[o + bH_B] * f_sin(Phi);
+      const T lognum = th[o + bH_A] - bs;
+      return delayI + th[o + bH_FACTOR] *
+                          ((f_log(lognum) + bs) -
+                           th[o + bH_D] * f_cos(2.0 * Phi));
+    }
+    // the harmonic sum from the 3rd up, its weights from theta
+    T total = make<T>(0.0);
+    for (int k = 3; k <= c.nharm; ++k) {
+      const T kp = (double)k * Phi;
+      total = total + th[o + bH_W + (k - 3)] *
+                          ((k % 2 == 0) ? f_cos(kp) : f_sin(kp));
+    }
+    return delayI + th[o + bH_FACTOR] * total;
+  }
   const T tm2 = th[o + bM2_ELL1] * kTsun;
   const T sini = clip_unit(th[o + bSINI_ELL1]);
   return delayI +
          (-2.0 * tm2) * f_log(clamp_min(1.0 - sini * f_sin(Phi), 1e-12));
 }
 
-// BinaryDD / BinaryBT delay (PB/PBDOT orbit); aux, if given, receives
-// (M, e, E) of the Kepler solve
+// BinaryDDK._kopeikin: (delta a1 [ls], delta omega [rad], kin [rad]) of
+// the Kopeikin 1995 annual-orbital parallax and Kopeikin 1996 proper-motion
+// terms, from the astrometry block (its sky angles, proper motions and
+// PX) and the row's SSB -> observatory vector in the astrometry's frame
 template <typename T>
+PT_HD void kopeikin(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                    const T& dt, T& d_a1, T& d_om, T& kin) {
+  const int o = c.o_bin, oa = c.o_astro;
+  T sl, cl, sb, cb;
+  sky_sincos(th, oa, sl, cl, sb, cb);
+  const T mu_lon = th[oa + aPMLon] * kMasToRad;
+  const T mu_lat = th[oa + aPMLat] * kMasToRad;
+  double obs[3] = {r.pos[0], r.pos[1], r.pos[2]};
+  if (c.flags & kEcliptic) {
+    // Astrometry._obs_pos_frame: ICRS -> the ecliptic frame
+    const double ce = val(th[oa + aEclCos]), se = val(th[oa + aEclSin]);
+    obs[1] = ce * r.pos[1] + se * r.pos[2];
+    obs[2] = -se * r.pos[1] + ce * r.pos[2];
+  }
+  const T skom = th[o + bSKOM], ckom = th[o + bCKOM];
+  const T tt0_yr = dt / kSecsPerYear;
+  const double k96 = (c.flags & kK96) ? 1.0 : 0.0;
+  // Kopeikin 1996 eq. 10: secular inclination change from PM
+  const T d_kin = (k96 * ((-mu_lon) * skom + mu_lat * ckom)) * tt0_yr;
+  kin = th[o + bKIN] + d_kin;
+  const T sin_kin = f_sin(kin), cos_kin = f_cos(kin);
+  const T a1_0 = th[o + bA1] + dt * th[o + bA1DOT];
+  // Kopeikin 1996 eqs. 8-9
+  const T d_a1_pm = ((a1_0 * d_kin) * cos_kin) / sin_kin;
+  const T d_om_pm =
+      ((k96 * (mu_lon * ckom + mu_lat * skom)) * tt0_yr) / sin_kin;
+  // Kopeikin 1995 eqs. 15-19; 1/d as PX / kpc, so PX = 0 gives 0
+  const T dI0 = (-obs[0]) * sl + obs[1] * cl;
+  const T dJ0 = ((-obs[0]) * sb) * cl - (obs[1] * sb) * sl + obs[2] * cb;
+  const T inv_d = th[oa + aPX] / kKpcLs;
+  const T d_a1_px =
+      (((a1_0 * cos_kin) / sin_kin) * (dI0 * skom - dJ0 * ckom)) * inv_d;
+  const T d_om_px = ((-(dI0 * ckom + dJ0 * skom)) * inv_d) / sin_kin;
+  d_a1 = d_a1_pm + d_a1_px;
+  d_om = d_om_pm + d_om_px;
+}
+
+// BinaryDD / BinaryBT delay (PB/PBDOT orbit), and the variants: DDK
+// (the Kopeikin terms per row), DDS and DDH (the Shapiro slots as
+// given); aux, if given, receives (M, e, E) of the Kepler solve
+template <typename T, int BIN>
 PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
            const T& delay, double* aux) {
   const int o = c.o_bin;
   const T dt = binary_dt(th, o, r, delay);
+  T d_a1, d_om, kin;
+  if (BIN == kDDK) kopeikin(c, th, r, dt, d_a1, d_om, kin);
   const T pb = th[o + bPB], pbdot = th[o + bPBDOT];
   const T orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
   const T forb = (1.0 - pbdot * (dt / pb)) / pb;
@@ -583,16 +726,18 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
     aux[1] = val(e);
     aux[2] = Ev;
   }
-  const T a1 = th[o + bA1] + dt * th[o + bA1DOT];
+  T a1 = th[o + bA1] + dt * th[o + bA1DOT];
+  if (BIN == kDDK) a1 = a1 + d_a1;
   const T n = kTwoPi * forb;
   // true_anomaly_continuous
   T nu = 2.0 * f_atan2(f_sqrt(1.0 + e) * f_sin(E / 2.0),
                        f_sqrt(1.0 - e) * f_cos(E / 2.0));
   if (val(nu) < 0.0) nu = nu + kTwoPi;
   nu = (kTwoPi * orbits + nu) - M;
-  const T omega = (c.flags & kOmegaFromNu)
-                      ? th[o + bOM] + (th[o + bOMDOT] / n) * nu
-                      : th[o + bOM] + th[o + bOMDOT] * dt;
+  T omega = (c.flags & kOmegaFromNu)
+                ? th[o + bOM] + (th[o + bOMDOT] / n) * nu
+                : th[o + bOM] + th[o + bOMDOT] * dt;
+  if (BIN == kDDK) omega = omega + d_om;
   const T er = e * (1.0 + th[o + bDR]);
   const T eth = clip_unit(e * (1.0 + th[o + bDTH]));
   const T sinE = f_sin(E), cosE = f_cos(E);
@@ -614,8 +759,14 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
   T out = delayI;
   if (c.flags & kBinShapiro) {
     // DD eq. [26]
-    const T tm2 = th[o + bM2_DD] * kTsun;
-    const T sini = clip_unit(th[o + bSINI_DD]);
+    T tm2, sini;
+    if (BIN == kDDTM2) {
+      tm2 = th[o + bTM2];
+      sini = th[o + bSINI_RAW];
+    } else {
+      tm2 = th[o + bM2_DD] * kTsun;
+      sini = clip_unit(BIN == kDDK ? f_sin(kin) : th[o + bSINI_DD]);
+    }
     const T arg = (1.0 - e * cosE) -
                   sini * (sw * (cosE - e) + (f_sqrt(1.0 - e * e) * cw) * sinE);
     out = out + (-2.0 * tm2) * f_log(clamp_min(arg, 1e-12));
@@ -663,8 +814,10 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
     if (r.dmx1 >= 0) dm = dm + th[c.o_dmx + r.dmx1];
     d = d + dispersion(dm, r.freq);
   }
-  if (BIN == kELL1) d = d + ell1(c, th, r, d);
-  if (BIN == kDD) d = d + dd(c, th, r, d, aux);
+  if (BIN == kELL1 || BIN == kELL1H || BIN == kELL1K)
+    d = d + ell1<T, BIN>(c, th, r, d);
+  if (BIN == kDD || BIN == kDDK || BIN == kDDTM2)
+    d = d + dd<T, BIN>(c, th, r, d, aux);
   if (c.flags & kFD) {
     T out = make<T>(0.0);
     if (isfinite(r.freq)) {

@@ -102,13 +102,17 @@ extern "C" int delay_chain_host(const int64_t* tdb_day,
     return 1;
   const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
   switch (cfg.binary) {
-    case ptchain::kNoBinary:
-      return run<ptchain::kNoBinary>(rd, theta, dtheta, cfg, G, K, N, lpt,
-                                     out);
-    case ptchain::kELL1:
-      return run<ptchain::kELL1>(rd, theta, dtheta, cfg, G, K, N, lpt, out);
-    case ptchain::kDD:
-      return run<ptchain::kDD>(rd, theta, dtheta, cfg, G, K, N, lpt, out);
+#define PT_CASE(B)                                                   \
+  case ptchain::B:                                                   \
+    return run<ptchain::B>(rd, theta, dtheta, cfg, G, K, N, lpt, out);
+    PT_CASE(kNoBinary)
+    PT_CASE(kELL1)
+    PT_CASE(kDD)
+    PT_CASE(kDDK)
+    PT_CASE(kDDTM2)
+    PT_CASE(kELL1H)
+    PT_CASE(kELL1K)
+#undef PT_CASE
     default:
       return 1;
   }

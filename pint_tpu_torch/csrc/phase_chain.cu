@@ -286,19 +286,19 @@ extern "C" int phase_chain(
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (cfg.binary) {
-    case ptchain::kNoBinary:
-      err = launch<ptchain::kNoBinary>(rd, ph, td, theta, dtheta, cfg, pc,
-                                       (int)K, lpt, G, N, out, words, slope,
-                                       dt64, s);
-      break;
-    case ptchain::kELL1:
-      err = launch<ptchain::kELL1>(rd, ph, td, theta, dtheta, cfg, pc, (int)K,
-                                   lpt, G, N, out, words, slope, dt64, s);
-      break;
-    case ptchain::kDD:
-      err = launch<ptchain::kDD>(rd, ph, td, theta, dtheta, cfg, pc, (int)K,
-                                 lpt, G, N, out, words, slope, dt64, s);
-      break;
+#define PT_CASE(B)                                                         \
+  case ptchain::B:                                                         \
+    err = launch<ptchain::B>(rd, ph, td, theta, dtheta, cfg, pc, (int)K,   \
+                             lpt, G, N, out, words, slope, dt64, s);       \
+    break;
+    PT_CASE(kNoBinary)
+    PT_CASE(kELL1)
+    PT_CASE(kDD)
+    PT_CASE(kDDK)
+    PT_CASE(kDDTM2)
+    PT_CASE(kELL1H)
+    PT_CASE(kELL1K)
+#undef PT_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -157,20 +157,19 @@ extern "C" int phase_chain_host(
   const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
   const Tangent td{slope_in, dt64_in, dother, dother_sg, dother_sk};
   switch (cfg.binary) {
-    case ptchain::kNoBinary:
-      return run<ptchain::kNoBinary>(rd, pulse_number, pep_day, pep_w, f_w,
-                                     tzr_w, other, other_sg, td, theta,
-                                     dtheta, cfg, pc, G, K, N, lpt, out,
-                                     words, slope, dt64);
-    case ptchain::kELL1:
-      return run<ptchain::kELL1>(rd, pulse_number, pep_day, pep_w, f_w,
-                                 tzr_w, other, other_sg, td, theta, dtheta,
-                                 cfg, pc, G, K, N, lpt, out, words, slope,
-                                 dt64);
-    case ptchain::kDD:
-      return run<ptchain::kDD>(rd, pulse_number, pep_day, pep_w, f_w, tzr_w,
-                               other, other_sg, td, theta, dtheta, cfg, pc,
-                               G, K, N, lpt, out, words, slope, dt64);
+#define PT_CASE(B)                                                          \
+  case ptchain::B:                                                          \
+    return run<ptchain::B>(rd, pulse_number, pep_day, pep_w, f_w, tzr_w,    \
+                           other, other_sg, td, theta, dtheta, cfg, pc, G,  \
+                           K, N, lpt, out, words, slope, dt64);
+    PT_CASE(kNoBinary)
+    PT_CASE(kELL1)
+    PT_CASE(kDD)
+    PT_CASE(kDDK)
+    PT_CASE(kDDTM2)
+    PT_CASE(kELL1H)
+    PT_CASE(kELL1K)
+#undef PT_CASE
     default:
       return 1;
   }

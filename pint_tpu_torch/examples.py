@@ -1,10 +1,12 @@
 """Shared example configurations: the par strings of
-:mod:`pint_tpu.examples`, and the simulated full-width DD data sets that
-``chip_smoke.py`` fits: white noise only (WLS), and with a NANOGrav-style
-noise model (GLS)."""
+:mod:`pint_tpu.examples`, and the simulated full-width data sets that
+``chip_smoke.py`` fits: the DD binary with white noise only (WLS) and
+with a NANOGrav-style noise model (GLS), and the DDK binary in ecliptic
+coordinates (WLS)."""
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -125,15 +127,24 @@ def simulate_dd_realistic(ntoas: int = 12500, seed: int = 0,
     noise, three receivers carrying -fe flags, each in four sub-bands.
     The residuals of the simulation run on ``device`` (default
     ``"cuda"``)."""
+    return _simulate_uniform(
+        dd_realistic_par(dmx_bins=dmx_bins, span_days=span_days,
+                         center_mjd=center_mjd),
+        ntoas, seed, span_days, center_mjd, device)
+
+
+def _simulate_uniform(par: str, ntoas: int, seed: int, span_days: float,
+                      center_mjd: float, device):
+    """(model, TOAs): ``ntoas`` uniform TOAs of the model of ``par`` over
+    the span from gbt with 1 us white noise, three receivers carrying -fe
+    flags, each in four sub-bands; the residuals run on ``device``."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.simulation import make_fake_toas_uniform
 
     band, freqs = receiver_freqs(ntoas)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(dd_realistic_par(
-            dmx_bins=dmx_bins, span_days=span_days,
-            center_mjd=center_mjd).splitlines())
+        model = get_model(par.splitlines())
         toas = make_fake_toas_uniform(
             center_mjd - span_days / 2, center_mjd + span_days / 2, ntoas,
             model, obs="gbt", error_us=1.0, freq_mhz=freqs,
@@ -141,6 +152,136 @@ def simulate_dd_realistic(ntoas: int = 12500, seed: int = 0,
     for b_mhz, fl in zip(band, toas.flags):
         fl["fe"] = RECEIVERS[float(b_mhz)]
     return model, toas
+
+
+#: the proper motion [mas/yr] and parallax [mas] of the DDK configuration
+#: (pint_tpu's DDK tests, `tests/test_binary_ddk.py` PAR_DDK), frozen
+DDK_PM_PX = {"PMRA": -15.0, "PMDEC": 8.0, "PX": 1.5}
+#: the DDK orbit's inclination [deg]: asin of FAKEDD_PAR's SINI 0.9
+DDK_KIN_DEG = math.degrees(math.asin(0.9))
+#: its longitude of the ascending node [deg] (PAR_DDK's)
+DDK_KOM_DEG = 40.0
+
+
+def ddk_ecliptic_par() -> str:
+    """:data:`FAKEDD_PAR` as a NANOGrav release gives such a binary: the
+    position in ecliptic coordinates (IERS2010), converted by
+    :func:`~pint_tpu_torch.models.astrometry.convert_astrometry` with
+    ELONG and ELAT free, its proper motion and parallax (frozen), and the
+    DDK binary (KIN, KOM free, K96) in place of DD's SINI."""
+    from pint_tpu_torch.models import get_model
+
+    eq = FAKEDD_PAR.strip().splitlines() + [
+        f"{k} {v}" for k, v in DDK_PM_PX.items()]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ecl = get_model(eq).as_ECL()
+    lines = []
+    for ln in FAKEDD_PAR.strip().splitlines():
+        key = ln.split()[0]
+        if key == "RAJ":
+            lines += [f"ELONG {ecl.ELONG.value_as_string()} 1",
+                      f"ELAT {ecl.ELAT.value_as_string()} 1",
+                      f"PMELONG {ecl.PMELONG.value:.10f}",
+                      f"PMELAT {ecl.PMELAT.value:.10f}",
+                      f"PX {DDK_PM_PX['PX']}", "ECL IERS2010"]
+        elif key == "DECJ":
+            continue
+        elif key == "BINARY":
+            lines.append("BINARY DDK")
+        elif key == "SINI":
+            lines += [f"KIN {DDK_KIN_DEG:.12f} 1",
+                      f"KOM {DDK_KOM_DEG} 1", "K96 1"]
+        else:
+            lines.append(ln)
+    return "\n".join(lines)
+
+
+def ddk_ecliptic_realistic_par(dmx_bins: int = 70,
+                               span_days: float = 4550.0,
+                               center_mjd: float = 54975.0) -> str:
+    """:func:`ddk_ecliptic_par` at NANOGrav width: 12 nonlinear free
+    parameters (ELONG, ELAT, F0, F1, DM, PB, A1, T0, ECC, OM, KIN, KOM)
+    and 76 linear ones (FD1-4, two JUMPs, 70 DMX) at the default width,
+    88 in all."""
+    return "\n".join([ddk_ecliptic_par()]
+                     + _width_lines(dmx_bins, span_days, center_mjd))
+
+
+def simulate_ddk_ecliptic_realistic(ntoas: int = 12500, seed: int = 0,
+                                    dmx_bins: int = 70,
+                                    span_days: float = 4550.0,
+                                    center_mjd: float = 54975.0,
+                                    device=None):
+    """(model, TOAs) of the full-width DDK configuration in ecliptic
+    coordinates, simulated as :func:`simulate_dd_realistic` does."""
+    return _simulate_uniform(
+        ddk_ecliptic_realistic_par(dmx_bins=dmx_bins, span_days=span_days,
+                                   center_mjd=center_mjd),
+        ntoas, seed, span_days, center_mjd, device)
+
+
+def _orthometric(m2: float, sini: float):
+    """(H3 [s], STIGMA) of M2 [Msun] and SINI (Freire & Wex 2010)."""
+    from pint_tpu_torch import Tsun
+
+    sig = sini / (1.0 + math.sqrt(1.0 - sini**2))
+    return m2 * Tsun * sig**3, sig
+
+
+#: the DD and ELL1 variants of the kernel's row function, each on the DD
+#: or the J0740 par with its Shapiro parameters carried over from the
+#: par's own M2/SINI (as pint_tpu's tests/test_binary_dd.py:193-237 and
+#: tests/test_binary_ell1.py:149-233 build them), the new parameters
+#: free; ELL1k's OMDOT 2 deg/yr and LNEDOT 1e-3 /yr are this repo's
+#: choice, large enough to move eps1, eps2 over the span
+VARIANTS = ("DDS", "DDH", "DDGR", "DDK", "DDK_ECL", "ELL1H", "ELL1H_H4",
+            "ELL1H_H3", "ELL1k")
+ELL1K_RATES = {"OMDOT": 2.0, "LNEDOT": 1e-3}
+#: DDGR's total mass [Msun]: with M2 0.3 its derived SINI is ~0.898 at
+#: FAKEDD_PAR's A1 and PB, off clip_unit's saturation
+DDGR_MTOT = 1.18
+
+
+def variant_par(kind: str, dmx_bins: int = 70, span_days: float = 4550.0,
+                center_mjd: float = 54975.0) -> str:
+    """The par of one of :data:`VARIANTS` at the width of
+    :func:`dd_realistic_par` / :func:`j0740_realistic_par`: DDS (SHAPMAX
+    = -ln(1 - SINI)), DDH (H3, STIGMA of M2, SINI), DDGR (MTOT, M2), DDK
+    in equatorial coordinates with pint_tpu's DDK proper motion and
+    parallax and in ecliptic ones (:func:`ddk_ecliptic_realistic_par`),
+    ELL1H in its three modes (STIGMA; H4 with the harmonic sum; H3 alone
+    with NHARMS 7), ELL1k (:data:`ELL1K_RATES`)."""
+    if kind == "DDK_ECL":
+        return ddk_ecliptic_realistic_par(dmx_bins, span_days, center_mjd)
+    dd = kind.startswith("DD")
+    base = (dd_realistic_par if dd else j0740_realistic_par)(
+        dmx_bins, span_days, center_mjd).splitlines()
+    m2, sini = (0.3, 0.9) if dd else (0.25, 0.99)
+    h3, sig = _orthometric(m2, sini)
+    binary = kind.split("_")[0]
+    swap = {
+        "DDS": {"SINI": [f"SHAPMAX {-math.log(1.0 - sini)!r} 1"]},
+        "DDH": {"M2": [f"H3 {h3!r} 1"], "SINI": [f"STIGMA {sig!r} 1"]},
+        "DDGR": {"M2": [f"M2 {m2} 1"], "SINI": [f"MTOT {DDGR_MTOT} 1"]},
+        "DDK": {"SINI": [f"{k} {v}" for k, v in DDK_PM_PX.items()]
+                + [f"KIN {DDK_KIN_DEG:.12f} 1", f"KOM {DDK_KOM_DEG} 1",
+                   "K96 1"]},
+        "ELL1H": {"M2": [f"H3 {h3!r} 1"], "SINI": [f"STIGMA {sig!r} 1"]},
+        "ELL1H_H4": {"M2": [f"H3 {h3!r} 1"],
+                     "SINI": [f"H4 {sig * h3!r} 1", "NHARMS 7"]},
+        "ELL1H_H3": {"M2": [f"H3 {h3!r} 1"], "SINI": ["NHARMS 7"]},
+        "ELL1k": {"SINI": [f"SINI {sini}"] + [
+            f"{k} {v} 1" for k, v in ELL1K_RATES.items()]},
+    }[kind]
+    lines = []
+    for ln in base:
+        key = ln.split()[0]
+        if key == "BINARY":
+            lines.append(f"BINARY {binary}")
+        else:
+            lines += swap.get(key, [ln])
+    return "\n".join(lines)
 
 
 #: NANOGrav 15-yr-style noise model of the GLS configuration, frozen as in

@@ -1,9 +1,10 @@
 """Wrapper of the ``delay_chain`` CUDA kernel (``csrc/delay_chain.cu``).
 
 :func:`delay_chain` evaluates the whole delay chain of a timing model —
-astrometry (equatorial, PM, PX), the Sun's Shapiro delay, DM (with its
-Taylor terms) and DMX, delay jumps, the binary (ELL1, or DD/BT with the
-Kepler solve) and FD — in DEFAULT_ORDER for every TOA in one launch.  On
+astrometry (equatorial or ecliptic, PM, PX), the Sun's Shapiro delay, DM
+(with its Taylor terms) and DMX, delay jumps, the binary (ELL1, ELL1H,
+ELL1k, or DD/BT, DDS, DDH, DDK, DDGR with the Kepler solve) and FD — in
+DEFAULT_ORDER for every TOA in one launch.  On
 a CUDA batch it launches the kernel (or raises); on a CPU batch it runs
 the plain version, the components' own delay functions
 (:meth:`pint_tpu_torch.models.timing_model.PhaseCalc.delay_plain`).  There
@@ -13,7 +14,11 @@ CUDA, naming it.
 
 The parameters reach the kernel as one float64 vector θ, packed from the
 params dict by :class:`ChainLayout` in a fixed layout (``const + delta``
-per slot, as :func:`~pint_tpu_torch.models.timing_model.pv` forms them);
+per slot, as :func:`~pint_tpu_torch.models.timing_model.pv` forms them;
+a quantity that depends on the parameters alone, as DDS's sin i or
+DDGR's post-Keplerian values, is formed in PyTorch by the component's
+own code and rides in a slot of its own, its tangent by torch's forward
+mode);
 the per-TOA data are the batch's columns plus the int32 DMX bins of each
 TOA (two: inclusive ranges that share a boundary both hold a TOA on it)
 and int32 DelayJump bits, built once on the host from the masks.
@@ -39,16 +44,22 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from pint_tpu_torch.models.timing_model import pv
 
 F32, F64, I32 = torch.float32, torch.float64, torch.int32
 
 #: component flags and binary families of csrc/delay_chain.cuh
 ASTRO, PM, SHAPIRO, DM, DMX, JUMP, FD = 1, 2, 4, 8, 16, 32, 64
 BIN_SHAPIRO, OMEGA_FROM_NU, ABERRATION = 128, 256, 512
-NO_BINARY, ELL1, DD = 0, 1, 2
+ECLIPTIC, K96, STIGMA = 1024, 2048, 4096
+NO_BINARY, ELL1, DD, DDK, DDTM2, ELL1H, ELL1K = 0, 1, 2, 3, 4, 5, 6
+#: the binary families that run the Kepler solve
+DD_FAMILY = (DD, DDK, DDTM2)
 
 #: the mask entries the kernel reads (built by DispersionDMX/DelayJump)
 DMX_INDEX = "__dmxidx__"
@@ -72,11 +83,11 @@ def lanes_per_thread(G: int, K: int) -> int:
 
 class ChainCfg(ctypes.Structure):
     """csrc/delay_chain.cuh ``ChainCfg``: flags, binary family, θ length,
-    block sizes and block offsets."""
+    block sizes, block offsets and ELL1H's highest harmonic."""
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "flags", "binary", "P", "ndm", "ndmx", "njump", "nfd",
-        "o_astro", "o_dm", "o_dmx", "o_jump", "o_fd", "o_bin")]
+        "o_astro", "o_dm", "o_dmx", "o_jump", "o_fd", "o_bin", "nharm")]
 
 
 Getter = Callable[[dict], torch.Tensor]
@@ -103,16 +114,25 @@ def _word(name: str, k: int) -> Getter:
     return get
 
 
+def _number(x: float) -> Getter:
+    """A constant of the model structure (a host float)."""
+    return lambda p: x
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ChainLayout:
-    """The θ layout of one model structure: per slot a constant getter (or
-    None for zero) and the name of the ``p["delta"]`` offset added to it
-    (or None), and the kernel's :class:`ChainCfg` fields."""
+    """The θ layout of one model structure: per slot a getter of the
+    params dict (a constant, or a quantity of the parameters alone; None
+    for zero) and the name of the ``p["delta"]`` offset added to it (or
+    None), and the kernel's :class:`ChainCfg` fields.  ``prepare``,
+    if set, maps the params dict before the slots read it (DDGR injects
+    its derived values as offsets, as its plain version does)."""
 
     names: Tuple[str, ...]
     consts: Tuple[Optional[Getter], ...]
     deltas: Tuple[Optional[str], ...]
     cfg: Tuple[int, ...]
+    prepare: Optional[Callable[[dict], dict]] = None
 
     @property
     def P(self) -> int:
@@ -132,6 +152,8 @@ class ChainLayout:
     def theta(self, p: dict) -> torch.Tensor:
         """(P,) float64 θ = const + delta per slot, differentiable in
         ``p["delta"]`` (and batched where it is)."""
+        if self.prepare is not None:
+            p = self.prepare(p)
         dev = next(iter(p["const"].values())).device
         zero = torch.zeros((), dtype=F64, device=dev)
         c = torch.stack([zero if g is None else
@@ -165,30 +187,35 @@ class ChainLayout:
 
         flags = 0
         binary = NO_BINARY
-        ndm = ndmx = njump = nfd = 0
+        ndm = ndmx = njump = nfd = nharm = 0
         offs = dict(o_astro=0, o_dm=0, o_dmx=0, o_jump=0, o_fd=0, o_bin=0)
-        order = ("AstrometryEquatorial", "DelayJump", "SolarSystemShapiro",
-                 "DispersionDM", "DispersionDMX", "BinaryELL1", "BinaryDD",
-                 "BinaryBT", "FD")
+        prepare = None
+        order = (("AstrometryEquatorial", "AstrometryEcliptic"),
+                 ("DelayJump",), ("SolarSystemShapiro",), ("DispersionDM",),
+                 ("DispersionDMX",), tuple(BINARIES), ("FD",))
         last = -1
         for comp in comps:
             kind = type(comp).__name__
-            if kind not in order:
+            pos = next((i for i, kinds in enumerate(order)
+                        if kind in kinds), None)
+            if pos is None:
                 raise NotImplementedError(
                     f"{kind} is not covered by the delay_chain kernel")
-            pos = order.index(kind)
             if pos <= last:
                 raise NotImplementedError(
                     f"{kind} out of the delay_chain kernel's order")
             last = pos
-            if kind == "AstrometryEquatorial":
+            if pos == 0:
                 flags |= ASTRO
+                if kind == "AstrometryEcliptic":
+                    flags |= ECLIPTIC
                 offs["o_astro"] = len(names)
-                for ang in ("RAJ", "DECJ"):
+                lon, lat = comp._angle_names
+                for ang in (lon, lat):
                     slot(f"{ang}__sin", _const(ang + "__sincos", 0))
                     slot(f"{ang}__cos", _const(ang + "__sincos", 1))
                     slot(f"{ang}__offset", None, ang)
-                for n in ("PMRA", "PMDEC", "PX"):
+                for n in comp._pm_names + ("PX",):
                     pv_slot(n)
                 ep = comp.pos_epoch_name()
                 if ep:
@@ -196,6 +223,11 @@ class ChainLayout:
                     slot(f"{ep}__day", _epoch_day(ep), ep)
                 else:
                     slot("POSEPOCH__day", None)
+                if flags & ECLIPTIC:
+                    # the reference's math.cos / math.sin of the obliquity
+                    eps = comp.obliquity()
+                    slot("ECL__cos", _number(math.cos(eps)))
+                    slot("ECL__sin", _number(math.sin(eps)))
             elif kind == "DelayJump":
                 js = [jp.name for jp in comp.jumps if jp.value is not None]
                 if len(js) > MAX_JUMPS:
@@ -244,20 +276,35 @@ class ChainLayout:
                     for n in fds:
                         pv_slot(n)
             else:
-                binary, bflags = _binary_slots(comp, slot, pv_slot, offs,
-                                               len(names))
+                if kind == "BinaryDDK" and not flags & ASTRO:
+                    raise AttributeError(
+                        "BinaryDDK needs an astrometry component")
+                binary, bflags, nharm, prepare = _binary_slots(
+                    comp, slot, pv_slot, offs, len(names))
                 flags |= bflags
         if not names:
             slot("__empty__", None)
         cfg = (flags, binary, len(names), ndm, ndmx, njump, nfd,
                offs["o_astro"], offs["o_dm"], offs["o_dmx"], offs["o_jump"],
-               offs["o_fd"], offs["o_bin"])
-        return cls(tuple(names), tuple(consts), tuple(deltas), cfg)
+               offs["o_fd"], offs["o_bin"], nharm)
+        return cls(tuple(names), tuple(consts), tuple(deltas), cfg, prepare)
+
+
+#: the binary components the kernel covers, by family
+BINARIES = {"BinaryELL1": ELL1, "BinaryELL1H": ELL1H, "BinaryELL1k": ELL1K,
+            "BinaryDD": DD, "BinaryBT": DD, "BinaryDDGR": DD,
+            "BinaryDDK": DDK, "BinaryDDS": DDTM2, "BinaryDDH": DDTM2}
+
+
+def _value(comp, n: str) -> bool:
+    return n in comp.params and comp.params[n].value is not None
 
 
 def _binary_slots(comp, slot, pv_slot, offs, start):
-    """The binary block of θ (csrc/delay_chain.cuh b* offsets)."""
+    """The binary block of θ (csrc/delay_chain.cuh b* offsets): ``(family,
+    flags, highest ELL1H harmonic, the params dict's map or None)``."""
     kind = type(comp).__name__
+    family = BINARIES[kind]
     if comp.fb_names():
         raise NotImplementedError(
             f"{kind} with an FBn orbit: the delay_chain kernel covers the "
@@ -266,35 +313,81 @@ def _binary_slots(comp, slot, pv_slot, offs, start):
         raise NotImplementedError(
             f"{kind} with ORBWAVEs is not covered by the delay_chain kernel")
     offs["o_bin"] = start
-    ep = "TASC" if kind == "BinaryELL1" else "T0"
+    ep = "TASC" if family in (ELL1, ELL1H, ELL1K) else "T0"
     slot(f"{ep}__day0", _const(ep, 0))
     for k in range(4):
         slot(f"{ep}__word{k}", _word(ep, k))
     slot(f"{ep}__ddays", None, ep)
     for n in ("PB", "PBDOT", "A1", "A1DOT"):
         pv_slot(n)
-    has_shapiro = comp.M2.value is not None and comp.SINI.value is not None \
-        if "M2" in comp.params else False
-    flags = BIN_SHAPIRO if has_shapiro else 0
 
     def pv_or_zero(n):
-        if n in comp.params and comp.params[n].value is not None:
+        if _value(comp, n):
             pv_slot(n)
         else:
             slot(n, None)
 
-    if kind == "BinaryELL1":
-        for n in ("EPS1", "EPS2", "EPS1DOT", "EPS2DOT", "M2", "SINI"):
+    if family in (ELL1, ELL1K):
+        flags = BIN_SHAPIRO if _value(comp, "M2") and _value(comp, "SINI") \
+            else 0
+        dots = ("OMDOT", "LNEDOT") if family == ELL1K \
+            else ("EPS1DOT", "EPS2DOT")
+        for n in ("EPS1", "EPS2") + dots + ("M2", "SINI"):
             pv_or_zero(n)
-        return ELL1, flags
-    for n in ("ECC", "EDOT", "OM", "OMDOT", "GAMMA", "M2", "SINI", "DR",
-              "DTH", "A0", "B0"):
+        return family, flags, 0, None
+    if family == ELL1H:
+        for n in ("EPS1", "EPS2", "EPS1DOT", "EPS2DOT"):
+            pv_or_zero(n)
+        # the slots of BinaryELL1H.shapiro_delay that depend on the
+        # parameters alone, formed by its own code
+        if comp.STIGMA.value is not None:
+            for i, n in enumerate(("factor", "a", "b", "d")):
+                slot(f"H__{n}", lambda p, i=i: comp.stigma_factors(p)[i])
+            return ELL1H, BIN_SHAPIRO | STIGMA, 0, None
+        slot("H__factor", lambda p: -2.0 * pv(p, "H3"))
+        nharm = comp.nharms()
+        for k in range(3, nharm + 1):
+            slot(f"H__w{k}", lambda p, k=k: comp.harmonic_weights(p)[k - 3])
+        return ELL1H, BIN_SHAPIRO, nharm, None
+    for n in ("ECC", "EDOT", "OM", "OMDOT", "GAMMA"):
         pv_or_zero(n)
-    if comp.omega_from_nu:
-        flags |= OMEGA_FROM_NU
-    if kind == "BinaryDD":
+    flags = OMEGA_FROM_NU if comp.omega_from_nu else 0
+    prepare = None
+    if kind != "BinaryBT":
         flags |= ABERRATION
-    return DD, flags
+    if family == DDTM2:
+        # DDS, DDH: _tm2_sini's TM2 [s] and sin i, unclipped
+        if kind == "BinaryDDH" or (_value(comp, "M2")
+                                   and _value(comp, "SHAPMAX")):
+            flags |= BIN_SHAPIRO
+            slot("TM2", lambda p: comp._tm2_sini(p, None, None)[0])
+            slot("SINI", lambda p: comp._tm2_sini(p, None, None)[1])
+        else:
+            slot("TM2", None)
+            slot("SINI", None)
+    elif family == DDK:
+        flags |= BIN_SHAPIRO if _value(comp, "M2") else 0
+        if comp.K96.value:
+            flags |= K96
+        pv_or_zero("M2")
+        pv_slot("KIN")
+    elif kind == "BinaryDDGR":
+        # _with_gr's offsets, and _gr_pk's sin i (clipped by the kernel)
+        flags |= BIN_SHAPIRO
+        prepare = lambda p: comp._with_gr(p)[0]  # noqa: E731
+        pv_slot("M2")
+        slot("SINI", lambda p: comp._gr_pk(p)["sini"])
+    else:
+        flags |= BIN_SHAPIRO if _value(comp, "M2") and _value(comp, "SINI") \
+            else 0
+        pv_or_zero("M2")
+        pv_or_zero("SINI")
+    for n in ("DR", "DTH", "A0", "B0"):
+        pv_or_zero(n)
+    if family == DDK:
+        slot("KOM__sin", lambda p: torch.sin(pv(p, "KOM")))
+        slot("KOM__cos", lambda p: torch.cos(pv(p, "KOM")))
+    return family, flags, 0, prepare
 
 
 # -- the library ---------------------------------------------------------------

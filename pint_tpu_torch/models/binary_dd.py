@@ -1,10 +1,12 @@
-"""BT and DD binary models: full Keplerian orbits.
+"""BT and DD-family binary models: full Keplerian orbits.
 
-Port of the BT/DD part of :mod:`pint_tpu.models.binary_dd` (reference
-`BinaryBT`/`BinaryDD`, `src/pint/models/binary_bt.py:17`,
-`binary_dd.py:34`, delegating to `stand_alone_psr_binaries/BT_model.py`
-and `DD_model.py`; Blandford & Teukolsky 1976, Damour & Deruelle 1986).
-DDS, DDH, DDK, DDGR and BT_piecewise are not ported yet.
+Port of :mod:`pint_tpu.models.binary_dd` (reference
+`BinaryBT`/`BinaryDD`/`BinaryDDS`/`BinaryDDH`/`BinaryDDK`/`BinaryDDGR`,
+`src/pint/models/binary_bt.py:17`, `binary_dd.py:34,135,211,382`,
+`binary_ddk.py:45`, delegating to `stand_alone_psr_binaries/BT_model.py`,
+`DD_model.py`, `DDK_model.py` and `DDGR_model.py`; Blandford & Teukolsky
+1976, Damour & Deruelle 1986, Kopeikin 1995 and 1996, Taylor & Weisberg
+1989).  BT_piecewise is not ported yet.
 
 The eccentric anomaly comes from the ``kepler_E`` CUDA kernel
 (:func:`pint_tpu_torch.kernels.kepler.kepler_E_op`, its plain version on
@@ -135,9 +137,26 @@ class BinaryDDBase(OrbwaveMixin, DelayComponent):
     def aberration_delay(self, p, e, nu, omega):
         return torch.zeros_like(nu)
 
+    def a1_val(self, p, batch, dt):
+        """Projected semi-major axis [ls] at each TOA; DDK adds the
+        Kopeikin proper-motion/annual-parallax corrections."""
+        return pv(p, "A1") + dt * pv(p, "A1DOT")
+
+    def omega_extra(self, p, batch, dt):
+        """Additive per-TOA correction to omega [rad] (0 except DDK)."""
+        return 0.0
+
+    def dt_extra(self, p, batch, dt):
+        """Per-TOA adjustment of (t - T0) [s]; identity except for the
+        piecewise models, which re-reference whole MJD ranges to
+        alternative epochs."""
+        return dt
+
     def _dt(self, p, batch, delay):
-        """(t_bary - T0) [s], f64 (exact two-part difference)."""
-        return dt_seconds_qs(p, batch, delay, "T0")[1]
+        """(t_bary - T0) [s], f64 (exact two-part difference), with the
+        variant's :meth:`dt_extra`."""
+        return self.dt_extra(p, batch, dt_seconds_qs(p, batch, delay,
+                                                     "T0")[1])
 
     def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
         dt = self._dt(p, batch, delay)
@@ -151,13 +170,14 @@ class BinaryDDBase(OrbwaveMixin, DelayComponent):
         # the ECC gradient alive so fitters can step back into range
         e = clip_unit(pv(p, "ECC") + dt * pv(p, "EDOT"))
         E = kepler_E_op(M, e)
-        a1 = pv(p, "A1") + dt * pv(p, "A1DOT")
+        a1 = self.a1_val(p, batch, dt)
         n = 2.0 * math.pi * forb
         nu = true_anomaly_continuous(E, e, orbits, M)
         if self.omega_from_nu:
             omega = pv(p, "OM") + pv(p, "OMDOT") / n * nu
         else:
             omega = pv(p, "OM") + pv(p, "OMDOT") * dt
+        omega = omega + self.omega_extra(p, batch, dt)
         er = e * (1.0 + self.d_r(p))
         # eth can leave [0,1) via DR/DTH trial steps even with e in range
         eth = clip_unit(e * (1.0 + self.d_th(p)))
@@ -248,3 +268,251 @@ class BinaryDD(BinaryDDBase):
         s, c = torch.sin(omega + nu), torch.cos(omega + nu)
         return pv(p, "A0") * (s + e * torch.sin(omega)) + \
             pv(p, "B0") * (c + e * torch.cos(omega))
+
+
+class BinaryDDS(BinaryDD):
+    """DD with SHAPMAX = -ln(1 - SINI) for nearly edge-on orbits
+    (reference `binary_dd.py:135` + `DDS_model.py`)."""
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.remove_param("SINI")
+        self.add_param(FloatParam("SHAPMAX", units="",
+                                  description="-ln(1-SINI)"))
+
+    def validate(self):
+        BinaryDDBase.validate(self)
+        self.require("SHAPMAX")
+
+    def _tm2_sini(self, p, batch, dt):
+        if self.M2.value is None or self.SHAPMAX.value is None:
+            return None, None
+        return pv(p, "M2") * Tsun, 1.0 - torch.exp(-pv(p, "SHAPMAX"))
+
+
+class BinaryDDH(BinaryDD):
+    """DD with orthometric Shapiro parameters H3/STIGMA (reference
+    `binary_dd.py:211` + `DDH_model.py`; Freire & Wex 2010):
+    TM2 = H3/STIGMA^3, SINI = 2 STIGMA/(1+STIGMA^2)."""
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.remove_param("SINI")
+        self.remove_param("M2")
+        self.add_param(FloatParam("H3", units="s",
+                                  description="Third Shapiro harmonic"))
+        self.add_param(FloatParam("STIGMA", units="", aliases=["VARSIGMA"],
+                                  description="Orthometric ratio"))
+
+    def validate(self):
+        BinaryDDBase.validate(self)
+        self.require("H3", "STIGMA")
+
+    def _tm2_sini(self, p, batch, dt):
+        h3, sig = pv(p, "H3"), pv(p, "STIGMA")
+        return h3 / sig**3, 2.0 * sig / (1.0 + sig**2)
+
+
+class BinaryDDK(BinaryDD):
+    """DD with Kopeikin annual-orbital-parallax and proper-motion
+    corrections (reference `binary_ddk.py:45` +
+    `stand_alone_psr_binaries/DDK_model.py`; Kopeikin 1995 eqs. 15-19,
+    Kopeikin 1996 eqs. 8-10; Damour & Taylor 1992 KIN/KOM convention).
+
+    SINI is replaced by the inclination KIN and the longitude of the
+    ascending node KOM; the observed a1, omega and sin(i) then vary with
+    time through the Earth's orbit (annual-orbital parallax, scale 1/PX)
+    and the pulsar's proper motion (K96 flag, Kopeikin 1996).  The
+    corrections are evaluated in the astrometry component's native frame
+    (equatorial or ecliptic), exactly as the reference does.
+    """
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.remove_param("SINI")
+        self.add_param(FloatParam("KIN", units="deg", par2dev=DEG,
+                                  description="Orbital inclination"))
+        self.add_param(FloatParam("KOM", units="deg", par2dev=DEG,
+                                  description="Longitude of ascending "
+                                              "node (DT92, E through N)"))
+        from pint_tpu_torch.models.parameter import BoolParam
+
+        self.add_param(BoolParam("K96", value=True,
+                                 description="Apply Kopeikin 1996 "
+                                             "proper-motion corrections"))
+
+    def validate(self):
+        BinaryDDBase.validate(self)
+        self.require("KIN", "KOM")
+        if self._parent is not None:
+            if "PX" not in self._parent or \
+                    not self._parent.PX.value:
+                import warnings as _w
+
+                _w.warn("DDK's annual-orbital-parallax terms need PX; "
+                        "PX is unset (treated as 0: terms disabled)")
+
+    def _astrometry(self):
+        for comp in self._parent.components.values():
+            if hasattr(comp, "kopeikin_frame"):
+                return comp
+        raise AttributeError("BinaryDDK needs an astrometry component")
+
+    def _kopeikin(self, p, batch, dt):
+        """(delta_a1 [ls], delta_omega [rad], kin [rad] per TOA)."""
+        from pint_tpu_torch.models.astrometry import KPC_LS
+
+        sl, cl, sb, cb, mu_lon, mu_lat, obs = \
+            self._astrometry().kopeikin_frame(p, batch)
+        skom, ckom = torch.sin(pv(p, "KOM")), torch.cos(pv(p, "KOM"))
+        kin0 = pv(p, "KIN")
+        tt0_yr = dt / SECS_PER_YEAR
+        # K96 is a host boolean flag (never fit), folded in as a constant
+        k96 = 1.0 if self.K96.value else 0.0
+        # Kopeikin 1996 eq. 10: secular inclination change from PM
+        d_kin = k96 * (-mu_lon * skom + mu_lat * ckom) * tt0_yr
+        kin = kin0 + d_kin
+        sin_kin = torch.sin(kin)
+        cos_kin = torch.cos(kin)
+        a1_0 = pv(p, "A1") + dt * pv(p, "A1DOT")
+        # Kopeikin 1996 eqs. 8-9
+        d_a1_pm = a1_0 * d_kin * cos_kin / sin_kin
+        d_om_pm = k96 * (mu_lon * ckom + mu_lat * skom) * tt0_yr / sin_kin
+        # Kopeikin 1995 eqs. 15-19 (annual-orbital parallax); obs in ls,
+        # 1/d expressed as PX/KPC_LS so PX = 0 cleanly disables the terms
+        dI0 = -obs[:, 0] * sl + obs[:, 1] * cl
+        dJ0 = -obs[:, 0] * sb * cl - obs[:, 1] * sb * sl + obs[:, 2] * cb
+        inv_d = pv(p, "PX") / KPC_LS
+        d_a1_px = a1_0 * cos_kin / sin_kin * (dI0 * skom - dJ0 * ckom) \
+            * inv_d
+        d_om_px = -(dI0 * ckom + dJ0 * skom) * inv_d / sin_kin
+        return d_a1_pm + d_a1_px, d_om_pm + d_om_px, kin
+
+    # The Kopeikin triple feeds three hooks per delay evaluation;
+    # delay() computes it once and scopes it to the super() call.
+    _kop_active = None
+
+    def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
+        self._kop_active = self._kopeikin(p, batch,
+                                          self._dt(p, batch, delay))
+        try:
+            return super().delay(p, batch, delay)
+        finally:
+            self._kop_active = None
+
+    def a1_val(self, p, batch, dt):
+        d_a1, _, _ = self._kop_active
+        return pv(p, "A1") + dt * pv(p, "A1DOT") + d_a1
+
+    def omega_extra(self, p, batch, dt):
+        _, d_om, _ = self._kop_active
+        return d_om
+
+    def _tm2_sini(self, p, batch, dt):
+        if self.M2.value is None:
+            return None, None
+        _, _, kin = self._kop_active
+        return pv(p, "M2") * Tsun, clip_unit(torch.sin(kin))
+
+
+class BinaryDDGR(BinaryDD):
+    """DD with general relativity assumed: every post-Keplerian quantity
+    (SINI, GAMMA, OMDOT, PBDOT, DR, DTH) is *derived* from the component
+    masses (reference `binary_dd.py:211` + `DDGR_model.py`; Taylor &
+    Weisberg 1989 eqs. 15-25; tempo's mass2dd).
+
+    Parameters: MTOT (total mass), M2 (companion), plus optional XOMDOT/
+    XPBDOT excesses beyond the GR prediction.  Any SINI/GAMMA/OMDOT/
+    PBDOT/DR/DTH in the par file are read but overridden, exactly like
+    the reference.  The derived quantities are injected as offsets in the
+    params dict, so fits autodiff straight through the GR formulas.
+    """
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.remove_param("SINI")
+        self.add_param(FloatParam("MTOT", units="Msun", aliases=["MTOT"],
+                                  description="Total system mass"))
+        self.add_param(FloatParam("XOMDOT", value=0.0, units="deg/yr",
+                                  par2dev=DEG_PER_YEAR,
+                                  description="Excess OMDOT beyond GR"))
+        self.add_param(FloatParam("XPBDOT", value=0.0, units="d/d",
+                                  unit_scale=True,
+                                  description="Excess PBDOT beyond GR"))
+
+    def validate(self):
+        BinaryDDBase.validate(self)
+        self.require("MTOT", "M2")
+
+    def _gr_pk(self, p):
+        """Derived PK quantities from (MTOT, M2, PB, ECC, A1) — Taylor &
+        Weisberg (1989) eqs. 15-25 in c = 1 seconds units
+        (Tsun = GM_sun/c^3)."""
+        mtot = pv(p, "MTOT")
+        m2 = pv(p, "M2")
+        m1 = mtot - m2
+        e = pv(p, "ECC")
+        a1 = pv(p, "A1")
+        fbs = self.fb_names()
+        if fbs:
+            n = 2.0 * math.pi * pv(p, fbs[0])
+        else:
+            n = 2.0 * math.pi / pv(p, "PB")
+        gm = Tsun * mtot                      # [s]
+        arr0 = (gm / n**2) ** (1.0 / 3.0)     # [s] non-relativistic
+        # relativistic Kepler (TW89 eq. 15), fixed-count iteration: the
+        # correction is O(Tsun*M/arr) ~ 1e-6, so each pass squares the
+        # residual -- 4 is ample
+        corr = m1 * m2 / mtot**2 - 9.0
+        arr = arr0
+        for _ in range(4):
+            arr = arr0 * (1.0 + corr * gm / (2.0 * arr)) ** (2.0 / 3.0)
+        ar = arr * m2 / mtot
+        sini = a1 / ar                        # TW89 eq. 20
+        gamma = e * Tsun * m2 * (m1 + 2.0 * m2) / (n * arr0 * mtot)
+        fe = (1.0 + (73.0 / 24.0) * e**2 + (37.0 / 96.0) * e**4) \
+            * (1.0 - e**2) ** -3.5            # TW89 eq. 19
+        # TW89 eq. 18, dimensionless (masses in Msun, Tsun carries GM/c^3)
+        pbdot = (-192.0 * math.pi / 5.0) * (n * Tsun) ** (5.0 / 3.0) \
+            * m1 * m2 * mtot ** (-1.0 / 3.0) * fe
+        k = 3.0 * gm / (arr0 * (1.0 - e**2))  # TW89 eq. 16, per-orbit/2pi
+        dr = Tsun * (3.0 * m1**2 + 6.0 * m1 * m2 + 2.0 * m2**2) \
+            / (mtot * arr)                    # TW89 eq. 24
+        dth = Tsun * (3.5 * m1**2 + 6.0 * m1 * m2 + 2.0 * m2**2) \
+            / (mtot * arr)                    # TW89 eq. 25
+        return {"sini": sini, "gamma": gamma, "pbdot": pbdot, "k": k,
+                "dr": dr, "dth": dth, "n": n}
+
+    def _with_gr(self, p):
+        """Params dict with the GR-derived PK values injected as offsets,
+        so the base DD machinery (and autodiff) sees them as
+        parameters."""
+        pk = self._gr_pk(p)
+        # omega = OM + (OMDOT/n) nu in the base class; the GR advance is
+        # k nu with k per-radian-of-nu, plus the XOMDOT excess
+        omdot = pk["k"] * pk["n"] + pv(p, "XOMDOT")
+        pbdot = pk["pbdot"] + pv(p, "XPBDOT")
+        delta = dict(p["delta"])
+        for name, val in (("GAMMA", pk["gamma"]), ("OMDOT", omdot),
+                          ("PBDOT", pbdot), ("DR", pk["dr"]),
+                          ("DTH", pk["dth"])):
+            delta[name] = val - p["const"][name]
+        p2 = dict(p)
+        p2["delta"] = delta
+        return p2, pk
+
+    def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
+        p2, _pk = self._with_gr(p)
+        return super().delay(p2, batch, delay)
+
+    def _tm2_sini(self, p, batch, dt):
+        pk = self._gr_pk(p)
+        return pv(p, "M2") * Tsun, clip_unit(pk["sini"])

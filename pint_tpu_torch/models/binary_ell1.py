@@ -2,8 +2,7 @@
 parameters (EPS1 = e sin om, EPS2 = e cos om), closed-form — no Kepler
 iteration, fully vmap-friendly.
 
-Port of :mod:`pint_tpu.models.binary_ell1` (ELL1; ELL1H and ELL1k are
-not ported yet).
+Port of :mod:`pint_tpu.models.binary_ell1` (ELL1, ELL1H and ELL1k).
 
 Reference: `BinaryELL1`/`BinaryELL1H`/`BinaryELL1k`
 (`src/pint/models/binary_ell1.py:57,310,423`) delegating to
@@ -258,3 +257,109 @@ class BinaryELL1(BinaryELL1Base):
         sini = clip_unit(pv(p, "SINI"))
         return -2.0 * tm2 * torch.log(
             torch.clamp(1.0 - sini * torch.sin(Phi), min=1e-12))
+
+
+class BinaryELL1H(BinaryELL1Base):
+    """ELL1 with orthometric Shapiro parameters H3/H4/STIGMA (Freire & Wex
+    2010; reference `binary_ell1.py:310` + `ELL1H_model.py`)."""
+
+    register = True
+    binary_model_name = "ELL1H"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(FloatParam("EPS1DOT", value=0.0, units="1/s",
+                                  unit_scale=True,
+                                  description="d(EPS1)/dt"))
+        self.add_param(FloatParam("EPS2DOT", value=0.0, units="1/s",
+                                  unit_scale=True,
+                                  description="d(EPS2)/dt"))
+        self.add_param(FloatParam("H3", units="s",
+                                  description="Third Shapiro harmonic"))
+        self.add_param(FloatParam("H4", units="s",
+                                  description="Fourth Shapiro harmonic"))
+        self.add_param(FloatParam("STIGMA", units="", aliases=["VARSIGMA"],
+                                  description="Orthometric ratio H4/H3"))
+        self.add_param(FloatParam("NHARMS", value=7.0, units="",
+                                  description="Harmonics for H3-only mode"))
+
+    def validate(self):
+        super().validate()
+        self.require("H3")
+        if self.H4.value is not None and self.STIGMA.value is not None:
+            raise ValueError("give H4 or STIGMA, not both")
+
+    def stigma_factors(self, p: dict):
+        """The STIGMA form's factors of the parameters alone: -2 H3 /
+        STIGMA^3, 1 + STIGMA^2, 2 STIGMA and STIGMA^2."""
+        sig = pv(p, "STIGMA")
+        return -2.0 * pv(p, "H3") / sig**3, 1.0 + sig**2, 2.0 * sig, sig**2
+
+    def harmonic_weights(self, p: dict):
+        """The harmonic sum's weights c_k sigma^(k - 3), k = 3 .. NHARMS,
+        with sigma = H4/H3 when H4 is given and 0 for H3 alone."""
+        if self.H4.value is not None:
+            sig = pv(p, "H4") / pv(p, "H3")
+        else:
+            sig = torch.tensor(0.0, dtype=torch.float64,
+                               device=p["const"]["H3"].device)
+        return [harmonic_coeff(k) * sig ** (k - 3)
+                for k in range(3, self.nharms() + 1)]
+
+    def nharms(self) -> int:
+        """The highest harmonic of the H3/H4 sum."""
+        return int(self.NHARMS.value or 7)
+
+    def shapiro_delay(self, p: dict, Phi):
+        if self.STIGMA.value is not None:
+            # exact form for significant stigma (Freire & Wex 2010 eq. 28)
+            factor, a, b, d = self.stigma_factors(p)
+            lognum = a - b * torch.sin(Phi)
+            return factor * (torch.log(lognum) + b * torch.sin(Phi)
+                             - d * torch.cos(2.0 * Phi))
+        # harmonic sum from the 3rd up (Freire & Wex 2010 eq. 10/13/19)
+        total = torch.zeros_like(Phi)
+        for k, w in enumerate(self.harmonic_weights(p), start=3):
+            basis = torch.cos(k * Phi) if k % 2 == 0 else torch.sin(k * Phi)
+            total = total + w * basis
+        return -2.0 * pv(p, "H3") * total
+
+
+def harmonic_coeff(k: int) -> float:
+    """The k-th Shapiro harmonic's coefficient (Freire & Wex 2010)."""
+    if k % 2 == 0:
+        return (-1.0) ** ((k + 2) // 2) * 2.0 / k
+    return (-1.0) ** ((k + 1) // 2) * 2.0 / k
+
+
+class BinaryELL1k(BinaryELL1):
+    """ELL1 generalized to rapid periastron advance: OMDOT/LNEDOT evolve
+    the Laplace-Lagrange pair (Susobhanan et al. 2018 eq. 15; reference
+    `binary_ell1.py:423` + `ELL1k_model.py`)."""
+
+    register = True
+    binary_model_name = "ELL1k"
+
+    def __init__(self):
+        super().__init__()
+        self.remove_param("EPS1DOT")
+        self.remove_param("EPS2DOT")
+        self.add_param(FloatParam("OMDOT", value=0.0, units="deg/yr",
+                                  par2dev=DEG_PER_YEAR,
+                                  description="Periastron advance rate"))
+        self.add_param(FloatParam("LNEDOT", value=0.0, units="1/yr",
+                                  par2dev=1.0 / SECS_PER_YEAR,
+                                  description="d(ln ecc)/dt"))
+
+    def _eps(self, p: dict, dt):
+        omdot = pv(p, "OMDOT")
+        lnedot = pv(p, "LNEDOT")
+        e10, e20 = pv(p, "EPS1"), pv(p, "EPS2")
+        co, so = torch.cos(omdot * dt), torch.sin(omdot * dt)
+        grow = 1.0 + lnedot * dt
+        return grow * (e10 * co + e20 * so), grow * (e20 * co - e10 * so)
+
+    def roemer_const(self, e1):
+        # eps1(t) varies, so the -(3/2)*eps1 term is a real, time-varying
+        # delay here (~a1*eps1 scale) and must be kept
+        return -1.5 * e1

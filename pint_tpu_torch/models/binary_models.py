@@ -26,8 +26,15 @@ BINARY_COMPONENTS = {
 
 def component_for(binary: str) -> str:
     try:
-        return BINARY_COMPONENTS[binary.upper()]
+        name = BINARY_COMPONENTS[binary.upper()]
     except KeyError:
         raise UnknownBinaryModel(
             f"binary model {binary!r} is not implemented "
             f"(available: {sorted(BINARY_COMPONENTS)})")
+    from pint_tpu_torch.models.timing_model import Component
+
+    if name not in Component.component_types:
+        raise NotImplementedError(
+            f"binary model {binary!r} ({name}) is not ported to "
+            "pint_tpu_torch yet")
+    return name

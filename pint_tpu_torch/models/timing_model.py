@@ -711,6 +711,33 @@ class TimingModel:
                 toas=toas, device=device)
         return self.tzr_batch
 
+    # -- frames and par output ---------------------------------------------
+    def as_ECL(self, ecl: str = "IERS2010") -> "TimingModel":
+        """New model with ecliptic astrometry (reference `as_ECL`,
+        `src/pint/models/astrometry.py:858`)."""
+        from pint_tpu_torch.models.astrometry import convert_astrometry
+
+        return convert_astrometry(self, "ECL", ecl=ecl)
+
+    def as_ICRS(self, ecl: str = "IERS2010") -> "TimingModel":
+        """New model with equatorial astrometry (reference `as_ICRS`,
+        `src/pint/models/astrometry.py:840`)."""
+        from pint_tpu_torch.models.astrometry import convert_astrometry
+
+        return convert_astrometry(self, "ICRS", ecl=ecl)
+
+    def as_parfile(self, comment: Optional[str] = None) -> str:
+        lines = []
+        if comment:
+            for ln in comment.splitlines():
+                lines.append(f"# {ln}\n")
+        for p in self.top_params.values():
+            lines.append(p.as_parfile_line())
+        for c in self.components.values():
+            for p in c.params.values():
+                lines.append(p.as_parfile_line())
+        return "".join(lines)
+
     def __repr__(self):  # pragma: no cover
         return (f"TimingModel({self.PSR.value or self.name}: "
                 f"{', '.join(self.components)})")

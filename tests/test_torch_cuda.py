@@ -28,6 +28,13 @@ them with it switched off, from the repository root::
   is float32-grade);
 * ``GLSFitter.fit_toas`` on the card on the committed GLS set within the
   fit-parity bars of pint_tpu's stored GLS fit;
+* the DD and ELL1 variants of the row function (``examples.VARIANTS``:
+  DDS, DDH, DDGR, DDK in equatorial and ecliptic coordinates, ELL1H in
+  its three modes, ELL1k): ``delay_chain`` against the plain delays at
+  its bars, both kernels' lanes and the fused chain against the
+  unfused one as for the three paths' models; ``fit_toas`` on the card
+  on the committed DDK set in ecliptic coordinates within the
+  fit-parity bars of pint_tpu's stored fit;
 * ``phase_chain`` (the delay chain with the phase as its epilogue, the
   paths' kernel since the fusion): on the J0740, DD and GLS models its
   primal (frac, slope, dt64; words) bit-equal to the unfused card chain
@@ -50,6 +57,7 @@ import torch
 
 import torch_port_data as data
 from pint_tpu_torch import qs as tqs
+from pint_tpu_torch.examples import VARIANTS
 from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
 from pint_tpu_torch.toabatch import split_f64_words
 
@@ -294,21 +302,91 @@ def test_delay_chain_matches_plain(case):
 
 def _chain_model(case, dev):
     """(model, Residuals) of one path's model on the committed 200-TOA
-    set, on ``dev``."""
+    set, or of one DD or ELL1 variant (``examples.variant_par``) on its
+    family's set, on ``dev``."""
     from pint_tpu_torch.examples import j0740_realistic_par
     from pint_tpu_torch.residuals import Residuals
 
-    par, tim = {
-        "J0740": (lambda: j0740_realistic_par(
-            dmx_bins=data.DMX_BINS, span_days=data.SPAN_DAYS,
-            center_mjd=data.CENTER_MJD).splitlines(), data.REF_TIM),
-        "DD": (data.dd_par_lines, data.DD_REF_TIM),
-        "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM)}[case]
+    if case in VARIANTS:
+        par, tim = (lambda: data.variant_par_lines(case),
+                    data.variant_tim(case))
+    else:
+        par, tim = {
+            "J0740": (lambda: j0740_realistic_par(
+                dmx_bins=data.DMX_BINS, span_days=data.SPAN_DAYS,
+                center_mjd=data.CENTER_MJD).splitlines(), data.REF_TIM),
+            "DD": (data.dd_par_lines, data.DD_REF_TIM),
+            "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM)}[case]
     model, toas = data.load_torch(tim, par=par())
     return model, Residuals(toas, model, device=dev)
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+@pytest.mark.parametrize("case", VARIANTS)
+def test_variant_delay_chain_matches_plain(case):
+    """The delay_chain kernel on each DD and ELL1 variant against the
+    plain component delays: delay within 1e-12 s, every jacfwd column
+    within 1e-10 relative, one primal and one tangent launch per jacfwd,
+    a DD-family orbit's E bit-equal to the kepler_E kernel's."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels.kepler import kepler_E_op
+
+    model, r = _chain_model(case, dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    names = model.free_params
+    x0 = model.x0(p, names).to(dev)
+    with torch.no_grad():
+        err = float(torch.max(torch.abs(calc.delay(p, b)
+                                        - calc.delay_plain(p, b))))
+    before = (dc.DelayChain.launches, dc.DelayChainTangent.launches)
+    Jk = torch.func.jacfwd(lambda x: calc.delay(
+        model.with_x(p, x, names), b))(x0)
+    assert (dc.DelayChain.launches, dc.DelayChainTangent.launches) == (
+        before[0] + 1, before[1] + 1)
+    Jp = torch.func.jacfwd(lambda x: calc.delay_plain(
+        model.with_x(p, x, names), b))(x0)
+    scale = torch.amax(torch.abs(Jp), 0)
+    rel = float(torch.max(torch.amax(torch.abs(Jk - Jp), 0)
+                          / torch.where(scale > 0, scale, 1.0)))
+    print(f"{case}: delay {err:.3e} s, columns {rel:.3e} relative")
+    assert err <= 1e-12 and rel <= 1e-10
+    if calc.chain_layout.cfg[1] in dc.DD_FAMILY:
+        _, aux = dc.delay_chain_aux(calc, p, b)
+        assert torch.equal(kepler_E_op(aux[0], aux[1]), aux[2])
+
+
+def test_ddk_fit_on_card_matches_reference():
+    """fit_toas on the card (the fused loop) on the committed DDK set in
+    ecliptic coordinates: pint_tpu's stored eager fit within 1e-3 sigma,
+    1e-3 relative in the uncertainties and 1e-6 in chi2."""
+    dev = _card()
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+
+    with open(data.DDK_REF_JSON) as f:
+        ref = json.load(f)
+    model, toas = data.load_torch(data.DDK_REF_TIM, par=data.ddk_par_lines())
+    data.perturb(model, data.DDK_PERTURB)
+    fitter = WLSFitter(toas, model)
+    assert fitter.device.type == dev.type and fitter._fused_ok()
+    before = PhaseChain.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(maxiter=ref["maxiter"])
+    assert PhaseChain.launches > before
+    assert fitter.fitresult.rung == "fused"
+    dev_sig = max(abs(float(np.sum(np.asarray(model[n].device_value)
+                                   - np.asarray(v))))
+                  / ref["uncertainties"][n] for n, v in ref["values"].items())
+    unc = max(abs(model[n].device_uncertainty / u - 1.0)
+              for n, u in ref["uncertainties"].items())
+    gap = abs(chi2 - ref["chi2"]) / ref["chi2"]
+    print(f"card DDK fit vs pint_tpu: {dev_sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
 def test_delay_chain_lanes_bit_equal_to_single_lane(case):
     """The multi-lane tangent launch (every lanes-per-thread) against the
     single-lane one, on two θ sets: bit-equal at lanes 1, 3, 10, 76 and
@@ -462,7 +540,7 @@ def _fused_case(case, dev):
     return model, r, names, X, pn.to(dev), rng
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
 def test_phase_chain_bit_equal_to_unfused_chain(case):
     """The fused launches against the unfused card chain: the primal of
     one launch over 1 and 9 θ sets in every mode (frac or the words,
@@ -519,7 +597,7 @@ def test_phase_chain_bit_equal_to_unfused_chain(case):
         assert torch.equal(kf, ku), (K, float(torch.max(torch.abs(kf - ku))))
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS"])
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
 def test_phase_chain_lanes_bit_equal_to_single_lane(case):
     """Every lanes-per-thread of the fused tangent launch against the
     single-lane one on two θ sets, with random tangents of θ and of

@@ -3,11 +3,15 @@
 ``csrc/delay_chain.cuh`` is plain C++ under ``PT_HD``, so
 ``csrc/delay_chain_host.cpp`` (the kernel's launch shapes as loops) builds
 with ``g++ -ffp-contract=off`` here, without a card or nvcc.  On the
-committed 200-TOA J0740 (ELL1), DD and BT sets:
+committed 200-TOA J0740 (ELL1), DD and BT sets, and on the DD and ELL1
+variants (``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial
+and, on its own 200-TOA set, in ecliptic coordinates, ELL1H in its three
+modes, ELL1k), whose delay is held bit-equal:
 
 * every lane of the multi-lane number type ``DualN<L>`` (L = 2, 4) is
   bit-equal to the single-lane ``Dual`` at lane counts 1, 3, 10 and P,
-  on two θ sets (the multi-lane kernel changed no arithmetic);
+  on two θ sets (the multi-lane kernel changed no arithmetic), on the
+  three sets, DDK in ecliptic coordinates and ELL1H;
 * the row function's delay within 1e-12 s and its jacfwd columns within
   1e-10 relative of :meth:`PhaseCalc.delay_plain`;
 * the wrapper's autograd rules (``kernels/delay_chain.py``) driven
@@ -30,6 +34,7 @@ import pytest
 import torch
 
 import torch_port_data as data
+from pint_tpu_torch.examples import VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.residuals import Residuals
 
@@ -59,7 +64,12 @@ def _bt_par():
 
 SETS = {"J0740": (_j0740_par, data.REF_TIM),
         "DD": (data.dd_par_lines, data.DD_REF_TIM),
-        "BT": (_bt_par, data.DD_REF_TIM)}
+        "BT": (_bt_par, data.DD_REF_TIM),
+        **{kind: (lambda kind=kind: data.variant_par_lines(kind),
+                  data.variant_tim(kind)) for kind in VARIANTS}}
+#: the cases of the depth legs (every lanes-per-thread at every lane
+#: count): the first three sets, DDK in ecliptic coordinates and ELL1H
+DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H")
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +144,9 @@ def test_host_delay_matches_plain(host, case):
     print(f"{case['name']}: host row function vs plain delay {err:.3e} s, "
           f"bit-equal {torch.equal(got, want)}")
     assert err <= DELAY_TOL_S
+    if case["name"] not in ("J0740", "DD", "BT"):
+        # the models of the DD and ELL1 variants: bit-equal
+        assert torch.equal(got, want)
 
 
 def _plain_columns(case):
@@ -170,6 +183,7 @@ def test_host_columns_match_plain(host, case):
     assert gap <= COLUMN_TOL
 
 
+@pytest.mark.parametrize("case", DEPTH, indirect=True)
 @pytest.mark.parametrize("lanes", [1, 3, 10, "P"])
 @pytest.mark.parametrize("L", [2, 4])
 def test_lanes_bit_equal_to_dual(host, case, L, lanes):

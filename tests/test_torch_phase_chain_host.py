@@ -6,7 +6,12 @@ C++ under ``PT_HD``, so ``csrc/phase_chain_host.cpp`` (the kernel's
 launch shapes as loops) builds with ``g++ -ffp-contract=off`` here,
 without a card or nvcc, and so does ``csrc/delay_chain_host.cpp``, the
 host build of the delay chain alone.  On the committed 200-TOA J0740
-(ELL1), DD and GLS sets:
+(ELL1), DD and GLS sets, and on the DD and ELL1 variants
+(``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial and, on its
+own 200-TOA set, in ecliptic coordinates, ELL1H in its three modes,
+ELL1k; the tangent lanes at every L and lane count on DDK in ecliptic
+coordinates and ELL1H, the shared-other and words-mode rules on the
+three sets):
 
 * the fused primal's frac, slope, dt64 and words are bit-equal to the
   unfused host chain (the delay chain's host build, PyTorch's shift,
@@ -41,6 +46,7 @@ import pytest
 import torch
 
 import torch_port_data as data
+from pint_tpu_torch.examples import VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
 from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
@@ -55,9 +61,16 @@ GRID_POINTS = 9
 SECS_PER_DAY = 86400.0
 F64 = torch.float64
 
+#: the first three sets, which every test runs on
+BASE = ("J0740", "DD", "GLS")
 SETS = {"J0740": (data.par_lines, data.REF_TIM),
         "DD": (data.dd_par_lines, data.DD_REF_TIM),
-        "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM)}
+        "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM),
+        **{kind: (lambda kind=kind: data.variant_par_lines(kind),
+                  data.variant_tim(kind)) for kind in VARIANTS}}
+#: the cases of the depth legs (every lanes-per-thread at every lane
+#: count): the first three sets, DDK in ecliptic coordinates and ELL1H
+DEPTH = BASE + ("DDK_ECL", "ELL1H")
 
 
 def _build(gxx, tmp, name):
@@ -212,6 +225,7 @@ def _dtheta(spec, K, G):
     return dth
 
 
+@pytest.mark.parametrize("case", DEPTH, indirect=True)
 @pytest.mark.parametrize("lanes", [1, 3, 10, "P"])
 @pytest.mark.parametrize("L", [1, 2, 4])
 def test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, lanes):
@@ -315,6 +329,7 @@ def test_wrapper_vmap_grid_one_tangent_launch(on_host, case):
         assert torch.equal(J[g], Ju)
 
 
+@pytest.mark.parametrize("case", BASE, indirect=True)
 def test_unbatched_other_is_shared(on_host, case):
     """A vmap over θ sets with ``other`` and its tangent unbatched (the
     grid's first step, where only M2/SINI vary): every θ set reads the
@@ -341,6 +356,7 @@ def test_unbatched_other_is_shared(on_host, case):
         dot.expand(G, 1, N))[:, 0])
 
 
+@pytest.mark.parametrize("case", BASE, indirect=True)
 def test_words_mode_has_no_tangent(on_host, case):
     """The words mode (the TZR phase) is a primal only."""
     spec, theta, other, tensors = _inputs(case, case["x0"], "words")

@@ -1,7 +1,8 @@
 """A CPU rehearsal of ``chip_smoke.py``: every phase, at small size.
 
 ``chip_smoke.py`` runs only on a card.  Here its ``main()`` runs on the
-CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in), with the
+CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in; the DDK path
+in ecliptic coordinates and the DD and ELL1 variants included), with the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
 profiler's CUDA trace, the nvcc build and its ptxas report, the delay
 kernel's auxiliary output, the count of plain delay chains that on the
@@ -220,7 +221,8 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         assert cs.main(cs.Run(
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
             dd_tim=str(tmp_path / "dd.tim"), gls_tim=str(tmp_path / "gls.tim"),
-            out_dir=str(tmp_path / "out"))) == 0
+            out_dir=str(tmp_path / "out"), ddk_tim=str(tmp_path / "ddk.tim"),
+            ddk_nfit=26)) == 0
     finally:
         for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
                   delay_chain.DelayChain, delay_chain.DelayChainTangent,
@@ -232,9 +234,10 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                       "grid_timing", "grid_profile", "plain_grid",
                       "reference", "dd_main_path", "kepler_E",
                       "dd_fused_vs_eager", "dd_fit_profile", "dd_reference",
-                      "gls_main_path", "delay_chain", "phase_chain",
-                      "gls_card_vs_host", "gls_fit_profile",
-                      "gls_reference"]
+                      "gls_main_path", "ddk_main_path", "ddk_fit_profile",
+                      "ddk_reference",
+                      "delay_chain", "phase_chain", "gls_card_vs_host",
+                      "gls_fit_profile", "gls_reference"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -252,8 +255,14 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert all(by_name[n]["launches"] == 0 for n in (
         "qs_phase_frac", "delay_chain_primal", "delay_chain_tangent"))
-    assert all(set(k["launches_by_path"]) == {"j0740_grid", "dd_fit",
-                                              "gls_fit"} for k in kernels)
+    assert all(set(k["launches_by_path"]) == {
+        "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit"} for k in kernels)
+    assert all(by_name[n]["launches_by_path"]["ddk_ecl_fit"] > 0
+               for n in ("phase_chain_primal", "phase_chain_tangent"))
+    ddk = next(json.loads(ln) for ln in lines if '"ddk_main_path"' in ln)
+    assert ddk["components"] == ["AstrometryEcliptic", "BinaryDDK"]
+    assert (ddk["n_fit"], ddk["n_nonlinear"]) == (26, 12)
+    assert ddk["plain_delay_chains"] == 0 and len(ddk["pulls"]) == 9
     assert kernels[1]["solved_on_the_paths_by"] == "delay_chain"
     # no profiler trace here: the fused kernels' times are their calls'
     assert all(isinstance(by_name[n]["ms"], float) and by_name[n][
@@ -267,8 +276,11 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                         "spill_load_bytes": 0, "registers": 64}}
     assert all("profiler_retries" in json.loads(ln) for ln in lines
                if '"phase"' in ln)
+    # the lanes of each path's jacfwds: its nonlinear and linear columns
+    lanes = {"gls_fit": [10, 14], "j0740_grid": [10, 14],
+             "ddk_fit": [12, 14]}
     for label, t in chain["timing"].items():
-        assert sorted(int(k) for k in t["tangent"]) == [10, 14], label
+        assert sorted(int(k) for k in t["tangent"]) == lanes[label], label
         # a lane's tangent: float64 only (d dt is the kernel's analytic
         # one, not the quad-single words), its derivative factors shared
         assert set(t["ops_per_tangent_lane"]) == {"float64"}, label
@@ -282,15 +294,18 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                 "float64"] <= t["ops_per_tangent_lane"]["float64"], label
             assert rec["bound_by"] == "operations"
             assert len(rec["device_ms_by_lanes_per_thread"]["1"]) == 2
-    assert all(all(v.values()) if isinstance(v, dict) else True
-               for lab in ("j0740_grid", "dd_fit", "gls_fit")
-               for v in [chain[lab]["lanes_bit_equal_to_single_lane"]])
+    from pint_tpu_torch.examples import VARIANTS
+
+    paths = ["j0740_grid", "dd_fit", "gls_fit", "ddk_fit"] + [
+        v for v in VARIANTS if v != "DDK_ECL"]
+    assert all(all(chain[lab]["lanes_bit_equal_to_single_lane"].values())
+               for lab in paths)
     fused = next(rec for rec in map(json.loads, lines)
                  if rec.get("phase") == "phase_chain")
     assert fused["registers"] == {
         "ELL1/tangent_L4": {"stack_bytes": 16, "spill_store_bytes": 8,
                             "spill_load_bytes": 8, "registers": 128}}
-    for lab in ("j0740_grid", "dd_fit", "gls_fit"):
+    for lab in paths:
         rec = fused[lab]
         assert all(all(v.values()) for v in
                    rec["primal_bit_equal_to_unfused"].values()), lab
@@ -298,11 +313,14 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         assert all(rec["lanes_bit_equal_to_single_lane"].values()), lab
         assert rec["grid_jacfwd_launches"] == [1, 1], lab
         assert rec["tzr_words_bit_equal_to_unfused"], lab
+    # the kDDK timings: its nonlinear columns and all 26, every L
+    lanes["ddk_fit"] = [12, 26]
     for label, t in fused["timing"].items():
-        assert sorted(int(k) for k in t["tangent"]) == [10, 14], label
+        assert sorted(int(k) for k in t["tangent"]) == lanes[label], label
         assert t["primal"]["bound_by"] == "operations", label
         for rec in t["tangent"].values():
             assert rec["bound_ms"] > 0 and rec["unfused_chain_ms"] > 0
+            assert len(rec["device_ms_by_lanes_per_thread"]["4"]) == 2
     assert fused["launches_per_warm_dd_fit"][0] > 0
     gls = next(json.loads(ln) for ln in lines if '"gls_main_path"' in ln)
     assert set(gls["fit_warm_share"]) == {"steps", "assemble", "solve",
