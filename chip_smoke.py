@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid,
 the full-width DD fit, the full-width GLS fit with a NANOGrav-style
-noise model, and the full-width DDK fit in ecliptic coordinates.
+noise model, the full-width DDK fit in ecliptic coordinates, and the
+full-width noise-fitting GLS fit that ``Fitter.auto`` picks, with LM,
+Powell and the grid API.
 
 Run from the repository root, with no arguments::
 
@@ -123,6 +125,39 @@ Phases, each printing one JSON line with its numbers and seconds:
    (``tests/data/dd_gls_sim_200*``): values within 1e-3 sigma,
    uncertainties within 1e-3 relative, chi2 within 1e-6 relative, the
    noise realizations within 1e-4 of their rms.
+8. auto_noise_fit: the fifth path, at full width (12,500 TOAs, 86 timing
+   and 11 noise parameters): ``simulate_dd_noise_fit`` (the GLS
+   configuration with per-TOA errors log-uniform over 0.5-3 us; on the
+   card) -> ``write_tim`` -> ``get_TOAs`` -> the perturbed start with the
+   noise parameters at ``examples.NOISE_FIT_START`` -> ``Fitter.auto``
+   (a DownhillGLSFitter) -> ``fit_toas()`` (maxiter 20, two noise fits:
+   L-BFGS-B over the likelihood, its gradient by autograd on the card),
+   the launch counts zeroed just before the fitter is built and read just
+   after, the plain delays and the phase kernel's reverse-mode calls
+   counted (none may run); status, chi2/dof, timing pulls against the
+   truth, noise values, uncertainties and pulls against the injected
+   values, L-BFGS-B evaluations, peak memory, the cold wall and two warm
+   walls, the KS normality of the whitened residuals;
+   noise_fit_profile: one warm noise fit under torch.profiler;
+   noise_lnlike_card_vs_cpu: the likelihood and its gradient at the
+   fitted point and at the fit's start on the card against the CPU's
+   plain evaluation (1e-9 relative; the gradient's gap 1e-7 of its norm
+   at the start), the ms of one of each and of the likelihood's
+   Cholesky;
+   auto_wls_fit: ``Fitter.auto`` on the DD path's TOAs (a
+   DownhillWLSFitter): CONVERGED, chi2/dof, pulls, launches, warm wall;
+   lm_fit: ``LMFitter`` from the same start: chi2 within 1e-6 of the
+   downhill fit's, values within 0.2 sigma; its damped eigh timed;
+   degraded_lm: ``WLSFitter.fit_toas`` with the WLS solve kernels
+   poisoned (NaN steps) in this phase only: the fused and eager rungs
+   NONFINITE, the LM rung's chi2 within 1e-6 of lm_fit's;
+   fitter_reference: on the committed 200-TOA sets, DownhillWLSFitter,
+   LMFitter and PowellFitter (the five perturbed parameters free) on
+   ``dd_sim_200`` and DownhillGLSFitter's noise fit on
+   ``dd_noisefit_sim_200`` against pint_tpu's stored fits;
+   grid_api: ``grid_chisq``, ``grid_chisq_derived`` and ``tuple_chisq``
+   bit-equal to ``grid_chisq_flat`` on the grid path, and within 1e-6 of
+   pint_tpu's stored grid on ``j0740_sim_200``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -161,6 +196,13 @@ DDK_TIM = os.path.join(REPO, "build", "ddk_ecl_12500.tim")
 DDK_REF_TIM = os.path.join(REPO, "tests", "data", "ddk_ecl_sim_200.tim")
 DDK_REF_JSON = os.path.join(REPO, "tests", "data",
                             "ddk_ecl_sim_200_fit.json")
+NOISE_TIM = os.path.join(REPO, "build", "dd_noise_fit_12500.tim")
+NOISEFIT_REF_TIM = os.path.join(REPO, "tests", "data",
+                                "dd_noisefit_sim_200.tim")
+NOISEFIT_REF_JSON = os.path.join(REPO, "tests", "data",
+                                 "dd_noisefit_sim_200_fit.json")
+FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
+                                "dd_sim_200_fitters.json")
 DD_MAXITER = 3
 #: the DD fit's start: offsets [par units] from the simulated truth, as
 #: pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
@@ -211,12 +253,33 @@ COLUMN_TOL = 1e-10
 #: the noise realizations share the offset direction, which lies in the
 #: near-degenerate DM/offset/FD subspace (tests/test_torch_gls.py)
 NOISE_RESID_TOL = 1e-4
+#: the noise likelihood on the card against the CPU's plain evaluation:
+#: the value, and the gradient's gap over its norm (at the fitted point,
+#: over its norm at the fit's start: see lnlike_card_vs_cpu)
+LNLIKE_TOL = 1e-9
+LNLIKE_GRAD_TOL = 1e-7
+#: a noise fit against pint_tpu's: noise values in their sigma, their
+#: uncertainties, and chi2, which goes as EFAC^-2 and so moves with the
+#: noise values (tests/test_torch_downhill.py)
+NOISE_SIGMA_TOL = 1e-2
+NOISE_UNC_TOL = 1e-2
+NOISEFIT_CHI2_TOL = 1e-3
+#: LM's and Powell's values against pint_tpu's [sigma]: each step of
+#: both is decided by comparing chi2 values, which carry ~1e-7-1e-6 of
+#: rounding on 200 TOAs, so another rounding of the phase (the card's
+#: kernel) can flip a decision; LM's stored fit stops at its 50th
+#: iteration short of the minimum, Powell at its tolerance, and either
+#: then lands a few 1e-3 sigma away (tests/test_torch_lm_powell.py)
+TRAJECTORY_SIGMA_TOL = 1e-2
+#: LM's fitted values against the downhill WLS fit's [sigma]
+LM_VS_WLS_SIGMA = 0.2
 
 
 class Run(NamedTuple):
     """Where the phases run and at what size: the card and the full width
     of the paths (TOAs, DMX bins, fit parameters), the grid's tim, and
-    where the DD, GLS and DDK tims and the profiles are written."""
+    where the DD, GLS, DDK and noise-fit tims and the profiles are
+    written."""
 
     dev: str = "cuda"
     tim: str = TIM
@@ -229,6 +292,7 @@ class Run(NamedTuple):
     ddk_tim: str = DDK_TIM
     #: the DDK path's fit parameters: the DD path's and KIN, KOM
     ddk_nfit: int = 88
+    noise_tim: str = NOISE_TIM
 
 
 def emit(obj) -> None:
@@ -1575,6 +1639,507 @@ def variant_fitters(torch, run: Run, toas, dtoas):
     return out
 
 
+def noise_load(torch, tim: str, dmx_bins: int, free=None):
+    """par + tim -> (model at the noise fit's start, toas) of the
+    noise-fitting configuration (``examples.dd_noise_fit_par``, the noise
+    parameters of ``free`` free, all 11 by default), as a user loads
+    them: the timing start moved by DD_PERTURB, the free noise
+    parameters set to ``examples.NOISE_FIT_START``."""
+    import warnings
+
+    from pint_tpu_torch.examples import (NOISE_FIT_PARAMS, NOISE_FIT_START,
+                                         dd_noise_fit_par)
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    free = NOISE_FIT_PARAMS if free is None else free
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(dd_noise_fit_par(dmx_bins=dmx_bins,
+                                           free=free).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in DD_PERTURB.items():
+        model[name].value += d
+    for name in free:
+        model[name].value = NOISE_FIT_START[name]
+    return model, toas
+
+
+def timed_fit(torch, make, quiet: bool = True, **kw):
+    """``make()`` -> a fitter, then its ``fit_toas(**kw)``, timed around
+    both with a synchronize: ``(fitter, chi2, seconds)``.  ``quiet``
+    drops the fit's warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter = make()
+    with warnings.catch_warnings():
+        if quiet:
+            warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(**kw)
+    torch.cuda.synchronize()
+    return fitter, chi2, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def no_backward():
+    """Counts the phase_chain kernel's reverse-mode calls inside the block
+    (each would raise: the kernel has no reverse mode)."""
+    from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
+                                                    PhaseChainTangent)
+
+    count = {"calls": 0}
+    real = {k: k.backward for k in (PhaseChain, PhaseChainTangent)}
+
+    def counted(fn):
+        def backward(ctx, *grads):
+            count["calls"] += 1
+            return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    for k, fn in real.items():
+        k.backward = counted(fn)
+    try:
+        yield count
+    finally:
+        for k, fn in real.items():
+            k.backward = staticmethod(fn)
+
+
+def noise_pulls(model, truth, names):
+    """(value - injected) / uncertainty of each noise parameter with a
+    finite uncertainty, None for the rest.  EQUAD and ECORR enter the
+    likelihood squared, so their sign is not measured: |value| is held
+    against the injected value."""
+    out = {}
+    for n in names:
+        u = model[n].uncertainty
+        v = float(model[n].value)
+        if n.startswith(("EQUAD", "ECORR")):
+            v = abs(v)
+        out[n] = None if u is None or not math.isfinite(u) else \
+            (v - float(truth[n].value)) / u
+    return out
+
+
+def lnlike_card_vs_cpu(torch, np, model, toas, fitter, names, x_start):
+    """The noise likelihood and its gradient on the card against the
+    CPU's plain evaluation of the same function, at the fitted point and
+    at the fit's start (``x_start``, offsets from the fitted values), and
+    the card's ms of one likelihood and one gradient (CUDA events) and of
+    the likelihood's Cholesky alone.
+
+    At the fitted point the gradient is what is left of terms of ~1e4
+    after L-BFGS-B's stop (~1), so its gap is held against the gradient's
+    norm at the start, where the terms do not cancel."""
+    from pint_tpu_torch.fitter import _noise_grad, build_noise_lnlike
+    from pint_tpu_torch.residuals import Residuals
+
+    out = {}
+    vals = {}
+    for label, r in (("card", fitter.resids),
+                     ("cpu", Residuals(toas, model, device="cpu"))):
+        lnl = build_noise_lnlike(model, r.batch, names, r.track_mode)
+        grad = _noise_grad(lnl)
+        for where, x in (("fitted", np.zeros(len(names))),
+                         ("start", np.asarray(x_start, np.float64))):
+            xt = torch.as_tensor(x, device=r.device)
+            with torch.no_grad():
+                ll = float(lnl(xt, r.pdict))
+            vals[label, where] = (ll, grad(xt, r.pdict).cpu().numpy())
+        if label == "card":
+            x = torch.zeros(len(names), dtype=torch.float64, device=r.device)
+            with torch.no_grad():
+                out["lnlike_ms"] = time_ms(torch, lambda: lnl(x, r.pdict),
+                                           reps=5)
+            out["grad_ms"] = time_ms(torch, lambda: grad(x, r.pdict),
+                                     reps=5)
+            # the likelihood's one factorization: the Cholesky of the
+            # (K, K) inner matrix of the dense Woodbury form (K the noise
+            # basis's columns)
+            with torch.no_grad():
+                sigma = model.scaled_toa_uncertainty(r.pdict, r.batch) * 1e-6
+                U, phi = model.noise_basis(r.pdict), \
+                    model.noise_weights(r.pdict)
+                inner = (U.T / sigma**2) @ U + torch.diag(1.0 / phi)
+                out["cholesky_ms"] = time_ms(
+                    torch, lambda: torch.linalg.cholesky(inner), reps=5)
+                out["cholesky_size"] = int(inner.shape[0])
+    g_scale = float(np.linalg.norm(vals["cpu", "start"][1]))
+    for where in ("fitted", "start"):
+        (lc, gc), (lh, gh) = vals["card", where], vals["cpu", where]
+        out[where] = dict(
+            lnlike_card=lc, lnlike_cpu=lh, lnlike_rel_gap=abs(lc / lh - 1.0),
+            grad_norm=float(np.linalg.norm(gh)),
+            grad_gap_rel_own_norm=float(np.linalg.norm(gc - gh)
+                                        / np.linalg.norm(gh)),
+            grad_gap_rel_start_norm=float(np.linalg.norm(gc - gh) / g_scale),
+            grad_cpu=gh.tolist())
+    out["lnlike_rel_gap"] = max(out[w]["lnlike_rel_gap"]
+                                for w in ("fitted", "start"))
+    out["grad_rel_gap"] = max(out["fitted"]["grad_gap_rel_start_norm"],
+                              out["start"]["grad_gap_rel_own_norm"])
+    return out
+
+
+def stored_gaps(model, values: dict, uncs: dict):
+    """:func:`fit_gaps` of ``model`` against a stored fit, over its
+    parameters with a stored uncertainty (pint_tpu leaves a noise
+    parameter's unset where its direction is flat)."""
+    names = [n for n, u in uncs.items() if u is not None]
+    return fit_gaps(*fit_state(model, names), {n: values[n] for n in names},
+                    {n: uncs[n] for n in names})
+
+
+def nan_step(kern):
+    """A WLS solve kernel returning NaN steps from finite inputs (what
+    pint_tpu's ``faultinject.nan_wls_solver`` does to its own)."""
+    def bad(M, r_sec, sigma_sec, threshold=None):
+        dpars, Sigma_n, norms, n_bad = kern(M, r_sec, sigma_sec, threshold)
+        return dpars * float("nan"), Sigma_n, norms, n_bad
+    return bad
+
+
+def fitter_paths(torch, np, run: Run, dd: dict, grid_ctx: dict) -> dict:
+    """The fitters ``Fitter.auto`` picks, LM, Powell and the grid API on
+    the card (phases auto_noise_fit ... grid_api, see the module
+    docstring).  ``dd``: the DD path's truth, model, TOAs and start;
+    ``grid_ctx``: the grid path's fitter and grid.  Returns each new
+    path's launches and the library times for the kernel line."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch.examples import (NOISE_FIT_PARAMS,
+                                         simulate_dd_noise_fit)
+    from pint_tpu_torch.fitter import (DownhillGLSFitter, DownhillWLSFitter,
+                                       Fitter, LMFitter, PowellFitter,
+                                       WLSFitter, damped_solve)
+    from pint_tpu_torch.toa import write_tim
+
+    out = {"launches": {}}
+
+    # -- the noise-fitting path: Fitter.auto -> DownhillGLSFitter ----------
+    with phase("auto_noise_fit", {}) as rec:
+        t0 = time.perf_counter()
+        ntruth, nsim = simulate_dd_noise_fit(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.noise_tim), exist_ok=True)
+        write_tim(run.noise_tim, nsim)
+        t0 = time.perf_counter()
+        nmodel, ntoas = noise_load(torch, run.noise_tim, run.dmx_bins)
+        rec["setup_s"] = time.perf_counter() - t0
+        nstart = snapshot(nmodel)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            nfit, nchi2, cold_s = timed_fit(
+                torch, lambda: Fitter.auto(ntoas, nmodel, device=run.dev))
+        noise_launches = counts()
+        fr = nfit.fitresult
+        names = nfit.fit_params
+        noise = nfit.free_noise_params
+        pulls = {n: device_offset(nmodel[n].device_value,
+                                  ntruth[n].device_value)
+                 / nmodel[n].device_uncertainty for n in DD_PULL_PARAMS}
+        npulls = noise_pulls(nmodel, ntruth, noise)
+        rec.update(fitter=type(nfit).__name__, ntoas=ntoas.ntoas,
+                   n_fit=len(names), n_noise=len(noise),
+                   status=fr.status.name, iterations=fr.iterations,
+                   rung=fr.rung, chi2=nchi2, dof=fr.dof,
+                   chi2_per_dof=nchi2 / fr.dof, fit_cold_s=cold_s,
+                   launches=noise_launches,
+                   plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"], pulls=pulls,
+                   noise={n: {"value": float(nmodel[n].value),
+                              "uncertainty": nmodel[n].uncertainty,
+                              "injected": float(ntruth[n].value),
+                              "start": nstart[n]} for n in noise},
+                   noise_pulls=npulls,
+                   noise_fit_info=nfit.noise_fit_info,
+                   lbfgsb_evaluations=[i["nfev"]
+                                       for i in nfit.noise_fit_info],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(nfit.device))
+        walls, per_fit = [], []
+        for _ in range(2):
+            restore(nmodel, nstart)
+            zero_counts()
+            wf, _, w = timed_fit(
+                torch, lambda: Fitter.auto(ntoas, nmodel, device=run.dev))
+            walls.append(w)
+            per_fit.append(counts())
+        rec.update(noise_fit_warm_s=statistics.median(walls),
+                   fit_walls_s=walls, launches_per_warm_fit=per_fit,
+                   normality_ks=list(wf.resids.normality("ks")))
+    if not isinstance(nfit, DownhillGLSFitter):
+        raise AssertionError(f"Fitter.auto gave {type(nfit).__name__}")
+    if ntoas.ntoas != run.ntoas or len(names) != run.nfit or \
+            len(noise) != len(NOISE_FIT_PARAMS):
+        raise AssertionError("not the full-width noise-fit configuration")
+    if fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"noise fit ended {fr.status.name}")
+    if not 0.6 < nchi2 / fr.dof < 1.6:
+        raise AssertionError(f"noise fit chi2/dof {nchi2 / fr.dof}")
+    bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
+    bad.update({n: v for n, v in npulls.items()
+                if v is not None and not abs(v) < PULL_MAX})
+    if bad:
+        raise AssertionError(f"noise fit pulls {bad}")
+    if any(npulls[n] is None for n in noise
+           if n.startswith(("EFAC", "ECORR"))):
+        raise AssertionError(f"EFAC/ECORR without uncertainty: {npulls}")
+    check_path_launches("noise-fit path", noise_launches)
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+    out["launches"]["noise_fit"] = noise_launches
+
+    with phase("noise_fit_profile", {}) as rec:
+        holder = {}
+
+        def nsetup():
+            restore(nmodel, nstart)
+            holder["f"] = Fitter.auto(ntoas, nmodel, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(), run.out_dir,
+            out_name="noise_fit_profile", setup=nsetup))
+        rec["lbfgsb_evaluations"] = [i["nfev"] for i in
+                                     holder["f"].noise_fit_info]
+
+    with phase("noise_lnlike_card_vs_cpu", {}) as rec:
+        # at the fitted point (the model holds the last fit)
+        rec.update(lnlike_card_vs_cpu(
+            torch, np, nmodel, ntoas, holder["f"], noise,
+            [nstart[n] - nmodel[n].value for n in noise]))
+        out["cholesky"] = {k: rec[k] for k in ("cholesky_ms",
+                                               "cholesky_size")}
+    if not (rec["lnlike_rel_gap"] <= LNLIKE_TOL
+            and rec["grad_rel_gap"] <= LNLIKE_GRAD_TOL):
+        raise AssertionError(
+            f"noise lnlike card vs CPU: {rec['lnlike_rel_gap']}, gradient "
+            f"{rec['grad_rel_gap']}")
+
+    # -- the smaller phases on the DD path's TOAs ---------------------------
+    dmodel, dtoas, truth, start = (dd[k] for k in
+                                   ("model", "toas", "truth", "start"))
+    with phase("auto_wls_fit", {}) as rec:
+        restore(dmodel, start)
+        zero_counts()
+        wfit, wchi2, cold_s = timed_fit(
+            torch, lambda: Fitter.auto(dtoas, dmodel, device=run.dev))
+        wls_launches = counts()
+        fr = wfit.fitresult
+        pulls = {n: device_offset(dmodel[n].device_value,
+                                  truth[n].device_value)
+                 / dmodel[n].device_uncertainty for n in DD_PULL_PARAMS}
+        wls_vals, wls_uncs = fit_state(dmodel, wfit.fit_params)
+        restore(dmodel, start)
+        zero_counts()
+        _, _, warm_s = timed_fit(
+            torch, lambda: Fitter.auto(dtoas, dmodel, device=run.dev))
+        rec.update(fitter=type(wfit).__name__, status=fr.status.name,
+                   iterations=fr.iterations, rung=fr.rung, chi2=wchi2,
+                   chi2_per_dof=wchi2 / fr.dof, pulls=pulls,
+                   fit_cold_s=cold_s, fit_warm_s=warm_s,
+                   launches=wls_launches, launches_per_warm_fit=counts())
+    if not isinstance(wfit, DownhillWLSFitter) or \
+            isinstance(wfit, DownhillGLSFitter):
+        raise AssertionError(f"Fitter.auto gave {type(wfit).__name__}")
+    if fr.status.name != "CONVERGED" or not 0.6 < wchi2 / fr.dof < 1.6:
+        raise AssertionError(f"downhill WLS fit {fr.status.name}, "
+                             f"chi2/dof {wchi2 / fr.dof}")
+    bad = {n: v for n, v in pulls.items() if not abs(v) < PULL_MAX}
+    if bad:
+        raise AssertionError(f"downhill WLS fit pulls {bad}")
+    check_path_launches("downhill WLS path", wls_launches)
+    out["launches"]["auto_wls_fit"] = wls_launches
+
+    with phase("lm_fit", {}) as rec:
+        restore(dmodel, start)
+        zero_counts()
+        lfit, lchi2, lm_s = timed_fit(
+            torch, lambda: LMFitter(dtoas, dmodel, device=run.dev))
+        lm_launches = counts()
+        fr = lfit.fitresult
+        lv, _ = fit_state(dmodel, lfit.fit_params)
+        sig = max(abs(device_offset(lv[n], wls_vals[n])) / wls_uncs[n]
+                  for n in lfit.fit_params)
+        gap = abs(lchi2 / wchi2 - 1.0)
+        # LM's one factorization per iteration, alone: the eigh of the
+        # damped (P+1, P+1) normal matrix, at the fitted point
+        asm = tfit.build_whitened_assembly(
+            dmodel, lfit.resids.batch, lfit.fit_params, lfit.track_mode, True)
+        with torch.no_grad():
+            r, M, sigma, offc = asm.inline(torch.zeros(
+                len(lfit.fit_params), dtype=torch.float64,
+                device=lfit.device), lfit.resids.pdict)
+            Mn = tfit._whiten_normalize(M, r, sigma)[0]
+            A = Mn.T @ Mn
+            A = A + 1e-3 * torch.diag(torch.diag(A))
+            eigh_ms = time_ms(torch, lambda: torch.linalg.eigh(A), reps=10)
+            solve_ms = time_ms(torch, lambda: damped_solve(
+                r, M, sigma, offc, 1e-3, len(lfit.fit_params)), reps=10)
+        rec.update(status=fr.status.name, iterations=fr.iterations,
+                   converged=fr.converged, chi2=lchi2, wls_chi2=wchi2,
+                   chi2_rel_gap_vs_wls=gap, max_sigma_gap_vs_wls=sig,
+                   fit_s=lm_s, launches=lm_launches, eigh_ms=eigh_ms,
+                   eigh_size=int(A.shape[0]), damped_solve_ms=solve_ms)
+        out["eigh"] = {"eigh_ms": eigh_ms, "eigh_size": int(A.shape[0])}
+    if not fr.converged or gap > CHI2_TOL or sig > LM_VS_WLS_SIGMA:
+        raise AssertionError(f"LM fit: chi2 gap {gap}, {sig} sigma")
+    check_path_launches("LM path", lm_launches)
+    out["launches"]["lm_fit"] = lm_launches
+
+    with phase("degraded_lm", {}) as rec:
+        restore(dmodel, start)
+        real = {k: getattr(tfit, k) for k in ("fit_wls_svd", "fit_wls_eigh")}
+        zero_counts()
+        try:
+            for k, fn in real.items():
+                setattr(tfit, k, nan_step(fn))
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                gfit, gchi2, deg_s = timed_fit(
+                    torch, lambda: WLSFitter(dtoas, dmodel, device=run.dev),
+                    quiet=False, maxiter=DD_MAXITER)
+        finally:
+            for k, fn in real.items():
+                setattr(tfit, k, fn)
+        deg_launches = counts()
+        fr = gfit.fitresult
+        statuses = dmodel.fit_provenance["rung_statuses"]
+        gap = abs(gchi2 / lchi2 - 1.0)
+        rec.update(rung=fr.rung, status=fr.status.name,
+                   rung_statuses=statuses, chi2=gchi2, lm_chi2=lchi2,
+                   chi2_rel_gap_vs_lm=gap, fit_s=deg_s,
+                   degraded_warnings=sum(
+                       type(x.message).__name__ == "FitDegradedWarning"
+                       for x in w),
+                   launches=deg_launches)
+    if fr.rung != "lm" or statuses.get("fused") != "NONFINITE" or \
+            statuses.get("eager") != "NONFINITE" or \
+            statuses.get("lm") not in ("CONVERGED", "MAXITER") or \
+            not math.isfinite(gchi2) or gap > CHI2_TOL:
+        raise AssertionError(f"degraded chain: {statuses}, chi2 gap {gap}")
+    out["launches"]["degraded_lm"] = deg_launches
+
+    with phase("fitter_reference", {}) as rec:
+        with open(FITTERS_REF_JSON) as f:
+            ref = json.load(f)
+        with open(NOISEFIT_REF_JSON) as f:
+            nref = json.load(f)
+        from pint_tpu_torch.kernels.phase_chain import PhaseChain
+        worst = []
+        for label, cls, tol in (("downhill_wls", DownhillWLSFitter,
+                                 FIT_SIGMA_TOL),
+                                ("lm", LMFitter, TRAJECTORY_SIGMA_TOL),
+                                ("powell", PowellFitter,
+                                 TRAJECTORY_SIGMA_TOL)):
+            want = ref[label]
+            rmodel, rtoas = dd_load(torch, DD_REF_TIM, REF_DMX_BINS,
+                                    perturb=ref["perturb"])
+            if label == "powell":
+                for n in rmodel.free_params:
+                    if n not in ref["powell_params"]:
+                        rmodel[n].frozen = True
+            PhaseChain.launches = 0
+            rf, rchi2, rs = timed_fit(
+                torch, lambda: cls(rtoas, rmodel, device=run.dev))
+            sig, unc = stored_gaps(rmodel, want["values"],
+                                   want["uncertainties"])
+            gap = abs(rchi2 / want["chi2"] - 1.0)
+            fr = rf.fitresult
+            same = (fr.status.name, fr.rung, fr.converged) == (
+                want["status"], want["rung"], want["converged"])
+            rec[label] = dict(fit_params=len(rf.fit_params), chi2=rchi2,
+                              chi2_ref=want["chi2"], max_rel_chi2_gap=gap,
+                              max_sigma_gap=sig, max_unc_rel_gap=unc,
+                              status=fr.status.name,
+                              iterations=fr.iterations, fit_s=rs,
+                              launches=PhaseChain.launches,
+                              **({"chi2_evaluations":
+                                  rf.fit_info["chi2_evaluations"]}
+                                 if label == "powell" else {}))
+            if rf.fit_params != want["fit_params"] or not same or not (
+                    sig <= tol and unc <= UNC_TOL and gap <= CHI2_TOL
+                    and PhaseChain.launches > 0):
+                worst.append(label)
+        rmodel, rtoas = noise_load(torch, NOISEFIT_REF_TIM, REF_DMX_BINS,
+                                   free=nref["noise_params"])
+        PhaseChain.launches = 0
+        rf, rchi2, rs = timed_fit(
+            torch, lambda: DownhillGLSFitter(rtoas, rmodel, device=run.dev))
+        sig, unc = stored_gaps(rmodel, nref["values"],
+                               nref["uncertainties"])
+        nsig, nunc = stored_gaps(rmodel, nref["noise_values"],
+                                 nref["noise_uncertainties"])
+        gap = abs(rchi2 / nref["chi2"] - 1.0)
+        fr = rf.fitresult
+        rec["downhill_gls_noise"] = dict(
+            chi2=rchi2, chi2_ref=nref["chi2"], max_rel_chi2_gap=gap,
+            max_sigma_gap=sig, max_unc_rel_gap=unc,
+            noise_max_sigma_gap=nsig, noise_max_unc_rel_gap=nunc,
+            status=fr.status.name, fit_s=rs, launches=PhaseChain.launches,
+            lbfgsb_evaluations=[i["nfev"] for i in rf.noise_fit_info])
+        if rf.fit_params != nref["fit_params"] or (
+                fr.status.name, fr.rung, fr.converged) != (
+                nref["status"], nref["rung"], nref["converged"]) or not (
+                sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
+                and gap <= NOISEFIT_CHI2_TOL and nsig <= NOISE_SIGMA_TOL
+                and nunc <= NOISE_UNC_TOL and PhaseChain.launches > 0):
+            worst.append("downhill_gls_noise")
+        rec["powell_params"] = ref["powell_params"]
+        rec["failed"] = worst
+    if worst:
+        raise AssertionError(f"fitter references failed: {worst}")
+
+    # -- the grid API over the grid path's fitter ----------------------------
+    from pint_tpu_torch.gridutils import (grid_chisq, grid_chisq_derived,
+                                          grid_chisq_flat, tuple_chisq)
+
+    def identity(i):
+        return lambda *pt: pt[i]
+
+    def wrappers(f, grid, m2, sini):
+        pts = list(zip(grid["M2"], grid["SINI"]))
+        return {"flat": grid_chisq_flat(f, grid, maxiter=2),
+                "grid_chisq": grid_chisq(f, ["M2", "SINI"], [m2, sini])[0],
+                "grid_chisq_derived": grid_chisq_derived(
+                    f, ["M2", "SINI"], [identity(0), identity(1)],
+                    [m2, sini])[0],
+                "tuple_chisq": tuple_chisq(f, ["M2", "SINI"], pts)[0]}
+
+    with phase("grid_api", {}) as rec:
+        m2, sini = np.array(GRID_M2), np.array(GRID_SINI)
+        zero_counts()
+        got = wrappers(grid_ctx["fitter"], grid_ctx["grid"], m2, sini)
+        rec["launches"] = counts()
+        rec["bit_equal_to_flat"] = {
+            k: bool(np.array_equal(np.ravel(v), got["flat"]))
+            for k, v in got.items() if k != "flat"}
+        with open(REF_JSON) as f:
+            ref = json.load(f)
+        _, _, rfit = load(torch, run.dev, REF_TIM, REF_DMX_BINS)
+        rgrid = {k: np.asarray(v) for k, v in ref["grid"].items()}
+        rgot = wrappers(rfit, rgrid, np.unique(rgrid["M2"]),
+                        np.unique(rgrid["SINI"]))
+        want = np.asarray(ref["chi2"])
+        rec["reference_max_rel_gap"] = {
+            k: float(np.max(np.abs(np.ravel(v) / want - 1.0)))
+            for k, v in rgot.items()}
+    if not all(rec["bit_equal_to_flat"].values()) or \
+            max(rec["reference_max_rel_gap"].values()) > CHI2_TOL:
+        raise AssertionError(f"grid API: {rec}")
+    check_path_launches("grid API", rec["launches"])
+    return out
+
+
 def main(run: Run = Run()) -> int:
     import torch
 
@@ -2196,10 +2761,16 @@ def main(run: Run = Run()) -> int:
                 f"GLS reference: {dev} sigma, {unc} unc, chi2 gap {gap}, "
                 f"noise {noise_gap}")
 
+    # -- 8. the fitters Fitter.auto picks, LM, Powell and the grid API ------
+    new_paths = fitter_paths(
+        torch, np, run, {"model": dmodel, "toas": dtoas, "truth": truth,
+                         "start": start}, {"fitter": fitter, "grid": grid})
+
     def by_path(name):
         by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
               "gls_fit": gls_launches[name],
-              "ddk_ecl_fit": ddk_launches[name]}
+              "ddk_ecl_fit": ddk_launches[name],
+              **{k: v[name] for k, v in new_paths["launches"].items()}}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     grid_t = chain_rec["timing"]["j0740_grid"]

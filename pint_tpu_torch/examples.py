@@ -1,7 +1,9 @@
 """Shared example configurations: the par strings of
 :mod:`pint_tpu.examples`, and the simulated full-width data sets that
 ``chip_smoke.py`` fits: the DD binary with white noise only (WLS) and
-with a NANOGrav-style noise model (GLS), and the DDK binary in ecliptic
+with a NANOGrav-style noise model (GLS, the noise frozen; and with the
+noise parameters free and per-TOA errors that vary, for the downhill
+fitters' maximum-likelihood noise fit), and the DDK binary in ecliptic
 coordinates (WLS)."""
 
 from __future__ import annotations
@@ -331,12 +333,14 @@ def epoch_toas(ntoas: int, span_days: float = 4550.0,
 def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
                                 dmx_bins: int = 70,
                                 span_days: float = 4550.0,
-                                center_mjd: float = 54975.0, device=None):
+                                center_mjd: float = 54975.0, device=None,
+                                errors_us=1.0):
     """(model, TOAs) of the full-width ``dd_gls_nanograv`` configuration:
-    epoch-clustered TOAs (:func:`epoch_toas`) from gbt, put on integer
-    model phases (``zero_residuals``), white noise scaled by EFAC/EQUAD
-    (numpy ``default_rng(seed + 1)``) and one realization of the ECORR and
-    red noise (``add_correlated_noise``, seed ``seed``), as pint_tpu's GLS
+    epoch-clustered TOAs (:func:`epoch_toas`) from gbt with uncertainties
+    ``errors_us`` (a scalar or one per TOA), put on integer model phases
+    (``zero_residuals``), white noise scaled by EFAC/EQUAD (numpy
+    ``default_rng(seed + 1)``) and one realization of the ECORR and red
+    noise (``add_correlated_noise``, seed ``seed``), as pint_tpu's GLS
     tests build epoch-clustered TOAs (``get_TOAs_array`` +
     ``zero_residuals``).  The residuals run on ``device`` (default
     ``"cuda"``)."""
@@ -352,7 +356,7 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
         model = get_model(dd_noise_realistic_par(
             dmx_bins=dmx_bins, span_days=span_days,
             center_mjd=center_mjd).splitlines())
-        toas = get_TOAs_array(mjds, obs="gbt", errors_us=1.0,
+        toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
             fl["fe"] = RECEIVERS[float(b_mhz)]
@@ -366,4 +370,64 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
         toas = add_correlated_noise(toas, model, seed=seed, device=device)
     for f in toas.flags:
         f.setdefault("simulated", "1")
+    return model, toas
+
+
+#: the free noise parameters of the noise-fitting configuration:
+#: EFAC, EQUAD, ECORR per receiver (RECEIVERS order) and the red noise's
+#: amplitude and index (TNREDC stays fixed)
+NOISE_FIT_PARAMS = ("EFAC1", "EFAC2", "EFAC3", "EQUAD1", "EQUAD2", "EQUAD3",
+                    "ECORR1", "ECORR2", "ECORR3", "TNREDAMP", "TNREDGAM")
+#: the noise fit's start, moved off the injected values (NOISE_EFAC ...)
+#: but nonzero, so that the first GLS timing step sees an ECORR weight
+NOISE_FIT_START = {**{f"EFAC{i}": 1.0 for i in (1, 2, 3)},
+                   **{f"EQUAD{i}": 0.1 for i in (1, 2, 3)},
+                   **{f"ECORR{i}": 0.1 for i in (1, 2, 3)},
+                   "TNREDAMP": -14.0, "TNREDGAM": 3.0}
+#: the range [us] of the noise-fitting set's per-TOA errors, drawn
+#: log-uniform as NANOGrav TOA errors vary with S/N: with one error for
+#: every TOA, EFAC and EQUAD are exactly degenerate
+NOISE_FIT_ERRORS_US = (0.5, 3.0)
+
+
+def dd_noise_fit_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                     center_mjd: float = 54975.0,
+                     free=NOISE_FIT_PARAMS) -> str:
+    """:func:`dd_noise_realistic_par` (86 free timing parameters) with the
+    noise parameters of ``free`` (default all 11 of
+    :data:`NOISE_FIT_PARAMS`) free."""
+    free = set(free)
+    idx = {"EFAC": 0, "EQUAD": 0, "ECORR": 0}
+    lines = []
+    for ln in dd_noise_realistic_par(dmx_bins, span_days,
+                                     center_mjd).splitlines():
+        key = ln.split()[0]
+        name = key
+        if key in idx:
+            idx[key] += 1
+            name = f"{key}{idx[key]}"
+        lines.append(f"{ln} 1" if name in free else ln)
+    return "\n".join(lines)
+
+
+def noise_fit_errors_us(ntoas: int, seed: int = 0) -> np.ndarray:
+    """Per-TOA errors [us] of the noise-fitting set: numpy
+    ``default_rng(seed + 2)``, log-uniform over NOISE_FIT_ERRORS_US."""
+    lo, hi = np.log(NOISE_FIT_ERRORS_US)
+    return np.exp(np.random.default_rng(seed + 2).uniform(lo, hi, ntoas))
+
+
+def simulate_dd_noise_fit(ntoas: int = 12500, seed: int = 0,
+                          dmx_bins: int = 70, span_days: float = 4550.0,
+                          center_mjd: float = 54975.0, device=None):
+    """(truth model, TOAs) of the noise-fitting configuration: the
+    ``dd_gls_nanograv`` simulation (:func:`simulate_dd_noise_realistic`)
+    with per-TOA errors from :func:`noise_fit_errors_us`, the truth's
+    noise parameters free as in :func:`dd_noise_fit_par`."""
+    model, toas = simulate_dd_noise_realistic(
+        ntoas=ntoas, seed=seed, dmx_bins=dmx_bins, span_days=span_days,
+        center_mjd=center_mjd, device=device,
+        errors_us=noise_fit_errors_us(ntoas, seed))
+    for n in NOISE_FIT_PARAMS:
+        model[n].frozen = False
     return model, toas

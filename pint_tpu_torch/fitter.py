@@ -1,6 +1,6 @@
 """Weighted-least-squares fitting on the device, with autodiff design matrices.
 
-Port of the WLS part of :mod:`pint_tpu.fitter`: the whitened, two-stage
+Port of :mod:`pint_tpu.fitter`: the whitened, two-stage
 column-normalized WLS solve (reference `fit_wls_svd`,
 `src/pint/fitter.py:2551`) by SVD or by the normal-equations eigh
 kernel, the residual function whose forward-mode jacobian is the design
@@ -10,19 +10,25 @@ once and differentiates only the nonlinear core, and
 (:func:`build_fused_fit`, loop state on the card, one fetch, a host
 float64 SVD final step), on the CPU the guarded eager step loop
 (:func:`build_wls_step`), with the convergence sentinel
-(:func:`sentinel_advance`, :class:`FitStatus`) and the fused -> eager
-degradation rung; and :class:`GLSFitter` (:func:`gls_solve`, with the
-ECORR block eliminated by its Schur complement), whose steps assemble
-and solve on the device in the eager loop.  The damped-LM rescue rung,
-the downhill fitters and noise-parameter fitting are not ported yet
-(see ROADMAP.md).
+(:func:`sentinel_advance`, :class:`FitStatus`) and the fused -> eager ->
+damped-LM degradation chain; :class:`GLSFitter` (:func:`gls_solve`, with
+the ECORR block eliminated by its Schur complement), whose steps
+assemble and solve on the device in the eager loop; the fitters that
+:meth:`Fitter.auto` picks, :class:`DownhillWLSFitter` and
+:class:`DownhillGLSFitter`, which fit free noise parameters by maximum
+likelihood (:func:`build_noise_lnlike`, scipy's L-BFGS-B with the
+gradient from torch autograd); :class:`LMFitter` and
+:class:`PowellFitter` over the chi2-only evaluation
+(:func:`build_chi2_fn`).
 
 Everything here is plain PyTorch on the batch's device; the phase chain
-inside the residual function is the ``qs_phase_frac`` kernel and the DD
-family's Kepler solve the ``kepler_E`` kernel.  The jacobians are
-``torch.func.jacfwd`` (a ``vmap`` of ``jvp`` over basis tangents): the
-primal evaluation runs once and every tangent lane goes through the
-kernel wrappers' analytic tangent rules.
+inside the residual function is the ``phase_chain`` kernel on CUDA.
+The jacobians are ``torch.func.jacfwd`` (a ``vmap`` of ``jvp`` over
+basis tangents): the primal evaluation runs once and every tangent lane
+goes through the kernel wrappers' analytic tangent rules.  The noise
+likelihood's gradient is reverse mode over the noise parameters alone:
+the residuals inside it do not depend on them, so it never reaches the
+phase kernel, which has no reverse mode.
 """
 
 from __future__ import annotations
@@ -43,11 +49,13 @@ from pint_tpu_torch.residuals import Residuals, raw_phase_resids
 from pint_tpu_torch.toabatch import TOABatch
 from pint_tpu_torch.utils import normalize_designmatrix
 
-__all__ = ["Fitter", "WLSFitter", "GLSFitter", "fit_wls_svd",
+__all__ = ["Fitter", "WLSFitter", "GLSFitter", "DownhillWLSFitter",
+           "DownhillGLSFitter", "LMFitter", "PowellFitter", "fit_wls_svd",
            "fit_wls_eigh", "gls_solve", "build_gls_step",
            "build_gls_fullcov_step",
            "masked_eigh_inverse", "wls_solve", "build_resid_sec_fn",
            "build_whitened_assembly", "build_wls_step", "build_fused_fit",
+           "build_chi2_fn", "build_noise_lnlike",
            "FitStatus", "FitSummary", "FitDegradedWarning",
            "sentinel_advance", "denormalize_covariance"]
 
@@ -376,6 +384,28 @@ def build_whitened_assembly(model: TimingModel, batch: TOABatch,
                       device=batch.device) if include_offset else None
     return _make_assembly(model, list(fit_params), resid_sec, sigma_fn,
                           offc, design_matrix)
+
+
+def build_chi2_fn(model: TimingModel, batch: TOABatch,
+                  fit_params: Sequence[str], track_mode: str,
+                  include_offset: bool):
+    """``(x, p) -> chi2`` (a 0-d tensor on the batch's device): the
+    residuals alone, no jacobian and no factorization
+    (:func:`pint_tpu.fitter.build_chi2_fn`), the trial-point metric of
+    Powell and LM.  On CUDA one primal ``phase_chain`` launch."""
+    resid_sec = build_resid_sec_fn(model, batch, list(fit_params),
+                                   track_mode)
+
+    def chi2(x, p):
+        with torch.no_grad():
+            r = resid_sec(x, p)
+            sigma = model.scaled_toa_uncertainty(p, batch) * 1e-6
+            if include_offset:
+                w = 1.0 / sigma**2
+                r = r - torch.sum(r * w) / torch.sum(w)
+            return torch.sum((r / sigma) ** 2)
+
+    return chi2
 
 
 def _nan_solution(P: int):
@@ -955,6 +985,65 @@ def build_fused_fit(model: TimingModel, batch: TOABatch,
     return fit
 
 
+def build_noise_lnlike(model: TimingModel, batch: TOABatch,
+                       noise_names: Sequence[str], track_mode: str,
+                       dm_index=None, dm_data=None, dm_error=None):
+    """``(x_noise, p) -> lnlikelihood`` (a 0-d tensor) over free noise
+    parameters (EFAC/EQUAD/ECORR/red-noise amplitudes) at fixed timing
+    parameters (:func:`pint_tpu.fitter.build_noise_lnlike`, narrowband):
+    the objective the downhill fitters maximize, differentiable in
+    ``x_noise`` by torch autograd.
+
+    The residuals inside do not depend on the noise parameters (the phase
+    chain reads timing parameters only), so under autograd they carry no
+    grad and the gradient never reaches the ``phase_chain`` kernel, which
+    has no reverse mode.  C is the dense Woodbury form over the whole
+    [ECORR | Fourier] basis, as in pint_tpu (:func:`~pint_tpu_torch.
+    utils.woodbury_dot`).  The wideband DM term (``dm_index``...) waits
+    for the wideband port."""
+    from pint_tpu_torch.utils import woodbury_dot
+
+    if dm_index is not None or dm_data is not None or dm_error is not None:
+        raise NotImplementedError(
+            "build_noise_lnlike: the wideband DM-residual term is not "
+            "ported (ROADMAP A6)")
+    names = list(noise_names)
+    calc = model.calc
+    log2pi = float(np.log(2.0 * np.pi))
+
+    def lnlike(x, p):
+        p2 = model.with_x(p, x, names)
+        r_cyc = raw_phase_resids(calc, p2, batch, track_mode,
+                                 subtract_mean=False, use_weights=False)
+        r = r_cyc / pv(p2, "F0")
+        sigma = model.scaled_toa_uncertainty(p2, batch) * 1e-6
+        w = 1.0 / sigma**2
+        off = torch.sum(r * w) / torch.sum(w)
+        r = r - off
+        U = model.noise_basis(p2)
+        phi = model.noise_weights(p2)
+        if phi is not None:
+            phi = torch.where(phi > 0.0, phi, 1e-30)
+            dot, logdet = woodbury_dot(sigma**2, U, phi, r, r)
+        else:
+            dot = torch.sum((r / sigma) ** 2)
+            logdet = 2.0 * torch.sum(torch.log(sigma))
+        return -0.5 * (dot + logdet + r.shape[0] * log2pi)
+
+    return lnlike
+
+
+def _noise_grad(lnlike):
+    """``(x, p) -> d lnlike / dx`` by reverse mode (the reference's
+    ``jax.grad``), on the device of ``p``."""
+    def grad(x, p):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            return torch.autograd.grad(lnlike(x, p), x)[0]
+
+    return grad
+
+
 def denormalize_covariance(Sigma_n, norms) -> np.ndarray:
     """Host float64 covariance from the normalized one and the column
     norms (:func:`pint_tpu.fitter.denormalize_covariance`)."""
@@ -965,14 +1054,15 @@ def denormalize_covariance(Sigma_n, norms) -> np.ndarray:
 class FitSummary(NamedTuple):
     """Post-fit record (:class:`pint_tpu.fitter.FitSummary`): ``converged``
     is True for any non-failing finish (CONVERGED or MAXITER); ``status``,
-    ``rung`` ("fused"/"eager") and ``guard_trips`` are the guarded
-    engine's provenance."""
+    ``rung`` and ``guard_trips`` are the guarded engine's provenance."""
 
     chi2: float
     dof: int
     iterations: int
     converged: bool
     status: FitStatus = FitStatus.CONVERGED
+    #: "fused"/"eager"/"lm" (the degradation chain's rungs), or the
+    #: fitter's own tag ("downhill", "powell")
     rung: str = ""
     guard_trips: Optional[Dict[str, int]] = None
 
@@ -1014,24 +1104,105 @@ class Fitter:
         self.noise_ampls: Dict[str, np.ndarray] = {}
         self.noise_resids: Dict[str, np.ndarray] = {}
 
+    #: True for fitters whose ``fit_toas`` maximizes the likelihood over
+    #: free noise parameters (the downhill family)
+    fits_noise = False
+
     @property
     def fit_params(self) -> List[str]:
-        """Free parameters the linear step moves (all free device params
-        but noise-component ones)."""
-        noise = {type(c).__name__ for c in self.model.noise_components}
+        """Free parameters the linear step moves: all free device params
+        but noise-component ones, which the downhill fitters fit by
+        maximum likelihood (the others warn)."""
+        noise = self._noise_comp_names()
         out = [n for n in self.model.free_params
                if self.model.param_component(n) not in noise]
         skipped = [n for n in self.model.free_params if n not in out]
-        if skipped:
+        if skipped and not self.fits_noise:
             warnings.warn(
                 f"free noise parameters {skipped} are not fit by "
-                f"{type(self).__name__}; freeze them")
+                f"{type(self).__name__}; freeze them or use a downhill "
+                "fitter (which fits them by maximum likelihood)")
         return out
+
+    def _noise_comp_names(self):
+        return {type(c).__name__ for c in self.model.noise_components}
+
+    @property
+    def free_noise_params(self) -> List[str]:
+        """Free parameters of the noise components (reference
+        `_get_free_noise_params`, `src/pint/fitter.py:1146`)."""
+        noise = self._noise_comp_names()
+        return [n for n in self.model.free_params
+                if self.model.param_component(n) in noise]
+
+    def get_designmatrix(self):
+        """``(M, names)``: the design matrix at the current parameter
+        values, ``M[:, i] = -d(resid_sec)/d(param_i)`` in device units
+        (host numpy): one ``jacfwd`` of :func:`build_resid_sec_fn`, on
+        CUDA one primal and one tangent ``phase_chain`` launch."""
+        names = self.fit_params
+        rf = build_resid_sec_fn(self.model, self.resids.batch, names,
+                                self.track_mode)
+        p = self._device_pdict()
+        x = self.model.x0(p, names).to(self.device)
+        with torch.no_grad():
+            M = -jacfwd(rf)(x, p)
+        return _np(M), names
+
+    @staticmethod
+    def auto(toas, model: TimingModel, downhill: bool = True,
+             **kw) -> "Fitter":
+        """The fitter for the data and model (reference `Fitter.auto`,
+        `src/pint/fitter.py:255`; :meth:`pint_tpu.fitter.Fitter.auto`):
+        correlated noise -> GLS, else WLS, the downhill variants by
+        default.  Every keyword (``device=`` too) passes through to the
+        class.  Wideband TOAs raise: the wideband fitters are not ported,
+        and no narrowband fitter stands in for them."""
+        if toas.is_wideband:
+            raise NotImplementedError(
+                "Fitter.auto: wideband TOAs need WidebandDownhillFitter / "
+                "WidebandTOAFitter, which are not ported (ROADMAP A6)")
+        if model.has_correlated_errors:
+            cls = DownhillGLSFitter if downhill else GLSFitter
+        else:
+            cls = DownhillWLSFitter if downhill else WLSFitter
+        return cls(toas, model, **kw)
 
     def fit_toas(self, maxiter: int = 2, **kw) -> float:
         raise NotImplementedError
 
     # -- reporting --------------------------------------------------------
+    @property
+    def parameter_correlation_matrix(self) -> Optional[np.ndarray]:
+        C = self.parameter_covariance_matrix
+        if C is None:
+            return None
+        s = np.sqrt(np.diag(C))
+        return C / np.outer(s, s)
+
+    def get_summary(self) -> str:
+        """Post-fit chi2, RMS and the fitted values with uncertainties
+        (:meth:`pint_tpu.fitter.Fitter.get_summary`)."""
+        r = self.resids
+        lines = [
+            f"Fitted model using {type(self).__name__} with "
+            f"{len(self.fit_params)} free parameters, {self.toas.ntoas} TOAs",
+            f"Post-fit chi2 = {r.calc_chi2():.4f}  dof = {r.dof}  "
+            f"reduced chi2 = {r.reduced_chi2:.4f}",
+            f"Post-fit weighted RMS = {r.rms_weighted() * 1e6:.4f} us",
+            "",
+            f"{'PARAM':12s} {'VALUE':>25s} {'UNCERTAINTY':>15s}",
+        ]
+        for n in self.fit_params:
+            par = self.model[n]
+            unc = "" if par.uncertainty is None else \
+                f"{par.uncertainty:.3g}"
+            lines.append(f"{n:12s} {par.value_as_string():>25s} {unc:>15s}")
+        return "\n".join(lines)
+
+    def print_summary(self):  # pragma: no cover - console convenience
+        print(self.get_summary())
+
     def update_model(self):
         """Record fit provenance into the model (START/FINISH/NTOA/CHI2/
         CHI2R/TRES), as the reference does post-fit."""
@@ -1136,35 +1307,70 @@ class Fitter:
         self._record_provenance()
         return float(out["chi2"])
 
+    #: the degradation-chain rungs tried after a fused DIVERGED/NONFINITE,
+    #: in order; each gets ONE attempt
+    DEGRADATION_RUNGS = ("eager", "lm")
+
     def _degraded_fit(self, fused_status, maxiter, threshold,
                       tol_chi2) -> float:
-        """fused -> eager stepwise (:meth:`pint_tpu.fitter.Fitter.
-        _degraded_fit` without its damped-LM rung, which is not ported):
-        the eager rung gets one attempt; when it fails too,
-        :class:`~pint_tpu_torch.exceptions.ConvergenceFailure` carries the
-        statuses of the rungs tried."""
+        """fused -> eager stepwise -> damped LM, one attempt each
+        (:meth:`pint_tpu.fitter.Fitter._degraded_fit`).  A rung succeeds
+        when it finishes with a finite chi2 and a status other than
+        DIVERGED/NONFINITE; the winning rung is recorded in
+        ``FitSummary.rung`` and the model's provenance, and each hand-off
+        warns with :class:`FitDegradedWarning`.  When every rung fails,
+        :class:`~pint_tpu_torch.exceptions.ConvergenceFailure` carries
+        the statuses of the rungs tried."""
         statuses = {"fused": fused_status}
         warnings.warn(
             f"fused fit ended {fused_status.name}; degrading to the "
             "eager stepwise fitter", FitDegradedWarning)
-        try:
-            chi2 = self._fit_eager(maxiter=max(maxiter, 8),
-                                   threshold=threshold, tol_chi2=tol_chi2)
-            statuses["eager"] = st = self.fitresult.status
-        except ConvergenceFailure as e:
-            st = e.status if e.status is not None else FitStatus.NONFINITE
-            statuses["eager"] = st
-            chi2 = float("nan")
-        if np.isfinite(chi2) and st not in (FitStatus.DIVERGED,
-                                            FitStatus.NONFINITE):
-            self.fitresult = self.fitresult._replace(rung="eager")
-            self._record_provenance(statuses)
-            return chi2
+        for rung in self.DEGRADATION_RUNGS:
+            then = "degrading to damped LM" if rung != "lm" else \
+                "degradation chain exhausted"
+            try:
+                if rung == "eager":
+                    chi2 = self._fit_eager(maxiter=max(maxiter, 8),
+                                           threshold=threshold,
+                                           tol_chi2=tol_chi2)
+                else:
+                    chi2 = self._fit_lm_rescue(threshold=threshold,
+                                               tol_chi2=tol_chi2)
+                st = self.fitresult.status
+            except ConvergenceFailure as e:
+                statuses[rung] = e.status if e.status is not None else \
+                    FitStatus.NONFINITE
+                warnings.warn(f"{rung} rung failed ({statuses[rung].name}); "
+                              f"{then}", FitDegradedWarning)
+                continue
+            statuses[rung] = st
+            if np.isfinite(chi2) and st not in (FitStatus.DIVERGED,
+                                                FitStatus.NONFINITE):
+                self.fitresult = self.fitresult._replace(rung=rung)
+                self._record_provenance(statuses)
+                return chi2
+            warnings.warn(f"{rung} rung ended {st.name}; {then}",
+                          FitDegradedWarning)
         raise ConvergenceFailure(
-            "fit failed through the degradation chain (fused -> eager; "
-            "the damped-LM rung is not ported): "
+            "fit failed through the whole degradation chain "
+            "(fused -> eager -> LM): "
             f"{ {k: v.name for k, v in statuses.items()} }",
-            status=st, rung_statuses=statuses)
+            status=statuses.get("lm", fused_status),
+            rung_statuses=statuses)
+
+    def _fit_lm_rescue(self, threshold=None, tol_chi2=1e-8) -> float:
+        """The chain's last rung: a damped Levenberg-Marquardt fit over
+        the same (toas, model, residuals), independent of the WLS solve
+        kernels (its damped solve and trial-point chi2 survive a poisoned
+        ``fit_wls_*``)."""
+        lm = LMFitter(self.toas, self.model, residuals=self.resids,
+                      design_matrix=self.design_matrix)
+        chi2 = lm.fit_toas(threshold=threshold, tol_chi2=tol_chi2)
+        self.fitresult = lm.fitresult
+        self.fit_info = lm.fit_info
+        self.parameter_covariance_matrix = lm.parameter_covariance_matrix
+        self.covariance_params = lm.covariance_params
+        return chi2
 
     # -- write-back -------------------------------------------------------
     def _store_noise(self, out: dict, p: dict):
@@ -1388,3 +1594,396 @@ class GLSFitter(WLSFitter):
         # on every device (a fused GLS loop is not a feature of the
         # reference)
         return False
+
+
+class DownhillWLSFitter(Fitter):
+    """Gauss-Newton with a backtracking line search (reference
+    `DownhillFitter`/`DownhillWLSFitter`, `src/pint/fitter.py:915,1268`;
+    :class:`pint_tpu.fitter.DownhillWLSFitter`): a proposed step is
+    halved (lambda = 1, 1/2, 1/4, ...) until chi2 rises by no more than
+    ``max_chi2_increase``; converged when a full step improves chi2 by
+    less than ``required_chi2_decrease``.
+
+    Free noise parameters (EFAC/EQUAD/ECORR/red-noise amplitudes) are fit
+    by maximizing the likelihood (:func:`build_noise_lnlike`),
+    alternating with the timing fit ``noise_fit_niter`` times: scipy's
+    L-BFGS-B on the host, the gradient by torch autograd on the fitter's
+    device, uncertainties from the observed information.  Every step and
+    likelihood evaluation runs on the fitter's device; chi2, the
+    likelihood and its gradient come back to the host each time.
+    ``noise_fit_info`` records each noise fit's evaluations and wall
+    time."""
+
+    fits_noise = True
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.noise_fit_info: List[dict] = []
+
+    def fit_toas(self, maxiter: int = 20, noise_fit_niter: int = 2,
+                 threshold: Optional[float] = None,
+                 min_lambda: float = 1e-3,
+                 required_chi2_decrease: float = 1e-2,
+                 max_chi2_increase: float = 1e-2) -> float:
+        kw = dict(maxiter=maxiter, threshold=threshold,
+                  min_lambda=min_lambda,
+                  required_chi2_decrease=required_chi2_decrease,
+                  max_chi2_increase=max_chi2_increase)
+        noise_names = self.free_noise_params
+        self.noise_fit_info = []
+        if not noise_names:
+            return self._fit_timing(**kw)
+        for it in range(noise_fit_niter):
+            self._fit_timing(**kw)
+            self._fit_noise(noise_names,
+                            uncertainty=(it == noise_fit_niter - 1))
+        return self._fit_timing(**kw)
+
+    def _fit_noise(self, noise_names: List[str],
+                   uncertainty: bool = False) -> None:
+        """Maximize the likelihood over the free noise parameters at the
+        current timing solution (reference `_fit_noise`,
+        `src/pint/fitter.py:1167`; :meth:`pint_tpu.fitter.
+        DownhillWLSFitter._fit_noise`): L-BFGS-B from the current values
+        (nudged off zero), then, with ``uncertainty``, the observed
+        information by central differences of the gradient and its
+        pseudo-inverse as the covariance."""
+        from scipy.optimize import minimize
+
+        t0 = time.perf_counter()
+        self.resids.update()
+        p = self._device_pdict()
+        m = self.model
+        key = tuple(noise_names)
+        if getattr(self, "_noise_lnlike_key", None) != key:
+            self._noise_lnlike_key = key
+            self._noise_lnlike = build_noise_lnlike(
+                m, self.resids.batch, noise_names, self.track_mode)
+            self._noise_grad = _noise_grad(self._noise_lnlike)
+        lnlike, grad = self._noise_lnlike, self._noise_grad
+        calls = {"lnlike": 0, "grad": 0}
+        dev = self.device
+
+        def xt(x):
+            return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+
+        def g(x):
+            calls["grad"] += 1
+            return _np(grad(xt(x), p))
+
+        x0 = _np(m.x0(p, noise_names))
+        # an EQUAD-class parameter at exactly 0 is a stationary point of
+        # the likelihood (it enters squared): the gradient there is zero
+        # and a quasi-Newton iteration never leaves it.  pint_tpu nudges
+        # every zero start (x0 holds the params dict's offsets, zero as
+        # built), and that start is part of its result.
+        x0 = np.where(x0 == 0.0, 0.05, x0)
+
+        def nll(x):
+            calls["lnlike"] += 1
+            with torch.no_grad():
+                return -float(lnlike(xt(x), p))
+
+        def nll_grad(x):
+            return -g(x)
+
+        res = minimize(nll, x0, jac=nll_grad, method="L-BFGS-B")
+        x = res.x
+        m.apply_deltas(m.with_x(p, x, noise_names))
+        info = {"nfev": int(res.nfev), "nit": int(res.nit),
+                "success": bool(res.success), "lnlike": -float(res.fun)}
+        if uncertainty:
+            # the observed information by central differences of the
+            # gradient, as pint_tpu takes it (forward-over-reverse
+            # autodiff NaNs on its TPU's emulated float64)
+            h = 1e-3 * np.maximum(np.abs(x), 0.1)
+            H = np.zeros((len(x), len(x)))
+            for k in range(len(x)):
+                xp = x.copy()
+                xp[k] += h[k]
+                xm = x.copy()
+                xm[k] -= h[k]
+                H[:, k] = (g(xp) - g(xm)) / (2.0 * h[k])
+            H = 0.5 * (H + H.T)
+            # covariance = pseudo-inverse of the observed information
+            # (pinv: a flat direction at a boundary gives 0 instead of
+            # blowing up the whole matrix)
+            if np.all(np.isfinite(H)):
+                cov = np.linalg.pinv(-H)
+                errs = np.sqrt(np.maximum(np.diag(cov), 0.0))
+            else:
+                # a poisoned likelihood gradient must not write NaN
+                # noise-parameter uncertainties into the model
+                warnings.warn(
+                    "noise-fit Hessian is non-finite; noise parameter "
+                    f"uncertainties for {noise_names} are left unset",
+                    PintTpuWarning)
+                errs = np.full(len(noise_names), np.nan)
+            for n, e in zip(noise_names, errs):
+                if np.isfinite(e) and e > 0:
+                    m[n].set_device_uncertainty(float(e))
+        self.resids.update()
+        info.update(calls, seconds=time.perf_counter() - t0)
+        self.noise_fit_info.append(info)
+
+    def _fit_timing(self, maxiter: int = 20,
+                    threshold: Optional[float] = None,
+                    min_lambda: float = 1e-3,
+                    required_chi2_decrease: float = 1e-2,
+                    max_chi2_increase: float = 1e-2) -> float:
+        """The downhill timing fit at fixed noise parameters
+        (:meth:`pint_tpu.fitter.DownhillWLSFitter._fit_timing`)."""
+        m = self.model
+        names = self.fit_params
+        p = self._device_pdict()
+        include_offset = "PhaseOffset" not in m.components
+        step = self._cached_step(names, threshold, include_offset)
+        t_start = time.perf_counter()
+        if hasattr(step, "seconds"):
+            step.seconds.clear()
+        x = np.zeros(len(names))
+        out = step(x, p)
+        chi2 = float(out["chi2"])
+        converged = False
+        exception = None
+        it = -1
+        for it in range(maxiter):
+            dx = _np(out["dx"])
+            lam = 1.0
+            while True:
+                trial = step(x + lam * dx, p)
+                trial_chi2 = float(trial["chi2"])
+                if trial_chi2 <= chi2 + max_chi2_increase:
+                    break
+                lam *= 0.5
+                if lam < min_lambda:
+                    exception = ConvergenceFailure(
+                        f"step rejected down to lambda={lam:.2g} "
+                        f"(chi2 {chi2:.4f} -> {trial_chi2:.4f})")
+                    break
+            if exception is not None:
+                break
+            x = x + lam * dx
+            improvement = chi2 - trial_chi2
+            chi2 = trial_chi2
+            out = trial
+            if lam == 1.0 and improvement < required_chi2_decrease:
+                converged = True
+                break
+        if not np.isfinite(chi2):
+            raise ConvergenceFailure(
+                f"downhill fit chi2 is non-finite ({chi2})",
+                status=FitStatus.NONFINITE)
+        # `out` IS the step output at x (the last accepted trial, or the
+        # start), so it is the final solve.  pint_tpu's `_final_step`
+        # dispatches the same step at the same x again, and its
+        # exact-covariance escalation is its TPU's workaround for emulated
+        # float64, which the port does not take (see build_wls_step).
+        seconds = {"steps": time.perf_counter() - t_start,
+                   **getattr(step, "seconds", {})}
+        self.fit_info = {"n_bad": int(out["n_bad"]),
+                         "e_min": float(out["e_min"]), "seconds": seconds}
+        t0 = time.perf_counter()
+        self._store_noise(out, p)
+        self._finalize(p, x, denormalize_covariance(out["Sigma_n"],
+                                                    out["norms"]), names)
+        seconds["write_back"] = time.perf_counter() - t0
+        if converged:
+            status = FitStatus.CONVERGED
+        elif exception is not None:
+            status = FitStatus.DIVERGED
+        else:
+            status = FitStatus.MAXITER
+        self.fitresult = FitSummary(
+            chi2, self.resids.dof, it + 1, converged, status=status,
+            rung="downhill",
+            guard_trips=({"downhill_step_rejected": 1}
+                         if status is FitStatus.DIVERGED else {}))
+        self._record_provenance()
+        if exception is not None and not converged:
+            warnings.warn(str(exception))
+        return chi2
+
+
+class DownhillGLSFitter(DownhillWLSFitter, GLSFitter):
+    """The downhill line search over the GLS step (reference
+    `DownhillGLSFitter`, `src/pint/fitter.py:1386`;
+    :class:`pint_tpu.fitter.DownhillGLSFitter`): ``fit_toas`` from the
+    downhill base, ``_make_step`` from :class:`GLSFitter`; never fused."""
+
+
+class PowellFitter(Fitter):
+    """Derivative-free Powell minimization of chi2 (reference
+    `PowellFitter`, `src/pint/fitter.py:1659`, scipy's Powell;
+    :class:`pint_tpu.fitter.PowellFitter`) in coordinates scaled by the
+    parameters' uncertainties.  Every chi2 evaluation is one
+    :func:`build_chi2_fn` call on the fitter's device and one read back."""
+
+    def fit_toas(self, maxiter: int = 2000, **kw) -> float:
+        from scipy.optimize import minimize
+
+        m = self.model
+        names = self.fit_params
+        p = self._device_pdict()
+        include_offset = "PhaseOffset" not in m.components
+        step = self._make_step(names, None, include_offset)
+        t_start = time.perf_counter()
+        # optimize in units of the parameter uncertainties, so that
+        # Powell's line searches see O(1) coordinates for every parameter
+        # (the first Gauss-Newton step can be ~0 for a parameter already
+        # at its conditional optimum, which must not freeze it)
+        out0 = step(np.zeros(len(names)), p)
+        unc = np.sqrt(np.maximum(np.diag(denormalize_covariance(
+            out0["Sigma_n"], out0["norms"])), 0.0))
+        scale = np.maximum(unc, np.abs(_np(out0["dx"])))
+        scale = np.where(scale > 0, scale, 1.0)
+        chi2_fn = build_chi2_fn(m, self.resids.batch, names,
+                                self.track_mode, include_offset)
+        dev = self.device
+
+        def chi2(z):
+            return float(chi2_fn(torch.as_tensor(z * scale, device=dev), p))
+
+        res = minimize(chi2, np.zeros(len(names)), method="Powell",
+                       options={"maxiter": maxiter, "xtol": 1e-10,
+                                "ftol": 1e-12})
+        x = res.x * scale
+        final = step(x, p)
+        self.fit_info = {"n_bad": int(final["n_bad"]),
+                         "e_min": float(final["e_min"]),
+                         "chi2_evaluations": int(res.nfev),
+                         "seconds": {"steps": time.perf_counter() - t_start}}
+        Sigma = denormalize_covariance(final["Sigma_n"], final["norms"])
+        self._store_noise(final, p)
+        self._finalize(p, x, Sigma, names)
+        self.fitresult = FitSummary(
+            float(final["chi2"]), self.resids.dof, int(res.nit),
+            bool(res.success),
+            status=(FitStatus.CONVERGED if res.success
+                    else FitStatus.MAXITER),
+            rung="powell", guard_trips={})
+        self._record_provenance()
+        return float(final["chi2"])
+
+
+def damped_solve(r, M, sigma, offc, lam: float, npar: int):
+    """LM's damped step and chi2 at x from a whitened assembly
+    (:class:`pint_tpu.fitter.LMFitter`'s ``damped_solve``): the
+    column-normalized normal matrix with ``lam * diag`` added, solved by
+    its symmetric eigendecomposition with eigenvalues at or below
+    eps * P * e_max dropped, as pint_tpu solves it (pint_tpu chose eigh
+    because its TPU has no float64 LU; the port keeps the same solve).
+    Returns ``(dx, chi2)`` on the tensors' device."""
+    Mw = M / sigma[:, None]
+    rw = r / sigma
+    cmax = torch.amax(torch.abs(Mw), dim=0)
+    cmax = torch.where(cmax == 0.0, 1.0, cmax)
+    Mn, nc = normalize_designmatrix(Mw / cmax)
+    norms = cmax * nc
+    A = Mn.T @ Mn
+    A = A + lam * torch.diag(torch.diag(A))
+    try:
+        e, V = torch.linalg.eigh(A)
+    except torch.linalg.LinAlgError:
+        # a poisoned system: NaN out, as XLA's eigh returns it
+        e = torch.full(A.shape[:-1], float("nan"), dtype=A.dtype,
+                       device=A.device)
+        V = torch.full_like(A, float("nan"))
+    bad = e <= EPS_F64 * A.shape[0] * e[-1]
+    einv = torch.where(bad, 0.0, 1.0 / torch.where(bad, 1.0, e))
+    dx = (V @ (einv * (V.T @ (Mn.T @ rw)))) / norms
+    if offc is not None:
+        w = offc / sigma**2
+        off = torch.sum(r * w) / torch.sum(w * offc)
+        chi2 = torch.sum(((r - off * offc) / sigma) ** 2)
+    else:
+        chi2 = torch.sum(rw**2)
+    return dx[:npar], chi2
+
+
+class LMFitter(Fitter):
+    """Levenberg-Marquardt: the Gauss-Newton normal matrix damped by
+    ``lambda * diag`` with adaptive damping (reference `LMFitter`,
+    `src/pint/fitter.py:2313`; :class:`pint_tpu.fitter.LMFitter`).  The
+    damped solve (:func:`damped_solve`) runs on the fitter's device from
+    the same whitened assembly as WLS; trial points are judged by
+    :func:`build_chi2_fn`.  The last rung of the degradation chain."""
+
+    def fit_toas(self, maxiter: int = 50, lam0: float = 1e-3,
+                 lam_decrease: float = 3.0, lam_increase: float = 5.0,
+                 tol_chi2: float = 1e-8, threshold=None) -> float:
+        m = self.model
+        names = self.fit_params
+        p = self._device_pdict()
+        include_offset = "PhaseOffset" not in m.components
+        batch = self.resids.batch
+        assemble = _step_assembler(build_whitened_assembly(
+            m, batch, names, self.track_mode, include_offset,
+            design_matrix=self.design_matrix), batch)
+        chi2_fn = build_chi2_fn(m, batch, names, self.track_mode,
+                                include_offset)
+        dev = self.device
+        t_start = time.perf_counter()
+
+        def damped_step(x, lam):
+            r, M, sigma, offc = assemble(x, p)
+            with torch.no_grad():
+                return damped_solve(r, M, sigma, offc, lam, len(names))
+
+        def chi2_at(x):
+            return float(chi2_fn(torch.as_tensor(x, device=dev), p))
+
+        guard_trips: Dict[str, int] = {}
+        x = np.zeros(len(names))
+        lam = lam0
+        chi2 = chi2_at(x)
+        status = FitStatus.MAXITER
+        it = 0
+        for it in range(maxiter):
+            dx, _ = damped_step(x, lam)
+            x_try = x + _np(dx)
+            chi2_try = chi2_at(x_try)
+            if np.isfinite(chi2_try) and chi2_try < chi2:
+                improvement = chi2 - chi2_try
+                x, chi2 = x_try, chi2_try
+                lam = max(lam / lam_decrease, 1e-12)
+                if improvement < tol_chi2:
+                    status = FitStatus.CONVERGED
+                    break
+            else:
+                if np.isfinite(chi2_try) and abs(chi2_try - chi2) < tol_chi2:
+                    # the rejected trial changed chi2 by less than the
+                    # tolerance: this is the minimum
+                    status = FitStatus.CONVERGED
+                    break
+                lam *= lam_increase
+                if lam > 1e12:
+                    # no damping level yields an acceptable step
+                    guard_trips["lm_lambda_overflow"] = 1
+                    warnings.warn(
+                        "LM damping diverged (lambda overflow); returning "
+                        "the best point found")
+                    status = FitStatus.DIVERGED
+                    break
+        if not np.isfinite(chi2):
+            # never hand back a poisoned chi2: the start point itself was
+            # non-finite and no trial improved on it
+            raise ConvergenceFailure(
+                f"LM fit chi2 is non-finite ({chi2}) after {it + 1} "
+                "iteration(s)", status=FitStatus.NONFINITE)
+        # the covariance from the undamped step at the solution (one
+        # dispatch at x, as pint_tpu's `_final_step` makes it)
+        step = self._cached_step(names, threshold, include_offset)
+        final = step(x, p)
+        self.fit_info = {"n_bad": int(final["n_bad"]),
+                         "e_min": float(final["e_min"]),
+                         "seconds": {"steps": time.perf_counter() - t_start}}
+        Sigma = denormalize_covariance(final["Sigma_n"], final["norms"])
+        self._store_noise(final, p)
+        self._finalize(p, x, Sigma, names)
+        self.fitresult = FitSummary(
+            chi2, self.resids.dof, it + 1,
+            status in (FitStatus.CONVERGED, FitStatus.MAXITER),
+            status=status, rung="lm", guard_trips=guard_trips)
+        self._record_provenance()
+        return chi2

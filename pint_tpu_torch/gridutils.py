@@ -1,7 +1,8 @@
 """Chi-squared grids over frozen parameters.
 
 Port of the whole-grid path of :mod:`pint_tpu.gridutils` (reference
-`grid_chisq`, `src/pint/gridutils.py:169`, here its flat form).  A grid point
+`grid_chisq`, `src/pint/gridutils.py:169`: its flat form, and the
+outer-product, derived-quantity and tuple wrappers over it).  A grid point
 is a different value of some ``p["delta"]`` leaves, so the whole grid is
 one ``torch.func.vmap`` of the fixed-iteration Gauss-Newton fit over a
 stacked params dict: every grid point's rows go through each device
@@ -12,7 +13,7 @@ Chunked and checkpointed scans are not ported yet.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,8 +23,9 @@ from pint_tpu_torch.fitter import (Fitter, _default_wls_kernel,
                                    build_whitened_assembly, wls_solve)
 from pint_tpu_torch.models.timing_model import TimingModel
 
-__all__ = ["grid_chisq_flat", "build_grid_fit_fn",
-           "stack_grid_pdict", "grid_in_axes"]
+__all__ = ["grid_chisq_flat", "grid_chisq", "grid_chisq_derived",
+           "tuple_chisq", "build_grid_fit_fn", "stack_grid_pdict",
+           "grid_in_axes"]
 
 
 def _grid_deltas(model: TimingModel, p: dict,
@@ -140,3 +142,49 @@ def _check_grid_chi2(chi2: np.ndarray) -> np.ndarray:
             "(degenerate or diverging fits at those parameter values)",
             PintTpuWarning)
     return chi2
+
+
+def grid_chisq(fitter: Fitter, parnames: Sequence[str],
+               parvalues: Sequence[np.ndarray],
+               maxiter: int = 2) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The full outer-product chi2 grid (reference `grid_chisq`,
+    `src/pint/gridutils.py:169`; :func:`pint_tpu.gridutils.grid_chisq`):
+    ``(chi2 of shape G1 x G2 x ..., meshgrids)``."""
+    grids = np.meshgrid(*[np.asarray(v) for v in parvalues], indexing="ij")
+    flat = {n: g.ravel() for n, g in zip(parnames, grids)}
+    chi2 = grid_chisq_flat(fitter, flat, maxiter=maxiter)
+    return chi2.reshape(grids[0].shape), grids
+
+
+def grid_chisq_derived(fitter: Fitter, parnames: Sequence[str],
+                       parfuncs: Sequence, gridvalues: Sequence[np.ndarray],
+                       maxiter: int = 2):
+    """chi2 over a grid of derived quantities (reference
+    `grid_chisq_derived`, `src/pint/gridutils.py:395`;
+    :func:`pint_tpu.gridutils.grid_chisq_derived`): model parameter
+    ``parnames[i]`` is set to ``parfuncs[i](*gridpoint)`` at each point of
+    the outer product of ``gridvalues``.  Returns ``(chi2, parvalues)``
+    in the grid's shape."""
+    grids = np.meshgrid(*[np.asarray(v) for v in gridvalues],
+                        indexing="ij")
+    flatpts = [g.ravel() for g in grids]
+    out = {}
+    for name, func in zip(parnames, parfuncs):
+        out[name] = np.asarray([func(*vals) for vals in zip(*flatpts)],
+                               np.float64)
+    chi2 = grid_chisq_flat(fitter, out, maxiter=maxiter)
+    parvalues = [out[n].reshape(grids[0].shape) for n in parnames]
+    return chi2.reshape(grids[0].shape), parvalues
+
+
+def tuple_chisq(fitter: Fitter, parnames: Sequence[str], parvalues,
+                maxiter: int = 2):
+    """chi2 at a list of parameter tuples, one value per name in
+    ``parnames`` (reference `tuple_chisq`, `src/pint/gridutils.py:593`;
+    :func:`pint_tpu.gridutils.tuple_chisq`), all in one
+    :func:`grid_chisq_flat` call.  Returns ``(chi2 (G,), dof)``."""
+    vals = np.asarray([[float(v) for v in tup] for tup in parvalues],
+                      np.float64)
+    flat = {n: vals[:, i] for i, n in enumerate(parnames)}
+    chi2 = grid_chisq_flat(fitter, flat, maxiter=maxiter)
+    return chi2, fitter.resids.dof

@@ -182,7 +182,57 @@ class Residuals:
         dot, logdet = self._gaussian_quadratic(r)
         return float(-0.5 * (dot + logdet + len(r) * np.log(2.0 * np.pi)))
 
+    def calc_whitened_resids(self) -> np.ndarray:
+        """Dimensionless whitened residuals (reference
+        `calc_whitened_resids`, `src/pint/residuals.py:571`;
+        :meth:`pint_tpu.residuals.Residuals.calc_whitened_resids`), host
+        numpy: the conditional-mean realization of the correlated noise
+        subtracted and the result scaled by the white uncertainties;
+        ~N(0, 1) when the noise model is adequate."""
+        r = np.asarray(self.time_resids, np.float64)
+        sigma = np.asarray(self.get_data_error(), np.float64) * 1e-6
+        if not self.model.has_correlated_errors:
+            return r / sigma
+        U, phi = (t.cpu().numpy() for t in self._noise_basis_filtered())
+        # conditional-mean amplitudes a_hat = Phi U^T C^-1 r by the
+        # Woodbury identity: a_hat = Phi (I + G Phi)^-1 b with
+        # G = U^T N^-1 U, b = U^T N^-1 r
+        b = U.T @ (r / sigma**2)
+        G = U.T @ (U / sigma[:, None]**2)
+        a_hat = phi * np.linalg.solve(
+            np.eye(len(phi)) + G * phi[None, :], b)
+        return (r - U @ a_hat) / sigma
+
+    def normality(self, test: str = "ks"):
+        """Normality statistic of the whitened residuals
+        (:meth:`pint_tpu.residuals.Residuals.normality`): "ks" gives the
+        Kolmogorov-Smirnov (statistic, p-value) against N(0, 1); "ad" the
+        Anderson-Darling statistic and its critical values (or p-value,
+        as the installed scipy reports it)."""
+        import warnings
+
+        from scipy import stats
+
+        w = self.calc_whitened_resids()
+        if test == "ks":
+            res = stats.kstest(w, "norm")
+            return float(res.statistic), float(res.pvalue)
+        if test == "ad":
+            with warnings.catch_warnings():
+                # scipy >= 1.17 deprecates the method-less call
+                warnings.simplefilter("ignore", FutureWarning)
+                res = stats.anderson(w, "norm")
+            crit = getattr(res, "critical_values", None)
+            if crit is None:
+                return float(res.statistic), float(res.pvalue)
+            return float(res.statistic), np.asarray(crit)
+        raise ValueError(f"unknown normality test {test!r}")
+
     @property
     def dof(self) -> int:
         return self.toas.ntoas - len(self.model.free_params) - \
             int(self.subtract_mean)
+
+    @property
+    def reduced_chi2(self) -> float:
+        return self.calc_chi2() / self.dof

@@ -45,7 +45,12 @@ them with it switched off, from the repository root::
   one tangent launch each, every lanes-per-thread bit-equal to the
   single-lane launch; a vmap over 9 grid points of a jacfwd is one primal
   and one tangent launch; refused inputs raise.  The grid, DD and GLS
-  fits above run through it.
+  fits above run through it;
+* the noise likelihood's gradient on the card never enters either
+  phase_chain wrapper's backward, and equals the CPU's within 1e-9
+  (value) and 1e-7 (gradient norm); ``get_designmatrix`` on the card is
+  one primal and one tangent launch, bit-equal to the fitter's full
+  assembly and within 1e-10 per column of the CPU's.
 """
 
 import json
@@ -660,3 +665,85 @@ def test_phase_chain_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):      # a pulse-number mode without them
         pc.run(pc.PhaseChainSpec(spec.layout, spec.K, "use_pulse_numbers"),
                theta, other, tensors)
+
+
+def _noisefit_pair(dev):
+    """The noise-fitting set's model (all 11 noise parameters free) with
+    its residuals on the card and on the CPU."""
+    from pint_tpu_torch.examples import dd_noise_fit_par
+    from pint_tpu_torch.residuals import Residuals
+
+    par = dd_noise_fit_par(data.DMX_BINS, data.SPAN_DAYS,
+                           data.CENTER_MJD).splitlines()
+    model, toas = data.load_torch(data.NOISEFIT_REF_TIM, par=par)
+    cpu = Residuals(toas, model, device="cpu")
+    card = Residuals(toas, model, device=dev)
+    return model, card, cpu
+
+
+def test_noise_lnlike_gradient_on_card_never_reaches_backward(monkeypatch):
+    """The noise likelihood's gradient on the card: the residuals run
+    through the phase_chain kernel with no grad, so neither wrapper's
+    backward is entered; value and gradient equal the CPU's plain
+    evaluation within 1e-9 and 1e-7 relative."""
+    dev = _card()
+    from pint_tpu_torch.examples import NOISE_FIT_PARAMS
+    from pint_tpu_torch.fitter import _noise_grad, build_noise_lnlike
+    from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
+                                                    PhaseChainTangent)
+
+    calls = []
+    for k in (PhaseChain, PhaseChainTangent):
+        monkeypatch.setattr(k, "backward", staticmethod(
+            lambda ctx, *g: calls.append(ctx) or (None,) * 64))
+    model, card, cpu = _noisefit_pair(dev)
+    names = list(NOISE_FIT_PARAMS)
+    rng = np.random.default_rng(20261017)
+    out = {}
+    before = PhaseChain.launches
+    for label, r in (("card", card), ("cpu", cpu)):
+        lnl = build_noise_lnlike(model, r.batch, names, r.track_mode)
+        x = torch.as_tensor(rng.standard_normal(len(names)) * 0.1,
+                            device=r.device) if label == "card" else \
+            out["card"][2].to("cpu")
+        with torch.no_grad():
+            ll = float(lnl(x, r.pdict))
+        g = _noise_grad(lnl)(x, r.pdict).cpu().numpy()
+        out[label] = (ll, g, x)
+    assert PhaseChain.launches > before and calls == []
+    (lc, gc, _), (lh, gh, _) = out["card"], out["cpu"]
+    gap_l = abs(lc / lh - 1.0)
+    gap_g = float(np.linalg.norm(gc - gh) / np.linalg.norm(gh))
+    print(f"noise lnlike card vs CPU: {gap_l:.3e}, gradient {gap_g:.3e}")
+    assert gap_l <= 1e-9 and gap_g <= 1e-7
+
+
+def test_designmatrix_on_card_matches_assembly():
+    """``get_designmatrix`` on the card (one primal and one tangent
+    phase_chain launch) against the fitter's full assembly at the same
+    point: the same columns, bit for bit; and the CPU's within 1e-10 per
+    column."""
+    dev = _card()
+    from pint_tpu_torch.fitter import WLSFitter, build_whitened_assembly
+    from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
+                                                    PhaseChainTangent)
+
+    model, toas = data.load_torch(data.DD_REF_TIM, par=data.dd_par_lines())
+    fitter = WLSFitter(toas, model, device=dev)
+    p0, t0 = PhaseChain.launches, PhaseChainTangent.launches
+    M, names = fitter.get_designmatrix()
+    assert (PhaseChain.launches - p0, PhaseChainTangent.launches - t0) == \
+        (1, 1)
+    asm = build_whitened_assembly(model, fitter.resids.batch, names,
+                                  fitter.track_mode, include_offset=False,
+                                  design_matrix="full")
+    with torch.no_grad():
+        _, Ma, _, _ = asm.inline(torch.zeros(len(names), dtype=torch.float64,
+                                             device=dev),
+                                 fitter.resids.pdict)
+    assert np.array_equal(M, Ma.cpu().numpy())
+    Mc, _ = WLSFitter(toas, model, device="cpu").get_designmatrix()
+    gap = float(np.max(np.max(np.abs(M - Mc), axis=0)
+                       / np.max(np.abs(Mc), axis=0)))
+    print(f"design matrix card vs CPU: {gap:.3e} per column")
+    assert gap <= 1e-10

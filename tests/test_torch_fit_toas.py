@@ -234,7 +234,8 @@ def test_fused_status_matches_jax_fused(ref):
 
 def test_degradation_chain_reports_rungs(ref):
     """A poisoned TOA uncertainty: the fused loop ends NONFINITE, the
-    eager rung cannot start, and ConvergenceFailure names both."""
+    eager and damped-LM rungs cannot start, and ConvergenceFailure names
+    all three, as pint_tpu's chain does."""
     model, toas = _start(ref)
     fitter = WLSFitter(toas, model, device="cpu", policy="off")
     batch = fitter.resids.batch
@@ -248,7 +249,8 @@ def test_degradation_chain_reports_rungs(ref):
     e = info.value
     print(f"rung statuses {e.rung_statuses}")
     assert e.rung_statuses == {"fused": FitStatus.NONFINITE,
-                               "eager": FitStatus.NONFINITE}
+                               "eager": FitStatus.NONFINITE,
+                               "lm": FitStatus.NONFINITE}
     assert e.status == FitStatus.NONFINITE
     # nothing was written back
     assert data.device_values(model, ref["fit_params"]) == before

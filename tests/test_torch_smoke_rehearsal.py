@@ -2,7 +2,9 @@
 
 ``chip_smoke.py`` runs only on a card.  Here its ``main()`` runs on the
 CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in; the DDK path
-in ecliptic coordinates and the DD and ELL1 variants included), with the
+in ecliptic coordinates, the DD and ELL1 variants, the noise-fitting
+path that ``Fitter.auto`` picks, LM, the degraded chain, Powell and the
+grid API included), with the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
 profiler's CUDA trace, the nvcc build and its ptxas report, the delay
 kernel's auxiliary output, the count of plain delay chains that on the
@@ -222,7 +224,7 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
             dd_tim=str(tmp_path / "dd.tim"), gls_tim=str(tmp_path / "gls.tim"),
             out_dir=str(tmp_path / "out"), ddk_tim=str(tmp_path / "ddk.tim"),
-            ddk_nfit=26)) == 0
+            ddk_nfit=26, noise_tim=str(tmp_path / "noise.tim"))) == 0
     finally:
         for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
                   delay_chain.DelayChain, delay_chain.DelayChainTangent,
@@ -237,7 +239,10 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                       "gls_main_path", "ddk_main_path", "ddk_fit_profile",
                       "ddk_reference",
                       "delay_chain", "phase_chain", "gls_card_vs_host",
-                      "gls_fit_profile", "gls_reference"]
+                      "gls_fit_profile", "gls_reference", "auto_noise_fit",
+                      "noise_fit_profile", "noise_lnlike_card_vs_cpu",
+                      "auto_wls_fit", "lm_fit", "degraded_lm",
+                      "fitter_reference", "grid_api"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -256,7 +261,10 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(by_name[n]["launches"] == 0 for n in (
         "qs_phase_frac", "delay_chain_primal", "delay_chain_tangent"))
     assert all(set(k["launches_by_path"]) == {
-        "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit"} for k in kernels)
+        "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit", "noise_fit",
+        "auto_wls_fit", "lm_fit", "degraded_lm"} for k in kernels)
+    assert all(by_name[n]["launches_by_path"]["noise_fit"] > 0
+               for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert all(by_name[n]["launches_by_path"]["ddk_ecl_fit"] > 0
                for n in ("phase_chain_primal", "phase_chain_tangent"))
     ddk = next(json.loads(ln) for ln in lines if '"ddk_main_path"' in ln)
@@ -326,5 +334,19 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert set(gls["fit_warm_share"]) == {"steps", "assemble", "solve",
                                           "write_back"}
     assert gls["noise_basis_shape"] == [200, 200 // 4 + 60]
+    noise = next(json.loads(ln) for ln in lines
+                 if '"auto_noise_fit"' in ln)
+    assert noise["fitter"] == "DownhillGLSFitter"
+    assert (noise["n_fit"], noise["n_noise"]) == (24, 11)
+    assert noise["phase_chain_backward_calls"] == 0
+    assert len(noise["lbfgsb_evaluations"]) == 2
+    assert len(noise["fit_walls_s"]) == 2
+    recs = {rec["phase"]: rec for rec in
+            (json.loads(ln) for ln in lines if '"phase"' in ln)}
+    assert recs["auto_wls_fit"]["fitter"] == "DownhillWLSFitter"
+    assert recs["degraded_lm"]["rung_statuses"]["eager"] == "NONFINITE"
+    assert recs["degraded_lm"]["degraded_warnings"] >= 2
+    assert recs["fitter_reference"]["failed"] == []
+    assert all(recs["grid_api"]["bit_equal_to_flat"].values())
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu-rehearsal", "count": 1}}

@@ -10,7 +10,11 @@ and power-law red noise, 50 epochs of four TOAs) with pint_tpu's
 ``GLSFitter.fit_toas(maxiter=3)`` from the same start beside it; and a
 DDK set in ecliptic coordinates (``ddk_ecliptic_realistic_par
 (dmx_bins=8)``, simulated as the DD set is) with pint_tpu's eager
-``fit_toas(maxiter=3)`` from a perturbed start beside it.
+``fit_toas(maxiter=3)`` from a perturbed start beside it; pint_tpu's
+DownhillWLSFitter, LMFitter and PowellFitter results on the DD set; and
+a noise-fitting set (the GLS set's model with per-TOA errors that vary,
+``dd_noise_fit_par``) with pint_tpu's DownhillGLSFitter fit of the
+timing and the white-noise parameters beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -177,12 +181,14 @@ def dd_gls_par_lines():
                                   center_mjd=CENTER_MJD).splitlines()
 
 
-def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
+                         errors_us=1.0) -> str:
     """Simulate the GLS set with pint_tpu, as
     ``pint_tpu_torch.examples.simulate_dd_noise_realistic`` does with the
-    port (the epochs of ``epoch_toas``; EFAC/EQUAD-scaled white noise from
-    ``default_rng(seed + 1)``; one realization of ECORR and red noise with
-    ``seed``), and write it to ``path``."""
+    port (the epochs of ``epoch_toas``, TOA errors ``errors_us``;
+    EFAC/EQUAD-scaled white noise from ``default_rng(seed + 1)``; one
+    realization of ECORR and red noise with ``seed``), and write it to
+    ``path``."""
     from pint_tpu import mjd as mjdmod
     from pint_tpu.models import get_model
     from pint_tpu.residuals import Residuals
@@ -194,7 +200,7 @@ def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         model = get_model(dd_gls_par_lines())
-        toas = get_TOAs_array(mjds, obs="gbt", errors_us=1.0,
+        toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
             fl["fe"] = RECEIVERS[float(b_mhz)]
@@ -347,6 +353,161 @@ def write_ddk_reference() -> dict:
     return rec
 
 
+#: pint_tpu's DownhillWLSFitter, LMFitter and PowellFitter on the DD set,
+#: each from the perturbed DD start
+FITTERS_REF_JSON = os.path.join(DATA_DIR, "dd_sim_200_fitters.json")
+#: Powell's free parameters: the five that DD_PERTURB moves (the rest
+#: frozen at the par's values); each chi2 evaluation is a host round
+#: trip, and Powell takes ~1,300 of them for these five
+POWELL_PARAMS = tuple(DD_PERTURB)
+
+
+def powell_subset(model):
+    """Freeze every free parameter of ``model`` but POWELL_PARAMS."""
+    for n in model.free_params:
+        if n not in POWELL_PARAMS:
+            model[n].frozen = True
+
+
+def fit_gaps(model, values: dict, uncertainties: dict):
+    """(max |value - stored value| / stored sigma, max |uncertainty /
+    stored uncertainty - 1|) of ``model``'s parameters over a stored
+    record's values and uncertainties; those stored as None (an
+    uncertainty pint_tpu left unset) are skipped."""
+    sig, unc = 0.0, 0.0
+    for n, u in uncertainties.items():
+        if u is None:
+            continue
+        v = float(np.sum(np.asarray(model[n].device_value)
+                         - np.asarray(values[n])))
+        sig = max(sig, abs(v) / u)
+        unc = max(unc, abs(model[n].device_uncertainty / u - 1.0))
+    return sig, unc
+
+
+def fitter_record(fitter, chi2: float) -> dict:
+    """A fit's chi2, FitSummary fields and fitted parameters."""
+    fr = fitter.fitresult
+    return {"fit_params": fitter.fit_params,
+            **fit_record(fitter.model, fitter.fit_params),
+            "chi2": float(chi2), "status": fr.status.name,
+            "iterations": fr.iterations, "rung": fr.rung,
+            "converged": bool(fr.converged)}
+
+
+def jax_fitters(timfile: str) -> dict:
+    """pint_tpu's DownhillWLSFitter (defaults), LMFitter (defaults) and
+    PowellFitter (defaults, POWELL_PARAMS free) on the DD set from the
+    perturbed start (JAX on the CPU): the record FITTERS_REF_JSON holds."""
+    from pint_tpu.fitter import DownhillWLSFitter, LMFitter, PowellFitter
+
+    rec = {"what": "pint_tpu DownhillWLSFitter, LMFitter and PowellFitter "
+                   "fit_toas() with their defaults, JAX on the CPU, on "
+                   "dd_sim_200.tim from the perturbed DD start; Powell "
+                   "with only POWELL_PARAMS free",
+           "perturb": DD_PERTURB, "powell_params": list(POWELL_PARAMS)}
+    for label, cls in (("downhill_wls", DownhillWLSFitter),
+                       ("lm", LMFitter), ("powell", PowellFitter)):
+        model, toas = load_jax(timfile, par=dd_par_lines())
+        perturb_dd(model)
+        if cls is PowellFitter:
+            powell_subset(model)
+        fitter = cls(toas, model)
+        start = device_values(model, fitter.fit_params)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            chi2 = fitter.fit_toas()
+        rec[label] = {"start": start, **fitter_record(fitter, chi2)}
+    return rec
+
+
+def write_fitters_reference() -> dict:
+    """pint_tpu's three fits on DD_REF_TIM to FITTERS_REF_JSON."""
+    rec = jax_fitters(DD_REF_TIM)
+    with open(FITTERS_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
+#: the committed noise-fitting set (the GLS set's model and epochs, with
+#: per-TOA errors from ``examples.noise_fit_errors_us``) and pint_tpu's
+#: DownhillGLSFitter fit on it
+NOISEFIT_REF_TIM = os.path.join(DATA_DIR, "dd_noisefit_sim_200.tim")
+NOISEFIT_REF_JSON = os.path.join(DATA_DIR, "dd_noisefit_sim_200_fit.json")
+#: the noise parameters free at 200 TOAs: EFAC, EQUAD and ECORR per
+#: receiver; the red noise stays frozen, since 50 epochs do not
+#: constrain it
+NOISEFIT_FREE = ("EFAC1", "EFAC2", "EFAC3", "EQUAD1", "EQUAD2", "EQUAD3",
+                 "ECORR1", "ECORR2", "ECORR3")
+
+
+def noisefit_par_lines():
+    from pint_tpu_torch.examples import dd_noise_fit_par
+
+    return dd_noise_fit_par(DMX_BINS, SPAN_DAYS, CENTER_MJD,
+                            free=NOISEFIT_FREE).splitlines()
+
+
+def noisefit_start(model):
+    """The perturbed DD start, and the free noise parameters moved to
+    ``examples.NOISE_FIT_START``."""
+    from pint_tpu_torch.examples import NOISE_FIT_START
+
+    perturb_dd(model)
+    for n in NOISEFIT_FREE:
+        model[n].value = NOISE_FIT_START[n]
+
+
+def write_noisefit_sim_tim(path: str, ntoas: int = NTOAS,
+                           seed: int = 0) -> str:
+    """Simulate the noise-fitting set with pint_tpu and write it."""
+    from pint_tpu_torch.examples import noise_fit_errors_us
+
+    return write_dd_gls_sim_tim(path, ntoas, seed,
+                                errors_us=noise_fit_errors_us(ntoas, seed))
+
+
+def jax_noisefit(timfile: str) -> dict:
+    """pint_tpu's DownhillGLSFitter (defaults: maxiter 20, two noise
+    fits) of the noise-fitting set from :func:`noisefit_start`: the
+    record NOISEFIT_REF_JSON holds, with the noise parameters' values and
+    uncertainties (None where pint_tpu left one unset)."""
+    from pint_tpu.fitter import DownhillGLSFitter
+
+    model, toas = load_jax(timfile, par=noisefit_par_lines())
+    noisefit_start(model)
+    fitter = DownhillGLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params + list(NOISEFIT_FREE))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas()
+    noise_unc = {n: (None if model[n].uncertainty is None
+                     else float(model[n].device_uncertainty))
+                 for n in NOISEFIT_FREE}
+    return {"what": "pint_tpu DownhillGLSFitter.fit_toas() with its "
+                    "defaults, JAX on the CPU, on dd_noisefit_sim_200.tim "
+                    "(dd_noise_fit_par(dmx_bins=8), EFAC/EQUAD/ECORR free) "
+                    "from the perturbed DD start and NOISE_FIT_START",
+            "ntoas": toas.ntoas, "perturb": DD_PERTURB, "start": start,
+            **fitter_record(fitter, chi2),
+            "noise_params": list(NOISEFIT_FREE),
+            "noise_values": device_values(model, NOISEFIT_FREE),
+            "noise_uncertainties": noise_unc,
+            "reduced_chi2": float(fitter.resids.reduced_chi2)}
+
+
+def write_noisefit_reference() -> dict:
+    """Write NOISEFIT_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_noisefit_sim_tim(NOISEFIT_REF_TIM)
+    rec = jax_noisefit(NOISEFIT_REF_TIM)
+    with open(NOISEFIT_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -434,9 +595,15 @@ def write_reference(maxiter: int = 2) -> dict:
     return rec
 
 
+WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
+           "gls": write_gls_reference, "ddk": write_ddk_reference,
+           "fitters": write_fitters_reference,
+           "noisefit": write_noisefit_reference}
+
 if __name__ == "__main__":
+    # python tests/torch_port_data.py [set ...]: every set by default
     sys.path.insert(0, os.path.dirname(os.path.dirname(DATA_DIR)))
-    print(json.dumps(write_reference()["chi2"]))
-    print(json.dumps(write_dd_reference()["chi2"]))
-    print(json.dumps(write_gls_reference()["chi2"]))
-    print(json.dumps(write_ddk_reference()["chi2"]))
+    for name in sys.argv[1:] or WRITERS:
+        rec = WRITERS[name]()
+        print(name, json.dumps(rec.get("chi2", rec.get("lm", {}).get(
+            "chi2"))))
