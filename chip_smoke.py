@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of pint_tpu_torch on one NVIDIA GPU: the headline chi2 grid,
 the full-width DD fit, the full-width GLS fit with a NANOGrav-style
-noise model, the full-width DDK fit in ecliptic coordinates, and the
+noise model, the full-width DDK fit in ecliptic coordinates, the
 full-width noise-fitting GLS fit that ``Fitter.auto`` picks, with LM,
-Powell and the grid API.
+Powell and the grid API, and the full-width wideband fit (TOAs and their
+DMs) with the DM family of the delay kernel's row function.
 
 Run from the repository root, with no arguments::
 
@@ -158,6 +159,34 @@ Phases, each printing one JSON line with its numbers and seconds:
    grid_api: ``grid_chisq``, ``grid_chisq_derived`` and ``tuple_chisq``
    bit-equal to ``grid_chisq_flat`` on the grid path, and within 1e-6 of
    pint_tpu's stored grid on ``j0740_sim_200``.
+9. wideband_main_path: the sixth path, at full width (12,500 TOAs, each
+   with a wideband DM: 25,000 rows; 89 timing parameters, the three
+   DMEFACs): ``simulate_wideband_realistic`` (the GLS configuration of
+   ``wideband_nanograv_par``: NE_SW, two DMJUMPs, DMEFAC/DMEQUAD; on the
+   card) -> ``write_tim`` -> ``get_TOAs`` -> the perturbed start (DMJUMPs
+   0, DMEFACs 1) -> ``Fitter.auto`` (a WidebandDownhillFitter) ->
+   ``fit_toas()``, the launch counts zeroed just before the fitter is
+   built and read just after, the plain delays and the phase kernel's
+   reverse-mode calls counted (none may run); status, chi2/dof, the pulls
+   of the orbit, spin, DMJUMPs, NE_SW and DMEFACs against the truth; two
+   warm walls (``wb_fit_warm_s``); ``WidebandTOAFitter.fit_toas(maxiter=
+   3)`` cold and three warm (``wb_gls_fit_warm_s``) and
+   ``WidebandLMFitter.fit_toas()`` from the same start;
+   wideband_profile: one warm ``Fitter.auto`` fit under torch.profiler
+   (idle share, kernels, copies by direction);
+   wideband_reference: the committed 200-TOA wideband set
+   (``tests/data/wb_sim_200*``) fitted on the card by the three wideband
+   fitters against pint_tpu's stored fits (timing values 1e-3 sigma,
+   uncertainties 1e-3, chi2 1e-6; the downhill fit's chi2 1e-3 and
+   DMEFACs 1e-2; LM's values 1e-2 sigma);
+   dm_family_chain: the delay_chain and phase_chain kernels against the
+   plain delays and the unfused chain (as in phases delay_chain and
+   phase_chain) on the DM family's variants (``examples.dm_family_par``:
+   NE_SW with SWM 0 and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD
+   path's and the grid path's 12,500 TOAs) and on the wideband path's
+   model; both kernels timed at the wideband path's shapes and on the
+   SWM 1 variant, with their bounds; ptxas's registers and spills of
+   every instantiation, the DM family's among them.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -201,6 +230,9 @@ NOISEFIT_REF_TIM = os.path.join(REPO, "tests", "data",
                                 "dd_noisefit_sim_200.tim")
 NOISEFIT_REF_JSON = os.path.join(REPO, "tests", "data",
                                  "dd_noisefit_sim_200_fit.json")
+WB_TIM = os.path.join(REPO, "build", "wideband_12500.tim")
+WB_REF_TIM = os.path.join(REPO, "tests", "data", "wb_sim_200.tim")
+WB_REF_JSON = os.path.join(REPO, "tests", "data", "wb_sim_200_fit.json")
 FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
                                 "dd_sim_200_fitters.json")
 DD_MAXITER = 3
@@ -214,6 +246,10 @@ DDK_PERTURB = {**DD_PERTURB, "KIN": 0.05, "KOM": 0.5}
 #: DMX bins over the whole span make DM degenerate)
 DD_PULL_PARAMS = ("F0", "F1", "PB", "A1", "T0", "ECC", "OM")
 DDK_PULL_PARAMS = DD_PULL_PARAMS + ("KIN", "KOM")
+#: the wideband fit's pulls: the orbit and spin, the DMJUMPs and NE_SW
+WB_PULL_PARAMS = DD_PULL_PARAMS + ("DMJUMP1", "DMJUMP2", "NE_SW")
+#: WidebandTOAFitter's iterations (as the GLS path's)
+WB_MAXITER = 3
 KEPLER_E_SWEEP = (0.0, 1e-5, 0.1, 0.5, 0.9)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 GRID_M2 = (0.23, 0.25, 0.27)
@@ -293,6 +329,10 @@ class Run(NamedTuple):
     #: the DDK path's fit parameters: the DD path's and KIN, KOM
     ddk_nfit: int = 88
     noise_tim: str = NOISE_TIM
+    wb_tim: str = WB_TIM
+    #: the wideband path's fit parameters: the DD path's, two DMJUMPs and
+    #: NE_SW
+    wb_nfit: int = 89
 
 
 def emit(obj) -> None:
@@ -444,9 +484,12 @@ def profile_grid(torch, fn, out_dir: str, top: int = 8,
                    for k, (n, t) in ranked], f, indent=1)
     copies = {d: sum(1 for ev in kernels if d in ev.name)
               for d in ("HtoD", "DtoH", "DtoD")}
+    copies_ms = {d: sum(ev.device_time_total for ev in kernels
+                        if d in ev.name) * 1e-3 for d in copies}
     return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
             "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
             "cuda_kernels": len(kernels), "copies_by_direction": copies,
+            "copies_ms_by_direction": copies_ms,
             "families": {f: {"count": c, "ms": ms}
                          for f, (c, ms) in families.items()},
             "top_kernels": [{"name": k[:80], "count": n, "ms": t * 1e-3}
@@ -497,6 +540,17 @@ def ops_seconds(ops: dict) -> float:
     """Seconds of ``ops`` (by dtype) at this card's peak rate for each."""
     return sum(n / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
                for dt, n in ops.items())
+
+
+def least_time(ops: float, nbytes: float,
+               rate: float = PEAK_F64_MATMUL_PER_S) -> dict:
+    """The least time of a library call's work on this card: ``ops``
+    float64 operations at ``rate`` (the tensor-core rate for products,
+    PEAK_OPS_PER_S for the rest) or ``nbytes`` at the memory rate,
+    whichever is longer."""
+    t_ops, t_bytes = ops / rate, nbytes / MEM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def load(torch, dev: str, tim: str, dmx_bins: int):
@@ -936,7 +990,7 @@ def chain_inputs(torch, model, fitter, points: int = 1):
 
 #: what count_ops counts besides the four arithmetic operations
 CHAIN_EXTRA_OPS = ("sin", "cos", "log", "sqrt", "atan2", "floor", "clamp",
-                   "pow", "exp", "isfinite")
+                   "pow", "exp", "isfinite", "acos", "asin", "abs")
 
 
 def tangent_counts(torch, model, fitter, params, lanes: int) -> dict:
@@ -1185,12 +1239,14 @@ def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
 
     fams = {"0": "none", "1": "ELL1", "2": "DD", "3": "DDK", "4": "DDTM2",
             "5": "ELL1H", "6": "ELL1K"}
+    # the same families with the DM family's terms (csrc kDMFamily = 8)
+    fams.update({str(int(k) + 8): f"{v}+DM" for k, v in fams.items()})
     out, cur = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
             # a kernel of ours, or another function (a libdevice callee)
             m = re.search(kernel + r"_(primal|tangent_lanes|tangent)"
-                          r"ILi(\d)E(?:Li(\d)E)?", line)
+                          r"ILi(\d+)E(?:Li(\d)E)?", line)
             cur = None if m is None else out.setdefault(
                 f"{fams[m.group(2)]}/" + ("primal" if m.group(1) == "primal"
                                           else f"tangent_L{m.group(3) or 1}"),
@@ -1765,7 +1821,17 @@ def lnlike_card_vs_cpu(torch, np, model, toas, fitter, names, x_start):
                 inner = (U.T / sigma**2) @ U + torch.diag(1.0 / phi)
                 out["cholesky_ms"] = time_ms(
                     torch, lambda: torch.linalg.cholesky(inner), reps=5)
-                out["cholesky_size"] = int(inner.shape[0])
+                out["cholesky_size"] = K = int(inner.shape[0])
+                # the Woodbury Gram U^T N^-1 U: 2 N K^2 operations, U read
+                # and the Gram written once; the Cholesky: K^3 / 3, the
+                # matrix read and its factor written once
+                out["gram_ms"] = time_ms(
+                    torch, lambda: (U.T / sigma**2) @ U, reps=5)
+                N = int(U.shape[0])
+                out["gram_bound"] = least_time(2.0 * N * K * K,
+                                               8.0 * (N * K + K * K))
+                out["cholesky_bound"] = least_time(K**3 / 3.0,
+                                                   16.0 * K * K)
     g_scale = float(np.linalg.norm(vals["cpu", "start"][1]))
     for where in ("fitted", "start"):
         (lc, gc), (lh, gh) = vals["card", where], vals["cpu", where]
@@ -1917,8 +1983,9 @@ def fitter_paths(torch, np, run: Run, dd: dict, grid_ctx: dict) -> dict:
         rec.update(lnlike_card_vs_cpu(
             torch, np, nmodel, ntoas, holder["f"], noise,
             [nstart[n] - nmodel[n].value for n in noise]))
-        out["cholesky"] = {k: rec[k] for k in ("cholesky_ms",
-                                               "cholesky_size")}
+        out["cholesky"] = {k: rec[k] for k in (
+            "cholesky_ms", "cholesky_size", "cholesky_bound", "gram_ms",
+            "gram_bound")}
     if not (rec["lnlike_rel_gap"] <= LNLIKE_TOL
             and rec["grad_rel_gap"] <= LNLIKE_GRAD_TOL):
         raise AssertionError(
@@ -1985,12 +2052,19 @@ def fitter_paths(torch, np, run: Run, dd: dict, grid_ctx: dict) -> dict:
             eigh_ms = time_ms(torch, lambda: torch.linalg.eigh(A), reps=10)
             solve_ms = time_ms(torch, lambda: damped_solve(
                 r, M, sigma, offc, 1e-3, len(lfit.fit_params)), reps=10)
+        # a symmetric eigendecomposition with its vectors: ~9 n^3
+        # operations (tridiagonal QR), not on the tensor cores
+        n = int(A.shape[0])
+        eigh_bound = least_time(9.0 * n**3, 16.0 * n * n,
+                                PEAK_OPS_PER_S["float64"])
         rec.update(status=fr.status.name, iterations=fr.iterations,
                    converged=fr.converged, chi2=lchi2, wls_chi2=wchi2,
                    chi2_rel_gap_vs_wls=gap, max_sigma_gap_vs_wls=sig,
                    fit_s=lm_s, launches=lm_launches, eigh_ms=eigh_ms,
-                   eigh_size=int(A.shape[0]), damped_solve_ms=solve_ms)
-        out["eigh"] = {"eigh_ms": eigh_ms, "eigh_size": int(A.shape[0])}
+                   eigh_size=n, eigh_bound=eigh_bound,
+                   damped_solve_ms=solve_ms)
+        out["eigh"] = {"eigh_ms": eigh_ms, "eigh_size": n,
+                       "eigh_bound": eigh_bound}
     if not fr.converged or gap > CHI2_TOL or sig > LM_VS_WLS_SIGMA:
         raise AssertionError(f"LM fit: chi2 gap {gap}, {sig} sigma")
     check_path_launches("LM path", lm_launches)
@@ -2137,6 +2211,254 @@ def fitter_paths(torch, np, run: Run, dd: dict, grid_ctx: dict) -> dict:
             max(rec["reference_max_rel_gap"].values()) > CHI2_TOL:
         raise AssertionError(f"grid API: {rec}")
     check_path_launches("grid API", rec["launches"])
+    return out
+
+
+def wb_load(torch, tim: str, dmx_bins: int, free=None, perturb=None):
+    """par + tim -> (model at the wideband fit's start, toas) of the
+    wideband configuration (``examples.wideband_nanograv_par``, the
+    DMEFACs of ``free`` free, all three by default), as a user loads
+    them: the timing start moved by DD_PERTURB, the DMJUMPs at zero and
+    the free DMEFACs at 1 (``examples.WB_START``)."""
+    import warnings
+
+    from pint_tpu_torch.examples import (WB_NOISE_FREE, WB_START,
+                                         wideband_nanograv_par)
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    free = WB_NOISE_FREE if free is None else tuple(free)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(wideband_nanograv_par(dmx_bins=dmx_bins,
+                                                free=free).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in (DD_PERTURB if perturb is None else perturb).items():
+        model[name].value += d
+    for name, v in WB_START.items():
+        if name.startswith("DMJUMP") or name in free:
+            model[name].value = v
+    return model, toas
+
+
+def wideband_paths(torch, np, run: Run, ctx: dict) -> dict:
+    """The wideband fit on the card and the DM family of the delay
+    kernel's row function (phases wideband_main_path ... dm_family_chain,
+    see the module docstring).  ``ctx``: the grid path's model and TOAs
+    and the DD path's TOAs, on which the DM family's variants run.
+    Returns the wideband fits' launches and the timing records."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch.examples import (DM_FAMILY, WB_NOISE_FREE,
+                                         dm_family_par,
+                                         simulate_wideband_realistic)
+    from pint_tpu_torch.fitter import (Fitter, WidebandDownhillFitter,
+                                       WidebandLMFitter, WidebandTOAFitter,
+                                       WLSFitter)
+    from pint_tpu_torch.kernels import build as kbuild
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import write_tim
+
+    out = {"launches": {}}
+
+    with phase("wideband_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        truth, sim = simulate_wideband_realistic(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.wb_tim), exist_ok=True)
+        write_tim(run.wb_tim, sim)
+        t0 = time.perf_counter()
+        model, toas = wb_load(torch, run.wb_tim, run.dmx_bins)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = snapshot(model)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            fit, chi2, cold_s = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+        launches = counts()
+        fr = fit.fitresult
+        names, noise = fit.fit_params, fit.free_noise_params
+        pulls = {n: device_offset(model[n].device_value,
+                                  truth[n].device_value)
+                 / model[n].device_uncertainty for n in WB_PULL_PARAMS}
+        npulls = noise_pulls(model, truth, noise)
+        wb = fit.resids
+        rec.update(fitter=type(fit).__name__, ntoas=toas.ntoas,
+                   dm_rows=len(wb.dm_index), n_fit=len(names),
+                   n_noise=len(noise), status=fr.status.name,
+                   iterations=fr.iterations, rung=fr.rung, chi2=chi2,
+                   dof=fr.dof, chi2_per_dof=chi2 / fr.dof,
+                   toa_chi2=wb.toa.calc_chi2(), dm_chi2=wb.calc_dm_chi2(),
+                   fit_cold_s=cold_s, fit_info=fit.fit_info,
+                   launches=launches, plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"], pulls=pulls,
+                   noise={n: {"value": float(model[n].value),
+                              "uncertainty": model[n].uncertainty,
+                              "injected": float(truth[n].value)}
+                          for n in noise},
+                   noise_pulls=npulls, noise_fit_info=fit.noise_fit_info,
+                   noise_basis_shape=list(model.noise_basis(
+                       wb.pdict).shape),
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(fit.device))
+        walls, per_fit = [], []
+        for _ in range(2):
+            restore(model, start)
+            zero_counts()
+            _, _, w = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+            walls.append(w)
+            per_fit.append(counts())
+        rec.update(wb_fit_warm_s=statistics.median(walls),
+                   fit_walls_s=walls, launches_per_warm_fit=per_fit)
+        # the wideband GLS fit and LM on the same TOAs, from the start
+        gls = {}
+        walls = []
+        for _ in range(4):
+            restore(model, start)
+            zero_counts()
+            gf, gchi2, w = timed_fit(
+                torch, lambda: WidebandTOAFitter(toas, model,
+                                                 device=run.dev),
+                maxiter=WB_MAXITER)
+            walls.append(w)
+            gls.setdefault("launches", counts())
+        gls.update(status=gf.fitresult.status.name, chi2=gchi2,
+                   chi2_per_dof=gchi2 / gf.fitresult.dof,
+                   fit_cold_s=walls[0], fit_walls_s=walls[1:],
+                   fit_info=gf.fit_info)
+        rec["wideband_gls"] = gls
+        rec["wb_gls_fit_warm_s"] = statistics.median(walls[1:])
+        restore(model, start)
+        zero_counts()
+        lf, lchi2, lm_s = timed_fit(
+            torch, lambda: WidebandLMFitter(toas, model, device=run.dev))
+        rec["wideband_lm"] = dict(
+            status=lf.fitresult.status.name, iterations=lf.fitresult.
+            iterations, chi2=lchi2, fit_s=lm_s, launches=counts())
+        out["launches"].update(wideband_fit=launches,
+                               wideband_gls_fit=gls["launches"],
+                               wideband_lm_fit=rec["wideband_lm"]["launches"])
+    if not isinstance(fit, WidebandDownhillFitter):
+        raise AssertionError(f"Fitter.auto gave {type(fit).__name__}")
+    if toas.ntoas != run.ntoas or len(wb.dm_index) != run.ntoas or \
+            len(names) != run.wb_nfit or len(noise) != len(WB_NOISE_FREE):
+        raise AssertionError("not the full-width wideband configuration")
+    if fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"wideband fit ended {fr.status.name}")
+    if not 0.6 < chi2 / fr.dof < 1.6:
+        raise AssertionError(f"wideband fit chi2/dof {chi2 / fr.dof}")
+    bad = {n: v for n, v in {**pulls, **npulls}.items()
+           if v is not None and not abs(v) < PULL_MAX}
+    if bad or any(v is None for v in npulls.values()):
+        raise AssertionError(f"wideband fit pulls {pulls}, {npulls}")
+    for label, got in (("wideband fit", launches),
+                       ("wideband GLS fit", gls["launches"])):
+        check_path_launches(label, got)
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+
+    with phase("wideband_profile", {}) as rec:
+        holder = {}
+
+        def setup():
+            restore(model, start)
+            holder["f"] = Fitter.auto(toas, model, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(), run.out_dir,
+            out_name="wideband_profile", setup=setup))
+        rec["lbfgsb_evaluations"] = [i["nfev"] for i in
+                                     holder["f"].noise_fit_info]
+        wfit = holder["f"]
+
+    with phase("wideband_reference", {}) as rec:
+        with open(WB_REF_JSON) as f:
+            ref = json.load(f)
+        failed = []
+        for label, cls, free, tol, chi2_tol, kw in (
+                ("wideband_gls", WidebandTOAFitter, (), FIT_SIGMA_TOL,
+                 CHI2_TOL, {"maxiter": ref["maxiter"]}),
+                ("wideband_downhill", WidebandDownhillFitter, WB_NOISE_FREE,
+                 FIT_SIGMA_TOL, NOISEFIT_CHI2_TOL, {}),
+                ("wideband_lm", WidebandLMFitter, (), TRAJECTORY_SIGMA_TOL,
+                 CHI2_TOL, {})):
+            want = ref[label]
+            rmodel, rtoas = wb_load(torch, WB_REF_TIM, REF_DMX_BINS,
+                                    free=free, perturb=ref["perturb"])
+            PhaseChain.launches = 0
+            rf, rchi2, rs = timed_fit(
+                torch, lambda: cls(rtoas, rmodel, device=run.dev), **kw)
+            sig, unc = stored_gaps(rmodel, want["values"],
+                                   want["uncertainties"])
+            gap = abs(rchi2 / want["chi2"] - 1.0)
+            r = dict(chi2=rchi2, chi2_ref=want["chi2"], max_rel_chi2_gap=gap,
+                     max_sigma_gap=sig, max_unc_rel_gap=unc,
+                     status=rf.fitresult.status.name, fit_s=rs,
+                     launches=PhaseChain.launches)
+            ok = (rf.fit_params == want["fit_params"]
+                  and r["status"] == want["status"] and sig <= tol
+                  and unc <= UNC_TOL and gap <= chi2_tol
+                  and PhaseChain.launches > 0)
+            if free:
+                nsig, nunc = stored_gaps(rmodel, want["noise_values"],
+                                         want["noise_uncertainties"])
+                r.update(noise_max_sigma_gap=nsig, noise_max_unc_rel_gap=nunc)
+                ok = ok and nsig <= NOISE_SIGMA_TOL and nunc <= NOISE_UNC_TOL
+            rec[label] = r
+            if not ok:
+                failed.append(label)
+        rec["failed"] = failed
+    if failed:
+        raise AssertionError(f"wideband references failed: {failed}")
+
+    # -- the DM family in the row function, at the paths' 12,500 TOAs -------
+    with phase("dm_family_chain", {}) as rec:
+        cases = []
+        for kind in DM_FAMILY:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                m = get_model(dm_family_par(kind, dmx_bins=run.dmx_bins)
+                              .splitlines())
+            t = ctx["dd_toas"] if kind.startswith("DMF_DD") \
+                else ctx["grid_toas"]
+            cases.append((kind, m, WLSFitter(t, m, device=run.dev)))
+        cases.append(("wideband", model, wfit))
+        rec["delay_chain"], rec["phase_chain"] = {}, {}
+        delay_errs = [check_delay_chain(torch, label, m, f,
+                                        rec["delay_chain"])
+                      for label, m, f in cases]
+        frac_errs = [check_phase_chain(torch, label, m, f,
+                                       rec["phase_chain"])
+                     for label, m, f in cases]
+        rec["layouts"] = {label: {"flags": m.calc.chain_layout.flags,
+                                  "theta_slots": m.calc.chain_layout.P}
+                          for label, m, _ in cases}
+        # the new terms' times at the paths' shapes: the wideband path's
+        # layout, and the whole family with SWM 1's quadrature
+        rec["timing"] = {"delay_chain": {}, "phase_chain": {}}
+        for label, m, f in (cases[-1], cases[1]):
+            rec["timing"]["delay_chain"][label] = {}
+            time_delay_chain(torch, m, f, 1,
+                             rec["timing"]["delay_chain"][label])
+            rec["timing"]["phase_chain"][label] = {}
+            time_phase_chain(torch, m, f, 1,
+                             rec["timing"]["phase_chain"][label])
+        rec["registers"] = {
+            k: chain_registers(kbuild.build_log(k), k)
+            for k in ("delay_chain", "phase_chain")}
+        rec.update(max_abs_delay_err_s=max(delay_errs),
+                   max_abs_frac_err_vs_plain=max(frac_errs))
+    out["timing"] = rec["timing"]
+    out["max_abs_delay_err_s"] = max(delay_errs)
+    out["max_abs_frac_err"] = max(frac_errs)
     return out
 
 
@@ -2766,12 +3088,36 @@ def main(run: Run = Run()) -> int:
         torch, np, run, {"model": dmodel, "toas": dtoas, "truth": truth,
                          "start": start}, {"fitter": fitter, "grid": grid})
 
+    # -- 9. the wideband fit and the DM family -------------------------------
+    wb_paths = wideband_paths(torch, np, run, {"grid_toas": toas,
+                                               "dd_toas": dtoas})
+
     def by_path(name):
         by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
               "gls_fit": gls_launches[name],
               "ddk_ecl_fit": ddk_launches[name],
-              **{k: v[name] for k, v in new_paths["launches"].items()}}
+              **{k: v[name] for k, v in new_paths["launches"].items()},
+              **{k: v[name] for k, v in wb_paths["launches"].items()}}
         return {"launches": sum(by.values()), "launches_by_path": by}
+
+    def at_wideband(kernel, part):
+        """A kernel's time and bound at the wideband path's shapes (1 θ
+        set; the tangent at all its fit parameters' lanes): its layout,
+        and the DM family's costliest (SWM 1's quadrature)."""
+        got = {}
+        for label in ("wideband", "DMF_DD_SWM1"):
+            t = wb_paths["timing"][kernel][label]
+            if part == "primal":
+                t = t["primal"]
+                ms = t["device_ms"] if kernel == "delay_chain" \
+                    else first_time(t)
+            else:
+                t = max(t["tangent"].values(), key=lambda x: x["lanes"])
+                ms = t["ms"] if kernel == "delay_chain" else first_time(t)
+            got[label] = {"theta_sets": 1, "lanes": t.get("lanes"),
+                          "ms": ms, "bound_ms": t["bound_ms"],
+                          "bound_by": t["bound_by"]}
+        return got
 
     grid_t = chain_rec["timing"]["j0740_grid"]
     grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
@@ -2803,12 +3149,14 @@ def main(run: Run = Run()) -> int:
         "replaces": "pint_tpu/models/astrometry.py:76",
         **by_path("delay_chain_primal"),
         "fused_on_the_paths_into": "phase_chain_primal",
-        "max_abs_err": chain_rec["max_abs_err"],
+        "max_abs_err": max(chain_rec["max_abs_err"],
+                           wb_paths["max_abs_delay_err_s"]),
         "theta_sets": GRID_POINTS,
         "ms": grid_t["primal"]["device_ms"],
         "plain_ms": grid_t["primal"]["plain_ms"],
         "bound_ms": grid_t["primal"]["bound_ms"],
-        "bound_by": grid_t["primal"]["bound_by"], "library_ms": None}, {
+        "bound_by": grid_t["primal"]["bound_by"], "library_ms": None,
+        "dm_family": at_wideband("delay_chain", "primal")}, {
         "name": "delay_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
@@ -2820,12 +3168,14 @@ def main(run: Run = Run()) -> int:
         "ms": grid_lin["ms"], "single_lane_ms": grid_lin["single_lane_ms"],
         "plain_ms": chain_rec["grid_tangent_vs_plain"]["plain_ms"],
         "bound_ms": grid_lin["bound_ms"], "bound_by": grid_lin["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "dm_family": at_wideband("delay_chain", "tangent")}, {
         "name": "phase_chain_primal", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
         **by_path("phase_chain_primal"),
-        "max_abs_err": pc_rec["max_abs_frac_err"],
+        "max_abs_err": max(pc_rec["max_abs_frac_err"],
+                           wb_paths["max_abs_frac_err"]),
         "theta_sets": GRID_POINTS,
         "ms": first_time(fused_t["primal"]),
         "fused_chain_ms": fused_t["primal"]["fused_chain_ms"],
@@ -2834,7 +3184,8 @@ def main(run: Run = Run()) -> int:
         "bound_ms": fused_t["primal"]["bound_ms"],
         "bound_by": fused_t["primal"]["bound_by"], "library_ms": None,
         "ddk_ecl_fit": {"theta_sets": 1, "ms": first_time(ddk_t["primal"]),
-                        "bound_ms": ddk_t["primal"]["bound_ms"]}}, {
+                        "bound_ms": ddk_t["primal"]["bound_ms"]},
+        "dm_family": at_wideband("phase_chain", "primal")}, {
         "name": "phase_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
@@ -2850,7 +3201,8 @@ def main(run: Run = Run()) -> int:
         "library_ms": None,
         "ddk_ecl_fit": {"theta_sets": 1, "lanes": ddk_all["lanes"],
                         "ms": first_time(ddk_all),
-                        "bound_ms": ddk_all["bound_ms"]}}]})
+                        "bound_ms": ddk_all["bound_ms"]},
+        "dm_family": at_wideband("phase_chain", "tangent")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

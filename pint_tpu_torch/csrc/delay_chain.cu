@@ -1,5 +1,6 @@
 // delay_chain: the whole delay chain of a timing model (astrometry, solar
-// Shapiro, DM + DMX, delay jumps, the binary, FD) for every (theta set,
+// Shapiro, the solar wind, DM + DMX and the DM family's jumps, delay
+// jumps, the binary, FD and FDJUMP) for every (theta set,
 // TOA) row, and its forward-mode tangents, for NVIDIA Hopper (sm_90a).
 //
 // Replaces (K4) the eager per-component delays that pint_tpu computes in
@@ -10,7 +11,9 @@
 //
 // Entry points, one row function (delay_chain.cuh) templated over the
 // scalar type, the binary family a template parameter (none, ELL1, DD/BT,
-// DDK, DDS/DDH, ELL1H, ELL1k):
+// DDK, DDS/DDH, ELL1H, ELL1k; each again with the DM family's terms
+// compiled in, kDMFamily, so that a layout without them runs the code it
+// ran before they came):
 //   primal:  out[g, n]        = delay(theta[g], row n)         (double)
 //   tangent: tangent[g, k, n] = d delay(theta[g], row n) . dtheta[g, k]
 // with theta (G, P) and dtheta (G, K, P): g runs over theta sets (the grid
@@ -202,37 +205,34 @@ cudaError_t launch(const RowData& rd, const double* theta,
 // receives the (G, N) delay [s] (and `aux`, if not null, the (3, G, N)
 // M, e, E of a DD/BT binary's Kepler solve); with dtheta (G, K, P) `out`
 // receives the (G, K, N) tangent, each thread carrying `lpt` lanes (1, 2
-// or 4).  dmx ((N, 2) int32 bins per TOA, -1 none) and jbits (int32
-// DelayJump bits) may be null when the model has no DMX / DelayJump.
+// or 4).  dmx ((N, 2) int32 bins per TOA, -1 none), jbits (int32
+// DelayJump bits), swx ((N, 2) int32 SWX ranges), fdmbits and fdjbits
+// (int32 FDJUMPDM and FDJUMP bits) may be null when the model has none.
 // Returns a cudaError_t code (0 on success).
 extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
                            const float* frac_w, const double* pos,
                            const double* sun, const double* freq,
                            const int32_t* dmx, const int32_t* jbits,
-                           const double* theta, const double* dtheta,
-                           double* out, double* aux, ChainCfg cfg, int64_t G,
-                           int64_t K, int64_t N, int lpt, void* stream) {
-  if (G < 1 || N < 1 || cfg.P < 1 || cfg.njump > 31 ||
+                           const int32_t* swx, const int32_t* fdmbits,
+                           const int32_t* fdjbits, const double* theta,
+                           const double* dtheta, double* out, double* aux,
+                           ChainCfg cfg, int64_t G, int64_t K, int64_t N,
+                           int lpt, void* stream) {
+  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
+                   dmx, jbits, swx, fdmbits, fdjbits};
+  if (G < 1 || N < 1 || cfg.P < 1 ||
       (dtheta != nullptr && (K < 1 || K > INT32_MAX)) ||
-      ((cfg.flags & ptchain::kDMX) && cfg.ndmx > 0 && dmx == nullptr) ||
-      ((cfg.flags & ptchain::kJump) && jbits == nullptr))
+      !ptchain::rows_cover(cfg, rd))
     return (int)cudaErrorInvalidValue;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  switch (cfg.binary) {
-#define PT_CASE(B)                                                           \
-  case ptchain::B:                                                           \
-    err = launch<ptchain::B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out, \
-                             aux, s);                                        \
+  switch (ptchain::kernel_family(cfg)) {
+#define PT_CASE(B)                                                        \
+  case B:                                                                 \
+    err = launch<B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out, aux, \
+                    s);                                                   \
     break;
-    PT_CASE(kNoBinary)
-    PT_CASE(kELL1)
-    PT_CASE(kDD)
-    PT_CASE(kDDK)
-    PT_CASE(kDDTM2)
-    PT_CASE(kELL1H)
-    PT_CASE(kELL1K)
+    PT_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return (int)cudaErrorInvalidValue;

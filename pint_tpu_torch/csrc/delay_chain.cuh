@@ -12,7 +12,10 @@
 //       (equatorial and ecliptic, PM and PX: AstrometryEcliptic.psr_dir),
 //       solar_system_shapiro.py (the Sun)
 //       dispersion.py  DispersionDM (+ DM Taylor terms), DispersionDMX
-//       frequency_dependent.py  FD;  jump.py  DelayJump
+//       frequency_dependent.py  FD, FDJump;  jump.py  DelayJump
+//       dispersion.py  FDJumpDM (DispersionJump adds no delay)
+//       solar_wind.py  SolarWindDispersion (SWM 0 and 1),
+//       SolarWindDispersionX
 //       binary_ell1.py  BinaryELL1.delay (M2/SINI Shapiro),
 //       BinaryELL1H.shapiro_delay, BinaryELL1k._eps / roemer_const
 //       binary_dd.py  BinaryDDBase/BinaryDD/BinaryBT.delay,
@@ -38,6 +41,10 @@
 // the GPU).  What is shared is the value and each derivative's factor:
 // cos x for sin x, the square root, the atan2 denominator, the Kepler
 // solve with sin E and 1 / (1 - e cos E).
+//
+// The DM family (the solar wind, SWX, FDJUMPDM, FDJUMP) is compiled in
+// only where the template's family value carries kDMFamily, so the
+// instantiations without it are the code they were before it came.
 
 #pragma once
 
@@ -249,6 +256,58 @@ PT_HD DualN<L> f_atan2(const DualN<L>& y, const DualN<L>& x) {
   return r;
 }
 
+// acos, asin, abs and pow, with torch's derivative rules
+PT_HD double f_acos(double x) { return acos(x); }
+PT_HD double f_asin(double x) { return asin(x); }
+PT_HD double f_abs(double x) { return fabs(x); }
+PT_HD double f_pow(double x, double y) { return pow(x, y); }
+PT_HD double sgn(double x) { return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : 0.0); }
+PT_HD Dual f_acos(Dual x) {
+  return {acos(x.v), (-1.0 / sqrt(1.0 - x.v * x.v)) * x.d};
+}
+PT_HD Dual f_asin(Dual x) {
+  return {asin(x.v), (1.0 / sqrt(1.0 - x.v * x.v)) * x.d};
+}
+PT_HD Dual f_abs(Dual x) { return {fabs(x.v), sgn(x.v) * x.d}; }
+// d x^y = y x^(y-1) dx + x^y log(x) dy
+PT_HD Dual f_pow(Dual x, Dual y) {
+  const double r = pow(x.v, y.v);
+  const double ax = y.v * pow(x.v, y.v - 1.0), ay = r * log(x.v);
+  return {r, x.d * ax + y.d * ay};
+}
+template <int L>
+PT_HD DualN<L> f_acos(const DualN<L>& x) {
+  DualN<L> r;
+  const double f = -1.0 / sqrt(1.0 - x.v * x.v);
+  r.v = acos(x.v);
+  PT_LANES r.d[l] = f * x.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_asin(const DualN<L>& x) {
+  DualN<L> r;
+  const double f = 1.0 / sqrt(1.0 - x.v * x.v);
+  r.v = asin(x.v);
+  PT_LANES r.d[l] = f * x.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_abs(const DualN<L>& x) {
+  DualN<L> r;
+  const double f = sgn(x.v);
+  r.v = fabs(x.v);
+  PT_LANES r.d[l] = f * x.d[l];
+  return r;
+}
+template <int L>
+PT_HD DualN<L> f_pow(const DualN<L>& x, const DualN<L>& y) {
+  DualN<L> r;
+  r.v = pow(x.v, y.v);
+  const double ax = y.v * pow(x.v, y.v - 1.0), ay = r.v * log(x.v);
+  PT_LANES r.d[l] = x.d[l] * ax + y.d[l] * ay;
+  return r;
+}
+
 // pint_tpu's clip_unit: clamp into [0, 1 - 1e-9], tangent straight through
 PT_HD double clip_unit(double x) { return ptkepler::clamp_unit(x); }
 PT_HD Dual clip_unit(Dual x) { return {ptkepler::clamp_unit(x.v), x.d}; }
@@ -278,6 +337,17 @@ PT_HD double clamp_min(double x, double lo) { return x < lo ? lo : x; }
 template <typename T>
 PT_HD T clamp_min(const T& x, double lo) {
   return x.v < lo ? make<T>(lo) : (x.v >= lo ? x : make<T>(x.v));
+}
+
+// torch.clamp(x, lo, hi): the tangent where lo <= x <= hi, else none
+PT_HD double clamp2(double x, double lo, double hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+template <typename T>
+PT_HD T clamp2(const T& x, double lo, double hi) {
+  if (x.v < lo) return make<T>(lo);
+  if (x.v > hi) return make<T>(hi);
+  return x.v >= lo ? x : make<T>(x.v);
 }
 
 // value v with the tangent of t (the binary's QS dt)
@@ -354,6 +424,12 @@ enum : int32_t {
   kEcliptic = 1024,   // the astrometry is AstrometryEcliptic
   kK96 = 2048,        // DDK: Kopeikin 1996 proper-motion terms
   kStigma = 4096,     // ELL1H: the exact STIGMA form (else the H3/H4 sum)
+  kSolarWind = 8192,  // SolarWindDispersion (NE_SW)
+  kSWM1 = 16384,      //   its power-law model (SWM 1)
+  kSWX = 32768,       // SolarWindDispersionX
+  kFDJumpDM = 65536,  // FDJumpDM
+  kFDJump = 131072,   // FDJump
+  kDMFamilyFlags = kSolarWind | kSWX | kFDJumpDM | kFDJump,
 };
 
 // binary families (the kernels' template parameter)
@@ -365,6 +441,9 @@ enum : int32_t {
   kDDTM2 = 4,  // DDS, DDH: the Shapiro slots hold TM2 [s] and sin i as is
   kELL1H = 5,  // ELL1H: the orthometric Shapiro delay
   kELL1K = 6,  // ELL1k: eps1, eps2 rotated and grown per row
+  // added to a family: the DM family's terms compiled in (a layout with
+  // any of kDMFamilyFlags launches the family + kDMFamily kernels)
+  kDMFamily = 8,
 };
 
 // slot offsets within the binary block of theta
@@ -432,12 +511,27 @@ enum : int32_t {
   aEclSin = 11,
 };
 
+// the most FDJUMPDM and FD<k>JUMP members a layout carries (one bit
+// word each per row)
+constexpr int kMaxMaskMembers = 31;
+
 struct ChainCfg {
   int32_t flags, binary, P;
   int32_t ndm, ndmx, njump, nfd;
   int32_t o_astro, o_dm, o_dmx, o_jump, o_fd, o_bin;
   int32_t nharm;  // ELL1H: the sum's highest harmonic
+  // the DM family: NE_SW's Taylor terms, SWX ranges, FDJUMPDM and FDJUMP
+  // members, their blocks' offsets, and each FDJUMP member's order k
+  int32_t nsw, nswx, nfdm, nfdj;
+  int32_t o_sw, o_swx, o_fdm, o_fdj;
+  int8_t fdj_order[kMaxMaskMembers + 1];
 };
+
+// slots within the solar wind's block of theta: the Taylor epoch [day],
+// the nsw NE_SW terms, then for SWM 1 SWP, the half range
+// sqrt(pi)/2 Gamma((p-1)/2) / Gamma(p/2) and AU_LS^p (formed in PyTorch,
+// SolarWindDispersion's own code; CUDA's libm has no digamma)
+enum : int32_t { swEpoch = 0, swNE = 1 };
 
 constexpr double kTwoPi = 6.283185307179586;   // 2.0 * math.pi
 constexpr double kMasToRad = 4.8481368110953594e-09;  // pi/(180 3600 1000)
@@ -446,6 +540,68 @@ constexpr double kAuLs = 499.00478383615643;   // AU / c
 constexpr double kTsun = 4.92549094830932e-06;  // GM_sun / c^3
 constexpr double kDMconst = 4149.377593360996;   // 1 / 2.41e-4
 constexpr double kSecsPerYear = 31557600.0;     // 365.25 * 86400
+constexpr double kPi = 3.141592653589793;       // math.pi
+constexpr double kHalfPi = 1.5707963267948966;  // math.pi / 2
+constexpr double kAuLs2 = 249005.77429136922;   // AU_LS**2 (Python's)
+constexpr double kPcLs = 102927125.05433899;    // 1 pc in light-seconds
+// the J2000 ecliptic pole (solar_wind.py ECL_POLE)
+constexpr double kEclPoleX = 0.0, kEclPoleY = -0.3977771559319137,
+                 kEclPoleZ = 0.9174820620691818;
+
+// np.polynomial.legendre.leggauss(64): the SWM 1 finite leg's nodes and
+// weights (solar_wind.py GL_X, GL_W), in constant memory on the card
+#ifdef __CUDACC__
+#define PT_CONST __constant__
+#else
+#define PT_CONST
+#endif
+constexpr int kGLNodes = 64;
+PT_CONST const double kGLX[kGLNodes] = {
+    -0.9993050417357722, -0.9963401167719552, -0.9910133714767443,
+    -0.983336253884626, -0.973326827789911, -0.9610087996520538,
+    -0.9464113748584028, -0.9295691721319396, -0.9105221370785028,
+    -0.8893154459951141, -0.8659993981540928, -0.8406292962525803,
+    -0.8132653151227975, -0.7839723589433414, -0.7528199072605319,
+    -0.7198818501716108, -0.6852363130542333, -0.6489654712546573,
+    -0.6111553551723933, -0.571895646202634, -0.5312794640198946,
+    -0.48940314570705296, -0.4463660172534641, -0.4022701579639916,
+    -0.3572201583376681, -0.31132287199021097, -0.2646871622087674,
+    -0.21742364374000708, -0.1696444204239928, -0.12146281929612056,
+    -0.07299312178779904, -0.02435029266342443, 0.02435029266342443,
+    0.07299312178779904, 0.12146281929612056, 0.1696444204239928,
+    0.21742364374000708, 0.2646871622087674, 0.31132287199021097,
+    0.3572201583376681, 0.4022701579639916, 0.4463660172534641,
+    0.48940314570705296, 0.5312794640198946, 0.571895646202634,
+    0.6111553551723933, 0.6489654712546573, 0.6852363130542333,
+    0.7198818501716108, 0.7528199072605319, 0.7839723589433414,
+    0.8132653151227975, 0.8406292962525803, 0.8659993981540928,
+    0.8893154459951141, 0.9105221370785028, 0.9295691721319396,
+    0.9464113748584028, 0.9610087996520538, 0.973326827789911,
+    0.983336253884626, 0.9910133714767443, 0.9963401167719552,
+    0.9993050417357722};
+PT_CONST const double kGLW[kGLNodes] = {
+    0.0017832807216942152, 0.004147033260562923, 0.006504457968979654,
+    0.008846759826364391, 0.011168139460131466, 0.013463047896718231,
+    0.015726030476025082, 0.0179517157756973, 0.020134823153530094,
+    0.022270173808383007, 0.024352702568710853, 0.026377469715054627,
+    0.028339672614259702, 0.030234657072402495, 0.03205792835485145,
+    0.03380516183714179, 0.03547221325688232, 0.03705512854024015,
+    0.03855015317861559, 0.03995374113272035, 0.041262563242623486,
+    0.0424735151236536, 0.043583724529323464, 0.044590558163756545,
+    0.045491627927418114, 0.046284796581314375, 0.04696818281621,
+    0.0475401657148303, 0.04799938859645832, 0.048344762234802954,
+    0.048575467441503456, 0.04869095700913975, 0.04869095700913975,
+    0.048575467441503456, 0.048344762234802954, 0.04799938859645832,
+    0.0475401657148303, 0.04696818281621, 0.046284796581314375,
+    0.045491627927418114, 0.044590558163756545, 0.043583724529323464,
+    0.0424735151236536, 0.041262563242623486, 0.03995374113272035,
+    0.03855015317861559, 0.03705512854024015, 0.03547221325688232,
+    0.03380516183714179, 0.03205792835485145, 0.030234657072402495,
+    0.028339672614259702, 0.026377469715054627, 0.024352702568710853,
+    0.022270173808383007, 0.020134823153530094, 0.0179517157756973,
+    0.015726030476025082, 0.013463047896718231, 0.011168139460131466,
+    0.008846759826364391, 0.006504457968979654, 0.004147033260562923,
+    0.0017832807216942152};
 
 // the per-row data
 struct Row {
@@ -458,6 +614,9 @@ struct Row {
   int32_t dmx0, dmx1;   // DMX bins (inclusive ranges sharing a boundary
                         // both hold a TOA on it), -1 for none
   int32_t jbits;        // DelayJump membership bits
+  int32_t swx0, swx1;   // SWX ranges, as the DMX bins
+  int32_t fdmbits;      // FDJUMPDM membership bits
+  int32_t fdjbits;      // FDJUMP membership bits
 };
 
 // the per-row inputs as the kernels receive them (kernels/delay_chain.py
@@ -471,7 +630,42 @@ struct RowData {
   const double* __restrict__ freq;
   const int32_t* __restrict__ dmx;
   const int32_t* __restrict__ jbits;
+  const int32_t* __restrict__ swx;
+  const int32_t* __restrict__ fdmbits;
+  const int32_t* __restrict__ fdjbits;
 };
+
+// the template value of the kernels that a layout launches: its binary
+// family, with kDMFamily added when it has a term of the DM family
+PT_HD int kernel_family(const ChainCfg& c) {
+  return c.binary + ((c.flags & kDMFamilyFlags) ? kDMFamily : 0);
+}
+
+// X(value) for every template value of the kernels
+#define PT_FAMILIES(X)                                                   \
+  X(ptchain::kNoBinary) X(ptchain::kELL1) X(ptchain::kDD)                \
+  X(ptchain::kDDK) X(ptchain::kDDTM2) X(ptchain::kELL1H)                 \
+  X(ptchain::kELL1K) X(ptchain::kNoBinary + ptchain::kDMFamily)          \
+  X(ptchain::kELL1 + ptchain::kDMFamily)                                 \
+  X(ptchain::kDD + ptchain::kDMFamily)                                   \
+  X(ptchain::kDDK + ptchain::kDMFamily)                                  \
+  X(ptchain::kDDTM2 + ptchain::kDMFamily)                                \
+  X(ptchain::kELL1H + ptchain::kDMFamily)                                \
+  X(ptchain::kELL1K + ptchain::kDMFamily)
+
+// whether a layout's member counts fit the bit words and the row inputs
+// hold what it reads (the kernels refuse it otherwise)
+PT_HD bool rows_cover(const ChainCfg& c, const RowData& rd) {
+  const int f = c.flags;
+  return c.njump <= kMaxMaskMembers && c.nfdm <= kMaxMaskMembers &&
+         c.nfdj <= kMaxMaskMembers &&
+         !((f & kDMX) && c.ndmx > 0 && rd.dmx == nullptr) &&
+         !((f & kJump) && rd.jbits == nullptr) &&
+         !((f & kSWX) && c.nswx > 0 && rd.swx == nullptr) &&
+         !((f & kFDJumpDM) && rd.fdmbits == nullptr) &&
+         !((f & kFDJump) && rd.fdjbits == nullptr) &&
+         !((f & (kSolarWind | kSWX)) && !(f & kAstro));
+}
 
 PT_HD Row load_row(const RowData& rd, int64_t n) {
   Row r;
@@ -484,6 +678,10 @@ PT_HD Row load_row(const RowData& rd, int64_t n) {
   r.dmx0 = rd.dmx != nullptr ? rd.dmx[2 * n] : -1;
   r.dmx1 = rd.dmx != nullptr ? rd.dmx[2 * n + 1] : -1;
   r.jbits = rd.jbits != nullptr ? rd.jbits[n] : 0;
+  r.swx0 = rd.swx != nullptr ? rd.swx[2 * n] : -1;
+  r.swx1 = rd.swx != nullptr ? rd.swx[2 * n + 1] : -1;
+  r.fdmbits = rd.fdmbits != nullptr ? rd.fdmbits[n] : 0;
+  r.fdjbits = rd.fdjbits != nullptr ? rd.fdjbits[n] : 0;
   return r;
 }
 
@@ -570,6 +768,94 @@ PT_HD T taylor_horner(const T& dt, const Theta<T>& th, int o, int n) {
   T acc = 0.0 * dt;
   for (int k = n - 1; k >= 0; --k) acc = acc * dt / (k + 1.0) + th[o + k];
   return acc;
+}
+
+// solar_wind.py _geometry_pc_impl (SWM 0): AU^2 rho / (r sin rho) [pc],
+// zero on barycentric rows and where sin rho <= 1e-12
+template <typename T>
+PT_HD T sw_geometry(const Row& r, const T (&L)[3]) {
+  const double rr =
+      sqrt(r.sun[0] * r.sun[0] + r.sun[1] * r.sun[1] + r.sun[2] * r.sun[2]);
+  const double safe_r = rr > 0.0 ? rr : 1.0;
+  const T dot = r.sun[0] * L[0] + r.sun[1] * L[1] + r.sun[2] * L[2];
+  const T rho = kPi - f_acos(clamp2(dot / safe_r, -1.0, 1.0));
+  const T sin_rho = f_sin(rho);
+  if (!(rr > 0.0 && val(sin_rho) > 1e-12)) return make<T>(0.0);
+  return ((kAuLs2 * rho) / (safe_r * sin_rho)) / kPcLs;
+}
+
+// solar_wind.py solar_wind_geometry_p_pc (SWM 1): the power-law geometry
+// [pc], p = SWP, half and au_p the theta slots of the half range and
+// AU_LS^p; the 64-node leg summed node by node
+template <typename T>
+PT_HD T sw_geometry_p(const Row& r, const T (&L)[3], const T& p,
+                      const T& half, const T& au_p) {
+  const double rr =
+      sqrt(r.sun[0] * r.sun[0] + r.sun[1] * r.sun[1] + r.sun[2] * r.sun[2]);
+  if (!(rr > 0.0)) return make<T>(0.0);
+  const T dot = r.sun[0] * L[0] + r.sun[1] * L[1] + r.sun[2] * L[2];
+  const T cos_t = clamp2(dot / rr, -1.0, 1.0);
+  const T b = clamp_min(rr * f_sin(f_acos(cos_t)), 1e-6);
+  const T phi0 = f_atan2(-(rr * cos_t), b);
+  const T mid = 0.5 * phi0;
+  const T pm2 = p - 2.0;
+  T acc = 0.0 * mid;
+  // one node per iteration: 64 powers unrolled would bloat every family
+#pragma unroll 1
+  for (int k = 0; k < kGLNodes; ++k)
+    acc = acc + kGLW[k] * f_pow(f_cos(mid * (1.0 + kGLX[k])), pm2);
+  const T leg = mid * acc;
+  return ((f_pow(b, 1.0 - p) * au_p) * (half - leg)) / kPcLs;
+}
+
+// SolarWindDispersion.delay: NE_SW (with its Taylor terms about SWEPOCH)
+// times the SWM 0 or SWM 1 geometry, dispersed
+template <typename T>
+PT_HD T solar_wind(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                   const T (&L)[3]) {
+  const int o = c.o_sw;
+  T ne;
+  if (c.nsw == 1) {
+    ne = th[o + swNE];
+  } else {
+    const T dt_sec = (((double)r.day + r.frac) - th[o + swEpoch]) * 86400.0;
+    ne = taylor_horner(dt_sec, th, o + swNE, c.nsw);
+  }
+  const int op = o + swNE + c.nsw;
+  const T geom = (c.flags & kSWM1)
+                     ? sw_geometry_p(r, L, th[op], th[op + 1], th[op + 2])
+                     : sw_geometry(r, L);
+  return dispersion(ne * geom, r.freq);
+}
+
+// SolarWindDispersionX.delay: each of the row's (up to two) ranges' SWXDM
+// times the SWM 0 geometry scaled between its opposition and conjunction
+// values at the pulsar's ecliptic latitude (solar_wind.py swx_norm)
+template <typename T>
+PT_HD T swx(const ChainCfg& c, const Theta<T>& th, const Row& r,
+            const T (&L)[3]) {
+  T tot = make<T>(0.0);
+  if (r.swx0 >= 0 || r.swx1 >= 0) {
+    const T g = sw_geometry(r, L);
+    const T sinb = clamp2(
+        (L[0] * kEclPoleX + L[1] * kEclPoleY) + L[2] * kEclPoleZ, -1.0, 1.0);
+    const T beta = clamp2(f_abs(f_asin(sinb)), 1e-6, kHalfPi);
+    const T rho_c = kPi - beta;
+    const T g_conj = ((kAuLs * rho_c) / f_sin(rho_c)) / kPcLs;
+    const T g_opp = ((kAuLs * beta) / f_sin(beta)) / kPcLs;
+    const T norm = (g - g_opp) / (g_conj - g_opp);
+    if (r.swx0 >= 0) tot = tot + th[c.o_swx + r.swx0] * norm;
+    if (r.swx1 >= 0) tot = tot + th[c.o_swx + r.swx1] * norm;
+  }
+  return dispersion(tot, r.freq);
+}
+
+// ln(f / 1 GHz)^k as torch forms lf**k for an integer k
+PT_HD double log_freq_pow(double lf, int k) {
+  if (k == 1) return lf;
+  if (k == 2) return lf * lf;
+  if (k == 3) return lf * lf * lf;
+  return pow(lf, (double)k);
 }
 
 // the binary's t_bary - epoch [s] from the QS epoch difference, with the
@@ -786,6 +1072,8 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
 template <typename T, int BIN>
 PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
                   double* aux) {
+  constexpr int FAM = BIN & ~kDMFamily;
+  constexpr bool DMF = (BIN & kDMFamily) != 0;
   T d = make<T>(0.0);
   T L[3] = {d, d, d};
   if (c.flags & kAstro) d = d + astrometry(c, th, r, L);
@@ -796,6 +1084,10 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
     d = d + tot;
   }
   if (c.flags & kShapiro) d = d + sun_shapiro(r, L);
+  if constexpr (DMF) {
+    if (c.flags & kSolarWind) d = d + solar_wind(c, th, r, L);
+    if (c.flags & kSWX) d = d + swx(c, th, r, L);
+  }
   if (c.flags & kDM) {
     const int o = c.o_dm;
     T dm;
@@ -814,10 +1106,19 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
     if (r.dmx1 >= 0) dm = dm + th[c.o_dmx + r.dmx1];
     d = d + dispersion(dm, r.freq);
   }
-  if (BIN == kELL1 || BIN == kELL1H || BIN == kELL1K)
-    d = d + ell1<T, BIN>(c, th, r, d);
-  if (BIN == kDD || BIN == kDDK || BIN == kDDTM2)
-    d = d + dd<T, BIN>(c, th, r, d, aux);
+  if constexpr (DMF) {
+    if (c.flags & kFDJumpDM) {
+      // FDJumpDM.dm_value: each selecting member subtracted
+      T dm = make<T>(0.0);
+      for (int j = 0; j < c.nfdm; ++j)
+        if ((r.fdmbits >> j) & 1) dm = dm - th[c.o_fdm + j];
+      d = d + dispersion(dm, r.freq);
+    }
+  }
+  if (FAM == kELL1 || FAM == kELL1H || FAM == kELL1K)
+    d = d + ell1<T, FAM>(c, th, r, d);
+  if (FAM == kDD || FAM == kDDK || FAM == kDDTM2)
+    d = d + dd<T, FAM>(c, th, r, d, aux);
   if (c.flags & kFD) {
     T out = make<T>(0.0);
     if (isfinite(r.freq)) {
@@ -829,6 +1130,19 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
       }
     }
     d = d + out;
+  }
+  if constexpr (DMF) {
+    if (c.flags & kFDJump) {
+      // FDJump.delay: each selecting member's FD<k>JUMP ln(f/1 GHz)^k
+      T out = make<T>(0.0);
+      if (isfinite(r.freq)) {
+        const double lf = log(r.freq / 1000.0);
+        for (int j = 0; j < c.nfdj; ++j)
+          if ((r.fdjbits >> j) & 1)
+            out = out + th[c.o_fdj + j] * log_freq_pow(lf, c.fdj_order[j]);
+      }
+      d = d + out;
+    }
   }
   return d;
 }

@@ -87,31 +87,23 @@ int run(const RowData& rd, const double* theta, const double* dtheta,
 // theta (G, P); dtheta null -> out (G, N) delay, else dtheta (G, K, P) ->
 // out (G, K, N) tangent with `lpt` lanes per row pass.  Returns 0, or 1
 // on inputs the kernel would refuse.
-extern "C" int delay_chain_host(const int64_t* tdb_day,
-                                const double* tdb_frac, const float* frac_w,
-                                const double* pos, const double* sun,
-                                const double* freq, const int32_t* dmx,
-                                const int32_t* jbits, const double* theta,
-                                const double* dtheta, double* out,
-                                ChainCfg cfg, int64_t G, int64_t K,
-                                int64_t N, int lpt) {
-  if (G < 1 || N < 1 || cfg.P < 1 || cfg.njump > 31 ||
-      (dtheta != nullptr && K < 1) ||
-      ((cfg.flags & ptchain::kDMX) && cfg.ndmx > 0 && dmx == nullptr) ||
-      ((cfg.flags & ptchain::kJump) && jbits == nullptr))
+extern "C" int delay_chain_host(
+    const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
+    const double* pos, const double* sun, const double* freq,
+    const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
+    const int32_t* fdmbits, const int32_t* fdjbits, const double* theta,
+    const double* dtheta, double* out, ChainCfg cfg, int64_t G, int64_t K,
+    int64_t N, int lpt) {
+  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
+                   dmx, jbits, swx, fdmbits, fdjbits};
+  if (G < 1 || N < 1 || cfg.P < 1 || (dtheta != nullptr && K < 1) ||
+      !ptchain::rows_cover(cfg, rd))
     return 1;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
-  switch (cfg.binary) {
-#define PT_CASE(B)                                                   \
-  case ptchain::B:                                                   \
-    return run<ptchain::B>(rd, theta, dtheta, cfg, G, K, N, lpt, out);
-    PT_CASE(kNoBinary)
-    PT_CASE(kELL1)
-    PT_CASE(kDD)
-    PT_CASE(kDDK)
-    PT_CASE(kDDTM2)
-    PT_CASE(kELL1H)
-    PT_CASE(kELL1K)
+  switch (ptchain::kernel_family(cfg)) {
+#define PT_CASE(B) \
+  case B:          \
+    return run<B>(rd, theta, dtheta, cfg, G, K, N, lpt, out);
+    PT_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return 1;

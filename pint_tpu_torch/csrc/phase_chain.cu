@@ -251,12 +251,14 @@ cudaError_t launch(const RowData& rd, const PhaseData& ph,
 // P) the tangent: `out` receives the (G, K, N) d frac, each thread
 // carrying `lpt` lanes (1, 2 or 4), from the primal's `slope_in` and
 // `dt64_in` and, if not null, d other at dother + g * dother_sg + k *
-// dother_sk + n.  dmx and jbits as delay_chain.cu takes them.  Returns a
-// cudaError_t code (0 on success).
+// dother_sk + n.  dmx, jbits, swx, fdmbits and fdjbits as delay_chain.cu
+// takes them.  Returns a cudaError_t code (0 on success).
 extern "C" int phase_chain(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
-    const int32_t* dmx, const int32_t* jbits, const double* pulse_number,
+    const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
+    const int32_t* fdmbits, const int32_t* fdjbits,
+    const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
@@ -265,12 +267,13 @@ extern "C" int phase_chain(
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt,
     void* stream) {
   const bool tangent = dtheta != nullptr;
-  if (G < 1 || N < 1 || cfg.P < 1 || cfg.njump > 31 || pc.K < 1 ||
+  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
+                   dmx, jbits, swx, fdmbits, fdjbits};
+  if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
-      ((cfg.flags & ptchain::kDMX) && cfg.ndmx > 0 && dmx == nullptr) ||
-      ((cfg.flags & ptchain::kJump) && jbits == nullptr) ||
+      !ptchain::rows_cover(cfg, rd) ||
       (tangent && (K < 1 || K > INT32_MAX || slope_in == nullptr ||
                    dt64_in == nullptr || out == nullptr)) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
@@ -279,25 +282,18 @@ extern "C" int phase_chain(
                     (pc.mode == ptphase::kPulseNumbers &&
                      pulse_number == nullptr))))
     return (int)cudaErrorInvalidValue;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
   const PhaseData ph{pulse_number, pep_day, pep_w, f_w, tzr_w, other,
                      other_sg};
   const TangentData td{slope_in, dt64_in, dother, dother_sg, dother_sk};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  switch (cfg.binary) {
-#define PT_CASE(B)                                                         \
-  case ptchain::B:                                                         \
-    err = launch<ptchain::B>(rd, ph, td, theta, dtheta, cfg, pc, (int)K,   \
-                             lpt, G, N, out, words, slope, dt64, s);       \
+  switch (ptchain::kernel_family(cfg)) {
+#define PT_CASE(B)                                                        \
+  case B:                                                                 \
+    err = launch<B>(rd, ph, td, theta, dtheta, cfg, pc, (int)K, lpt, G, N, \
+                    out, words, slope, dt64, s);                          \
     break;
-    PT_CASE(kNoBinary)
-    PT_CASE(kELL1)
-    PT_CASE(kDD)
-    PT_CASE(kDDK)
-    PT_CASE(kDDTM2)
-    PT_CASE(kELL1H)
-    PT_CASE(kELL1K)
+    PT_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return (int)cudaErrorInvalidValue;

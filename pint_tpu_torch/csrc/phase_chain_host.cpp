@@ -132,7 +132,9 @@ int run(const RowData& rd, const double* pulse_number, const double* pep_day,
 extern "C" int phase_chain_host(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
-    const int32_t* dmx, const int32_t* jbits, const double* pulse_number,
+    const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
+    const int32_t* fdmbits, const int32_t* fdjbits,
+    const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
@@ -140,12 +142,13 @@ extern "C" int phase_chain_host(
     double* dt64, ChainCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt) {
   const bool tangent = dtheta != nullptr;
-  if (G < 1 || N < 1 || cfg.P < 1 || cfg.njump > 31 || pc.K < 1 ||
+  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
+                   dmx, jbits, swx, fdmbits, fdjbits};
+  if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
-      ((cfg.flags & ptchain::kDMX) && cfg.ndmx > 0 && dmx == nullptr) ||
-      ((cfg.flags & ptchain::kJump) && jbits == nullptr) ||
+      !ptchain::rows_cover(cfg, rd) ||
       (tangent && (K < 1 || slope_in == nullptr || dt64_in == nullptr ||
                    out == nullptr)) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
@@ -154,21 +157,14 @@ extern "C" int phase_chain_host(
                     (pc.mode == ptphase::kPulseNumbers &&
                      pulse_number == nullptr))))
     return 1;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits};
   const Tangent td{slope_in, dt64_in, dother, dother_sg, dother_sk};
-  switch (cfg.binary) {
+  switch (ptchain::kernel_family(cfg)) {
 #define PT_CASE(B)                                                          \
-  case ptchain::B:                                                          \
-    return run<ptchain::B>(rd, pulse_number, pep_day, pep_w, f_w, tzr_w,    \
-                           other, other_sg, td, theta, dtheta, cfg, pc, G,  \
-                           K, N, lpt, out, words, slope, dt64);
-    PT_CASE(kNoBinary)
-    PT_CASE(kELL1)
-    PT_CASE(kDD)
-    PT_CASE(kDDK)
-    PT_CASE(kDDTM2)
-    PT_CASE(kELL1H)
-    PT_CASE(kELL1K)
+  case B:                                                                   \
+    return run<B>(rd, pulse_number, pep_day, pep_w, f_w, tzr_w, other,      \
+                  other_sg, td, theta, dtheta, cfg, pc, G, K, N, lpt, out,  \
+                  words, slope, dt64);
+    PT_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return 1;

@@ -3,8 +3,10 @@
 ``chip_smoke.py`` fits: the DD binary with white noise only (WLS) and
 with a NANOGrav-style noise model (GLS, the noise frozen; and with the
 noise parameters free and per-TOA errors that vary, for the downhill
-fitters' maximum-likelihood noise fit), and the DDK binary in ecliptic
-coordinates (WLS)."""
+fitters' maximum-likelihood noise fit), the DDK binary in ecliptic
+coordinates (WLS), and the NANOGrav-style wideband configuration (the
+noise model's TOAs with a wideband DM each, DMJUMP, DMEFAC/DMEQUAD and
+NE_SW)."""
 
 from __future__ import annotations
 
@@ -334,7 +336,7 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
                                 dmx_bins: int = 70,
                                 span_days: float = 4550.0,
                                 center_mjd: float = 54975.0, device=None,
-                                errors_us=1.0):
+                                errors_us=1.0, par: str = None):
     """(model, TOAs) of the full-width ``dd_gls_nanograv`` configuration:
     epoch-clustered TOAs (:func:`epoch_toas`) from gbt with uncertainties
     ``errors_us`` (a scalar or one per TOA), put on integer model phases
@@ -342,8 +344,9 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
     ``default_rng(seed + 1)``) and one realization of the ECORR and red
     noise (``add_correlated_noise``, seed ``seed``), as pint_tpu's GLS
     tests build epoch-clustered TOAs (``get_TOAs_array`` +
-    ``zero_residuals``).  The residuals run on ``device`` (default
-    ``"cuda"``)."""
+    ``zero_residuals``).  ``par`` replaces the configuration's par (the
+    wideband one passes its own).  The residuals run on ``device``
+    (default ``"cuda"``)."""
     from pint_tpu_torch import mjd as mjdmod
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.residuals import Residuals
@@ -353,9 +356,11 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
     mjds, band, freqs = epoch_toas(ntoas, span_days, center_mjd)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(dd_noise_realistic_par(
-            dmx_bins=dmx_bins, span_days=span_days,
-            center_mjd=center_mjd).splitlines())
+        if par is None:
+            par = dd_noise_realistic_par(dmx_bins=dmx_bins,
+                                         span_days=span_days,
+                                         center_mjd=center_mjd)
+        model = get_model(par.splitlines())
         toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
@@ -431,3 +436,137 @@ def simulate_dd_noise_fit(ntoas: int = 12500, seed: int = 0,
     for n in NOISE_FIT_PARAMS:
         model[n].frozen = False
     return model, toas
+
+
+#: the wideband configuration's DM side, as NANOGrav's wideband releases
+#: (12.5-yr, 15-yr) model a pulsar: a DMJUMP on every receiver but one
+#: [pc cm^-3], injected into the measured DMs and fitted; DMEFAC per
+#: receiver (RECEIVERS order), injected and fitted by maximum likelihood;
+#: DMEQUAD per receiver [pc cm^-3], frozen; the measured DMs' errors
+#: (-pp_dme) per receiver [pc cm^-3]; and NE_SW [cm^-3] (SWM 0), free
+WB_DMJUMP = {"RCVR800": 3e-4, "RCVR1400L": -2e-4}
+WB_DMEFAC = (1.1, 1.3, 0.9)
+WB_DMEQUAD = (5e-5, 5e-5, 5e-5)
+WB_DM_ERROR = (2e-4, 1e-4, 3e-4)
+WB_NE_SW = 7.9
+#: the wideband fit's free noise parameters, and their start
+WB_NOISE_FREE = ("DMEFAC1", "DMEFAC2", "DMEFAC3")
+WB_START = {"DMJUMP1": 0.0, "DMJUMP2": 0.0,
+            **{n: 1.0 for n in WB_NOISE_FREE}}
+
+
+def wideband_nanograv_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                          center_mjd: float = 54975.0,
+                          free=WB_NOISE_FREE) -> str:
+    """:func:`dd_noise_realistic_par` (86 free timing parameters, the
+    frozen EFAC/EQUAD/ECORR and red noise) with the wideband DM model:
+    NE_SW free, a DMJUMP free on two of the three receivers, DMEFAC per
+    receiver (those of ``free`` free) and DMEQUAD per receiver frozen.
+    The position is J1022+1001's, 0.06 deg off the ecliptic, so the
+    solar wind reaches milliseconds at conjunction: 89 free timing
+    parameters."""
+    lines = [dd_noise_realistic_par(dmx_bins, span_days, center_mjd),
+             f"NE_SW {WB_NE_SW} 1", "SWM 0"]
+    lines += [f"DMJUMP -fe {fe} {v} 1" for fe, v in WB_DMJUMP.items()]
+    for i, (fe, efac, equad) in enumerate(zip(RECEIVERS.values(),
+                                              WB_DMEFAC, WB_DMEQUAD), 1):
+        lines += [f"DMEFAC -fe {fe} {efac}"
+                  + (" 1" if f"DMEFAC{i}" in free else ""),
+                  f"DMEQUAD -fe {fe} {equad}"]
+    return "\n".join(lines)
+
+
+def wideband_dm_errors(toas) -> np.ndarray:
+    """Each TOA's measured-DM error [pc cm^-3] by its receiver
+    (:data:`WB_DM_ERROR`)."""
+    err = dict(zip(RECEIVERS.values(), WB_DM_ERROR))
+    return np.array([err[f["fe"]] for f in toas.flags])
+
+
+def set_wideband_dms(toas, dm, sigma, dme, seed: int = 0):
+    """The TOAs' -pp_dm flags set to ``dm`` plus white noise of the
+    scaled uncertainties ``sigma`` (numpy ``default_rng(seed + 3)``) and
+    their -pp_dme flags to ``dme``."""
+    rng = np.random.default_rng(seed + 3)
+    dm = np.asarray(dm) + rng.standard_normal(toas.ntoas) * np.asarray(sigma)
+    for f, v, e in zip(toas.flags, dm, dme):
+        f["pp_dm"] = repr(float(v))
+        f["pp_dme"] = repr(float(e))
+    return toas
+
+
+def simulate_wideband_realistic(ntoas: int = 12500, seed: int = 0,
+                                dmx_bins: int = 70,
+                                span_days: float = 4550.0,
+                                center_mjd: float = 54975.0, device=None):
+    """(truth model, TOAs) of the full-width wideband configuration: the
+    ``dd_gls_nanograv`` simulation (:func:`simulate_dd_noise_realistic`)
+    of :func:`wideband_nanograv_par`, every TOA given a wideband DM from
+    the model's ``total_dm`` (``simulation.add_wideband_dm_data``, so the
+    DMJUMPs are in it) plus white noise at the DMEFAC/DMEQUAD-scaled
+    per-receiver errors (:func:`set_wideband_dms`): 2 x ``ntoas`` rows.
+    The model evaluations run on ``device`` (default ``"cuda"``)."""
+    import torch
+
+    from pint_tpu_torch.simulation import add_wideband_dm_data
+
+    model, toas = simulate_dd_noise_realistic(
+        ntoas=ntoas, seed=seed, dmx_bins=dmx_bins, span_days=span_days,
+        center_mjd=center_mjd, device=device,
+        par=wideband_nanograv_par(dmx_bins, span_days, center_mjd))
+    add_wideband_dm_data(toas, model, device=device)
+    dm = np.array([float(f["pp_dm"]) for f in toas.flags])
+    dme = wideband_dm_errors(toas)
+    batch = toas.to_batch(device=device)
+    p = model.build_pdict(toas, tzr_toas=model.make_tzr_toas_or_none(),
+                          device=batch.device)
+    with torch.no_grad():
+        sigma = model.scaled_dm_uncertainty(
+            p, batch, torch.as_tensor(dme, device=batch.device)).cpu()
+    set_wideband_dms(toas, dm, sigma.numpy(), dme, seed)
+    return model, toas
+
+
+#: the DM family's variants of the delay kernel's row function, on the DD
+#: set (J1022+1001's position, 0.06 deg off the ecliptic) and the ELL1
+#: set: the solar wind with SWM 0 or SWM 1, and in each SWX, DMJUMP,
+#: FDJUMPDM and FD1JUMP/FD2JUMP (:func:`dm_family_par`)
+DM_FAMILY = ("DMF_DD", "DMF_DD_SWM1", "DMF_ELL1", "DMF_ELL1_SWM1")
+#: the SWM 1 variants' power-law index
+DM_FAMILY_SWP = 2.5
+
+
+def dm_family_lines(swm: int = 0, swp: float = DM_FAMILY_SWP,
+                    span_days: float = 4550.0,
+                    center_mjd: float = 54975.0):
+    """Par lines of every term of the DM family, all free: NE_SW with a
+    Taylor term about SWEPOCH (SWM ``swm``; SWP ``swp`` for SWM 1),
+    three SWX ranges over the span whose neighbours overlap by 50 days
+    (a TOA there lies in two, as on a shared boundary), a DMJUMP, two
+    FDJUMPDM and three FD<k>JUMP members (k = 1, 2)."""
+    lines = ["NE_SW 7.9 1", "NE_SW1 0.5 1", f"SWEPOCH {center_mjd:g}",
+             f"SWM {swm}"]
+    if swm == 1:
+        lines.append(f"SWP {swp} 1")
+    lo = center_mjd - span_days / 2
+    for i, dm in enumerate((4e-4, -2e-4, 3e-4), 1):
+        r1 = lo + (i - 1) * span_days / 3 - (50.0 if i > 1 else 0.0)
+        r2 = lo + i * span_days / 3
+        lines += [f"SWXDM_{i:04d} {dm} 1", f"SWXP_{i:04d} 2",
+                  f"SWXR1_{i:04d} {r1:.4f}", f"SWXR2_{i:04d} {r2:.4f}"]
+    lines += ["DMJUMP -fe RCVR800 3e-4 1",
+              "FDJUMPDM -fe RCVR800 2e-4 1", "FDJUMPDM -fe RCVR1400L -1e-4 1",
+              "FD1JUMP -fe RCVR800 3e-6 1", "FD2JUMP -fe RCVR800 -1e-6 1",
+              "FD1JUMP -fe RCVR1400L 1e-6 1"]
+    return lines
+
+
+def dm_family_par(kind: str, dmx_bins: int = 70, span_days: float = 4550.0,
+                  center_mjd: float = 54975.0) -> str:
+    """The par of one of :data:`DM_FAMILY`: :func:`dd_realistic_par` or
+    :func:`j0740_realistic_par` with :func:`dm_family_lines`."""
+    base = (dd_realistic_par if kind.startswith("DMF_DD")
+            else j0740_realistic_par)(dmx_bins, span_days, center_mjd)
+    return "\n".join([base] + dm_family_lines(
+        1 if kind.endswith("SWM1") else 0, span_days=span_days,
+        center_mjd=center_mjd))

@@ -19,7 +19,10 @@ assemble and solve on the device in the eager loop; the fitters that
 likelihood (:func:`build_noise_lnlike`, scipy's L-BFGS-B with the
 gradient from torch autograd); :class:`LMFitter` and
 :class:`PowellFitter` over the chi2-only evaluation
-(:func:`build_chi2_fn`).
+(:func:`build_chi2_fn`); and the wideband fitters
+(:class:`WidebandTOAFitter`, :class:`WidebandDownhillFitter`,
+:class:`WidebandLMFitter`), whose rows stack the TOA residuals and the
+wideband DM residuals (:func:`build_wideband_assembly`).
 
 Everything here is plain PyTorch on the batch's device; the phase chain
 inside the residual function is the ``phase_chain`` kernel on CUDA.
@@ -45,12 +48,15 @@ from torch.func import jacfwd
 from pint_tpu_torch.exceptions import (ConvergenceFailure, DegeneracyWarning,
                                        PintTpuWarning)
 from pint_tpu_torch.models.timing_model import TimingModel, pv
-from pint_tpu_torch.residuals import Residuals, raw_phase_resids
+from pint_tpu_torch.residuals import (Residuals, WidebandTOAResiduals,
+                                      raw_phase_resids, scaled_dm_sigma_rows)
 from pint_tpu_torch.toabatch import TOABatch
 from pint_tpu_torch.utils import normalize_designmatrix
 
 __all__ = ["Fitter", "WLSFitter", "GLSFitter", "DownhillWLSFitter",
-           "DownhillGLSFitter", "LMFitter", "PowellFitter", "fit_wls_svd",
+           "DownhillGLSFitter", "LMFitter", "PowellFitter",
+           "WidebandTOAFitter", "WidebandDownhillFitter", "WidebandLMFitter",
+           "build_wideband_assembly", "build_wideband_chi2_fn", "fit_wls_svd",
            "fit_wls_eigh", "gls_solve", "build_gls_step",
            "build_gls_fullcov_step",
            "masked_eigh_inverse", "wls_solve", "build_resid_sec_fn",
@@ -408,6 +414,89 @@ def build_chi2_fn(model: TimingModel, batch: TOABatch,
     return chi2
 
 
+def _dm_rows(batch: TOABatch, dm_index, dm_data, dm_error):
+    """The wideband rows' TOA indices, measured DMs and their errors as
+    tensors on the batch's device."""
+    dev = batch.device
+    return (torch.as_tensor(np.asarray(dm_index), dtype=torch.int64,
+                            device=dev),
+            torch.as_tensor(np.asarray(dm_data, np.float64), device=dev),
+            torch.as_tensor(np.asarray(dm_error, np.float64), device=dev))
+
+
+def build_wideband_chi2_fn(model: TimingModel, batch: TOABatch,
+                           dm_index, dm_data, dm_error,
+                           fit_params: Sequence[str], track_mode: str,
+                           include_offset: bool):
+    """``(x, p) -> chi2`` of the combined TOA + DM rows
+    (:func:`pint_tpu.fitter.build_wideband_chi2_fn`): the wideband
+    trial-point metric of LM, no jacobian."""
+    names = list(fit_params)
+    resid_sec = build_resid_sec_fn(model, batch, names, track_mode)
+    idx, dmv, dme = _dm_rows(batch, dm_index, dm_data, dm_error)
+
+    def chi2(x, p):
+        with torch.no_grad():
+            p2 = model.with_x(p, x, names)
+            r_t = resid_sec(x, p)
+            sigma_t = model.scaled_toa_uncertainty(p, batch) * 1e-6
+            if include_offset:
+                w = 1.0 / sigma_t**2
+                r_t = r_t - torch.sum(r_t * w) / torch.sum(w)
+            r_dm = dmv - model.total_dm(p2, batch)[idx]
+            sigma_dm = scaled_dm_sigma_rows(model, p, batch, idx, dme)
+            return torch.sum((r_t / sigma_t) ** 2) + \
+                torch.sum((r_dm / sigma_dm) ** 2)
+
+    return chi2
+
+
+def build_wideband_assembly(model: TimingModel, batch: TOABatch,
+                            dm_index, dm_data, dm_error,
+                            fit_params: Sequence[str], track_mode: str,
+                            include_offset: bool,
+                            design_matrix: Optional[str] = None):
+    """The wideband ``(x, p) -> (r, M, sigma, offc)`` assembly
+    (:func:`pint_tpu.fitter.build_wideband_assembly`, reference
+    `WidebandTOAFitter.get_designmatrix` /
+    `pint_matrix.combine_design_matrices_by_quantity`,
+    `src/pint/fitter.py:1975`, `pint_matrix.py:532`).
+
+    Rows are ``[TOA residuals [s] ; DM residuals [pc cm^-3]]``; the design
+    matrix is one jacfwd of the stacked residual function, so the DM block
+    picks up every parameter with a ``dm_value`` (DM, DMX, DMJUMP, NE_SW,
+    SWX, FDJUMPDM) and the TOA block every delay and phase dependence.  On
+    CUDA the TOA block's jvp is one ``phase_chain`` tangent launch and the
+    DM block's is plain PyTorch.  The mixed units cancel in the whitened
+    solve.  The offset regressor covers the TOA rows only.  The split
+    path (:func:`_make_assembly`) caches the stacked linear-block
+    columns: a DMX bin's cached column carries its TOA rows and its DM
+    rows."""
+    names = list(fit_params)
+    resid_sec = build_resid_sec_fn(model, batch, names, track_mode)
+    idx, dmv, dme = _dm_rows(batch, dm_index, dm_data, dm_error)
+    nt = batch.ntoas
+
+    def combined(x, p):
+        p2 = model.with_x(p, x, names)
+        r_t = resid_sec(x, p)
+        # measured - model (reference residuals.py:1077)
+        r_dm = dmv - model.total_dm(p2, batch)[idx]
+        return torch.cat([r_t, r_dm])
+
+    def sigma_fn(p):
+        sigma_t = model.scaled_toa_uncertainty(p, batch) * 1e-6
+        sigma_dm = scaled_dm_sigma_rows(model, p, batch, idx, dme)
+        return torch.cat([sigma_t, sigma_dm])
+
+    offc = torch.cat([torch.ones(nt, dtype=F64, device=batch.device),
+                      torch.zeros(idx.shape[0], dtype=F64,
+                                  device=batch.device)]) \
+        if include_offset else None
+    return _make_assembly(model, names, combined, sigma_fn, offc,
+                          design_matrix)
+
+
 def _nan_solution(P: int):
     """The all-NaN stand-in for an impossible host solve (dpars, Sigma_n,
     norms, n_bad), with finite norms so denormalization stays defined."""
@@ -585,6 +674,16 @@ def _sqrt_solve(B, rhs, thr):
     return Vh.T @ (sinv * (Ub.T @ rhs)), Vh.T, sinv**2, e, bad
 
 
+def _pad_rows(U, n_rows: int):
+    """The noise basis zero-padded to ``n_rows``: wideband rows stack the
+    DM residuals under the TOA residuals, and the basis covers only the
+    TOA rows, the DM block being uncorrelated (pint_tpu's recipe, as the
+    reference's `pint_matrix.py:532` pads when combining)."""
+    if U is None or U.shape[0] == n_rows:
+        return U
+    return torch.cat([U, U.new_zeros((n_rows - U.shape[0], U.shape[1]))])
+
+
 def gls_solve(r, M, sigma, offc, U, phi, esl, npar: int,
               threshold: Optional[float] = None) -> dict:
     """The GLS linear solve + Woodbury chi2 on the tensors' device
@@ -619,6 +718,7 @@ def gls_solve(r, M, sigma, offc, U, phi, esl, npar: int,
     from pint_tpu_torch.utils import woodbury_dot, woodbury_dot_split
 
     dev = r.device
+    U = _pad_rows(U, r.shape[0])
     if phi is not None:
         # a zero prior variance would make 1/phi infinite: pin those
         # columns to ~zero amplitude instead of poisoning the solve
@@ -712,7 +812,7 @@ def build_gls_step(model: TimingModel, batch: TOABatch,
                    fit_params: Sequence[str], track_mode: str,
                    threshold: Optional[float] = None,
                    include_offset: bool = True,
-                   design_matrix: Optional[str] = None):
+                   design_matrix: Optional[str] = None, assemble=None):
     """The GLS Gauss-Newton step ``(x, p) -> dict`` (reference
     `GLSFitter.fit_toas` basis path + `get_gls_mtcm_mtcy`,
     `src/pint/fitter.py:1841,2618`; :func:`pint_tpu.fitter.build_gls_step`):
@@ -722,12 +822,15 @@ def build_gls_step(model: TimingModel, batch: TOABatch,
     leaves); the prior variances are recomputed every step.  A
     non-finite assembly or a failed factorization gives the all-NaN dict
     that the fit guards judge.  ``step.seconds`` accumulates host-clock
-    seconds of the assembly and of the solve."""
+    seconds of the assembly and of the solve.  ``assemble`` replaces the
+    whitened assembly (the wideband fitters pass theirs)."""
     names = list(fit_params)
     npar = len(names)
-    _assemble = _step_assembler(build_whitened_assembly(
-        model, batch, names, track_mode, include_offset,
-        design_matrix=design_matrix), batch)
+    if assemble is None:
+        assemble = build_whitened_assembly(model, batch, names, track_mode,
+                                           include_offset,
+                                           design_matrix=design_matrix)
+    _assemble = _step_assembler(assemble, batch)
     cache: dict = {}
     dev = batch.device
 
@@ -771,19 +874,25 @@ def build_gls_fullcov_step(model: TimingModel, batch: TOABatch,
                            fit_params: Sequence[str], track_mode: str,
                            threshold: Optional[float] = None,
                            include_offset: bool = True,
-                           design_matrix: Optional[str] = None):
+                           design_matrix: Optional[str] = None,
+                           assemble=None):
     """The dense-covariance GLS step (reference `GLSFitter.fit_toas`
     ``full_cov=True`` + `get_gls_mtcm_mtcy_fullcov`,
     `src/pint/fitter.py:2601`; :func:`pint_tpu.fitter.
     build_gls_fullcov_step`): C = N + U Phi U^T formed and
     Cholesky-factored, M^T C^-1 M dx = M^T C^-1 r (solved, as
     :func:`gls_solve` solves, through the SVD of its square root
-    L^-1 M).  O(N^2) memory: the cross-check of the basis path."""
+    L^-1 M).  O(N^2) memory: the cross-check of the basis path (a
+    wideband fit at 12,500 TOAs would form a 25,000 x 25,000 C, 5 GB).
+    ``assemble`` replaces the whitened assembly, as in
+    :func:`build_gls_step`."""
     names = list(fit_params)
     npar = len(names)
-    _assemble = _step_assembler(build_whitened_assembly(
-        model, batch, names, track_mode, include_offset,
-        design_matrix=design_matrix), batch)
+    if assemble is None:
+        assemble = build_whitened_assembly(model, batch, names, track_mode,
+                                           include_offset,
+                                           design_matrix=design_matrix)
+    _assemble = _step_assembler(assemble, batch)
 
     def solve(r, M, sigma, offc, p):
         from pint_tpu_torch.utils import _cho_factor, _cho_solve
@@ -793,6 +902,7 @@ def build_gls_fullcov_step(model: TimingModel, batch: TOABatch,
         C = torch.diag(sigma**2)
         if phi is not None:
             phi = torch.where(phi > 0.0, phi, 0.0)
+            U = _pad_rows(U, r.shape[0])
             C = C + (U * phi) @ U.T
         L = _cho_factor(C)
 
@@ -990,8 +1100,8 @@ def build_noise_lnlike(model: TimingModel, batch: TOABatch,
                        dm_index=None, dm_data=None, dm_error=None):
     """``(x_noise, p) -> lnlikelihood`` (a 0-d tensor) over free noise
     parameters (EFAC/EQUAD/ECORR/red-noise amplitudes) at fixed timing
-    parameters (:func:`pint_tpu.fitter.build_noise_lnlike`, narrowband):
-    the objective the downhill fitters maximize, differentiable in
+    parameters (:func:`pint_tpu.fitter.build_noise_lnlike`): the
+    objective the downhill fitters maximize, differentiable in
     ``x_noise`` by torch autograd.
 
     The residuals inside do not depend on the noise parameters (the phase
@@ -999,17 +1109,19 @@ def build_noise_lnlike(model: TimingModel, batch: TOABatch,
     grad and the gradient never reaches the ``phase_chain`` kernel, which
     has no reverse mode.  C is the dense Woodbury form over the whole
     [ECORR | Fourier] basis, as in pint_tpu (:func:`~pint_tpu_torch.
-    utils.woodbury_dot`).  The wideband DM term (``dm_index``...) waits
-    for the wideband port."""
+    utils.woodbury_dot`).  Given ``dm_index``, ``dm_data`` and
+    ``dm_error``, the wideband DM residuals' Gaussian term is added, so
+    that DMEFAC/DMEQUAD have a live gradient (pint_tpu's
+    `WidebandDownhillFitter` noise path); the model DM is plain PyTorch
+    and reads timing parameters only."""
     from pint_tpu_torch.utils import woodbury_dot
 
-    if dm_index is not None or dm_data is not None or dm_error is not None:
-        raise NotImplementedError(
-            "build_noise_lnlike: the wideband DM-residual term is not "
-            "ported (ROADMAP A6)")
     names = list(noise_names)
     calc = model.calc
     log2pi = float(np.log(2.0 * np.pi))
+    wideband = dm_index is not None
+    if wideband:
+        idx, dmv, dme = _dm_rows(batch, dm_index, dm_data, dm_error)
 
     def lnlike(x, p):
         p2 = model.with_x(p, x, names)
@@ -1028,7 +1140,14 @@ def build_noise_lnlike(model: TimingModel, batch: TOABatch,
         else:
             dot = torch.sum((r / sigma) ** 2)
             logdet = 2.0 * torch.sum(torch.log(sigma))
-        return -0.5 * (dot + logdet + r.shape[0] * log2pi)
+        ll = -0.5 * (dot + logdet + r.shape[0] * log2pi)
+        if wideband:
+            r_dm = dmv - model.total_dm(p2, batch)[idx]
+            sdm = scaled_dm_sigma_rows(model, p2, batch, idx, dme)
+            ll = ll - 0.5 * (torch.sum((r_dm / sdm) ** 2)
+                             + 2.0 * torch.sum(torch.log(sdm))
+                             + r_dm.shape[0] * log2pi)
+        return ll
 
     return lnlike
 
@@ -1154,15 +1273,12 @@ class Fitter:
              **kw) -> "Fitter":
         """The fitter for the data and model (reference `Fitter.auto`,
         `src/pint/fitter.py:255`; :meth:`pint_tpu.fitter.Fitter.auto`):
-        correlated noise -> GLS, else WLS, the downhill variants by
-        default.  Every keyword (``device=`` too) passes through to the
-        class.  Wideband TOAs raise: the wideband fitters are not ported,
-        and no narrowband fitter stands in for them."""
+        wideband TOAs -> the wideband fitter, correlated noise -> GLS,
+        else WLS, the downhill variants by default.  Every keyword
+        (``device=`` too) passes through to the class."""
         if toas.is_wideband:
-            raise NotImplementedError(
-                "Fitter.auto: wideband TOAs need WidebandDownhillFitter / "
-                "WidebandTOAFitter, which are not ported (ROADMAP A6)")
-        if model.has_correlated_errors:
+            cls = WidebandDownhillFitter if downhill else WidebandTOAFitter
+        elif model.has_correlated_errors:
             cls = DownhillGLSFitter if downhill else GLSFitter
         else:
             cls = DownhillWLSFitter if downhill else WLSFitter
@@ -1240,6 +1356,14 @@ class Fitter:
                               self.track_mode, threshold=threshold,
                               include_offset=include_offset,
                               design_matrix=self.design_matrix)
+
+    def _make_assembly(self, names, include_offset):
+        """The ``(x, p) -> (r, M, sigma, offc)`` assembly of the GLS steps
+        and LM: the whitened TOA rows (the wideband fitters stack the DM
+        rows under them)."""
+        return build_whitened_assembly(self.model, self.resids.batch, names,
+                                       self.track_mode, include_offset,
+                                       design_matrix=self.design_matrix)
 
     def _cached_step(self, names, threshold, include_offset):
         """One step function reused across fits of the same structure."""
@@ -1400,7 +1524,7 @@ class Fitter:
         the residual pipeline again: with the default all-ones offset
         regressor and 1/sigma^2 weights, the offset-profiled residuals ARE
         the weighted-mean-subtracted residuals."""
-        r = self.resids
+        r = getattr(self.resids, "toa", self.resids)
         nt = r.batch.ntoas
         r._phase_resids = np.asarray(
             (r_sec[:nt] - offset) * float(self.model.F0.value))
@@ -1540,7 +1664,7 @@ class WLSFitter(Fitter):
         # seed the post-fit residuals from the final assembly; not under
         # correlated noise, whose offset is profiled in the C^-1 metric
         # rather than the weighted mean the residuals subtract
-        r = self.resids
+        r = getattr(self.resids, "toa", self.resids)
         seed_ok = not self.model.has_correlated_errors and (
             (r.subtract_mean and r.use_weighted_mean) or
             (not r.subtract_mean and float(out["offset"]) == 0.0))
@@ -1587,7 +1711,7 @@ class GLSFitter(WLSFitter):
         build = build_gls_fullcov_step if self.full_cov else build_gls_step
         return build(self.model, self.resids.batch, names, self.track_mode,
                      threshold=threshold, include_offset=include_offset,
-                     design_matrix=self.design_matrix)
+                     assemble=self._make_assembly(names, include_offset))
 
     def _fused_ok(self) -> bool:
         # never fused, as in pint_tpu: the GLS fit is the eager step loop
@@ -1657,8 +1781,15 @@ class DownhillWLSFitter(Fitter):
         key = tuple(noise_names)
         if getattr(self, "_noise_lnlike_key", None) != key:
             self._noise_lnlike_key = key
+            wb = {}
+            if isinstance(self.resids, WidebandTOAResiduals):
+                # the DM residuals' term, so that DMEFAC/DMEQUAD have a
+                # live gradient
+                wb = dict(dm_index=self.resids.dm_index,
+                          dm_data=self.resids.dm_data,
+                          dm_error=self.resids.dm_error)
             self._noise_lnlike = build_noise_lnlike(
-                m, self.resids.batch, noise_names, self.track_mode)
+                m, self.resids.batch, noise_names, self.track_mode, **wb)
             self._noise_grad = _noise_grad(self._noise_lnlike)
         lnlike, grad = self._noise_lnlike, self._noise_grad
         calls = {"lnlike": 0, "grad": 0}
@@ -1909,6 +2040,10 @@ class LMFitter(Fitter):
     the same whitened assembly as WLS; trial points are judged by
     :func:`build_chi2_fn`.  The last rung of the degradation chain."""
 
+    def _make_chi2_fn(self, names, include_offset):
+        return build_chi2_fn(self.model, self.resids.batch, names,
+                             self.track_mode, include_offset)
+
     def fit_toas(self, maxiter: int = 50, lam0: float = 1e-3,
                  lam_decrease: float = 3.0, lam_increase: float = 5.0,
                  tol_chi2: float = 1e-8, threshold=None) -> float:
@@ -1916,12 +2051,9 @@ class LMFitter(Fitter):
         names = self.fit_params
         p = self._device_pdict()
         include_offset = "PhaseOffset" not in m.components
-        batch = self.resids.batch
-        assemble = _step_assembler(build_whitened_assembly(
-            m, batch, names, self.track_mode, include_offset,
-            design_matrix=self.design_matrix), batch)
-        chi2_fn = build_chi2_fn(m, batch, names, self.track_mode,
-                                include_offset)
+        assemble = _step_assembler(self._make_assembly(names, include_offset),
+                                   self.resids.batch)
+        chi2_fn = self._make_chi2_fn(names, include_offset)
         dev = self.device
         t_start = time.perf_counter()
 
@@ -1987,3 +2119,74 @@ class LMFitter(Fitter):
             status=status, rung="lm", guard_trips=guard_trips)
         self._record_provenance()
         return chi2
+
+
+class WidebandTOAFitter(GLSFitter):
+    """Wideband fitter: the TOAs and their wideband DMs in one least
+    squares (reference `WidebandTOAFitter`, `src/pint/fitter.py:1975`;
+    :class:`pint_tpu.fitter.WidebandTOAFitter`).
+
+    The rows stack the time residuals [s] and the DM residuals [pc cm^-3]
+    of the TOAs' ``-pp_dm``/``-pp_dme`` flags
+    (:class:`~pint_tpu_torch.residuals.WidebandTOAResiduals`); one jacfwd
+    of the stacked residual function gives the combined design matrix
+    (:func:`build_wideband_assembly`).  GLS-based: correlated noise (ECORR,
+    red noise) on the TOA rows is handled with the basis zero-padded over
+    the DM rows; without correlated components it is wideband WLS."""
+
+    def __init__(self, toas, model: TimingModel,
+                 track_mode: Optional[str] = None,
+                 design_matrix: Optional[str] = None,
+                 policy: Optional[str] = None, device=None):
+        wb = WidebandTOAResiduals(toas, model, track_mode=track_mode,
+                                  policy=policy, device=device)
+        super().__init__(toas, model, residuals=wb,
+                         design_matrix=design_matrix, policy=policy)
+
+    def _make_assembly(self, names, include_offset):
+        wb = self.resids
+        return build_wideband_assembly(
+            self.model, wb.batch, wb.dm_index, wb.dm_data, wb.dm_error,
+            names, self.track_mode, include_offset,
+            design_matrix=self.design_matrix)
+
+    def get_designmatrix(self):
+        """``(M, names)``: the combined TOA + DM design matrix, TOA rows in
+        [s/unit], DM rows in [pc cm^-3/unit] (reference
+        `WidebandTOAFitter.get_designmatrix`, `src/pint/fitter.py:2052`),
+        host numpy."""
+        names = self.fit_params
+        assemble = self._make_assembly(names, include_offset=False)
+        p = self._device_pdict()
+        x = self.model.x0(p, names).to(self.device)
+        with torch.no_grad():
+            _, M, _, _ = assemble.inline(x, p)
+        return _np(M), names
+
+
+class WidebandLMFitter(LMFitter, WidebandTOAFitter):
+    """Levenberg-Marquardt over the combined TOA + DM assembly (reference
+    `WidebandLMFitter`, `src/pint/fitter.py:2436`;
+    :class:`pint_tpu.fitter.WidebandLMFitter`): the damped steps from
+    :func:`build_wideband_assembly`, the trial points judged by
+    :func:`build_wideband_chi2_fn`, the covariance from the wideband GLS
+    step."""
+
+    def __init__(self, toas, model: TimingModel,
+                 track_mode: Optional[str] = None,
+                 policy: Optional[str] = None, device=None):
+        WidebandTOAFitter.__init__(self, toas, model, track_mode=track_mode,
+                                   policy=policy, device=device)
+
+    def _make_chi2_fn(self, names, include_offset):
+        wb = self.resids
+        return build_wideband_chi2_fn(
+            self.model, wb.batch, wb.dm_index, wb.dm_data, wb.dm_error,
+            names, self.track_mode, include_offset)
+
+
+class WidebandDownhillFitter(DownhillWLSFitter, WidebandTOAFitter):
+    """The downhill line search over the wideband GLS step, with the noise
+    fit's likelihood carrying the DM residuals' term (reference
+    `WidebandDownhillFitter`, `src/pint/fitter.py:1558`;
+    :class:`pint_tpu.fitter.WidebandDownhillFitter`)."""

@@ -1,10 +1,11 @@
 """Wrapper of the ``delay_chain`` CUDA kernel (``csrc/delay_chain.cu``).
 
 :func:`delay_chain` evaluates the whole delay chain of a timing model —
-astrometry (equatorial or ecliptic, PM, PX), the Sun's Shapiro delay, DM
-(with its Taylor terms) and DMX, delay jumps, the binary (ELL1, ELL1H,
-ELL1k, or DD/BT, DDS, DDH, DDK, DDGR with the Kepler solve) and FD — in
-DEFAULT_ORDER for every TOA in one launch.  On
+astrometry (equatorial or ecliptic, PM, PX), the Sun's Shapiro delay, the
+solar wind (NE_SW with SWM 0 or 1, and SWX), DM (with its Taylor terms),
+DMX and FDJUMPDM, delay jumps, the binary (ELL1, ELL1H, ELL1k, or DD/BT,
+DDS, DDH, DDK, DDGR with the Kepler solve), FD and FDJUMP — in
+DEFAULT_ORDER for every TOA in one launch (DMJUMP has no delay).  On
 a CUDA batch it launches the kernel (or raises); on a CPU batch it runs
 the plain version, the components' own delay functions
 (:meth:`pint_tpu_torch.models.timing_model.PhaseCalc.delay_plain`).  There
@@ -20,8 +21,9 @@ DDGR's post-Keplerian values, is formed in PyTorch by the component's
 own code and rides in a slot of its own, its tangent by torch's forward
 mode);
 the per-TOA data are the batch's columns plus the int32 DMX bins of each
-TOA (two: inclusive ranges that share a boundary both hold a TOA on it)
-and int32 DelayJump bits, built once on the host from the masks.
+TOA (two: inclusive ranges that share a boundary both hold a TOA on it),
+the SWX ranges likewise, and int32 member bits of DelayJump, FDJumpDM and
+FDJump, built once on the host from the masks.
 
 :class:`DelayChain` makes it differentiable in θ: ``jvp`` is the kernel's
 tangent launch (the same row function over a number type that carries
@@ -57,15 +59,21 @@ F32, F64, I32 = torch.float32, torch.float64, torch.int32
 ASTRO, PM, SHAPIRO, DM, DMX, JUMP, FD = 1, 2, 4, 8, 16, 32, 64
 BIN_SHAPIRO, OMEGA_FROM_NU, ABERRATION = 128, 256, 512
 ECLIPTIC, K96, STIGMA = 1024, 2048, 4096
+SOLAR_WIND, SWM1, SWX, FDJUMPDM, FDJUMP = 8192, 16384, 32768, 65536, 131072
 NO_BINARY, ELL1, DD, DDK, DDTM2, ELL1H, ELL1K = 0, 1, 2, 3, 4, 5, 6
 #: the binary families that run the Kepler solve
 DD_FAMILY = (DD, DDK, DDTM2)
 
-#: the mask entries the kernel reads (built by DispersionDMX/DelayJump)
+#: the mask entries the kernel reads (built by DispersionDMX, DelayJump,
+#: SolarWindDispersionX, FDJumpDM and FDJump)
 DMX_INDEX = "__dmxidx__"
 JUMP_BITS = "__delayjumpbits__"
+SWX_INDEX = "__swxidx__"
+FDJUMPDM_BITS = "__fdjumpdmbits__"
+FDJUMP_BITS = "__fdjumpbits__"
 
-#: DelayJump members the int32 bit mask can carry
+#: the members of a mask family (DelayJump, FDJumpDM, FDJump) that one
+#: int32 bit word per row can carry
 MAX_JUMPS = 31
 
 #: tangent lanes per thread of the tangent launch that csrc/delay_chain.cu
@@ -81,13 +89,20 @@ def lanes_per_thread(G: int, K: int) -> int:
     return 4 if G * K >= 64 else 2
 
 
+#: the int32 fields of csrc/delay_chain.cuh ``ChainCfg``, in order
+CFG_FIELDS = ("flags", "binary", "P", "ndm", "ndmx", "njump", "nfd",
+              "o_astro", "o_dm", "o_dmx", "o_jump", "o_fd", "o_bin", "nharm",
+              "nsw", "nswx", "nfdm", "nfdj", "o_sw", "o_swx", "o_fdm",
+              "o_fdj")
+
+
 class ChainCfg(ctypes.Structure):
     """csrc/delay_chain.cuh ``ChainCfg``: flags, binary family, θ length,
-    block sizes, block offsets and ELL1H's highest harmonic."""
+    block sizes, block offsets, ELL1H's highest harmonic, and the order k
+    of each FD<k>JUMP member."""
 
-    _fields_ = [(n, ctypes.c_int32) for n in (
-        "flags", "binary", "P", "ndm", "ndmx", "njump", "nfd",
-        "o_astro", "o_dm", "o_dmx", "o_jump", "o_fd", "o_bin", "nharm")]
+    _fields_ = [(n, ctypes.c_int32) for n in CFG_FIELDS] + [
+        ("fdj_order", ctypes.c_int8 * (MAX_JUMPS + 1))]
 
 
 Getter = Callable[[dict], torch.Tensor]
@@ -133,21 +148,26 @@ class ChainLayout:
     deltas: Tuple[Optional[str], ...]
     cfg: Tuple[int, ...]
     prepare: Optional[Callable[[dict], dict]] = None
+    #: the order k of each FD<k>JUMP member, in bit order
+    fdj_order: Tuple[int, ...] = ()
 
     @property
     def P(self) -> int:
         return len(self.names)
 
     @property
-    def dmx(self) -> bool:
-        return bool(self.cfg[0] & DMX)
+    def flags(self) -> int:
+        return self.cfg[0]
 
     @property
     def jumps(self) -> bool:
-        return bool(self.cfg[0] & JUMP)
+        return bool(self.flags & JUMP)
 
     def ctypes_cfg(self) -> ChainCfg:
-        return ChainCfg(*self.cfg)
+        c = ChainCfg(*self.cfg)
+        for j, k in enumerate(self.fdj_order):
+            c.fdj_order[j] = k
+        return c
 
     def theta(self, p: dict) -> torch.Tensor:
         """(P,) float64 θ = const + delta per slot, differentiable in
@@ -187,12 +207,35 @@ class ChainLayout:
 
         flags = 0
         binary = NO_BINARY
-        ndm = ndmx = njump = nfd = nharm = 0
-        offs = dict(o_astro=0, o_dm=0, o_dmx=0, o_jump=0, o_fd=0, o_bin=0)
+        count = dict(ndm=0, ndmx=0, njump=0, nfd=0, nharm=0, nsw=0, nswx=0,
+                     nfdm=0, nfdj=0)
+        offs = dict(o_astro=0, o_dm=0, o_dmx=0, o_jump=0, o_fd=0, o_bin=0,
+                    o_sw=0, o_swx=0, o_fdm=0, o_fdj=0)
         prepare = None
+        fdj_order: Tuple[int, ...] = ()
+
+        def mask_block(comp, flag, n_key, o_key):
+            """The slots of a mask family's members (those with a value),
+            one bit each in the row's word of ``flag``."""
+            nonlocal flags
+            ms = comp.members()
+            if len(ms) > MAX_JUMPS:
+                raise NotImplementedError(
+                    f"{type(comp).__name__} with {len(ms)} members: the "
+                    f"delay_chain kernel carries at most {MAX_JUMPS}")
+            if ms:
+                flags |= flag
+                count[n_key] = len(ms)
+                offs[o_key] = len(names)
+                for par in ms:
+                    pv_slot(par.name)
+            return ms
+
         order = (("AstrometryEquatorial", "AstrometryEcliptic"),
-                 ("DelayJump",), ("SolarSystemShapiro",), ("DispersionDM",),
-                 ("DispersionDMX",), tuple(BINARIES), ("FD",))
+                 ("DelayJump",), ("SolarSystemShapiro",),
+                 ("SolarWindDispersion",), ("SolarWindDispersionX",),
+                 ("DispersionDM",), ("DispersionDMX",), ("DispersionJump",),
+                 ("FDJumpDM",), tuple(BINARIES), ("FD",), ("FDJump",))
         last = -1
         for comp in comps:
             kind = type(comp).__name__
@@ -229,65 +272,101 @@ class ChainLayout:
                     slot("ECL__cos", _number(math.cos(eps)))
                     slot("ECL__sin", _number(math.sin(eps)))
             elif kind == "DelayJump":
-                js = [jp.name for jp in comp.jumps if jp.value is not None]
-                if len(js) > MAX_JUMPS:
-                    raise NotImplementedError(
-                        f"DelayJump with {len(js)} members: the "
-                        f"delay_chain kernel carries at most {MAX_JUMPS}")
-                if js:
-                    flags |= JUMP
-                    njump = len(js)
-                    offs["o_jump"] = len(names)
-                    for n in js:
-                        pv_slot(n)
+                mask_block(comp, JUMP, "njump", "o_jump")
             elif kind == "SolarSystemShapiro":
                 if comp.PLANET_SHAPIRO.value:
                     raise NotImplementedError(
                         "SolarSystemShapiro with PLANET_SHAPIRO: the "
                         "delay_chain kernel covers the Sun only")
                 flags |= SHAPIRO
+            elif kind == "SolarWindDispersion":
+                if not flags & ASTRO:
+                    raise AttributeError(
+                        "SolarWindDispersion needs an astrometry component")
+                flags |= SOLAR_WIND
+                nes = comp.ne_sw_names()
+                count["nsw"] = len(nes)
+                offs["o_sw"] = len(names)
+                if len(nes) > 1:
+                    ep = comp.epoch_name()
+                    slot(f"{ep}__day", _epoch_day(ep), ep)
+                else:
+                    slot("SWEPOCH__day", None)
+                for nm in nes:
+                    pv_slot(nm)
+                if comp.power_law:
+                    # SWP, and its functions alone: the half range (its
+                    # derivative is digamma's, which CUDA's libm lacks)
+                    # and AU_LS^SWP, by the component's own code
+                    from pint_tpu_torch.models.solar_wind import (AU_LS,
+                                                                   half_range)
+
+                    flags |= SWM1
+                    pv_slot("SWP")
+                    slot("SW__half", lambda p: half_range(pv(p, "SWP")))
+                    slot("SW__au_p", lambda p: AU_LS ** pv(p, "SWP"))
+            elif kind == "SolarWindDispersionX":
+                if not flags & ASTRO:
+                    raise AttributeError(
+                        "SolarWindDispersionX needs an astrometry component")
+                ranges = comp.swx_names()
+                if ranges:
+                    flags |= SWX
+                    count["nswx"] = len(ranges)
+                    offs["o_swx"] = len(names)
+                    for nm in ranges:
+                        pv_slot(nm)
+            elif kind == "DispersionJump":
+                pass  # DMJUMP offsets the measured DMs: no delay, no slot
+            elif kind == "FDJumpDM":
+                mask_block(comp, FDJUMPDM, "nfdm", "o_fdm")
+            elif kind == "FDJump":
+                fdj_order = tuple(
+                    comp.fd_order(par.prefix or par.name)
+                    for par in mask_block(comp, FDJUMP, "nfdj", "o_fdj"))
             elif kind == "DispersionDM":
                 flags |= DM
                 dms = comp.dm_names()
-                ndm = len(dms)
+                count["ndm"] = len(dms)
                 offs["o_dm"] = len(names)
-                if ndm > 1:
+                if len(dms) > 1:
                     ep = "DMEPOCH" if comp.DMEPOCH.value is not None \
                         else "PEPOCH"
                     slot(f"{ep}__day", _epoch_day(ep), ep)
                 else:
                     slot("DMEPOCH__day", None)
-                for n in dms:
-                    pv_slot(n)
+                for nm in dms:
+                    pv_slot(nm)
             elif kind == "DispersionDMX":
                 bins = comp.dmx_names()
                 if bins:
                     flags |= DMX
-                    ndmx = len(bins)
+                    count["ndmx"] = len(bins)
                     offs["o_dmx"] = len(names)
-                    for n in bins:
-                        pv_slot(n)
+                    for nm in bins:
+                        pv_slot(nm)
             elif kind == "FD":
                 fds = comp.fd_names()
                 if fds:
                     flags |= FD
-                    nfd = len(fds)
+                    count["nfd"] = len(fds)
                     offs["o_fd"] = len(names)
-                    for n in fds:
-                        pv_slot(n)
+                    for nm in fds:
+                        pv_slot(nm)
             else:
                 if kind == "BinaryDDK" and not flags & ASTRO:
                     raise AttributeError(
                         "BinaryDDK needs an astrometry component")
-                binary, bflags, nharm, prepare = _binary_slots(
+                binary, bflags, count["nharm"], prepare = _binary_slots(
                     comp, slot, pv_slot, offs, len(names))
                 flags |= bflags
         if not names:
             slot("__empty__", None)
-        cfg = (flags, binary, len(names), ndm, ndmx, njump, nfd,
-               offs["o_astro"], offs["o_dm"], offs["o_dmx"], offs["o_jump"],
-               offs["o_fd"], offs["o_bin"], nharm)
-        return cls(tuple(names), tuple(consts), tuple(deltas), cfg, prepare)
+        fields = dict(flags=flags, binary=binary, P=len(names), **count,
+                      **offs)
+        cfg = tuple(fields[f] for f in CFG_FIELDS)
+        return cls(tuple(names), tuple(consts), tuple(deltas), cfg, prepare,
+                   fdj_order)
 
 
 #: the binary components the kernel covers, by family
@@ -401,7 +480,7 @@ def _lib():
     lib = load("delay_chain")
     if getattr(lib, "_argtypes_set", False):
         return lib
-    lib.delay_chain.argtypes = [_c_void_p] * 12 + [
+    lib.delay_chain.argtypes = [_c_void_p] * (len(ROWS) + 4) + [
         ChainCfg, _c_int64, _c_int64, _c_int64, ctypes.c_int, _c_void_p]
     lib.delay_chain.restype = ctypes.c_int
     lib.delay_chain_error_string.argtypes = [ctypes.c_int]
@@ -417,13 +496,20 @@ def _ptr(t: torch.Tensor):
 #: the per-TOA inputs, in the kernel's order: name, dtype, trailing shape
 ROWS = (("tdb_day", torch.int64, ()), ("tdb_frac", F64, ()),
         ("frac_w", F32, (3,)), ("pos", F64, (3,)), ("sun", F64, (3,)),
-        ("freq", F64, ()), ("dmx", I32, (2,)), ("jbits", I32, ()))
+        ("freq", F64, ()), ("dmx", I32, (2,)), ("jbits", I32, ()),
+        ("swx", I32, (2,)), ("fdmbits", I32, ()), ("fdjbits", I32, ()))
+#: the inputs that a model without the component passes empty, by the
+#: flag that reads them and the mask entry that holds them
+MASK_ROWS = (("dmx", DMX, DMX_INDEX), ("jbits", JUMP, JUMP_BITS),
+             ("swx", SWX, SWX_INDEX), ("fdmbits", FDJUMPDM, FDJUMPDM_BITS),
+             ("fdjbits", FDJUMP, FDJUMP_BITS))
 
 
 def _check_rows(rows, dev):
     N = rows[0].shape[0]
+    optional = {name for name, _, _ in MASK_ROWS}
     for (name, dtype, tail), t in zip(ROWS, rows):
-        if name in ("dmx", "jbits") and t.numel() == 0:
+        if name in optional and t.numel() == 0:
             continue
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != (N, *tail):
             raise ValueError(
@@ -600,25 +686,25 @@ class DelayChain(torch.autograd.Function):
 
 def row_inputs(layout: ChainLayout, p: dict, batch) -> list:
     """The kernel's per-TOA tensors (:data:`ROWS`) for ``batch``: its
-    columns plus the DMX bin index and DelayJump bits of ``p["mask"]``
-    (empty where the model has none)."""
+    columns plus the DMX bins, SWX ranges and member bits of
+    ``p["mask"]`` (empty where the model has none).  A range index left
+    out by its component (three ranges overlapping on a TOA) raises."""
     empty = torch.empty(0, dtype=I32, device=batch.device)
-    dmx = jb = empty
-    if layout.dmx:
-        dmx = p["mask"].get(DMX_INDEX)
-        if dmx is None:
-            raise ValueError(
-                "delay_chain: no DMX bin index in the params dict: three "
-                "DMX ranges overlap on a TOA (the kernel takes at most two "
-                "bins per TOA)")
-    if layout.jumps:
-        jb = p["mask"].get(JUMP_BITS)
-        if jb is None:
-            raise ValueError("delay_chain: no DelayJump bits in the params "
-                             "dict")
+    masks = []
+    for name, flag, entry in MASK_ROWS:
+        t = empty
+        if layout.flags & flag:
+            t = p["mask"].get(entry)
+            if t is None:
+                raise ValueError(
+                    f"delay_chain: no {entry} in the params dict: three "
+                    "ranges overlap on a TOA (the kernel takes at most two "
+                    "per TOA)" if name in ("dmx", "swx") else
+                    f"delay_chain: no {entry} in the params dict")
+        masks.append(t)
     return [batch.tdb_day, batch.tdb_frac, batch.tdb_frac_w,
             batch.ssb_obs_pos_ls, batch.obs_sun_pos_ls, batch.freq_mhz,
-            dmx, jb]
+            *masks]
 
 
 def delay_chain(calc, p: dict, batch) -> torch.Tensor:

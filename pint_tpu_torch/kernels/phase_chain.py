@@ -92,7 +92,7 @@ def _lib():
     if getattr(lib, "_argtypes_set", False):
         return lib
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.phase_chain.argtypes = [vp] * 23 + [
+    lib.phase_chain.argtypes = [vp] * (len(dc.ROWS) + 15) + [
         dc.ChainCfg, PhaseCfg, i64, i64, i64, i64, i64, i64, ctypes.c_int,
         vp]
     lib.phase_chain.restype = ctypes.c_int

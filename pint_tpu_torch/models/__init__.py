@@ -40,6 +40,7 @@ from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     jump,
     noise_model,
     solar_system_shapiro,
+    solar_wind,
     spindown,
 )
 from pint_tpu_torch.models.model_builder import (  # noqa: F401  isort:skip

@@ -1,10 +1,13 @@
-"""Dispersion delay: DM polynomial (DM, DM1, ...) and DMX piecewise offsets.
+"""Dispersion delay: DM polynomial (DM, DM1, ...), DMX piecewise offsets,
+and the system offsets DMJUMP and FDJUMPDM.
 
 Port of :mod:`pint_tpu.models.dispersion` (reference `DispersionDM` /
-`DispersionDMX`, `src/pint/models/dispersion_model.py:129,307`).
+`DispersionDMX` / `DispersionJump` / `FDJumpDM`,
+`src/pint/models/dispersion_model.py:129,307,727,808`).
 Delay = K · DM(t) / ν²  with K the tempo-convention dispersion constant
 and ν the observing frequency [MHz].  DMX is a dense masked sum: each
 range's TOA mask is precomputed on the host into the params dict.
+DMJUMP offsets the *measured* wideband DMs and has zero delay.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from pint_tpu_torch import DMconst
 from pint_tpu_torch.models.parameter import (
     FloatParam,
+    MaskParam,
     MJDParam,
     prefixParameter,
     split_prefix,
@@ -22,6 +26,7 @@ from pint_tpu_torch.models.parameter import (
 from pint_tpu_torch.models.timing_model import (
     DelayComponent,
     epoch_days,
+    member_bits,
     pv,
     zeros_rows,
 )
@@ -31,6 +36,9 @@ from pint_tpu_torch.utils import taylor_horner
 SECS_PER_YEAR = 365.25 * 86400.0
 #: the delay kernel's DMX bin index (kernels/delay_chain.py DMX_INDEX)
 DMX_INDEX = "__dmxidx__"
+#: the delay kernel's FDJUMPDM bits (kernels/delay_chain.py FDJUMPDM_BITS)
+FDJUMPDM_BITS = "__fdjumpdmbits__"
+
 
 
 def dispersion_delay(dm, freq_mhz):
@@ -178,6 +186,138 @@ class DispersionDMX(DelayComponent):
         masks = torch.stack([p["mask"][f"{n}__rangemask"] for n in names])
         vals = torch.stack([torch.as_tensor(pv(p, n)) for n in names])
         return vals @ masks
+
+    def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
+        return dispersion_delay(self.dm_value(p, batch), batch.freq_mhz)
+
+
+class DispersionJump(DelayComponent):
+    """System-dependent offsets to the *measured* wideband DM values
+    (DMJUMP mask parameters; :class:`pint_tpu.models.dispersion.
+    DispersionJump`, reference `dispersion_model.py:727`): each DMJUMP
+    subtracts its value from the model DM over its TOA selection and
+    contributes **zero** time delay."""
+
+    register = True
+    category = "dispersion_jump"
+
+    def mask_families(self):
+        return ["DMJUMP"]
+
+    @property
+    def dm_jumps(self):
+        return [par for par in self.params.values()
+                if isinstance(par, MaskParam)]
+
+    def add_dmjump(self, index=None, key=None, key_value=(), value=0.0,
+                   frozen=True) -> MaskParam:
+        if index is None:
+            index = 1 + max([par.index or 0 for par in self.dm_jumps],
+                            default=0)
+        par = MaskParam("DMJUMP", index=index, key=key,
+                        key_value=key_value, value=value, frozen=frozen,
+                        units="pc cm^-3")
+        return self.add_param(par)
+
+    def make_param(self, name):
+        if name == "DMJUMP":
+            idx = 1 + max([par.index or 0 for par in self.dm_jumps],
+                          default=0)
+            return MaskParam("DMJUMP", index=idx, units="pc cm^-3")
+        try:
+            prefix, index = split_prefix(name)
+        except ValueError:
+            return None
+        if prefix == "DMJUMP":
+            return MaskParam("DMJUMP", index=index, units="pc cm^-3")
+        return None
+
+    def linear_params(self):
+        # dm_value = -sum DMJUMP_i * mask_i: exactly linear (zero delay)
+        return [par.name for par in self.dm_jumps]
+
+    def dm_value(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        total = zeros_rows(batch)
+        for par in self.dm_jumps:
+            m = p["mask"].get(par.mask_pytree_name)
+            if m is None:
+                continue
+            total = total - pv(p, par.name) * m
+        return total
+
+    def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
+        return zeros_rows(batch)
+
+
+class FDJumpDM(DelayComponent):
+    """System-dependent DM offsets for narrowband data (``FDJUMPDM`` mask
+    parameters; :class:`pint_tpu.models.dispersion.FDJumpDM`, reference
+    `dispersion_model.py:808`): unlike DMJUMP, a real dispersion delay
+    over its TOA selection, with the reference's negative sign."""
+
+    register = True
+    category = "fdjumpdm"
+
+    def mask_families(self):
+        return ["FDJUMPDM"]
+
+    @property
+    def fdjumps(self):
+        return [par for par in self.params.values()
+                if isinstance(par, MaskParam)]
+
+    def members(self):
+        """The members the delay kernel carries (those with a value), in
+        bit order."""
+        return [par for par in self.fdjumps if par.value is not None]
+
+    def add_fdjumpdm(self, index=None, key=None, key_value=(), value=0.0,
+                     frozen=True) -> MaskParam:
+        if index is None:
+            index = 1 + max([par.index or 0 for par in self.fdjumps],
+                            default=0)
+        par = MaskParam("FDJUMPDM", index=index, key=key,
+                        key_value=key_value, value=value, frozen=frozen,
+                        units="pc cm^-3")
+        return self.add_param(par)
+
+    def make_param(self, name):
+        if name == "FDJUMPDM":
+            idx = 1 + max([par.index or 0 for par in self.fdjumps],
+                          default=0)
+            return MaskParam("FDJUMPDM", index=idx, units="pc cm^-3")
+        try:
+            prefix, index = split_prefix(name)
+        except ValueError:
+            return None
+        if prefix == "FDJUMPDM":
+            return MaskParam("FDJUMPDM", index=index, units="pc cm^-3")
+        return None
+
+    def linear_params(self):
+        # delay = K * (-FDJUMPDM_i * mask_i) / f^2: exactly linear
+        return [par.name for par in self.fdjumps]
+
+    def mask_entries(self, toas):
+        """The members' TOA masks, and their bits per TOA (bit j for the
+        j-th member with a value) that the delay kernel reads."""
+        out = super().mask_entries(toas)
+        bits = member_bits(self.members(), out, toas.ntoas)
+        if bits is not None:
+            out[FDJUMPDM_BITS] = bits
+        return out
+
+    def dm_value(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        total = zeros_rows(batch)
+        for par in self.fdjumps:
+            m = p["mask"].get(par.mask_pytree_name)
+            if m is None:
+                continue
+            # negative, as the reference's `fdjump_dm`
+            # (dispersion_model.py:877) and DMJUMP: par files are
+            # interchangeable only with this sign
+            total = total - pv(p, par.name) * m
+        return total
 
     def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
         return dispersion_delay(self.dm_value(p, batch), batch.freq_mhz)

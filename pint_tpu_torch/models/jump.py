@@ -9,7 +9,6 @@ masks in the params dict, so the device side is one dense masked sum.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from pint_tpu_torch import qs
@@ -17,6 +16,7 @@ from pint_tpu_torch.models.parameter import MaskParam
 from pint_tpu_torch.models.timing_model import (
     DelayComponent,
     PhaseComponent,
+    member_bits,
     pv,
     zeros_rows,
 )
@@ -100,6 +100,11 @@ class DelayJump(DelayComponent):
     def jumps(self):
         return [p for p in self.params.values() if isinstance(p, MaskParam)]
 
+    def members(self):
+        """The jumps the delay kernel carries (those with a value), in bit
+        order."""
+        return [jp for jp in self.jumps if jp.value is not None]
+
     def linear_params(self):
         return [jp.name for jp in self.jumps]
 
@@ -107,12 +112,8 @@ class DelayJump(DelayComponent):
         """The jumps' TOA masks, and their membership bits per TOA (bit j
         for the j-th jump with a value) that the delay kernel reads."""
         out = super().mask_entries(toas)
-        js = [jp for jp in self.jumps if jp.value is not None]
-        if len(js) <= 31:
-            bits = np.zeros(toas.ntoas, np.int32)
-            for j, jp in enumerate(js):
-                bits |= out[jp.mask_pytree_name].astype(bool).astype(
-                    np.int32) << j
+        bits = member_bits(self.members(), out, toas.ntoas)
+        if bits is not None:
             out[JUMP_BITS] = bits
         return out
 

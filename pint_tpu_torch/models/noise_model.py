@@ -11,8 +11,9 @@ over mask-selected TOA subsets, with TNEQ the tempo2-convention
 log10(EQUAD/s).  The correlated components expose a basis matrix and
 prior weights for the GLS fitter: the basis is built on the host (numpy)
 and rides in the params dict's ``const`` group; the weights are
-differentiable functions of the params dict.  ``ScaleDmError``,
-``PLChromNoise`` and ``PLSWNoise`` are not ported yet (ROADMAP.md).
+differentiable functions of the params dict.  ``ScaleDmError`` rescales
+the wideband DM uncertainties (DMEFAC/DMEQUAD).  ``PLChromNoise`` and
+``PLSWNoise`` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -136,6 +137,76 @@ class ScaleToaError(NoiseComponent):
         var = var + quad
         scale = torch.ones_like(var)
         for par in self._family("EFAC"):
+            m = p["mask"].get(par.mask_pytree_name)
+            if m is None:
+                continue
+            scale = scale * (1.0 + m * (pv(p, par.name) - 1.0))
+        return scale * torch.sqrt(var)
+
+
+class ScaleDmError(NoiseComponent):
+    """DMEFAC/DMEQUAD rescaling of wideband DM measurement uncertainties
+    (:class:`pint_tpu.models.noise_model.ScaleDmError`, reference
+    `ScaleDmError`, `src/pint/models/noise_model.py:270-379`):
+
+        sigma_dm' = DMEFAC * sqrt(sigma_dm^2 + DMEQUAD^2)
+
+    over mask-selected TOA subsets.  It affects only the DM block of
+    wideband residuals and fits, never the TOA uncertainties."""
+
+    register = True
+    category = "scale_dm_error"
+
+    def mask_families(self) -> List[str]:
+        return ["DMEFAC", "DMEQUAD"]
+
+    def _family(self, stem: str) -> List[MaskParam]:
+        return self.prefix_params(stem)
+
+    def _next_index(self, stem: str) -> int:
+        return 1 + max([par.index or 0 for par in self._family(stem)],
+                       default=0)
+
+    def make_param(self, name: str):
+        if name in ("DMEFAC", "DMEQUAD"):
+            stem, index = name, self._next_index(name)
+        else:
+            try:
+                stem, index = split_prefix(name)
+            except ValueError:
+                return None
+        if stem == "DMEFAC":
+            return MaskParam("DMEFAC", index=index, units="",
+                             description="DM error scale factor")
+        if stem == "DMEQUAD":
+            return MaskParam("DMEQUAD", index=index, units="pc cm^-3",
+                             description="DM error added in quadrature")
+        return None
+
+    def add_noise_param(self, stem: str, key=None, key_value=(),
+                        value=None, index=None, frozen=True) -> MaskParam:
+        par = self.make_param(stem if index is None else f"{stem}{index}")
+        if par is None:
+            raise ValueError(f"unknown DM-noise family {stem!r}")
+        par.key, par.key_value = key, list(key_value)
+        par.value, par.frozen = value, frozen
+        return self.add_param(par)
+
+    def scaled_dm_sigma(self, p: dict, batch: TOABatch,
+                        sigma_dm: torch.Tensor) -> torch.Tensor:
+        """Per-TOA DM uncertainties [pc cm^-3] rescaled; the masks are
+        per TOA (full batch length), so callers gather the wideband rows
+        afterwards."""
+        var = sigma_dm ** 2
+        quad = torch.zeros_like(var)
+        for par in self._family("DMEQUAD"):
+            m = p["mask"].get(par.mask_pytree_name)
+            if m is None:
+                continue
+            quad = quad + m * pv(p, par.name) ** 2
+        var = var + quad
+        scale = torch.ones_like(var)
+        for par in self._family("DMEFAC"):
             m = p["mask"].get(par.mask_pytree_name)
             if m is None:
                 continue

@@ -120,6 +120,21 @@ def mask_of(p: dict, param: MaskParam):
     return p["mask"][param.mask_pytree_name]
 
 
+def member_bits(members, masks: dict, ntoas: int):
+    """int32 bits per TOA, bit j set where the j-th of ``members`` (mask
+    parameters with a value, their masks in ``masks``) selects the TOA:
+    the delay kernel's per-row word of a mask family (DelayJump,
+    FDJumpDM, FDJump), or None beyond 31 members (the kernel then
+    refuses the model)."""
+    if len(members) > 31:
+        return None
+    bits = np.zeros(ntoas, np.int32)
+    for j, par in enumerate(members):
+        bits |= masks[par.mask_pytree_name].astype(bool).astype(
+            np.int32) << j
+    return bits
+
+
 def zeros_rows(batch: TOABatch) -> torch.Tensor:
     """(N,) float64 zeros on the batch's device."""
     return torch.zeros(batch.ntoas, dtype=torch.float64, device=batch.device)
@@ -675,6 +690,30 @@ class TimingModel:
         return sl
 
     # -- physics ----------------------------------------------------------
+    def scaled_dm_uncertainty(self, p: dict, batch: TOABatch, dm_error):
+        """Per-TOA wideband DM uncertainties [pc cm^-3] after DMEFAC/DMEQUAD
+        rescaling (reference ``scaled_dm_uncertainty``,
+        `src/pint/models/timing_model.py:1802`)."""
+        sigma = dm_error
+        for c in self.noise_components:
+            f = getattr(c, "scaled_dm_sigma", None)
+            if f is not None:
+                sigma = f(p, batch, sigma)
+        return sigma
+
+    def total_dm(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        """Model DM at each TOA [pc cm^-3]: the sum over every component
+        with a ``dm_value`` (reference ``TimingModel.total_dm``,
+        `src/pint/models/timing_model.py:1714`), in plain PyTorch on the
+        batch's device and differentiable: the DM block of the wideband
+        design matrix is its jacfwd."""
+        dm = zeros_rows(batch)
+        for c in self.components.values():
+            f = getattr(c, "dm_value", None)
+            if f is not None:
+                dm = dm + f(p, batch)
+        return dm
+
     @property
     def calc(self) -> PhaseCalc:
         return PhaseCalc(self.delay_components, self.phase_components)

@@ -21,7 +21,8 @@ import torch
 from pint_tpu_torch.models.timing_model import PhaseCalc, TimingModel
 from pint_tpu_torch.toabatch import TOABatch
 
-__all__ = ["Residuals", "raw_phase_resids", "build_resid_fn"]
+__all__ = ["Residuals", "WidebandTOAResiduals", "raw_phase_resids",
+           "build_resid_fn", "scaled_dm_sigma_rows"]
 
 
 def raw_phase_resids(model_calc: PhaseCalc, p: dict, batch: TOABatch,
@@ -232,6 +233,162 @@ class Residuals:
     def dof(self) -> int:
         return self.toas.ntoas - len(self.model.free_params) - \
             int(self.subtract_mean)
+
+    @property
+    def reduced_chi2(self) -> float:
+        return self.calc_chi2() / self.dof
+
+
+def scaled_dm_sigma_rows(model: TimingModel, p: dict, batch: TOABatch,
+                         dm_index, dm_error) -> torch.Tensor:
+    """DMEFAC/DMEQUAD-scaled DM uncertainties [pc cm^-3] on the wideband
+    rows (:func:`pint_tpu.residuals.scaled_dm_sigma_rows`): the measured
+    errors scattered to full batch length (the noise masks are per TOA),
+    scaled, gathered back.  Shared by the residuals, the wideband
+    assembly and the noise likelihood."""
+    dev = batch.device
+    idx = torch.as_tensor(dm_index, dtype=torch.int64, device=dev)
+    full = torch.zeros(batch.ntoas, dtype=torch.float64, device=dev)
+    full = full.index_put((idx,), torch.as_tensor(
+        dm_error, dtype=torch.float64, device=dev))
+    return model.scaled_dm_uncertainty(p, batch, full)[idx]
+
+
+class WidebandTOAResiduals:
+    """Combined TOA + wideband-DM residuals
+    (:class:`pint_tpu.residuals.WidebandTOAResiduals`, reference
+    `WidebandTOAResiduals` / `WidebandDMResiduals`,
+    `src/pint/residuals.py:1232,987`).
+
+    The TOA block is an ordinary :class:`Residuals` on ``device``; the DM
+    block is ``measured - model`` over the TOAs carrying ``-pp_dm`` flags,
+    with DMEFAC/DMEQUAD-scaled uncertainties.  chi2 and dof are the sums
+    of the two blocks (reference `CombinedResiduals.chi2`,
+    `src/pint/residuals.py:1218`).  Non-finite or nonpositive ``-pp_dme``
+    raise under the "raise" and "mask" policies and are downweighted
+    under "warn", as pint_tpu judges them."""
+
+    def __init__(self, toas, model: TimingModel,
+                 track_mode: Optional[str] = None,
+                 policy: Optional[str] = None, device=None):
+        dmdata = toas.get_dm_data()
+        if dmdata is None:
+            raise ValueError(
+                "wideband residuals need TOAs with -pp_dm/-pp_dme flags")
+        self.dm_index, self.dm_data, self.dm_error = dmdata
+        from pint_tpu_torch.toabatch import (ValidationWarning,
+                                             resolve_validate_policy)
+
+        pol = resolve_validate_policy(policy)
+        # the DM rows ride the same whitened solve as the TOA rows: judge
+        # their uncertainties under the same policy ("mask" is not
+        # row-consistent across the two blocks, so invalid DM errors
+        # raise under both "raise" and "mask")
+        dme = np.asarray(self.dm_error, np.float64)
+        bad = ~np.isfinite(dme) | (dme <= 0.0)
+        if bad.any():
+            if pol != "warn":
+                from pint_tpu_torch.exceptions import InvalidTOAs
+
+                raise InvalidTOAs(
+                    f"{int(bad.sum())} non-finite/nonpositive wideband "
+                    'DM uncertainties (-pp_dme); policy="warn" to '
+                    "downweight")
+            import warnings as _warnings
+
+            _warnings.warn(
+                f"downweighting {int(bad.sum())} wideband DM row(s) "
+                "with non-finite/nonpositive -pp_dme",
+                ValidationWarning)
+            self.dm_error = np.where(bad, 1e12, dme)
+        self.toa = Residuals(toas, model, track_mode=track_mode,
+                             policy=policy, device=device)
+        self.toas = toas
+        self.model = model
+        self._dm_resids_cache: Optional[np.ndarray] = None
+
+    # the attributes the fitters rely on delegate to the TOA block
+    @property
+    def batch(self):
+        return self.toa.batch
+
+    @property
+    def pdict(self):
+        return self.toa.pdict
+
+    @property
+    def device(self):
+        return self.toa.device
+
+    @property
+    def track_mode(self):
+        return self.toa.track_mode
+
+    @property
+    def subtract_mean(self):
+        return self.toa.subtract_mean
+
+    @property
+    def use_weighted_mean(self):
+        return self.toa.use_weighted_mean
+
+    def update(self):
+        self.toa.update()
+        self._dm_resids_cache = None
+
+    # -- TOA block --------------------------------------------------------
+    @property
+    def time_resids(self) -> np.ndarray:
+        return self.toa.time_resids
+
+    def rms_weighted(self) -> float:
+        return self.toa.rms_weighted()
+
+    def get_data_error(self) -> np.ndarray:
+        return self.toa.get_data_error()
+
+    # -- DM block ---------------------------------------------------------
+    def calc_dm_resids(self) -> np.ndarray:
+        """measured DM - model DM [pc cm^-3] over the wideband TOAs
+        (reference `WidebandDMResiduals.calc_resids`,
+        `src/pint/residuals.py:1077`), cached until the next
+        :meth:`update`."""
+        if self._dm_resids_cache is None:
+            with torch.no_grad():
+                model_dm = self.model.total_dm(
+                    self.toa.pdict, self.toa.batch).cpu().numpy()
+            self._dm_resids_cache = self.dm_data - model_dm[self.dm_index]
+        return self._dm_resids_cache
+
+    @property
+    def dm_resids(self) -> np.ndarray:
+        return self.calc_dm_resids()
+
+    def get_dm_error(self) -> np.ndarray:
+        """DMEFAC/DMEQUAD-scaled DM uncertainties [pc cm^-3] on the
+        wideband rows."""
+        with torch.no_grad():
+            return scaled_dm_sigma_rows(
+                self.model, self.toa.pdict, self.toa.batch, self.dm_index,
+                self.dm_error).cpu().numpy()
+
+    def calc_dm_chi2(self) -> float:
+        return float(np.sum((self.calc_dm_resids() /
+                             self.get_dm_error()) ** 2))
+
+    # -- combined ---------------------------------------------------------
+    def calc_chi2(self) -> float:
+        return self.toa.calc_chi2() + self.calc_dm_chi2()
+
+    def lnlikelihood(self) -> float:
+        r, e = self.calc_dm_resids(), self.get_dm_error()
+        dm_ll = -0.5 * (np.sum((r / e) ** 2) + 2.0 * np.sum(np.log(e)) +
+                        len(e) * np.log(2.0 * np.pi))
+        return self.toa.lnlikelihood() + float(dm_ll)
+
+    @property
+    def dof(self) -> int:
+        return self.toa.dof + len(self.dm_data)
 
     @property
     def reduced_chi2(self) -> float:

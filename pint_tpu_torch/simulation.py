@@ -7,8 +7,9 @@ arrival times from a model by the reference's `zero_residuals` iteration
 tracking and no mean subtraction, shift the TOAs by -residual, repeat
 until |residual| < tol), so the arrival times sit on integer model
 phases; optional white measurement noise (EFAC/EQUAD-scaled when the
-model has white-noise components) is then added, and
-:func:`add_correlated_noise` adds one realization of the correlated noise.
+model has white-noise components) is then added,
+:func:`add_correlated_noise` adds one realization of the correlated noise
+and :func:`add_wideband_dm_data` attaches simulated wideband DMs.
 The residuals run on ``device`` (default ``"cuda"``), the TOA bookkeeping
 on the host.  The rest of pint_tpu's simulation module is not ported
 yet.
@@ -27,7 +28,8 @@ from pint_tpu_torch.residuals import build_resid_fn
 from pint_tpu_torch.toa import TOAs, get_TOAs_array
 from pint_tpu_torch.utils import resolve_device
 
-__all__ = ["zero_residuals", "make_fake_toas_uniform", "add_correlated_noise"]
+__all__ = ["zero_residuals", "make_fake_toas_uniform", "add_correlated_noise",
+           "add_wideband_dm_data"]
 
 
 def zero_residuals(toas: TOAs, model: TimingModel, maxiter: int = 10,
@@ -122,4 +124,28 @@ def add_correlated_noise(toas: TOAs, model: TimingModel,
     toas.utc = mjdmod.add_sec(toas.utc, delay_sec.numpy())
     toas.compute_TDBs(ephem=toas.ephem)
     toas.compute_posvels(ephem=toas.ephem, planets=toas.planets)
+    return toas
+
+
+def add_wideband_dm_data(toas: TOAs, model: TimingModel,
+                         dm_error: float = 1e-4,
+                         add_noise: bool = False,
+                         seed: Optional[int] = None, device=None) -> TOAs:
+    """Attach simulated wideband DM measurements (``-pp_dm``/``-pp_dme``
+    flags) drawn from the model's ``total_dm``
+    (:func:`pint_tpu.simulation.add_wideband_dm_data`, reference
+    `update_fake_dms`, `src/pint/simulation.py:125`); with ``add_noise``
+    white noise of ``dm_error`` from numpy's ``default_rng(seed)``.  The
+    model DM runs on ``device`` (default ``"cuda"``)."""
+    rng = np.random.default_rng(seed)
+    batch = toas.to_batch(device=resolve_device(device))
+    p = model.build_pdict(toas, tzr_toas=model.make_tzr_toas_or_none(),
+                          device=batch.device)
+    with torch.no_grad():
+        dm = model.total_dm(p, batch).cpu().numpy()
+    if add_noise:
+        dm = dm + rng.standard_normal(toas.ntoas) * dm_error
+    for i, f in enumerate(toas.flags):
+        f["pp_dm"] = repr(float(dm[i]))
+        f["pp_dme"] = repr(float(dm_error))
     return toas

@@ -35,6 +35,10 @@ them with it switched off, from the repository root::
   unfused one as for the three paths' models; ``fit_toas`` on the card
   on the committed DDK set in ecliptic coordinates within the
   fit-parity bars of pint_tpu's stored fit;
+* the DM family of the row function (``examples.DM_FAMILY``: NE_SW with
+  SWM 0 and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1
+  sets) as the variants above; the three wideband fitters on the card on
+  the committed wideband set against pint_tpu's stored fits;
 * ``phase_chain`` (the delay chain with the phase as its epilogue, the
   paths' kernel since the fusion): on the J0740, DD and GLS models its
   primal (frac, slope, dt64; words) bit-equal to the unfused card chain
@@ -62,7 +66,7 @@ import torch
 
 import torch_port_data as data
 from pint_tpu_torch import qs as tqs
-from pint_tpu_torch.examples import VARIANTS
+from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
 from pint_tpu_torch.toabatch import split_f64_words
 
@@ -315,6 +319,9 @@ def _chain_model(case, dev):
     if case in VARIANTS:
         par, tim = (lambda: data.variant_par_lines(case),
                     data.variant_tim(case))
+    elif case in DM_FAMILY:
+        par, tim = (lambda: data.dm_family_par_lines(case),
+                    data.dm_family_tim(case))
     else:
         par, tim = {
             "J0740": (lambda: j0740_realistic_par(
@@ -326,7 +333,7 @@ def _chain_model(case, dev):
     return model, Residuals(toas, model, device=dev)
 
 
-@pytest.mark.parametrize("case", VARIANTS)
+@pytest.mark.parametrize("case", [*VARIANTS, *DM_FAMILY])
 def test_variant_delay_chain_matches_plain(case):
     """The delay_chain kernel on each DD and ELL1 variant against the
     plain component delays: delay within 1e-12 s, every jacfwd column
@@ -391,7 +398,8 @@ def test_ddk_fit_on_card_matches_reference():
     assert dev_sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
+                                  *DM_FAMILY])
 def test_delay_chain_lanes_bit_equal_to_single_lane(case):
     """The multi-lane tangent launch (every lanes-per-thread) against the
     single-lane one, on two θ sets: bit-equal at lanes 1, 3, 10, 76 and
@@ -545,7 +553,8 @@ def _fused_case(case, dev):
     return model, r, names, X, pn.to(dev), rng
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
+                                  *DM_FAMILY])
 def test_phase_chain_bit_equal_to_unfused_chain(case):
     """The fused launches against the unfused card chain: the primal of
     one launch over 1 and 9 θ sets in every mode (frac or the words,
@@ -602,7 +611,8 @@ def test_phase_chain_bit_equal_to_unfused_chain(case):
         assert torch.equal(kf, ku), (K, float(torch.max(torch.abs(kf - ku))))
 
 
-@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS])
+@pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
+                                  *DM_FAMILY])
 def test_phase_chain_lanes_bit_equal_to_single_lane(case):
     """Every lanes-per-thread of the fused tangent launch against the
     single-lane one on two θ sets, with random tangents of θ and of
@@ -747,3 +757,48 @@ def test_designmatrix_on_card_matches_assembly():
                        / np.max(np.abs(Mc), axis=0)))
     print(f"design matrix card vs CPU: {gap:.3e} per column")
     assert gap <= 1e-10
+
+
+@pytest.mark.parametrize("label", ["wideband_gls", "wideband_downhill",
+                                   "wideband_lm"])
+def test_wideband_fit_on_card_matches_reference(label):
+    """The wideband fitters on the card on the committed 200-TOA wideband
+    set: pint_tpu's stored fits within 1e-3 sigma (LM 1e-2: its steps
+    are decided by comparing chi2 values), 1e-3 in the uncertainties and
+    1e-6 in chi2 (the downhill fit 1e-3, and its DMEFACs within 1e-2
+    sigma and 1e-2 in their uncertainties: L-BFGS-B's stop); every
+    residual through the fused phase_chain kernel."""
+    _card()
+    from pint_tpu_torch.examples import WB_NOISE_FREE
+    from pint_tpu_torch.fitter import (WidebandDownhillFitter,
+                                       WidebandLMFitter, WidebandTOAFitter)
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+
+    with open(data.WB_REF_JSON) as f:
+        ref = json.load(f)
+    cls, free, sig_tol, chi2_tol, kw = {
+        "wideband_gls": (WidebandTOAFitter, (), 1e-3, 1e-6,
+                         {"maxiter": ref["maxiter"]}),
+        "wideband_downhill": (WidebandDownhillFitter, WB_NOISE_FREE, 1e-3,
+                              1e-3, {}),
+        "wideband_lm": (WidebandLMFitter, (), 1e-2, 1e-6, {})}[label]
+    want = ref[label]
+    model, toas = data.load_torch(data.WB_REF_TIM,
+                                  par=data.wb_par_lines(free))
+    data.wb_start(model)
+    fitter = cls(toas, model)
+    before = PhaseChain.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(**kw)
+    assert PhaseChain.launches > before
+    sig, unc = data.fit_gaps(model, want["values"], want["uncertainties"])
+    gap = abs(chi2 - want["chi2"]) / want["chi2"]
+    print(f"card {label} vs pint_tpu: {sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert fitter.fitresult.status.name == want["status"]
+    assert sig <= sig_tol and unc <= 1e-3 and gap <= chi2_tol
+    if free:
+        nsig, nunc = data.fit_gaps(model, want["noise_values"],
+                                   want["noise_uncertainties"])
+        assert nsig <= 1e-2 and nunc <= 1e-2

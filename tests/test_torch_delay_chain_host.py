@@ -6,12 +6,17 @@ with ``g++ -ffp-contract=off`` here, without a card or nvcc.  On the
 committed 200-TOA J0740 (ELL1), DD and BT sets, and on the DD and ELL1
 variants (``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial
 and, on its own 200-TOA set, in ecliptic coordinates, ELL1H in its three
-modes, ELL1k), whose delay is held bit-equal:
+modes, ELL1k), and the DM family (``examples.dm_family_par``: NE_SW with SWM 0
+and SWM 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and the ELL1
+binary; and the wideband set's layout, ``WB``), whose delay is held
+bit-equal (SWM 1 too: torch's pow on the CPU is libm's here, so its
+quadrature's 64 powers per row agree to the last bit):
 
 * every lane of the multi-lane number type ``DualN<L>`` (L = 2, 4) is
   bit-equal to the single-lane ``Dual`` at lane counts 1, 3, 10 and P,
   on two θ sets (the multi-lane kernel changed no arithmetic), on the
-  three sets, DDK in ecliptic coordinates and ELL1H;
+  three sets, DDK in ecliptic coordinates, ELL1H, and the DM family on
+  DD (SWM 0) and ELL1 (SWM 1);
 * the row function's delay within 1e-12 s and its jacfwd columns within
   1e-10 relative of :meth:`PhaseCalc.delay_plain`;
 * the wrapper's autograd rules (``kernels/delay_chain.py``) driven
@@ -34,7 +39,7 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import VARIANTS
+from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.residuals import Residuals
 
@@ -66,10 +71,15 @@ SETS = {"J0740": (_j0740_par, data.REF_TIM),
         "DD": (data.dd_par_lines, data.DD_REF_TIM),
         "BT": (_bt_par, data.DD_REF_TIM),
         **{kind: (lambda kind=kind: data.variant_par_lines(kind),
-                  data.variant_tim(kind)) for kind in VARIANTS}}
+                  data.variant_tim(kind)) for kind in VARIANTS},
+        **{kind: (lambda kind=kind: data.dm_family_par_lines(kind),
+                  data.dm_family_tim(kind)) for kind in DM_FAMILY},
+        "WB": (data.wb_par_lines, data.WB_REF_TIM)}
 #: the cases of the depth legs (every lanes-per-thread at every lane
-#: count): the first three sets, DDK in ecliptic coordinates and ELL1H
-DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H")
+#: count): the first three sets, DDK in ecliptic coordinates, ELL1H and
+#: the DM family on the DD binary (SWM 0) and the ELL1 one (SWM 1)
+DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H", "DMF_DD",
+         "DMF_ELL1_SWM1")
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +97,8 @@ def host(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     h = ctypes.CDLL(lib)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    h.delay_chain_host.argtypes = [vp] * 11 + [dc.ChainCfg, i64, i64, i64,
-                                               ctypes.c_int]
+    h.delay_chain_host.argtypes = [vp] * (len(dc.ROWS) + 3) + [
+        dc.ChainCfg, i64, i64, i64, ctypes.c_int]
     h.delay_chain_host.restype = ctypes.c_int
     return h
 
@@ -209,9 +219,10 @@ def on_host(host, monkeypatch):
     class Lib:
         @staticmethod
         def delay_chain(*args):
-            ptrs, (cfg, G, K, N, lpt, _stream) = args[:12], args[12:]
-            assert ptrs[11] is None
-            return host.delay_chain_host(*ptrs[:11], cfg, G, K, N, lpt)
+            nptr = len(dc.ROWS) + 4
+            ptrs, (cfg, G, K, N, lpt, _stream) = args[:nptr], args[nptr:]
+            assert ptrs[-1] is None
+            return host.delay_chain_host(*ptrs[:-1], cfg, G, K, N, lpt)
 
         @staticmethod
         def delay_chain_error_string(err):

@@ -92,7 +92,8 @@ def lnlike_pair():
     scale = np.array([POINT_SCALE[n.rstrip("0123456789")] for n in names])
     points = [rng.standard_normal(len(names)) * scale for _ in range(5)]
     return dict(jl=jl, tl=tl, jp=jr.pdict, tp=tr.pdict, names=names,
-                points=points, jm=jm, jbatch=jr.batch)
+                points=points, jm=jm, jbatch=jr.batch, tm=tm,
+                tbatch=tr.batch)
 
 
 def _lnlike_gaps(s):
@@ -172,8 +173,28 @@ def test_lnlike_residuals_carry_no_grad(lnlike_pair, monkeypatch):
 
 
 def test_lnlike_refuses_wideband(lnlike_pair):
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_noise_lnlike(None, None, [], "nearest", dm_index=[0])
+    """Given wideband DMs, the likelihood takes their Gaussian term: it
+    is the narrowband likelihood plus -(chi2_dm + 2 sum ln sigma_dm +
+    n ln 2pi) / 2 over the DM rows (no DMEFAC here: sigma_dm is -pp_dme)."""
+    s = lnlike_pair
+    tm, batch = s["tm"], s["tbatch"]
+    n = batch.ntoas
+    idx = np.arange(0, n, 2)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        model_dm = tm.total_dm(s["tp"], batch).numpy()[idx]
+    dme = rng.uniform(1e-4, 3e-4, len(idx))
+    dm = model_dm + rng.standard_normal(len(idx)) * dme
+    wb = build_noise_lnlike(tm, batch, s["names"], "nearest", dm_index=idx,
+                            dm_data=dm, dm_error=dme)
+    x = torch.from_numpy(s["points"][0])
+    with torch.no_grad():
+        got = float(wb(x, s["tp"])) - float(s["tl"](x, s["tp"]))
+    r = (dm - model_dm) / dme
+    want = -0.5 * (np.sum(r**2) + 2.0 * np.sum(np.log(dme))
+                   + len(idx) * np.log(2.0 * np.pi))
+    print(f"the DM term: {got:.12g} against {want:.12g}")
+    assert abs(got / want - 1.0) <= 1e-9
 
 
 @pytest.fixture(scope="module")

@@ -77,16 +77,19 @@ def test_auto_picks_pint_tpus_class(kind, downhill):
 
 
 def test_auto_wideband_raises_where_pint_tpu_picks_wideband():
+    """Wideband TOAs: the port picks pint_tpu's wideband class, downhill
+    or not, and raises nothing."""
     tim, par = _sets()["wls"]
     jm, jt = data.load_jax(tim, par=par)
     tm, tt = data.load_torch(tim, par=par)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        want = type(JFitter.auto(_wideband(jt), jm)).__name__
-    assert want == "WidebandDownhillFitter"
     for downhill in (True, False):
-        with pytest.raises(NotImplementedError, match="A6"):
-            Fitter.auto(_wideband(tt), tm, downhill=downhill, device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = type(JFitter.auto(_wideband(jt), jm,
+                                     downhill=downhill)).__name__
+        got = Fitter.auto(_wideband(tt), tm, downhill=downhill, device="cpu")
+        assert type(got).__name__ == want == (
+            "WidebandDownhillFitter" if downhill else "WidebandTOAFitter")
 
 
 def test_auto_defaults_to_the_card():

@@ -9,9 +9,12 @@ host build of the delay chain alone.  On the committed 200-TOA J0740
 (ELL1), DD and GLS sets, and on the DD and ELL1 variants
 (``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial and, on its
 own 200-TOA set, in ecliptic coordinates, ELL1H in its three modes,
-ELL1k; the tangent lanes at every L and lane count on DDK in ecliptic
-coordinates and ELL1H, the shared-other and words-mode rules on the
-three sets):
+ELL1k), on the DM family (``examples.dm_family_par``: NE_SW with SWM 0
+and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1 binaries)
+and on the wideband set's layout (``WB``; the tangent lanes at every L
+and lane count on DDK in ecliptic coordinates, ELL1H and the DM family
+with SWM 1 on DD, the shared-other and words-mode rules on the three
+sets):
 
 * the fused primal's frac, slope, dt64 and words are bit-equal to the
   unfused host chain (the delay chain's host build, PyTorch's shift,
@@ -46,7 +49,7 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import VARIANTS
+from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
 from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
@@ -67,10 +70,13 @@ SETS = {"J0740": (data.par_lines, data.REF_TIM),
         "DD": (data.dd_par_lines, data.DD_REF_TIM),
         "GLS": (data.dd_gls_par_lines, data.GLS_REF_TIM),
         **{kind: (lambda kind=kind: data.variant_par_lines(kind),
-                  data.variant_tim(kind)) for kind in VARIANTS}}
+                  data.variant_tim(kind)) for kind in VARIANTS},
+        **{kind: (lambda kind=kind: data.dm_family_par_lines(kind),
+                  data.dm_family_tim(kind)) for kind in DM_FAMILY},
+        "WB": (data.wb_par_lines, data.WB_REF_TIM)}
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates and ELL1H
-DEPTH = BASE + ("DDK_ECL", "ELL1H")
+DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1")
 
 
 def _build(gxx, tmp, name):
@@ -93,11 +99,11 @@ def host(tmp_path_factory):
     ph, de = _build(gxx, tmp, "phase_chain_host"), \
         _build(gxx, tmp, "delay_chain_host")
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    ph.phase_chain_host.argtypes = [vp] * 23 + [
+    ph.phase_chain_host.argtypes = [vp] * (len(dc.ROWS) + 15) + [
         dc.ChainCfg, pc.PhaseCfg, i64, i64, i64, i64, i64, i64, ctypes.c_int]
     ph.phase_chain_host.restype = ctypes.c_int
-    de.delay_chain_host.argtypes = [vp] * 11 + [dc.ChainCfg, i64, i64, i64,
-                                                ctypes.c_int]
+    de.delay_chain_host.argtypes = [vp] * (len(dc.ROWS) + 3) + [
+        dc.ChainCfg, i64, i64, i64, ctypes.c_int]
     de.delay_chain_host.restype = ctypes.c_int
     return ph, de
 
@@ -121,9 +127,10 @@ def on_host(host, monkeypatch):
     class DelayLib:
         @staticmethod
         def delay_chain(*args):
-            ptrs, (cfg, G, K, N, lpt, _stream) = args[:12], args[12:]
-            assert ptrs[11] is None
-            return de.delay_chain_host(*ptrs[:11], cfg, G, K, N, lpt)
+            nptr = len(dc.ROWS) + 4
+            ptrs, (cfg, G, K, N, lpt, _stream) = args[:nptr], args[nptr:]
+            assert ptrs[-1] is None
+            return de.delay_chain_host(*ptrs[:-1], cfg, G, K, N, lpt)
 
         @staticmethod
         def delay_chain_error_string(err):

@@ -3,8 +3,9 @@
 ``chip_smoke.py`` runs only on a card.  Here its ``main()`` runs on the
 CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in; the DDK path
 in ecliptic coordinates, the DD and ELL1 variants, the noise-fitting
-path that ``Fitter.auto`` picks, LM, the degraded chain, Powell and the
-grid API included), with the
+path that ``Fitter.auto`` picks, LM, the degraded chain, Powell, the
+grid API, the wideband path and the DM family's variants included), with
+the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
 profiler's CUDA trace, the nvcc build and its ptxas report, the delay
 kernel's auxiliary output, the count of plain delay chains that on the
@@ -127,9 +128,9 @@ def _host_libs(tmp_path):
         libs.append(ctypes.CDLL(out))
     de, ph = libs
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    de.delay_chain_host.argtypes = [vp] * 11 + [
+    de.delay_chain_host.argtypes = [vp] * (len(delay_chain.ROWS) + 3) + [
         delay_chain.ChainCfg, i64, i64, i64, ctypes.c_int]
-    ph.phase_chain_host.argtypes = [vp] * 23 + [
+    ph.phase_chain_host.argtypes = [vp] * (len(delay_chain.ROWS) + 15) + [
         delay_chain.ChainCfg, phase_chain.PhaseCfg, i64, i64, i64, i64, i64,
         i64, ctypes.c_int]
     de.delay_chain_host.restype = ph.phase_chain_host.restype = ctypes.c_int
@@ -137,9 +138,10 @@ def _host_libs(tmp_path):
     class DelayLib:
         @staticmethod
         def delay_chain(*args):
-            ptrs, (cfg, G, K, N, lpt, _stream) = args[:12], args[12:]
-            assert ptrs[11] is None
-            return de.delay_chain_host(*ptrs[:11], cfg, G, K, N, lpt)
+            nptr = len(delay_chain.ROWS) + 4
+            ptrs, (cfg, G, K, N, lpt, _stream) = args[:nptr], args[nptr:]
+            assert ptrs[-1] is None
+            return de.delay_chain_host(*ptrs[:-1], cfg, G, K, N, lpt)
 
     class PhaseLib:
         @staticmethod
@@ -224,7 +226,8 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
             dd_tim=str(tmp_path / "dd.tim"), gls_tim=str(tmp_path / "gls.tim"),
             out_dir=str(tmp_path / "out"), ddk_tim=str(tmp_path / "ddk.tim"),
-            ddk_nfit=26, noise_tim=str(tmp_path / "noise.tim"))) == 0
+            ddk_nfit=26, noise_tim=str(tmp_path / "noise.tim"),
+            wb_tim=str(tmp_path / "wb.tim"), wb_nfit=27)) == 0
     finally:
         for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
                   delay_chain.DelayChain, delay_chain.DelayChainTangent,
@@ -242,7 +245,9 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                       "gls_fit_profile", "gls_reference", "auto_noise_fit",
                       "noise_fit_profile", "noise_lnlike_card_vs_cpu",
                       "auto_wls_fit", "lm_fit", "degraded_lm",
-                      "fitter_reference", "grid_api"]
+                      "fitter_reference", "grid_api", "wideband_main_path",
+                      "wideband_profile", "wideband_reference",
+                      "dm_family_chain"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -262,7 +267,13 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         "qs_phase_frac", "delay_chain_primal", "delay_chain_tangent"))
     assert all(set(k["launches_by_path"]) == {
         "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit", "noise_fit",
-        "auto_wls_fit", "lm_fit", "degraded_lm"} for k in kernels)
+        "auto_wls_fit", "lm_fit", "degraded_lm", "wideband_fit",
+        "wideband_gls_fit", "wideband_lm_fit"} for k in kernels)
+    assert all(by_name[n]["launches_by_path"]["wideband_fit"] > 0
+               for n in ("phase_chain_primal", "phase_chain_tangent"))
+    assert all(set(by_name[n]["dm_family"]) == {"wideband", "DMF_DD_SWM1"}
+               for n in ("delay_chain_primal", "delay_chain_tangent",
+                         "phase_chain_primal", "phase_chain_tangent"))
     assert all(by_name[n]["launches_by_path"]["noise_fit"] > 0
                for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert all(by_name[n]["launches_by_path"]["ddk_ecl_fit"] > 0
@@ -348,5 +359,23 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert recs["degraded_lm"]["degraded_warnings"] >= 2
     assert recs["fitter_reference"]["failed"] == []
     assert all(recs["grid_api"]["bit_equal_to_flat"].values())
+    wb = recs["wideband_main_path"]
+    assert wb["fitter"] == "WidebandDownhillFitter"
+    assert (wb["n_fit"], wb["n_noise"], wb["dm_rows"]) == (27, 3, 200)
+    assert wb["phase_chain_backward_calls"] == 0
+    assert len(wb["noise_fit_info"]) == 2 and wb["wb_fit_warm_s"] > 0
+    assert wb["noise_basis_shape"] == [200, 200 // 4 + 60]
+    assert len(wb["wideband_gls"]["fit_walls_s"]) == 3
+    assert recs["wideband_reference"]["failed"] == []
+    assert "copies_ms_by_direction" in recs["wideband_profile"]
+    dmf = recs["dm_family_chain"]
+    from pint_tpu_torch.examples import DM_FAMILY
+
+    for lab in DM_FAMILY + ("wideband",):
+        assert dmf["delay_chain"][lab]["delay_bit_equal"], lab
+        assert all(dmf["phase_chain"][lab][
+            "tangents_bit_equal_to_unfused"].values()), lab
+    assert dmf["layouts"]["DMF_DD_SWM1"]["flags"] & 16384
+    assert set(dmf["timing"]["phase_chain"]) == {"wideband", "DMF_DD_SWM1"}
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu-rehearsal", "count": 1}}

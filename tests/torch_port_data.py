@@ -14,7 +14,11 @@ DDK set in ecliptic coordinates (``ddk_ecliptic_realistic_par
 DownhillWLSFitter, LMFitter and PowellFitter results on the DD set; and
 a noise-fitting set (the GLS set's model with per-TOA errors that vary,
 ``dd_noise_fit_par``) with pint_tpu's DownhillGLSFitter fit of the
-timing and the white-noise parameters beside it.
+timing and the white-noise parameters beside it; and a wideband set
+(``wideband_nanograv_par(dmx_bins=8)``: the GLS set's model and epochs
+with NE_SW, two DMJUMPs, DMEFAC/DMEQUAD per receiver and a wideband DM on
+every TOA) with pint_tpu's WidebandTOAFitter, WidebandDownhillFitter (the
+DMEFACs free) and WidebandLMFitter fits beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -182,13 +186,15 @@ def dd_gls_par_lines():
 
 
 def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
-                         errors_us=1.0) -> str:
+                         errors_us=1.0, par=None, finish=None) -> str:
     """Simulate the GLS set with pint_tpu, as
     ``pint_tpu_torch.examples.simulate_dd_noise_realistic`` does with the
     port (the epochs of ``epoch_toas``, TOA errors ``errors_us``;
     EFAC/EQUAD-scaled white noise from ``default_rng(seed + 1)``; one
     realization of ECORR and red noise with ``seed``), and write it to
-    ``path``."""
+    ``path``.  ``par`` replaces the GLS set's par lines, and
+    ``finish(toas, model)``, if given, runs on the simulated TOAs before
+    they are written."""
     from pint_tpu import mjd as mjdmod
     from pint_tpu.models import get_model
     from pint_tpu.residuals import Residuals
@@ -199,7 +205,7 @@ def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
     mjds, band, freqs = epoch_toas(ntoas, SPAN_DAYS, CENTER_MJD)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = get_model(dd_gls_par_lines())
+        model = get_model(par or dd_gls_par_lines())
         toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
@@ -212,6 +218,8 @@ def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
         toas.compute_TDBs(ephem="DE421")
         toas.compute_posvels(ephem="DE421", planets=False)
         toas = add_correlated_noise(toas, model, seed=seed)
+        if finish is not None:
+            finish(toas, model)
     for f in toas.flags:
         f.setdefault("simulated", "1")
     write_tim(path, toas)
@@ -282,6 +290,21 @@ def variant_tim(kind: str) -> str:
     if kind == "DDK_ECL":
         return DDK_REF_TIM
     return DD_REF_TIM if kind.startswith("DD") else REF_TIM
+
+
+def dm_family_par_lines(kind: str):
+    """One of ``pint_tpu_torch.examples.DM_FAMILY`` at this module's
+    size."""
+    from pint_tpu_torch.examples import dm_family_par
+
+    return dm_family_par(kind, dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                         center_mjd=CENTER_MJD).splitlines()
+
+
+def dm_family_tim(kind: str) -> str:
+    """The committed set a DM-family variant is checked on: the DD set or
+    the J0740 set by its binary."""
+    return DD_REF_TIM if kind.startswith("DMF_DD") else REF_TIM
 
 
 def ddk_par_lines():
@@ -508,6 +531,113 @@ def write_noisefit_reference() -> dict:
     return rec
 
 
+#: the committed wideband set and pint_tpu's three wideband fits on it
+WB_REF_TIM = os.path.join(DATA_DIR, "wb_sim_200.tim")
+WB_REF_JSON = os.path.join(DATA_DIR, "wb_sim_200_fit.json")
+
+
+def wb_par_lines(free=None):
+    """The wideband set's par lines: ``wideband_nanograv_par(dmx_bins=8)``
+    with the DMEFACs of ``free`` free (default all three)."""
+    from pint_tpu_torch.examples import WB_NOISE_FREE, wideband_nanograv_par
+
+    return wideband_nanograv_par(
+        DMX_BINS, SPAN_DAYS, CENTER_MJD,
+        free=WB_NOISE_FREE if free is None else free).splitlines()
+
+
+def wb_start(model):
+    """The perturbed DD start with the DMJUMPs at zero and any free DMEFAC
+    at 1 (``examples.WB_START``)."""
+    from pint_tpu_torch.examples import WB_START
+
+    perturb_dd(model)
+    for n, v in WB_START.items():
+        if n.startswith("DMJUMP") or not model[n].frozen:
+            model[n].value = v
+
+
+def write_wb_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the wideband set with pint_tpu, as
+    ``pint_tpu_torch.examples.simulate_wideband_realistic`` does with the
+    port: the GLS set's simulation of the wideband par, then pint_tpu's
+    ``add_wideband_dm_data`` and white DM noise at the DMEFAC/DMEQUAD-
+    scaled per-receiver errors (``examples.set_wideband_dms``)."""
+    from pint_tpu.residuals import Residuals
+    from pint_tpu.simulation import add_wideband_dm_data
+    from pint_tpu_torch.examples import set_wideband_dms, wideband_dm_errors
+
+    def finish(toas, model):
+        add_wideband_dm_data(toas, model)
+        dm = np.array([float(f["pp_dm"]) for f in toas.flags])
+        dme = wideband_dm_errors(toas)
+        r = Residuals(toas, model)
+        sigma = np.asarray(model.scaled_dm_uncertainty(r.pdict, r.batch,
+                                                       dme))
+        set_wideband_dms(toas, dm, sigma, dme, seed)
+
+    return write_dd_gls_sim_tim(path, ntoas, seed, par=wb_par_lines(),
+                                finish=finish)
+
+
+#: WidebandTOAFitter's iterations on the wideband set
+WB_MAXITER = 3
+
+
+def wb_noise_record(model, names) -> dict:
+    return {"noise_params": list(names),
+            "noise_values": device_values(model, names),
+            "noise_uncertainties": {
+                n: (None if model[n].uncertainty is None
+                    else float(model[n].device_uncertainty))
+                for n in names}}
+
+
+def jax_wb_fits(timfile: str) -> dict:
+    """pint_tpu's wideband fits (JAX on the CPU) of the wideband set from
+    :func:`wb_start`: WidebandTOAFitter.fit_toas(maxiter=3) and
+    WidebandLMFitter.fit_toas() with the DMEFACs frozen at the injected
+    values, WidebandDownhillFitter.fit_toas() (its defaults) with them
+    free: the record WB_REF_JSON holds."""
+    from pint_tpu.fitter import (WidebandDownhillFitter, WidebandLMFitter,
+                                 WidebandTOAFitter)
+    from pint_tpu_torch.examples import WB_NOISE_FREE
+
+    rec = {"what": "pint_tpu WidebandTOAFitter.fit_toas(maxiter=3), "
+                   "WidebandLMFitter.fit_toas() (DMEFACs frozen) and "
+                   "WidebandDownhillFitter.fit_toas() (DMEFACs free), JAX "
+                   "on the CPU, on wb_sim_200.tim (wideband_nanograv_par("
+                   "dmx_bins=8)) from the perturbed DD start, DMJUMPs 0",
+           "perturb": DD_PERTURB, "maxiter": WB_MAXITER}
+    for label, cls, free in (("wideband_gls", WidebandTOAFitter, ()),
+                             ("wideband_lm", WidebandLMFitter, ()),
+                             ("wideband_downhill", WidebandDownhillFitter,
+                              WB_NOISE_FREE)):
+        model, toas = load_jax(timfile, par=wb_par_lines(free))
+        wb_start(model)
+        fitter = cls(toas, model)
+        start = device_values(model, fitter.fit_params + list(free))
+        kw = {"maxiter": WB_MAXITER} if cls is WidebandTOAFitter else {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            chi2 = fitter.fit_toas(**kw)
+        rec[label] = {"start": start, **fitter_record(fitter, chi2),
+                      "dof": int(fitter.resids.dof),
+                      **wb_noise_record(model, free)}
+    return rec
+
+
+def write_wb_reference() -> dict:
+    """Write WB_REF_TIM and pint_tpu's wideband fits on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_wb_sim_tim(WB_REF_TIM)
+    rec = jax_wb_fits(WB_REF_TIM)
+    with open(WB_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -598,12 +728,13 @@ def write_reference(maxiter: int = 2) -> dict:
 WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "gls": write_gls_reference, "ddk": write_ddk_reference,
            "fitters": write_fitters_reference,
-           "noisefit": write_noisefit_reference}
+           "noisefit": write_noisefit_reference,
+           "wb_sim_200": write_wb_reference}
 
 if __name__ == "__main__":
     # python tests/torch_port_data.py [set ...]: every set by default
     sys.path.insert(0, os.path.dirname(os.path.dirname(DATA_DIR)))
     for name in sys.argv[1:] or WRITERS:
         rec = WRITERS[name]()
-        print(name, json.dumps(rec.get("chi2", rec.get("lm", {}).get(
-            "chi2"))))
+        print(name, json.dumps(rec.get("chi2", rec.get("lm", rec.get(
+            "wideband_gls", {})).get("chi2"))))
