@@ -3,8 +3,10 @@
 the full-width DD fit, the full-width GLS fit with a NANOGrav-style
 noise model, the full-width DDK fit in ecliptic coordinates, the
 full-width noise-fitting GLS fit that ``Fitter.auto`` picks, with LM,
-Powell and the grid API, and the full-width wideband fit (TOAs and their
-DMs) with the DM family of the delay kernel's row function.
+Powell and the grid API, the full-width wideband fit (TOAs and their
+DMs) with the DM family of the delay kernel's row function, and the
+full-width chromatic noise fit with the chromatic family of the row
+function.
 
 Run from the repository root, with no arguments::
 
@@ -187,6 +189,37 @@ Phases, each printing one JSON line with its numbers and seconds:
    model; both kernels timed at the wideband path's shapes and on the
    SWM 1 variant, with their bounds; ptxas's registers and spills of
    every instantiation, the DM family's among them.
+10. chromatic_main_path: the seventh path, at full width (12,500 TOAs in
+   3,125 epochs on 430, 820 and 1400 MHz; 91 timing parameters, the
+   chromatic and solar-wind GPs' TNCHROMAMP, TNCHROMGAM and TNSWAMP;
+   basis 12,500 x 3,305): ``simulate_chromatic_j1713`` (the GLS
+   configuration of ``chromatic_j1713_par``: the troposphere, CM with CM1
+   and CM2 free, an exponential dip, a chromatic Gaussian event, NE_SW,
+   PLChromNoise and PLSWNoise; on the card) -> ``write_tim`` ->
+   ``get_TOAs`` -> the perturbed start (``examples.chromatic_start``) ->
+   ``Fitter.auto`` (a DownhillGLSFitter) -> ``fit_toas()``, the launch
+   counts zeroed just before the fitter is built and read just after,
+   the plain delays and the phase kernel's reverse-mode calls counted
+   (none may run); status, chi2/dof, the pulls of the orbit, spin and
+   chromatic terms and of the three noise parameters against the truth,
+   two warm walls (``chrom_fit_warm_s``), peak memory;
+   chromatic_profile: one warm fit under torch.profiler (idle share,
+   the top kernels, copies by direction);
+   chromatic_reference: the committed 200-TOA chromatic set
+   (``tests/data/chrom_sim_200*``, DownhillGLSFitter at the noise fit's
+   bars) and WaveX set (``tests/data/wavex_sim_200*``, WLSFitter at the
+   DD reference's bars) fitted on the card against pint_tpu's stored
+   fits;
+   chromatic_chain: the delay_chain and phase_chain kernels against the
+   plain delays and the unfused chain (as in dm_family_chain) on each
+   chromatic-family term alone on DD and ELL1
+   (``examples.chromatic_family_par``, on the DD and grid paths' 12,500
+   TOAs), on the WaveX family's layout and on the chromatic path's
+   model; both kernels timed at the chromatic path's and the WaveX
+   layout's shapes with their bounds; ptxas's registers and spills of
+   every instantiation, and the fused kernel's registers of the
+   instantiations without the chromatic family against those they had
+   before it came.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -233,6 +266,11 @@ NOISEFIT_REF_JSON = os.path.join(REPO, "tests", "data",
 WB_TIM = os.path.join(REPO, "build", "wideband_12500.tim")
 WB_REF_TIM = os.path.join(REPO, "tests", "data", "wb_sim_200.tim")
 WB_REF_JSON = os.path.join(REPO, "tests", "data", "wb_sim_200_fit.json")
+CHROM_TIM = os.path.join(REPO, "build", "chromatic_12500.tim")
+CHROM_REF_TIM = os.path.join(REPO, "tests", "data", "chrom_sim_200.tim")
+CHROM_REF_JSON = os.path.join(REPO, "tests", "data", "chrom_sim_200_fit.json")
+WAVEX_REF_TIM = os.path.join(REPO, "tests", "data", "wavex_sim_200.tim")
+WAVEX_REF_JSON = os.path.join(REPO, "tests", "data", "wavex_sim_200_fit.json")
 FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
                                 "dd_sim_200_fitters.json")
 DD_MAXITER = 3
@@ -250,6 +288,20 @@ DDK_PULL_PARAMS = DD_PULL_PARAMS + ("KIN", "KOM")
 WB_PULL_PARAMS = DD_PULL_PARAMS + ("DMJUMP1", "DMJUMP2", "NE_SW")
 #: WidebandTOAFitter's iterations (as the GLS path's)
 WB_MAXITER = 3
+#: the chromatic fit's pulls: the orbit and spin, and the chromatic terms
+CHROM_PULL_PARAMS = DD_PULL_PARAMS + ("CM1", "CM2", "EXPDIPAMP_1",
+                                      "EXPDIPTAU_1", "CHROMGAUSS_LOGAMP_1")
+#: ptxas's registers of the fused phase_chain's primal and the spill
+#: stores of its L = 4 tangent before the chromatic family came (PERF.md,
+#: "Registers"): the instantiations without it keep them
+REF_PHASE_CHAIN_REGISTERS = {
+    "none/primal": 66, "ELL1/primal": 80, "DD/primal": 74,
+    "DDK/primal": 86}
+REF_PHASE_CHAIN_L4_SPILL = {
+    "none/tangent_L4": 0, "ELL1/tangent_L4": 64, "DD/tangent_L4": 196,
+    "DDK/tangent_L4": 536, "none+DM/tangent_L4": 320,
+    "ELL1+DM/tangent_L4": 476, "DD+DM/tangent_L4": 648,
+    "DDK+DM/tangent_L4": 1012}
 KEPLER_E_SWEEP = (0.0, 1e-5, 0.1, 0.5, 0.9)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 GRID_M2 = (0.23, 0.25, 0.27)
@@ -333,6 +385,16 @@ class Run(NamedTuple):
     #: the wideband path's fit parameters: the DD path's, two DMJUMPs and
     #: NE_SW
     wb_nfit: int = 89
+    chrom_tim: str = CHROM_TIM
+    #: the chromatic path's fit parameters: the DD path's, CM1, CM2, the
+    #: dip's amplitude and timescale and the event's amplitude
+    chrom_nfit: int = 91
+    #: the chromatic fit's accepted end states and its GP amplitudes (a
+    #: small rehearsal's 50 epochs constrain neither the dip, so that its
+    #: fit may end DIVERGED, nor the path's GPs, so that it takes
+    #: ``examples.CHROM_NOISE_200``'s)
+    chrom_status: tuple = ("CONVERGED",)
+    chrom_noise: dict = None
 
 
 def emit(obj) -> None:
@@ -1239,8 +1301,11 @@ def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
 
     fams = {"0": "none", "1": "ELL1", "2": "DD", "3": "DDK", "4": "DDTM2",
             "5": "ELL1H", "6": "ELL1K"}
-    # the same families with the DM family's terms (csrc kDMFamily = 8)
-    fams.update({str(int(k) + 8): f"{v}+DM" for k, v in fams.items()})
+    # the same families with the DM family's terms (csrc kDMFamily = 8),
+    # and with the DM and the chromatic family's (kChromFamily = 16)
+    base = dict(fams)
+    fams.update({str(int(k) + 8): f"{v}+DM" for k, v in base.items()})
+    fams.update({str(int(k) + 24): f"{v}+DM+CHROM" for k, v in base.items()})
     out, cur = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
@@ -2461,6 +2526,272 @@ def wideband_paths(torch, np, run: Run, ctx: dict) -> dict:
     out["max_abs_frac_err"] = max(frac_errs)
     return out
 
+def chrom_load(torch, tim: str, dmx_bins: int, noise=None, perturb=None):
+    """par + tim -> (model at the chromatic fit's start, toas) of the
+    chromatic configuration (``examples.chromatic_j1713_par``, its GP
+    amplitudes updated by ``noise``), as a user loads them: the timing
+    start moved by DD_PERTURB, the chromatic terms and the free noise
+    parameters moved by ``examples.chromatic_start``."""
+    import warnings
+
+    from pint_tpu_torch.examples import chromatic_j1713_par, chromatic_start
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(chromatic_j1713_par(dmx_bins=dmx_bins,
+                                              noise=noise).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in (DD_PERTURB if perturb is None else perturb).items():
+        model[name].value += d
+    chromatic_start(model)
+    return model, toas
+
+
+def wavex_load(torch, tim: str):
+    """par + tim -> (model, toas) of the WaveX set
+    (``examples.wavex_set_model``: the DD par without DMX, with CM, four
+    CMX ranges, the troposphere and WaveX/DMWaveX/CMWaveX from the setup
+    helpers) at its fit's start: DD_PERTURB, the amplitudes at 0."""
+    import warnings
+
+    from pint_tpu_torch import models
+    from pint_tpu_torch.examples import wavex_set_model
+    from pint_tpu_torch.models import wave
+    from pint_tpu_torch.toa import get_TOAs
+
+    model = wavex_set_model(models, wave, inject=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        toas = get_TOAs(tim, model=model)
+    for name, d in DD_PERTURB.items():
+        model[name].value += d
+    return model, toas
+
+
+def registers_vs_reference(regs: dict) -> dict:
+    """The fused phase_chain's registers and L = 4 spills of the
+    instantiations without the chromatic family against those they had
+    before it came (REF_PHASE_CHAIN_REGISTERS, REF_PHASE_CHAIN_L4_SPILL):
+    {kernel: [now, then]} where they differ."""
+    out = {}
+    for k, v in REF_PHASE_CHAIN_REGISTERS.items():
+        got = regs.get(k, {}).get("registers")
+        if got != v:
+            out[k] = [got, v]
+    for k, v in REF_PHASE_CHAIN_L4_SPILL.items():
+        got = regs.get(k, {}).get("spill_store_bytes")
+        if got != v:
+            out[k + "_spill"] = [got, v]
+    return out
+
+
+def chromatic_paths(torch, np, run: Run, ctx: dict) -> dict:
+    """The chromatic noise fit on the card and the chromatic family of the
+    delay kernel's row function (phases chromatic_main_path ...
+    chromatic_chain, see the module docstring).  ``ctx``: the grid path's
+    and the DD path's TOAs, on which the family's variants run.  Returns
+    the chromatic fit's launches and the timing records."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch.examples import (CHROM_FAMILY, CHROM_NOISE_200,
+                                         CHROM_NOISE_FREE,
+                                         chromatic_family_par,
+                                         simulate_chromatic_j1713)
+    from pint_tpu_torch.fitter import (DownhillGLSFitter, Fitter,
+                                       WLSFitter)
+    from pint_tpu_torch.kernels import build as kbuild
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import write_tim
+
+    out = {"launches": {}}
+
+    with phase("chromatic_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        truth, sim = simulate_chromatic_j1713(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev,
+            noise=run.chrom_noise)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.chrom_tim), exist_ok=True)
+        write_tim(run.chrom_tim, sim)
+        t0 = time.perf_counter()
+        model, toas = chrom_load(torch, run.chrom_tim, run.dmx_bins,
+                                 noise=run.chrom_noise)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = snapshot(model)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            fit, chi2, cold_s = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+        launches = counts()
+        fr = fit.fitresult
+        names, noise = fit.fit_params, fit.free_noise_params
+        pulls = {n: device_offset(model[n].device_value,
+                                  truth[n].device_value)
+                 / model[n].device_uncertainty for n in CHROM_PULL_PARAMS}
+        npulls = noise_pulls(model, truth, noise)
+        rec.update(fitter=type(fit).__name__, ntoas=toas.ntoas,
+                   n_fit=len(names), n_noise=len(noise),
+                   status=fr.status.name, iterations=fr.iterations,
+                   rung=fr.rung, chi2=chi2, dof=fr.dof,
+                   chi2_per_dof=chi2 / fr.dof, fit_cold_s=cold_s,
+                   fit_info=fit.fit_info, launches=launches,
+                   plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"], pulls=pulls,
+                   noise={n: {"value": float(model[n].value),
+                              "uncertainty": model[n].uncertainty,
+                              "injected": float(truth[n].value)}
+                          for n in noise},
+                   noise_pulls=npulls, noise_fit_info=fit.noise_fit_info,
+                   noise_basis_shape=list(model.noise_basis(
+                       fit.resids.pdict).shape),
+                   layout_flags=model.calc.chain_layout.flags,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   device=str(fit.device))
+        walls, per_fit = [], []
+        for _ in range(2):
+            restore(model, start)
+            zero_counts()
+            _, _, w = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+            walls.append(w)
+            per_fit.append(counts())
+        rec.update(chrom_fit_warm_s=statistics.median(walls),
+                   fit_walls_s=walls, launches_per_warm_fit=per_fit)
+        out["launches"]["chromatic_fit"] = launches
+    if not isinstance(fit, DownhillGLSFitter):
+        raise AssertionError(f"Fitter.auto gave {type(fit).__name__}")
+    if toas.ntoas != run.ntoas or len(names) != run.chrom_nfit or \
+            len(noise) != len(CHROM_NOISE_FREE):
+        raise AssertionError("not the full-width chromatic configuration")
+    if fr.status.name not in run.chrom_status:
+        raise AssertionError(f"chromatic fit ended {fr.status.name}")
+    if not 0.6 < chi2 / fr.dof < 1.6:
+        raise AssertionError(f"chromatic fit chi2/dof {chi2 / fr.dof}")
+    bad = {n: v for n, v in {**pulls, **npulls}.items()
+           if v is not None and not abs(v) < PULL_MAX}
+    if bad or any(v is None for v in npulls.values()):
+        raise AssertionError(f"chromatic fit pulls {pulls}, {npulls}")
+    check_path_launches("chromatic fit", launches)
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+
+    with phase("chromatic_profile", {}) as rec:
+        holder = {}
+
+        def setup():
+            restore(model, start)
+            holder["f"] = Fitter.auto(toas, model, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(), run.out_dir,
+            out_name="chromatic_profile", setup=setup))
+        rec["lbfgsb_evaluations"] = [i["nfev"] for i in
+                                     holder["f"].noise_fit_info]
+        cfit = holder["f"]
+
+    with phase("chromatic_reference", {}) as rec:
+        failed = []
+        with open(CHROM_REF_JSON) as f:
+            want = json.load(f)
+        rmodel, rtoas = chrom_load(torch, CHROM_REF_TIM, REF_DMX_BINS,
+                                   noise=CHROM_NOISE_200,
+                                   perturb=want["perturb"])
+        PhaseChain.launches = 0
+        rf, rchi2, rs = timed_fit(
+            torch, lambda: DownhillGLSFitter(rtoas, rmodel, device=run.dev))
+        sig, unc = stored_gaps(rmodel, want["values"], want["uncertainties"])
+        nsig, nunc = stored_gaps(rmodel, want["noise_values"],
+                                 want["noise_uncertainties"])
+        gap = abs(rchi2 / want["chi2"] - 1.0)
+        rec["chromatic"] = dict(
+            chi2=rchi2, chi2_ref=want["chi2"], max_rel_chi2_gap=gap,
+            max_sigma_gap=sig, max_unc_rel_gap=unc,
+            noise_max_sigma_gap=nsig, noise_max_unc_rel_gap=nunc,
+            status=rf.fitresult.status.name, ref_status=want["status"],
+            fit_s=rs, launches=PhaseChain.launches)
+        if not (rf.fit_params == want["fit_params"]
+                and rf.fitresult.status.name == want["status"]
+                and sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
+                and gap <= NOISEFIT_CHI2_TOL and nsig <= NOISE_SIGMA_TOL
+                and nunc <= NOISE_UNC_TOL and PhaseChain.launches > 0):
+            failed.append("chromatic")
+        with open(WAVEX_REF_JSON) as f:
+            want = json.load(f)
+        rmodel, rtoas = wavex_load(torch, WAVEX_REF_TIM)
+        PhaseChain.launches = 0
+        rf, rchi2, rs = timed_fit(
+            torch, lambda: WLSFitter(rtoas, rmodel, device=run.dev),
+            maxiter=want["maxiter"])
+        sig, unc = stored_gaps(rmodel, want["values"], want["uncertainties"])
+        gap = abs(rchi2 / want["chi2"] - 1.0)
+        rec["wavex"] = dict(
+            chi2=rchi2, chi2_ref=want["chi2"], max_rel_chi2_gap=gap,
+            max_sigma_gap=sig, max_unc_rel_gap=unc,
+            status=rf.fitresult.status.name, ref_status=want["status"],
+            fit_s=rs, launches=PhaseChain.launches)
+        if not (rf.fit_params == want["fit_params"]
+                and sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
+                and gap <= CHI2_TOL and PhaseChain.launches > 0):
+            failed.append("wavex")
+        rec["failed"] = failed
+    if failed:
+        raise AssertionError(f"chromatic references failed: {failed}")
+
+    # -- the chromatic family in the row function, at 12,500 TOAs -----------
+    with phase("chromatic_chain", {}) as rec:
+        cases = []
+        for kind in CHROM_FAMILY:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                m = get_model(chromatic_family_par(
+                    kind, dmx_bins=run.dmx_bins).splitlines())
+            t = ctx["dd_toas"] if kind.startswith("CHF_DD") \
+                else ctx["grid_toas"]
+            cases.append((kind, m, WLSFitter(t, m, device=run.dev)))
+        wm, _ = wavex_load(torch, WAVEX_REF_TIM)
+        cases.append(("wavex", wm, WLSFitter(ctx["dd_toas"], wm,
+                                             device=run.dev)))
+        cases.append(("chromatic", model, cfit))
+        rec["delay_chain"], rec["phase_chain"] = {}, {}
+        delay_errs = [check_delay_chain(torch, label, m, f,
+                                        rec["delay_chain"])
+                      for label, m, f in cases]
+        frac_errs = [check_phase_chain(torch, label, m, f,
+                                       rec["phase_chain"])
+                     for label, m, f in cases]
+        rec["layouts"] = {label: {"flags": m.calc.chain_layout.flags,
+                                  "theta_slots": m.calc.chain_layout.P}
+                          for label, m, _ in cases}
+        # the new terms' times at the main path's shapes, and on the
+        # WaveX family's layout
+        rec["timing"] = {"delay_chain": {}, "phase_chain": {}}
+        for label, m, f in (cases[-1], cases[-2]):
+            rec["timing"]["delay_chain"][label] = {}
+            time_delay_chain(torch, m, f, 1,
+                             rec["timing"]["delay_chain"][label])
+            rec["timing"]["phase_chain"][label] = {}
+            time_phase_chain(torch, m, f, 1,
+                             rec["timing"]["phase_chain"][label])
+        rec["registers"] = {
+            k: chain_registers(kbuild.build_log(k), k)
+            for k in ("delay_chain", "phase_chain")}
+        rec["phase_chain_registers_changed"] = registers_vs_reference(
+            rec["registers"]["phase_chain"])
+        rec.update(max_abs_delay_err_s=max(delay_errs),
+                   max_abs_frac_err_vs_plain=max(frac_errs))
+    out["timing"] = rec["timing"]
+    out["max_abs_delay_err_s"] = max(delay_errs)
+    out["max_abs_frac_err"] = max(frac_errs)
+    return out
+
 
 def main(run: Run = Run()) -> int:
     import torch
@@ -3092,21 +3423,26 @@ def main(run: Run = Run()) -> int:
     wb_paths = wideband_paths(torch, np, run, {"grid_toas": toas,
                                                "dd_toas": dtoas})
 
+    # -- 10. the chromatic noise fit and the chromatic family ----------------
+    chrom_paths = chromatic_paths(torch, np, run, {"grid_toas": toas,
+                                                   "dd_toas": dtoas})
+
     def by_path(name):
         by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
               "gls_fit": gls_launches[name],
               "ddk_ecl_fit": ddk_launches[name],
               **{k: v[name] for k, v in new_paths["launches"].items()},
-              **{k: v[name] for k, v in wb_paths["launches"].items()}}
+              **{k: v[name] for k, v in wb_paths["launches"].items()},
+              **{k: v[name] for k, v in chrom_paths["launches"].items()}}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
-    def at_wideband(kernel, part):
-        """A kernel's time and bound at the wideband path's shapes (1 θ
-        set; the tangent at all its fit parameters' lanes): its layout,
-        and the DM family's costliest (SWM 1's quadrature)."""
+    def at_path(kernel, part, timing, labels):
+        """A kernel's time and bound at one path's shapes (1 θ set; the
+        tangent at all its fit parameters' lanes), on each layout of
+        ``labels`` in ``timing``."""
         got = {}
-        for label in ("wideband", "DMF_DD_SWM1"):
-            t = wb_paths["timing"][kernel][label]
+        for label in labels:
+            t = timing[kernel][label]
             if part == "primal":
                 t = t["primal"]
                 ms = t["device_ms"] if kernel == "delay_chain" \
@@ -3118,6 +3454,18 @@ def main(run: Run = Run()) -> int:
                           "ms": ms, "bound_ms": t["bound_ms"],
                           "bound_by": t["bound_by"]}
         return got
+
+    def at_wideband(kernel, part):
+        """At the wideband path's shapes: its layout, and the DM family's
+        costliest (SWM 1's quadrature)."""
+        return at_path(kernel, part, wb_paths["timing"],
+                       ("wideband", "DMF_DD_SWM1"))
+
+    def at_chromatic(kernel, part):
+        """At the chromatic path's shapes: its layout, and the WaveX
+        family's."""
+        return at_path(kernel, part, chrom_paths["timing"],
+                       ("chromatic", "wavex"))
 
     grid_t = chain_rec["timing"]["j0740_grid"]
     grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
@@ -3150,13 +3498,15 @@ def main(run: Run = Run()) -> int:
         **by_path("delay_chain_primal"),
         "fused_on_the_paths_into": "phase_chain_primal",
         "max_abs_err": max(chain_rec["max_abs_err"],
-                           wb_paths["max_abs_delay_err_s"]),
+                           wb_paths["max_abs_delay_err_s"],
+                           chrom_paths["max_abs_delay_err_s"]),
         "theta_sets": GRID_POINTS,
         "ms": grid_t["primal"]["device_ms"],
         "plain_ms": grid_t["primal"]["plain_ms"],
         "bound_ms": grid_t["primal"]["bound_ms"],
         "bound_by": grid_t["primal"]["bound_by"], "library_ms": None,
-        "dm_family": at_wideband("delay_chain", "primal")}, {
+        "dm_family": at_wideband("delay_chain", "primal"),
+        "chromatic_family": at_chromatic("delay_chain", "primal")}, {
         "name": "delay_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
@@ -3169,13 +3519,15 @@ def main(run: Run = Run()) -> int:
         "plain_ms": chain_rec["grid_tangent_vs_plain"]["plain_ms"],
         "bound_ms": grid_lin["bound_ms"], "bound_by": grid_lin["bound_by"],
         "library_ms": None,
-        "dm_family": at_wideband("delay_chain", "tangent")}, {
+        "dm_family": at_wideband("delay_chain", "tangent"),
+        "chromatic_family": at_chromatic("delay_chain", "tangent")}, {
         "name": "phase_chain_primal", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
         **by_path("phase_chain_primal"),
         "max_abs_err": max(pc_rec["max_abs_frac_err"],
-                           wb_paths["max_abs_frac_err"]),
+                           wb_paths["max_abs_frac_err"],
+                           chrom_paths["max_abs_frac_err"]),
         "theta_sets": GRID_POINTS,
         "ms": first_time(fused_t["primal"]),
         "fused_chain_ms": fused_t["primal"]["fused_chain_ms"],
@@ -3185,7 +3537,8 @@ def main(run: Run = Run()) -> int:
         "bound_by": fused_t["primal"]["bound_by"], "library_ms": None,
         "ddk_ecl_fit": {"theta_sets": 1, "ms": first_time(ddk_t["primal"]),
                         "bound_ms": ddk_t["primal"]["bound_ms"]},
-        "dm_family": at_wideband("phase_chain", "primal")}, {
+        "dm_family": at_wideband("phase_chain", "primal"),
+        "chromatic_family": at_chromatic("phase_chain", "primal")}, {
         "name": "phase_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
@@ -3202,7 +3555,8 @@ def main(run: Run = Run()) -> int:
         "ddk_ecl_fit": {"theta_sets": 1, "lanes": ddk_all["lanes"],
                         "ms": first_time(ddk_all),
                         "bound_ms": ddk_all["bound_ms"]},
-        "dm_family": at_wideband("phase_chain", "tangent")}]})
+        "dm_family": at_wideband("phase_chain", "tangent"),
+        "chromatic_family": at_chromatic("phase_chain", "tangent")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

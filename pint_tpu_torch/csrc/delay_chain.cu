@@ -1,7 +1,8 @@
-// delay_chain: the whole delay chain of a timing model (astrometry, solar
-// Shapiro, the solar wind, DM + DMX and the DM family's jumps, delay
-// jumps, the binary, FD and FDJUMP) for every (theta set,
-// TOA) row, and its forward-mode tangents, for NVIDIA Hopper (sm_90a).
+// delay_chain: the whole delay chain of a timing model (astrometry, delay
+// jumps, the troposphere, solar Shapiro, the solar wind, DM + DMX and the
+// DM family's jumps, DMWaveX, the chromatic delays, the binary, FD,
+// FDJUMP and WaveX) for every (theta set, TOA) row, and its forward-mode
+// tangents, for NVIDIA Hopper (sm_90a).
 //
 // Replaces (K4) the eager per-component delays that pint_tpu computes in
 // jnp (no Pallas kernel there; see delay_chain.cuh for the functions, file
@@ -12,8 +13,9 @@
 // Entry points, one row function (delay_chain.cuh) templated over the
 // scalar type, the binary family a template parameter (none, ELL1, DD/BT,
 // DDK, DDS/DDH, ELL1H, ELL1k; each again with the DM family's terms
-// compiled in, kDMFamily, so that a layout without them runs the code it
-// ran before they came):
+// compiled in, kDMFamily, and again with the DM and the chromatic
+// family's, kDMFamily + kChromFamily, so that a layout without them runs
+// the code it ran before they came):
 //   primal:  out[g, n]        = delay(theta[g], row n)         (double)
 //   tangent: tangent[g, k, n] = d delay(theta[g], row n) . dtheta[g, k]
 // with theta (G, P) and dtheta (G, K, P): g runs over theta sets (the grid
@@ -68,17 +70,22 @@
 
 namespace {
 
+using ptchain::CfgOf;
 using ptchain::ChainCfg;
+using ptchain::ChromCfg;
+using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::Row;
 using ptchain::RowData;
-using ptchain::load_row;
+using ptchain::RowDataOf;
+using ptchain::load_row_of;
 using ptchain::Theta;
 
 template <int BIN>
-__global__ void delay_chain_primal(RowData rd, const double* __restrict__ theta,
-                                   ChainCfg c, int64_t G, int64_t N,
+__global__ void delay_chain_primal(RowDataOf<BIN> rd,
+                                   const double* __restrict__ theta,
+                                   CfgOf<BIN> c, int64_t G, int64_t N,
                                    double* __restrict__ out,
                                    double* __restrict__ aux) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -87,7 +94,7 @@ __global__ void delay_chain_primal(RowData rd, const double* __restrict__ theta,
   const int64_t n = row - g * N;
   const Theta<double> th{theta + g * c.P};
   double a[3] = {0.0, 0.0, 0.0};
-  out[row] = ptchain::delay_row<double, BIN>(c, th, load_row(rd, n),
+  out[row] = ptchain::delay_row<double, BIN>(c, th, load_row_of<BIN>(rd, n),
                                             aux != nullptr ? a : nullptr);
   if (aux != nullptr) {
     aux[row] = a[0];
@@ -97,10 +104,10 @@ __global__ void delay_chain_primal(RowData rd, const double* __restrict__ theta,
 }
 
 template <int BIN>
-__global__ void delay_chain_tangent(RowData rd,
+__global__ void delay_chain_tangent(RowDataOf<BIN> rd,
                                     const double* __restrict__ theta,
                                     const double* __restrict__ dtheta,
-                                    ChainCfg c, int K, int64_t G, int64_t N,
+                                    CfgOf<BIN> c, int K, int64_t G, int64_t N,
                                     double* __restrict__ tangent) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= G * K * N) return;
@@ -108,7 +115,7 @@ __global__ void delay_chain_tangent(RowData rd,
   const int64_t n = row - gk * N;
   const Theta<Dual> th{theta + (gk / K) * c.P, dtheta + gk * c.P};
   tangent[row] =
-      ptchain::delay_row<Dual, BIN>(c, th, load_row(rd, n), nullptr).d;
+      ptchain::delay_row<Dual, BIN>(c, th, load_row_of<BIN>(rd, n), nullptr).d;
 }
 
 constexpr int kTangentThreads = 64;
@@ -119,8 +126,9 @@ constexpr int kMinBlocks = L == 4 ? 8 : 1;
 
 template <int BIN, int L>
 __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
-    delay_chain_tangent_lanes(RowData rd, const double* __restrict__ theta,
-                              const double* __restrict__ dtheta, ChainCfg c,
+    delay_chain_tangent_lanes(RowDataOf<BIN> rd,
+                              const double* __restrict__ theta,
+                              const double* __restrict__ dtheta, CfgOf<BIN> c,
                               int K, int64_t N,
                               double* __restrict__ tangent) {
   // theta[g] (P), then the block's L tangent rows (L, P), zero past K
@@ -143,15 +151,16 @@ __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
   if (n >= N) return;
   const Theta<DualN<L>> th{sh, sh + P, P};
   const DualN<L> t =
-      ptchain::delay_row<DualN<L>, BIN>(c, th, load_row(rd, n), nullptr);
+      ptchain::delay_row<DualN<L>, BIN>(c, th, load_row_of<BIN>(rd, n),
+                                        nullptr);
 #pragma unroll
   for (int l = 0; l < L; ++l)
     if (k0 + l < K) tangent[(g * K + k0 + l) * N + n] = t.d[l];
 }
 
 template <int BIN, int L>
-cudaError_t launch_lanes(const RowData& rd, const double* theta,
-                         const double* dtheta, const ChainCfg& c, int K,
+cudaError_t launch_lanes(const RowDataOf<BIN>& rd, const double* theta,
+                         const double* dtheta, const CfgOf<BIN>& c, int K,
                          int64_t G, int64_t N, double* out,
                          cudaStream_t stream) {
   const int64_t lane_blocks = (K + L - 1) / L;
@@ -171,8 +180,8 @@ cudaError_t launch_lanes(const RowData& rd, const double* theta,
 }
 
 template <int BIN>
-cudaError_t launch(const RowData& rd, const double* theta,
-                   const double* dtheta, const ChainCfg& c, int K, int lpt,
+cudaError_t launch(const RowDataOf<BIN>& rd, const double* theta,
+                   const double* dtheta, const CfgOf<BIN>& c, int K, int lpt,
                    int64_t G, int64_t N, double* out, double* aux,
                    cudaStream_t stream) {
   const int threads = 128;
@@ -207,19 +216,24 @@ cudaError_t launch(const RowData& rd, const double* theta,
 // receives the (G, K, N) tangent, each thread carrying `lpt` lanes (1, 2
 // or 4).  dmx ((N, 2) int32 bins per TOA, -1 none), jbits (int32
 // DelayJump bits), swx ((N, 2) int32 SWX ranges), fdmbits and fdjbits
-// (int32 FDJUMPDM and FDJUMP bits) may be null when the model has none.
+// (int32 FDJUMPDM and FDJUMP bits), cmx ((N, 2) int32 CMX ranges) and
+// tropo (float64 troposphere delay [s]) may be null when the model has
+// none.
 // Returns a cudaError_t code (0 on success).
 extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
                            const float* frac_w, const double* pos,
                            const double* sun, const double* freq,
                            const int32_t* dmx, const int32_t* jbits,
                            const int32_t* swx, const int32_t* fdmbits,
-                           const int32_t* fdjbits, const double* theta,
+                           const int32_t* fdjbits, const int32_t* cmx,
+                           const double* tropo, const double* theta,
                            const double* dtheta, double* out, double* aux,
-                           ChainCfg cfg, int64_t G, int64_t K, int64_t N,
+                           ChromCfg cfg, int64_t G, int64_t K, int64_t N,
                            int lpt, void* stream) {
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
-                   dmx, jbits, swx, fdmbits, fdjbits};
+  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                          swx, fdmbits, fdjbits},
+                         cmx,
+                         tropo};
   if (G < 1 || N < 1 || cfg.P < 1 ||
       (dtheta != nullptr && (K < 1 || K > INT32_MAX)) ||
       !ptchain::rows_cover(cfg, rd))

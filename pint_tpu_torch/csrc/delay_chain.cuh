@@ -16,6 +16,10 @@
 //       dispersion.py  FDJumpDM (DispersionJump adds no delay)
 //       solar_wind.py  SolarWindDispersion (SWM 0 and 1),
 //       SolarWindDispersionX
+//       chromatic.py  ChromaticCM, ChromaticCMX;  wave.py  WaveX,
+//       DMWaveX, CMWaveX;  transient_events.py  SimpleExponentialDip,
+//       ChromaticGaussianEvent;  troposphere.py  TroposphereDelay (its
+//       host-built delay, one row input)
 //       binary_ell1.py  BinaryELL1.delay (M2/SINI Shapiro),
 //       BinaryELL1H.shapiro_delay, BinaryELL1k._eps / roemer_const
 //       binary_dd.py  BinaryDDBase/BinaryDD/BinaryBT.delay,
@@ -44,7 +48,10 @@
 //
 // The DM family (the solar wind, SWX, FDJUMPDM, FDJUMP) is compiled in
 // only where the template's family value carries kDMFamily, so the
-// instantiations without it are the code they were before it came.
+// instantiations without it are the code they were before it came.  The
+// chromatic family (CM, CMX, the WaveX family, the exponential dips, the
+// chromatic Gaussian events, the troposphere) likewise only where it
+// carries kChromFamily, which is added on top of kDMFamily alone.
 
 #pragma once
 
@@ -256,6 +263,39 @@ PT_HD DualN<L> f_atan2(const DualN<L>& y, const DualN<L>& x) {
   return r;
 }
 
+// exp, and sin and cos of one argument with its transcendentals formed
+// once for every lane (the WaveX family's modes)
+PT_HD double f_exp(double x) { return exp(x); }
+PT_HD Dual f_exp(Dual x) {
+  const double e = exp(x.v);
+  return {e, e * x.d};
+}
+template <int L>
+PT_HD DualN<L> f_exp(const DualN<L>& x) {
+  DualN<L> r;
+  r.v = exp(x.v);
+  PT_LANES r.d[l] = r.v * x.d[l];
+  return r;
+}
+PT_HD void f_sincos(double x, double& s, double& c) {
+  s = sin(x);
+  c = cos(x);
+}
+PT_HD void f_sincos(const Dual& x, Dual& s, Dual& c) {
+  s = f_sin(x);
+  c = f_cos(x);
+}
+template <int L>
+PT_HD void f_sincos(const DualN<L>& x, DualN<L>& s, DualN<L>& c) {
+  const double sv = sin(x.v), cv = cos(x.v), ms = -sv;
+  s.v = sv;
+  c.v = cv;
+  PT_LANES {
+    s.d[l] = cv * x.d[l];
+    c.d[l] = ms * x.d[l];
+  }
+}
+
 // acos, asin, abs and pow, with torch's derivative rules
 PT_HD double f_acos(double x) { return acos(x); }
 PT_HD double f_asin(double x) { return asin(x); }
@@ -305,6 +345,21 @@ PT_HD DualN<L> f_pow(const DualN<L>& x, const DualN<L>& y) {
   r.v = pow(x.v, y.v);
   const double ax = y.v * pow(x.v, y.v - 1.0), ay = r.v * log(x.v);
   PT_LANES r.d[l] = x.d[l] * ax + y.d[l] * ay;
+  return r;
+}
+
+// x^y for a constant x > 0: d x^y = x^y log(x) dy
+PT_HD double pow_cbase(double x, double y) { return pow(x, y); }
+PT_HD Dual pow_cbase(double x, const Dual& y) {
+  const double r = pow(x, y.v);
+  return {r, (r * log(x)) * y.d};
+}
+template <int L>
+PT_HD DualN<L> pow_cbase(double x, const DualN<L>& y) {
+  DualN<L> r;
+  r.v = pow(x, y.v);
+  const double f = r.v * log(x);
+  PT_LANES r.d[l] = f * y.d[l];
   return r;
 }
 
@@ -430,6 +485,16 @@ enum : int32_t {
   kFDJumpDM = 65536,  // FDJumpDM
   kFDJump = 131072,   // FDJump
   kDMFamilyFlags = kSolarWind | kSWX | kFDJumpDM | kFDJump,
+  kCM = 1 << 18,          // ChromaticCM (its block holds TNCHROMIDX)
+  kCMX = 1 << 19,         // ChromaticCMX
+  kCMWaveX = 1 << 20,     // CMWaveX
+  kDMWaveX = 1 << 21,     // DMWaveX
+  kWaveX = 1 << 22,       // WaveX
+  kExpDip = 1 << 23,      // SimpleExponentialDip
+  kChromGauss = 1 << 24,  // ChromaticGaussianEvent
+  kTropo = 1 << 25,       // TroposphereDelay (one row input)
+  kChromFamilyFlags = kCM | kCMX | kCMWaveX | kDMWaveX | kWaveX | kExpDip |
+                      kChromGauss | kTropo,
 };
 
 // binary families (the kernels' template parameter)
@@ -444,6 +509,9 @@ enum : int32_t {
   // added to a family: the DM family's terms compiled in (a layout with
   // any of kDMFamilyFlags launches the family + kDMFamily kernels)
   kDMFamily = 8,
+  // added to family + kDMFamily: the chromatic family's terms compiled in
+  // (a layout with any of kChromFamilyFlags)
+  kChromFamily = 16,
 };
 
 // slot offsets within the binary block of theta
@@ -525,6 +593,46 @@ struct ChainCfg {
   int32_t nsw, nswx, nfdm, nfdj;
   int32_t o_sw, o_swx, o_fdm, o_fdj;
   int8_t fdj_order[kMaxMaskMembers + 1];
+};
+
+// the config of the chromatic family's kernels: ChainCfg, then the
+// chromatic family's counts (CM's Taylor terms, CMX ranges, the modes of
+// CMWaveX, DMWaveX and WaveX, the dips, the Gaussian events) and their
+// blocks' offsets.  The other kernels take ChainCfg as it was: a larger
+// kernel parameter moved their ptxas spills.
+struct ChromCfg : ChainCfg {
+  int32_t ncm, ncmx, ncmwx, ndmwx, nwx, ndip, ngauss;
+  int32_t o_cm, o_cmx, o_cmwx, o_dmwx, o_wx, o_dip, o_gauss;
+};
+
+// slots of the chromatic family's blocks: CM's epoch [day], TNCHROMIDX,
+// then the ncm CM terms; a sinusoid family's epoch [day], then its n
+// frequencies [1/day], n SIN and n COS amplitudes; the dips' EXPDIPEPS
+// and EXPDIPFREF, then per dip its epoch [day], amplitude, index,
+// timescale and peak normalization (formed in PyTorch); the events'
+// CHROMGAUSSFREF, then per event its epoch [day], 10^LOGAMP, 10^LOGSIG
+// (formed in PyTorch), sign and index
+enum : int32_t {
+  cmEpoch = 0,
+  cmAlpha = 1,
+  cmTerms = 2,
+  dipEps = 0,
+  dipFref = 1,
+  dipFirst = 2,
+  dipSlots = 5,
+  // within a dip's slots
+  dipAmp = 1,
+  dipIdx = 2,
+  dipTau = 3,
+  dipNorm = 4,
+  gaussFref = 0,
+  gaussFirst = 1,
+  gaussSlots = 5,
+  // within an event's slots
+  gaussAmp = 1,
+  gaussSigma = 2,
+  gaussSign = 3,
+  gaussIdx = 4,
 };
 
 // slots within the solar wind's block of theta: the Taylor epoch [day],
@@ -619,6 +727,13 @@ struct Row {
   int32_t fdjbits;      // FDJUMP membership bits
 };
 
+// the row of the chromatic family's kernels: the CMX ranges (as the DMX
+// bins) and the troposphere's delay on top of Row
+struct ChromRow : Row {
+  int32_t cmx0, cmx1;
+  double tropo;  // [s]
+};
+
 // the per-row inputs as the kernels receive them (kernels/delay_chain.py
 // ROWS), and one row of them
 struct RowData {
@@ -634,10 +749,39 @@ struct RowData {
   const int32_t* __restrict__ fdmbits;
   const int32_t* __restrict__ fdjbits;
 };
+// and the chromatic family's: the CMX ranges and the troposphere's delay
+struct ChromRowData : RowData {
+  const int32_t* __restrict__ cmx;
+  const double* __restrict__ tropo;
+};
+
+// the config, row inputs and row of the kernels of template value BIN:
+// the chromatic family's only where it carries kChromFamily, so that the
+// other kernels keep the parameters, and the code, they had
+template <bool CHROM>
+struct ChromSel {
+  using Cfg = ChainCfg;
+  using Data = RowData;
+  using Row_ = Row;
+};
+template <>
+struct ChromSel<true> {
+  using Cfg = ChromCfg;
+  using Data = ChromRowData;
+  using Row_ = ChromRow;
+};
+template <int BIN>
+using CfgOf = typename ChromSel<(BIN & kChromFamily) != 0>::Cfg;
+template <int BIN>
+using RowDataOf = typename ChromSel<(BIN & kChromFamily) != 0>::Data;
+template <int BIN>
+using RowOf = typename ChromSel<(BIN & kChromFamily) != 0>::Row_;
 
 // the template value of the kernels that a layout launches: its binary
-// family, with kDMFamily added when it has a term of the DM family
+// family, with kDMFamily added when it has a term of the DM family, and
+// kDMFamily + kChromFamily when it has one of the chromatic family
 PT_HD int kernel_family(const ChainCfg& c) {
+  if (c.flags & kChromFamilyFlags) return c.binary + kDMFamily + kChromFamily;
   return c.binary + ((c.flags & kDMFamilyFlags) ? kDMFamily : 0);
 }
 
@@ -651,11 +795,19 @@ PT_HD int kernel_family(const ChainCfg& c) {
   X(ptchain::kDDK + ptchain::kDMFamily)                                  \
   X(ptchain::kDDTM2 + ptchain::kDMFamily)                                \
   X(ptchain::kELL1H + ptchain::kDMFamily)                                \
-  X(ptchain::kELL1K + ptchain::kDMFamily)
+  X(ptchain::kELL1K + ptchain::kDMFamily)                                \
+  PT_CHROM_FAMILIES(X)
+
+#define PT_CHROM(B) ((B) + ptchain::kDMFamily + ptchain::kChromFamily)
+#define PT_CHROM_FAMILIES(X)                                             \
+  X(PT_CHROM(ptchain::kNoBinary)) X(PT_CHROM(ptchain::kELL1))            \
+  X(PT_CHROM(ptchain::kDD)) X(PT_CHROM(ptchain::kDDK))                   \
+  X(PT_CHROM(ptchain::kDDTM2)) X(PT_CHROM(ptchain::kELL1H))              \
+  X(PT_CHROM(ptchain::kELL1K))
 
 // whether a layout's member counts fit the bit words and the row inputs
 // hold what it reads (the kernels refuse it otherwise)
-PT_HD bool rows_cover(const ChainCfg& c, const RowData& rd) {
+PT_HD bool rows_cover(const ChromCfg& c, const ChromRowData& rd) {
   const int f = c.flags;
   return c.njump <= kMaxMaskMembers && c.nfdm <= kMaxMaskMembers &&
          c.nfdj <= kMaxMaskMembers &&
@@ -664,7 +816,10 @@ PT_HD bool rows_cover(const ChainCfg& c, const RowData& rd) {
          !((f & kSWX) && c.nswx > 0 && rd.swx == nullptr) &&
          !((f & kFDJumpDM) && rd.fdmbits == nullptr) &&
          !((f & kFDJump) && rd.fdjbits == nullptr) &&
-         !((f & (kSolarWind | kSWX)) && !(f & kAstro));
+         !((f & (kSolarWind | kSWX)) && !(f & kAstro)) &&
+         !((f & kCMX) && c.ncmx > 0 && rd.cmx == nullptr) &&
+         !((f & kTropo) && rd.tropo == nullptr) &&
+         !((f & (kCMX | kCMWaveX)) && !(f & kCM));
 }
 
 PT_HD Row load_row(const RowData& rd, int64_t n) {
@@ -683,6 +838,21 @@ PT_HD Row load_row(const RowData& rd, int64_t n) {
   r.fdmbits = rd.fdmbits != nullptr ? rd.fdmbits[n] : 0;
   r.fdjbits = rd.fdjbits != nullptr ? rd.fdjbits[n] : 0;
   return r;
+}
+
+// row n as template value BIN reads it
+template <int BIN>
+PT_HD RowOf<BIN> load_row_of(const RowDataOf<BIN>& rd, int64_t n) {
+  if constexpr ((BIN & kChromFamily) != 0) {
+    ChromRow r;
+    static_cast<Row&>(r) = load_row(rd, n);
+    r.cmx0 = rd.cmx != nullptr ? rd.cmx[2 * n] : -1;
+    r.cmx1 = rd.cmx != nullptr ? rd.cmx[2 * n + 1] : -1;
+    r.tropo = rd.tropo != nullptr ? rd.tropo[n] : 0.0;
+    return r;
+  } else {
+    return load_row(rd, n);
+  }
 }
 
 // K * dm / f^2 with infinite-frequency rows zeroed
@@ -856,6 +1026,83 @@ PT_HD double log_freq_pow(double lf, int k) {
   if (k == 2) return lf * lf;
   if (k == 3) return lf * lf * lf;
   return pow(lf, (double)k);
+}
+
+// chromatic.py chromatic_delay: K * cm * f^-alpha, infinite-frequency
+// rows zeroed
+template <typename T>
+PT_HD T chromatic(const T& cm, const T& alpha, double freq) {
+  if (!isfinite(freq)) return make<T>(0.0);
+  return (kDMconst * cm) * pow_cbase(freq, -alpha);
+}
+
+// wave.py _WaveXBasis.basis_sum at dt [days]: the sines' sum over modes
+// in mode order, plus the cosines'
+template <typename T>
+PT_HD T wave_sum(const Theta<T>& th, int o, int n, const T& dt) {
+  T s = make<T>(0.0), cs = make<T>(0.0);
+  for (int k = 0; k < n; ++k) {
+    const T arg = (kTwoPi * dt) * th[o + 1 + k];
+    T sa, ca;
+    f_sincos(arg, sa, ca);
+    s = s + sa * th[o + 1 + n + k];
+    cs = cs + ca * th[o + 1 + 2 * n + k];
+  }
+  return s + cs;
+}
+
+// dt [days] of a row from the epoch in slot o
+template <typename T>
+PT_HD T days_since(const Theta<T>& th, int o, const Row& r) {
+  return ((double)r.day + r.frac) - th[o];
+}
+
+// transient_events.py _ffac: f / fref, 1 on infinite-frequency rows
+template <typename T>
+PT_HD T freq_factor(double freq, const T& fref) {
+  if (!isfinite(freq)) return make<T>(1.0);
+  return freq / fref;
+}
+
+// SimpleExponentialDip.delay: each dip's smoothed one-sided exponential,
+// the branch by the sign of dt
+template <typename T>
+PT_HD T exp_dips(const ChromCfg& c, const Theta<T>& th, const Row& r) {
+  const int o = c.o_dip;
+  const T eps = th[o + dipEps];
+  const T ffac = freq_factor(r.freq, th[o + dipFref]);
+  T tot = make<T>(0.0);
+  for (int i = 0; i < c.ndip; ++i) {
+    const int q = o + dipFirst + dipSlots * i;
+    const T dt = days_since(th, q, r);
+    const T tau = th[q + dipTau];
+    T expfac;
+    if (val(dt) >= 0.0)
+      expfac = f_exp(-dt / tau) / (1.0 + f_exp(-dt / eps));
+    else
+      expfac = f_exp(dt * (tau - eps) / (tau * eps)) /
+               (1.0 + f_exp(dt / eps));
+    tot = tot - ((th[q + dipAmp] * f_pow(ffac, th[q + dipIdx])) *
+                 th[q + dipNorm]) *
+                    expfac;
+  }
+  return tot;
+}
+
+// ChromaticGaussianEvent.delay
+template <typename T>
+PT_HD T chrom_gauss(const ChromCfg& c, const Theta<T>& th, const Row& r) {
+  const int o = c.o_gauss;
+  const T ffac = freq_factor(r.freq, th[o + gaussFref]);
+  T tot = make<T>(0.0);
+  for (int i = 0; i < c.ngauss; ++i) {
+    const int q = o + gaussFirst + gaussSlots * i;
+    const T z = days_since(th, q, r) / th[q + gaussSigma];
+    tot = tot + ((th[q + gaussSign] * th[q + gaussAmp]) *
+                 f_exp(-0.5 * (z * z))) *
+                    f_pow(ffac, -th[q + gaussIdx]);
+  }
+  return tot;
 }
 
 // the binary's t_bary - epoch [s] from the QS epoch difference, with the
@@ -1070,10 +1317,11 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
 // the whole chain, in DEFAULT_ORDER; each component reads the delay
 // accumulated before it (PhaseCalc.delay)
 template <typename T, int BIN>
-PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
+PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
                   double* aux) {
-  constexpr int FAM = BIN & ~kDMFamily;
+  constexpr int FAM = BIN & ~(kDMFamily | kChromFamily);
   constexpr bool DMF = (BIN & kDMFamily) != 0;
+  constexpr bool CHF = (BIN & kChromFamily) != 0;
   T d = make<T>(0.0);
   T L[3] = {d, d, d};
   if (c.flags & kAstro) d = d + astrometry(c, th, r, L);
@@ -1082,6 +1330,9 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
     for (int j = 0; j < c.njump; ++j)
       if ((r.jbits >> j) & 1) tot = tot - th[c.o_jump + j];
     d = d + tot;
+  }
+  if constexpr (CHF) {
+    if (c.flags & kTropo) d = d + r.tropo;
   }
   if (c.flags & kShapiro) d = d + sun_shapiro(r, L);
   if constexpr (DMF) {
@@ -1115,6 +1366,35 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
       d = d + dispersion(dm, r.freq);
     }
   }
+  if constexpr (CHF) {
+    if (c.flags & kDMWaveX)
+      d = d + dispersion(wave_sum(th, c.o_dmwx, c.ndmwx,
+                                  days_since(th, c.o_dmwx, r)),
+                         r.freq);
+    if (c.flags & kCM) {
+      const int o = c.o_cm;
+      T cm;
+      if (c.ncm == 1) {
+        cm = th[o + cmTerms];
+      } else {
+        const T dt_sec = days_since(th, o + cmEpoch, r) * 86400.0;
+        cm = taylor_horner(dt_sec, th, o + cmTerms, c.ncm);
+      }
+      d = d + chromatic(cm, th[o + cmAlpha], r.freq);
+    }
+    if (c.flags & kCMX) {
+      // as DMX's bins
+      T cm = r.cmx0 >= 0 ? th[c.o_cmx + r.cmx0] : make<T>(0.0);
+      if (r.cmx1 >= 0) cm = cm + th[c.o_cmx + r.cmx1];
+      d = d + chromatic(cm, th[c.o_cm + cmAlpha], r.freq);
+    }
+    if (c.flags & kCMWaveX)
+      d = d + chromatic(wave_sum(th, c.o_cmwx, c.ncmwx,
+                                 days_since(th, c.o_cmwx, r)),
+                        th[c.o_cm + cmAlpha], r.freq);
+    if (c.flags & kExpDip) d = d + exp_dips(c, th, r);
+    if (c.flags & kChromGauss) d = d + chrom_gauss(c, th, r);
+  }
   if (FAM == kELL1 || FAM == kELL1H || FAM == kELL1K)
     d = d + ell1<T, FAM>(c, th, r, d);
   if (FAM == kDD || FAM == kDDK || FAM == kDDTM2)
@@ -1143,6 +1423,12 @@ PT_HD T delay_row(const ChainCfg& c, const Theta<T>& th, const Row& r,
       }
       d = d + out;
     }
+  }
+  if constexpr (CHF) {
+    // WaveX, the last delay term: dt shifted by the whole delay before it
+    if (c.flags & kWaveX)
+      d = d + wave_sum(th, c.o_wx, c.nwx,
+                       days_since(th, c.o_wx, r) - d / 86400.0);
   }
   return d;
 }

@@ -19,14 +19,16 @@
 namespace {
 
 using ptchain::ChainCfg;
+using ptchain::ChromCfg;
+using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
 using ptchain::Theta;
 
 template <int BIN, int L>
-void tangent_lanes(const RowData& rd, const double* theta,
-                   const double* dtheta, const ChainCfg& c, int64_t G,
+void tangent_lanes(const ChromRowData& rd, const double* theta,
+                   const double* dtheta, const ChromCfg& c, int64_t G,
                    int64_t K, int64_t N, double* out) {
   const int P = c.P;
   std::vector<double> d((size_t)L * P);
@@ -40,7 +42,7 @@ void tangent_lanes(const RowData& rd, const double* theta,
       const Theta<DualN<L>> th{theta + g * P, d.data(), P};
       for (int64_t n = 0; n < N; ++n) {
         const DualN<L> t = ptchain::delay_row<DualN<L>, BIN>(
-            c, th, ptchain::load_row(rd, n), nullptr);
+            c, th, ptchain::load_row_of<BIN>(rd, n), nullptr);
         for (int l = 0; l < L; ++l)
           if (k0 + l < K) out[(g * K + k0 + l) * N + n] = t.d[l];
       }
@@ -48,15 +50,15 @@ void tangent_lanes(const RowData& rd, const double* theta,
 }
 
 template <int BIN>
-int run(const RowData& rd, const double* theta, const double* dtheta,
-        const ChainCfg& c, int64_t G, int64_t K, int64_t N, int lpt,
+int run(const ChromRowData& rd, const double* theta, const double* dtheta,
+        const ChromCfg& c, int64_t G, int64_t K, int64_t N, int lpt,
         double* out) {
   const int P = c.P;
   if (dtheta == nullptr) {
     for (int64_t g = 0; g < G; ++g)
       for (int64_t n = 0; n < N; ++n)
         out[g * N + n] = ptchain::delay_row<double, BIN>(
-            c, Theta<double>{theta + g * P}, ptchain::load_row(rd, n),
+            c, Theta<double>{theta + g * P}, ptchain::load_row_of<BIN>(rd, n),
             nullptr);
     return 0;
   }
@@ -67,7 +69,7 @@ int run(const RowData& rd, const double* theta, const double* dtheta,
           out[gk * N + n] =
               ptchain::delay_row<Dual, BIN>(
                   c, Theta<Dual>{theta + (gk / K) * P, dtheta + gk * P},
-                  ptchain::load_row(rd, n), nullptr)
+                  ptchain::load_row_of<BIN>(rd, n), nullptr)
                   .d;
       return 0;
     case 2:
@@ -91,11 +93,14 @@ extern "C" int delay_chain_host(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
-    const int32_t* fdmbits, const int32_t* fdjbits, const double* theta,
-    const double* dtheta, double* out, ChainCfg cfg, int64_t G, int64_t K,
+    const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
+    const double* tropo, const double* theta,
+    const double* dtheta, double* out, ChromCfg cfg, int64_t G, int64_t K,
     int64_t N, int lpt) {
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
-                   dmx, jbits, swx, fdmbits, fdjbits};
+  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                          swx, fdmbits, fdjbits},
+                         cmx,
+                         tropo};
   if (G < 1 || N < 1 || cfg.P < 1 || (dtheta != nullptr && K < 1) ||
       !ptchain::rows_cover(cfg, rd))
     return 1;

@@ -54,12 +54,16 @@
 
 namespace {
 
+using ptchain::CfgOf;
 using ptchain::ChainCfg;
+using ptchain::ChromCfg;
+using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
+using ptchain::RowDataOf;
 using ptchain::Theta;
-using ptchain::load_row;
+using ptchain::load_row_of;
 using ptphase::PhaseOut;
 using ptphase::SpinTerms;
 using ptphasechain::PhaseCfg;
@@ -76,9 +80,9 @@ struct PhaseData {
 };
 
 template <int BIN>
-__global__ void phase_chain_primal(RowData rd, PhaseData ph,
+__global__ void phase_chain_primal(RowDataOf<BIN> rd, PhaseData ph,
                                    const double* __restrict__ theta,
-                                   ChainCfg c, PhaseCfg pc, int64_t G,
+                                   CfgOf<BIN> c, PhaseCfg pc, int64_t G,
                                    int64_t N, double* __restrict__ out,
                                    float* __restrict__ words,
                                    double* __restrict__ slope,
@@ -92,7 +96,7 @@ __global__ void phase_chain_primal(RowData rd, PhaseData ph,
   const int64_t g = row / N;
   const int64_t n = row - g * N;
   const PhaseOut o = ptphasechain::primal_row<BIN>(
-      c, pc, theta + g * pc.P, load_row(rd, n), spin, ph.pep_day[0],
+      c, pc, theta + g * pc.P, load_row_of<BIN>(rd, n), spin, ph.pep_day[0],
       ph.pep_w, ph.tzr_w, ph.other != nullptr,
       ph.other != nullptr ? ph.other[g * ph.other_sg + n] : 0.0,
       pc.mode == ptphase::kPulseNumbers ? ph.pulse_number[n] : 0.0);
@@ -115,10 +119,10 @@ struct TangentData {
 };
 
 template <int BIN>
-__global__ void phase_chain_tangent(RowData rd, TangentData td,
+__global__ void phase_chain_tangent(RowDataOf<BIN> rd, TangentData td,
                                     const double* __restrict__ theta,
                                     const double* __restrict__ dtheta,
-                                    ChainCfg c, PhaseCfg pc, int K,
+                                    CfgOf<BIN> c, PhaseCfg pc, int K,
                                     int64_t G, int64_t N,
                                     double* __restrict__ tangent) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -129,7 +133,7 @@ __global__ void phase_chain_tangent(RowData rd, TangentData td,
   const Theta<Dual> th{theta + g * pc.P, dtheta + gk * pc.P};
   tangent[row] =
       ptphasechain::tangent_row<BIN, Dual>(
-          c, pc, th, load_row(rd, n), td.slope + g * N + n,
+          c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
           td.dt64 + g * N + n,
           td.dother != nullptr
               ? td.dother + g * td.dother_sg + k * td.dother_sk + n
@@ -146,9 +150,9 @@ constexpr int kMinBlocks = L == 4 ? 8 : 1;
 
 template <int BIN, int L>
 __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
-    phase_chain_tangent_lanes(RowData rd, TangentData td,
+    phase_chain_tangent_lanes(RowDataOf<BIN> rd, TangentData td,
                               const double* __restrict__ theta,
-                              const double* __restrict__ dtheta, ChainCfg c,
+                              const double* __restrict__ dtheta, CfgOf<BIN> c,
                               PhaseCfg pc, int K, int64_t N,
                               double* __restrict__ tangent) {
   // theta[g] (P), then the block's L tangent rows (L, P), zero past K
@@ -173,7 +177,7 @@ __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
   const Theta<DualN<L>> th{sh, sh + P, P};
   const ptphasechain::LaneOut<L> t =
       ptphasechain::tangent_row<BIN, DualN<L>>(
-          c, pc, th, load_row(rd, n), td.slope + g * N + n,
+          c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
           td.dt64 + g * N + n,
           td.dother != nullptr
               ? td.dother + g * td.dother_sg + k0 * td.dother_sk + n
@@ -185,9 +189,9 @@ __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
 }
 
 template <int BIN, int L>
-cudaError_t launch_lanes(const RowData& rd, const TangentData& td,
+cudaError_t launch_lanes(const RowDataOf<BIN>& rd, const TangentData& td,
                          const double* theta, const double* dtheta,
-                         const ChainCfg& c, const PhaseCfg& pc, int K,
+                         const CfgOf<BIN>& c, const PhaseCfg& pc, int K,
                          int64_t G, int64_t N, double* out,
                          cudaStream_t stream) {
   const int64_t lane_blocks = (K + L - 1) / L;
@@ -207,9 +211,9 @@ cudaError_t launch_lanes(const RowData& rd, const TangentData& td,
 }
 
 template <int BIN>
-cudaError_t launch(const RowData& rd, const PhaseData& ph,
+cudaError_t launch(const RowDataOf<BIN>& rd, const PhaseData& ph,
                    const TangentData& td, const double* theta,
-                   const double* dtheta, const ChainCfg& c,
+                   const double* dtheta, const CfgOf<BIN>& c,
                    const PhaseCfg& pc, int K, int lpt, int64_t G, int64_t N,
                    double* out, float* words, double* slope, double* dt64,
                    cudaStream_t stream) {
@@ -251,24 +255,27 @@ cudaError_t launch(const RowData& rd, const PhaseData& ph,
 // P) the tangent: `out` receives the (G, K, N) d frac, each thread
 // carrying `lpt` lanes (1, 2 or 4), from the primal's `slope_in` and
 // `dt64_in` and, if not null, d other at dother + g * dother_sg + k *
-// dother_sk + n.  dmx, jbits, swx, fdmbits and fdjbits as delay_chain.cu
-// takes them.  Returns a cudaError_t code (0 on success).
+// dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx and tropo as
+// delay_chain.cu takes them.  Returns a cudaError_t code (0 on success).
 extern "C" int phase_chain(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
-    const int32_t* fdmbits, const int32_t* fdjbits,
+    const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
+    const double* tropo,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, ChainCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, ChromCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt,
     void* stream) {
   const bool tangent = dtheta != nullptr;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
-                   dmx, jbits, swx, fdmbits, fdjbits};
+  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                          swx, fdmbits, fdjbits},
+                         cmx,
+                         tropo};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||

@@ -31,10 +31,12 @@
 
 namespace ptphasechain {
 
+using ptchain::CfgOf;
 using ptchain::ChainCfg;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::Row;
+using ptchain::RowOf;
 using ptchain::Theta;
 using ptphase::PhaseOut;
 using ptphase::SpinTerms;
@@ -52,8 +54,8 @@ constexpr double kSecsPerDay = 86400.0;
 
 // One row of the primal: theta is the row's theta set (pc.P slots).
 template <int BIN>
-PT_HD PhaseOut primal_row(const ChainCfg& c, const PhaseCfg& pc,
-                          const double* theta, const Row& r,
+PT_HD PhaseOut primal_row(const CfgOf<BIN>& c, const PhaseCfg& pc,
+                          const double* theta, const RowOf<BIN>& r,
                           const SpinTerms& s, double pep_day,
                           const float* pep_w, const float* tzr_w,
                           bool has_other, double other, double pn) {
@@ -96,8 +98,10 @@ struct LaneOut {
 // the delay row); dother, if not null, lane l's tangent of `other` at
 // dother[l * dother_sk].
 template <int BIN, typename T>
-PT_HD LaneOut<Lanes<T>::L> tangent_row(const ChainCfg& c, const PhaseCfg& pc,
-                                       const Theta<T>& th, const Row& r,
+PT_HD LaneOut<Lanes<T>::L> tangent_row(const CfgOf<BIN>& c,
+                                       const PhaseCfg& pc,
+                                       const Theta<T>& th,
+                                       const RowOf<BIN>& r,
                                        const double* slope_p,
                                        const double* dt64_p,
                                        const double* dother,

@@ -21,11 +21,13 @@
 namespace {
 
 using ptchain::ChainCfg;
+using ptchain::ChromCfg;
+using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
 using ptchain::Theta;
-using ptchain::load_row;
+using ptchain::load_row_of;
 using ptphase::PhaseOut;
 using ptphase::SpinTerms;
 using ptphasechain::PhaseCfg;
@@ -38,8 +40,9 @@ struct Tangent {
 };
 
 template <int BIN, int L>
-void tangent_lanes(const RowData& rd, const Tangent& td, const double* theta,
-                   const double* dtheta, const ChainCfg& c,
+void tangent_lanes(const ChromRowData& rd, const Tangent& td,
+                   const double* theta, const double* dtheta,
+                   const ChromCfg& c,
                    const PhaseCfg& pc, int64_t G, int64_t K, int64_t N,
                    double* out) {
   const int P = pc.P;
@@ -56,7 +59,7 @@ void tangent_lanes(const RowData& rd, const Tangent& td, const double* theta,
       for (int64_t n = 0; n < N; ++n) {
         const ptphasechain::LaneOut<L> t =
             ptphasechain::tangent_row<BIN, DualN<L>>(
-                c, pc, th, load_row(rd, n), td.slope + g * N + n,
+                c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
                 td.dt64 + g * N + n,
                 td.dother != nullptr
                     ? td.dother + g * td.dother_sg + k0 * td.dother_sk + n
@@ -69,10 +72,10 @@ void tangent_lanes(const RowData& rd, const Tangent& td, const double* theta,
 }
 
 template <int BIN>
-int run(const RowData& rd, const double* pulse_number, const double* pep_day,
-        const float* pep_w, const float* f_w, const float* tzr_w,
+int run(const ChromRowData& rd, const double* pulse_number,
+        const double* pep_day, const float* pep_w, const float* f_w, const float* tzr_w,
         const double* other, int64_t other_sg, const Tangent& td,
-        const double* theta, const double* dtheta, const ChainCfg& c,
+        const double* theta, const double* dtheta, const ChromCfg& c,
         const PhaseCfg& pc, int64_t G, int64_t K, int64_t N, int lpt,
         double* out, float* words, double* slope, double* dt64) {
   const int P = pc.P;
@@ -83,8 +86,8 @@ int run(const RowData& rd, const double* pulse_number, const double* pep_day,
       for (int64_t n = 0; n < N; ++n) {
         const int64_t row = g * N + n;
         const PhaseOut o = ptphasechain::primal_row<BIN>(
-            c, pc, theta + g * P, load_row(rd, n), spin, pep_day[0], pep_w,
-            tzr_w, other != nullptr,
+            c, pc, theta + g * P, load_row_of<BIN>(rd, n), spin, pep_day[0],
+            pep_w, tzr_w, other != nullptr,
             other != nullptr ? other[g * other_sg + n] : 0.0,
             pc.mode == ptphase::kPulseNumbers ? pulse_number[n] : 0.0);
         slope[row] = o.slope;
@@ -105,7 +108,7 @@ int run(const RowData& rd, const double* pulse_number, const double* pep_day,
         for (int64_t n = 0; n < N; ++n)
           out[gk * N + n] =
               ptphasechain::tangent_row<BIN, Dual>(
-                  c, pc, th, load_row(rd, n), td.slope + g * N + n,
+                  c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
                   td.dt64 + g * N + n,
                   td.dother != nullptr
                       ? td.dother + g * td.dother_sg + k * td.dother_sk + n
@@ -133,17 +136,20 @@ extern "C" int phase_chain_host(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
-    const int32_t* fdmbits, const int32_t* fdjbits,
+    const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
+    const double* tropo,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, ChainCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, ChromCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt) {
   const bool tangent = dtheta != nullptr;
-  const RowData rd{tdb_day, tdb_frac, frac_w, pos, sun, freq,
-                   dmx, jbits, swx, fdmbits, fdjbits};
+  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                          swx, fdmbits, fdjbits},
+                         cmx,
+                         tropo};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||

@@ -316,10 +316,10 @@ def dd_noise_realistic_par(dmx_bins: int = 70, span_days: float = 4550.0,
 
 
 def epoch_toas(ntoas: int, span_days: float = 4550.0,
-               center_mjd: float = 54975.0):
+               center_mjd: float = 54975.0, receivers=RECEIVERS):
     """(MJDs, per-TOA band [MHz], per-TOA frequency [MHz]) of the GLS set:
     ``ntoas / 4`` observing epochs evenly over the span, each one receiver
-    in turn (RECEIVERS order) with its four sub-bands 0.1 s apart."""
+    in turn (``receivers`` order) with its four sub-bands 0.1 s apart."""
     nep = ntoas // TOAS_PER_EPOCH
     if nep * TOAS_PER_EPOCH != ntoas:
         raise ValueError(f"ntoas must be a multiple of {TOAS_PER_EPOCH}")
@@ -327,7 +327,7 @@ def epoch_toas(ntoas: int, span_days: float = 4550.0,
                      nep)
     k = np.arange(TOAS_PER_EPOCH)
     mjds = (ep[:, None] + k[None, :] * EPOCH_SPACING_S / 86400.0).ravel()
-    band = np.repeat(np.resize(list(RECEIVERS), nep), TOAS_PER_EPOCH)
+    band = np.repeat(np.resize(list(receivers), nep), TOAS_PER_EPOCH)
     freqs = band + np.tile(np.asarray(SUBBANDS_MHZ), nep)
     return mjds, band, freqs
 
@@ -336,7 +336,8 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
                                 dmx_bins: int = 70,
                                 span_days: float = 4550.0,
                                 center_mjd: float = 54975.0, device=None,
-                                errors_us=1.0, par: str = None):
+                                errors_us=1.0, par: str = None,
+                                receivers=RECEIVERS):
     """(model, TOAs) of the full-width ``dd_gls_nanograv`` configuration:
     epoch-clustered TOAs (:func:`epoch_toas`) from gbt with uncertainties
     ``errors_us`` (a scalar or one per TOA), put on integer model phases
@@ -345,7 +346,8 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
     noise (``add_correlated_noise``, seed ``seed``), as pint_tpu's GLS
     tests build epoch-clustered TOAs (``get_TOAs_array`` +
     ``zero_residuals``).  ``par`` replaces the configuration's par (the
-    wideband one passes its own).  The residuals run on ``device``
+    wideband and chromatic ones pass their own), ``receivers`` the
+    receiver bands and -fe names.  The residuals run on ``device``
     (default ``"cuda"``)."""
     from pint_tpu_torch import mjd as mjdmod
     from pint_tpu_torch.models import get_model
@@ -353,7 +355,7 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
     from pint_tpu_torch.simulation import add_correlated_noise, zero_residuals
     from pint_tpu_torch.toa import get_TOAs_array
 
-    mjds, band, freqs = epoch_toas(ntoas, span_days, center_mjd)
+    mjds, band, freqs = epoch_toas(ntoas, span_days, center_mjd, receivers)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         if par is None:
@@ -364,7 +366,7 @@ def simulate_dd_noise_realistic(ntoas: int = 12500, seed: int = 0,
         toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
-            fl["fe"] = RECEIVERS[float(b_mhz)]
+            fl["fe"] = receivers[float(b_mhz)]
         toas = zero_residuals(toas, model, device=device)
         sigma_us = Residuals(toas, model, device=device).get_data_error()
         rng = np.random.default_rng(seed + 1)
@@ -570,3 +572,199 @@ def dm_family_par(kind: str, dmx_bins: int = 70, span_days: float = 4550.0,
     return "\n".join([base] + dm_family_lines(
         1 if kind.endswith("SWM1") else 0, span_days=span_days,
         center_mjd=center_mjd))
+
+
+#: the chromatic configuration (``chromatic_j1713``): a J1713+0747-class
+#: chromatic noise fit, the chromatic terms as EPTA DR2 and PPTA DR3 model
+#: them.  Its receivers span 430-1400 MHz (NANOGrav's 430 MHz and 820 MHz
+#: receivers and L-band), so that f^-4 and f^-2 separate; the -fe names
+#: are those the JUMP and noise lines key on (RCVR430 in place of
+#: RCVR1400L)
+CHROM_RECEIVERS = {1400.0: "RCVR1400", 820.0: "RCVR800", 430.0: "RCVR430"}
+#: the chromatic delays: the troposphere; CM (index 4, CM frozen: a
+#: constant CM is degenerate with FD1-4 and the receiver JUMPs) with CM1
+#: and CM2 free; J1713's 2008 exponential dip (index -2 frozen, amplitude
+#: ~1 us at 1400 MHz and timescale ~30 d free); a chromatic Gaussian event
+#: (index 4 frozen, amplitude free); and NE_SW, frozen
+CHROM_LINES = ("CORRECT_TROPOSPHERE Y", "TNCHROMIDX 4", "CM 8.0",
+               "CM1 0.5 1", "CM2 0.05 1", "CMEPOCH 54975",
+               "EXPDIPEP_1 54750", "EXPDIPAMP_1 1e-6 1", "EXPDIPIDX_1 -2",
+               "EXPDIPTAU_1 30 1", "CHROMGAUSS_EPOCH_1 56500",
+               "CHROMGAUSS_LOGAMP_1 -7 1", "CHROMGAUSS_LOGSIG_1 1.3",
+               "CHROMGAUSS_CHROMIDX_1 4", "CHROMGAUSS_SIGN_1 -1",
+               "NE_SW 7.9")
+#: its noise: chromatic (index TNCHROMIDX) and solar-wind power-law GPs,
+#: 30 modes each, ~730 ns and ~290 ns rms at 430 MHz (at ~290 ns the
+#: chromatic GP goes undetected in 12,500 TOAs: PERF.md)
+CHROM_NOISE = {"TNCHROMAMP": -15.8, "TNCHROMGAM": 3.0, "TNCHROMC": 30,
+               "TNSWAMP": -7.5, "TNSWGAM": 2.0, "TNSWC": 30}
+#: the free noise parameters of the chromatic fit, and the fit's start:
+#: each moved by this offset from its injected value
+CHROM_NOISE_FREE = ("TNCHROMAMP", "TNCHROMGAM", "TNSWAMP")
+CHROM_NOISE_OFFSET = {"TNCHROMAMP": 0.4, "TNCHROMGAM": -0.5, "TNSWAMP": 0.5}
+#: the chromatic timing parameters' perturbed start
+CHROM_PERTURB = {"CM1": 0.05, "CM2": 0.005, "EXPDIPAMP_1": 1e-7,
+                 "EXPDIPTAU_1": 3.0, "CHROMGAUSS_LOGAMP_1": 0.05}
+
+
+def chromatic_j1713_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                        center_mjd: float = 54975.0, free=CHROM_NOISE_FREE,
+                        noise=None) -> str:
+    """:func:`dd_noise_realistic_par` (86 free timing parameters, the
+    frozen EFAC/EQUAD/ECORR per receiver and red noise) on
+    :data:`CHROM_RECEIVERS`, with :data:`CHROM_LINES` (5 more free timing
+    parameters: 91) and the noise of :data:`CHROM_NOISE`, updated by
+    ``noise`` (those of ``free`` free)."""
+    base = dd_noise_realistic_par(dmx_bins, span_days, center_mjd)
+    base = base.replace("RCVR1400L", CHROM_RECEIVERS[430.0])
+    lines = [base, *CHROM_LINES]
+    lines += [f"{k} {v}" + (" 1" if k in free else "")
+              for k, v in {**CHROM_NOISE, **(noise or {})}.items()]
+    return "\n".join(lines)
+
+
+def simulate_chromatic_j1713(ntoas: int = 12500, seed: int = 0,
+                             dmx_bins: int = 70, span_days: float = 4550.0,
+                             center_mjd: float = 54975.0, device=None,
+                             noise=None):
+    """(truth model, TOAs) of the full-width chromatic configuration: the
+    ``dd_gls_nanograv`` simulation (:func:`simulate_dd_noise_realistic`:
+    ``ntoas / 4`` epochs of four sub-band TOAs) of
+    :func:`chromatic_j1713_par` on :data:`CHROM_RECEIVERS`, the chromatic
+    and solar-wind GPs (their amplitudes updated by ``noise``) injected
+    with the ECORR and red noise by ``add_correlated_noise``.  The model
+    evaluations run on ``device`` (default ``"cuda"``)."""
+    return simulate_dd_noise_realistic(
+        ntoas=ntoas, seed=seed, dmx_bins=dmx_bins, span_days=span_days,
+        center_mjd=center_mjd, device=device,
+        par=chromatic_j1713_par(dmx_bins, span_days, center_mjd,
+                                noise=noise),
+        receivers=CHROM_RECEIVERS)
+
+
+def chromatic_start(model):
+    """Move a chromatic model to the fit's start: the chromatic timing
+    parameters by :data:`CHROM_PERTURB`, the free noise parameters by
+    :data:`CHROM_NOISE_OFFSET` (the spin, orbit and DM start is the
+    caller's)."""
+    for n, d in {**CHROM_PERTURB, **CHROM_NOISE_OFFSET}.items():
+        if n in CHROM_PERTURB or not model[n].frozen:
+            model[n].value = model[n].value + d
+
+
+#: the chromatic family's variants of the delay kernel's row function:
+#: each new term alone on the DD set (J1022+1001's position) and on the
+#: ELL1 set (:func:`chromatic_family_par`)
+CHROM_TERMS = ("TROPO", "CM", "CMX", "DMWAVEX", "CMWAVEX", "WAVEX",
+               "EXPDIP", "GAUSS")
+CHROM_FAMILY = tuple(f"CHF_{b}_{t}" for b in ("DD", "ELL1")
+                     for t in CHROM_TERMS)
+
+
+def chromatic_family_lines(term: str, span_days: float = 4550.0,
+                           center_mjd: float = 54975.0):
+    """Par lines of one chromatic-family term, its parameters free (CMX
+    and CMWaveX with the TNCHROMIDX of a frozen CM): three CMX ranges
+    whose neighbours overlap by 50 days; two sinusoid modes at 1 and 2
+    cycles per span; a dip and a Gaussian event with their index free."""
+    lo = center_mjd - span_days / 2
+    chrom = ["TNCHROMIDX 4", f"CMEPOCH {center_mjd:g}"]
+    if term == "TROPO":
+        return ["CORRECT_TROPOSPHERE Y"]
+    if term == "CM":
+        return chrom + ["CM 8.0 1", "CM1 0.5 1", "CM2 0.05 1"]
+    if term == "CMX":
+        lines = list(chrom)
+        for i, v in enumerate((0.4, -0.3, 0.2), 1):
+            r1 = lo + (i - 1) * span_days / 3 - (50.0 if i > 1 else 0.0)
+            lines += [f"CMX_{i:04d} {v} 1", f"CMXR1_{i:04d} {r1:.4f}",
+                      f"CMXR2_{i:04d} {lo + i * span_days / 3:.4f}"]
+        return lines
+    if term.endswith("WAVEX"):
+        stem = {"DMWAVEX": "DMWX", "CMWAVEX": "CMWX", "WAVEX": "WX"}[term]
+        amps = {"DMWX": (3e-4, -2e-4), "CMWX": (0.3, -0.2),
+                "WX": (2e-6, -1e-6)}[stem]
+        lines = list(chrom) if term == "CMWAVEX" else []
+        lines.append(f"{stem}EPOCH {center_mjd:g}")
+        for k in (1, 2):
+            lines += [f"{stem}FREQ_{k:04d} {k / span_days!r}",
+                      f"{stem}SIN_{k:04d} {amps[0] / k} 1",
+                      f"{stem}COS_{k:04d} {amps[1] / k} 1"]
+        return lines
+    if term == "EXPDIP":
+        return ["EXPDIPEP_1 54750", "EXPDIPAMP_1 1e-6 1",
+                "EXPDIPIDX_1 -2 1", "EXPDIPTAU_1 30 1"]
+    if term == "GAUSS":
+        return ["CHROMGAUSS_EPOCH_1 56500", "CHROMGAUSS_LOGAMP_1 -6 1",
+                "CHROMGAUSS_LOGSIG_1 1.3 1", "CHROMGAUSS_CHROMIDX_1 4 1",
+                "CHROMGAUSS_SIGN_1 -1"]
+    raise ValueError(f"unknown chromatic-family term {term!r}")
+
+
+def chromatic_family_par(kind: str, dmx_bins: int = 70,
+                         span_days: float = 4550.0,
+                         center_mjd: float = 54975.0) -> str:
+    """The par of one of :data:`CHROM_FAMILY`: :func:`dd_realistic_par`
+    or :func:`j0740_realistic_par` with :func:`chromatic_family_lines`."""
+    _, binary, term = kind.split("_", 2)
+    base = (dd_realistic_par if binary == "DD"
+            else j0740_realistic_par)(dmx_bins, span_days, center_mjd)
+    return "\n".join([base] + chromatic_family_lines(term, span_days,
+                                                     center_mjd))
+
+
+#: the WaveX set (the reference set of the WaveX family): the modes of
+#: each sinusoid family (harmonics of 1 / span), the amplitudes the
+#: simulation injects (sin, cos; mode k gets 1/k of them), and four CMX
+#: ranges over the span, neighbours sharing a boundary
+WAVEX_MODES = {"wavex_setup": 3, "dmwavex_setup": 3, "cmwavex_setup": 2}
+WAVEX_AMPS = {"WX": (2e-6, -1e-6), "DMWX": (3e-4, 2e-4), "CMWX": (0.3, -0.2)}
+WAVEX_CMX = (0.4, -0.3, 0.2, -0.1)
+#: the chromatic reference set's GP amplitudes (its 50 epochs), ~3 us and
+#: ~0.9 us rms at 430 MHz: at ~0.3 us 50 epochs do not detect the GPs,
+#: maximum likelihood drives them to zero, and there the GLS normal matrix
+#: is singular, where this package's solve (the SVD of the square root)
+#: and pint_tpu's (eigh of the normal matrix) part by up to 16x in the DM,
+#: FD and JUMP uncertainties (PERF.md)
+CHROM_NOISE_200 = {"TNCHROMAMP": -15.2, "TNSWAMP": -7.0}
+
+
+def wavex_set_par(span_days: float = 4550.0,
+                  center_mjd: float = 54975.0) -> str:
+    """The WaveX set's par before its sinusoids: :func:`dd_realistic_par`
+    without DMX, with CM (index 4, CM1 free), the four CMX ranges of
+    :data:`WAVEX_CMX` (free) and the troposphere."""
+    lines = [ln for ln in dd_realistic_par(1, span_days,
+                                           center_mjd).splitlines()
+             if not ln.startswith("DMX")]
+    lines += ["CORRECT_TROPOSPHERE Y", "TNCHROMIDX 4", "CM 8.0",
+              "CM1 0.5 1", f"CMEPOCH {center_mjd:g}"]
+    edges = center_mjd - span_days / 2 + span_days * np.arange(5) / 4
+    for i, v in enumerate(WAVEX_CMX, 1):
+        lines += [f"CMX_{i:04d} {v} 1", f"CMXR1_{i:04d} {edges[i - 1]:.4f}",
+                  f"CMXR2_{i:04d} {edges[i]:.4f}"]
+    return "\n".join(lines)
+
+
+def wavex_set_model(models, wave, span_days: float = 4550.0,
+                    center_mjd: float = 54975.0, inject: bool = True):
+    """The WaveX set's model: ``models.get_model`` of
+    :func:`wavex_set_par`, then ``wave``'s ``wavex_setup``,
+    ``dmwavex_setup`` and ``cmwavex_setup`` (:data:`WAVEX_MODES`
+    harmonics of 1 / span, amplitudes free), with :data:`WAVEX_AMPS`
+    injected if ``inject``.  ``models`` and ``wave`` are the ``models``
+    and ``models.wave`` modules of this package or of pint_tpu."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = models.get_model(wavex_set_par(span_days,
+                                               center_mjd).splitlines())
+    for setup, n in WAVEX_MODES.items():
+        getattr(wave, setup)(model, span_days, n_freqs=n)
+    if inject:
+        for stem, (a_s, a_c) in WAVEX_AMPS.items():
+            for name in model.free_params:
+                if name.startswith((stem + "SIN_", stem + "COS_")):
+                    k = int(name[-4:])
+                    model[name].value = \
+                        (a_s if "SIN_" in name else a_c) / k
+    return model

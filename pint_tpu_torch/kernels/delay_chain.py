@@ -1,11 +1,13 @@
 """Wrapper of the ``delay_chain`` CUDA kernel (``csrc/delay_chain.cu``).
 
 :func:`delay_chain` evaluates the whole delay chain of a timing model —
-astrometry (equatorial or ecliptic, PM, PX), the Sun's Shapiro delay, the
-solar wind (NE_SW with SWM 0 or 1, and SWX), DM (with its Taylor terms),
-DMX and FDJUMPDM, delay jumps, the binary (ELL1, ELL1H, ELL1k, or DD/BT,
-DDS, DDH, DDK, DDGR with the Kepler solve), FD and FDJUMP — in
-DEFAULT_ORDER for every TOA in one launch (DMJUMP has no delay).  On
+astrometry (equatorial or ecliptic, PM, PX), delay jumps, the
+troposphere, the Sun's Shapiro delay, the solar wind (NE_SW with SWM 0 or
+1, and SWX), DM (with its Taylor terms), DMX and FDJUMPDM, DMWaveX, the
+chromatic delays (CM with its Taylor terms, CMX, CMWaveX, exponential
+dips, chromatic Gaussian events), the binary (ELL1, ELL1H, ELL1k, or
+DD/BT, DDS, DDH, DDK, DDGR with the Kepler solve), FD, FDJUMP and WaveX —
+in DEFAULT_ORDER for every TOA in one launch (DMJUMP has no delay).  On
 a CUDA batch it launches the kernel (or raises); on a CPU batch it runs
 the plain version, the components' own delay functions
 (:meth:`pint_tpu_torch.models.timing_model.PhaseCalc.delay_plain`).  There
@@ -22,8 +24,9 @@ own code and rides in a slot of its own, its tangent by torch's forward
 mode);
 the per-TOA data are the batch's columns plus the int32 DMX bins of each
 TOA (two: inclusive ranges that share a boundary both hold a TOA on it),
-the SWX ranges likewise, and int32 member bits of DelayJump, FDJumpDM and
-FDJump, built once on the host from the masks.
+the SWX and CMX ranges likewise, int32 member bits of DelayJump, FDJumpDM
+and FDJump, and the troposphere's float64 delay, built once on the host
+from the masks.
 
 :class:`DelayChain` makes it differentiable in θ: ``jvp`` is the kernel's
 tangent launch (the same row function over a number type that carries
@@ -60,17 +63,22 @@ ASTRO, PM, SHAPIRO, DM, DMX, JUMP, FD = 1, 2, 4, 8, 16, 32, 64
 BIN_SHAPIRO, OMEGA_FROM_NU, ABERRATION = 128, 256, 512
 ECLIPTIC, K96, STIGMA = 1024, 2048, 4096
 SOLAR_WIND, SWM1, SWX, FDJUMPDM, FDJUMP = 8192, 16384, 32768, 65536, 131072
+CM, CMX, CMWAVEX, DMWAVEX, WAVEX = 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22
+EXPDIP, CHROMGAUSS, TROPO = 1 << 23, 1 << 24, 1 << 25
 NO_BINARY, ELL1, DD, DDK, DDTM2, ELL1H, ELL1K = 0, 1, 2, 3, 4, 5, 6
 #: the binary families that run the Kepler solve
 DD_FAMILY = (DD, DDK, DDTM2)
 
 #: the mask entries the kernel reads (built by DispersionDMX, DelayJump,
-#: SolarWindDispersionX, FDJumpDM and FDJump)
+#: SolarWindDispersionX, FDJumpDM, FDJump, ChromaticCMX and
+#: TroposphereDelay)
 DMX_INDEX = "__dmxidx__"
 JUMP_BITS = "__delayjumpbits__"
 SWX_INDEX = "__swxidx__"
 FDJUMPDM_BITS = "__fdjumpdmbits__"
 FDJUMP_BITS = "__fdjumpbits__"
+CMX_INDEX = "__cmxidx__"
+TROPO_DELAY = "__tropo_delay__"
 
 #: the members of a mask family (DelayJump, FDJumpDM, FDJump) that one
 #: int32 bit word per row can carry
@@ -93,16 +101,24 @@ def lanes_per_thread(G: int, K: int) -> int:
 CFG_FIELDS = ("flags", "binary", "P", "ndm", "ndmx", "njump", "nfd",
               "o_astro", "o_dm", "o_dmx", "o_jump", "o_fd", "o_bin", "nharm",
               "nsw", "nswx", "nfdm", "nfdj", "o_sw", "o_swx", "o_fdm",
-              "o_fdj")
+              "o_fdj", "ncm", "ncmx", "ncmwx", "ndmwx", "nwx", "ndip",
+              "ngauss", "o_cm", "o_cmx", "o_cmwx", "o_dmwx", "o_wx", "o_dip",
+              "o_gauss")
+
+
+#: CFG_FIELDS of ``ChainCfg``; the rest are ``ChromCfg``'s own
+N_BASE_FIELDS = CFG_FIELDS.index("ncm")
 
 
 class ChainCfg(ctypes.Structure):
-    """csrc/delay_chain.cuh ``ChainCfg``: flags, binary family, θ length,
-    block sizes, block offsets, ELL1H's highest harmonic, and the order k
-    of each FD<k>JUMP member."""
+    """csrc/delay_chain.cuh ``ChromCfg``, which the C entry points take:
+    ``ChainCfg`` (flags, binary family, θ length, block sizes, block
+    offsets, ELL1H's highest harmonic, the order k of each FD<k>JUMP
+    member), then the chromatic family's block sizes and offsets."""
 
-    _fields_ = [(n, ctypes.c_int32) for n in CFG_FIELDS] + [
-        ("fdj_order", ctypes.c_int8 * (MAX_JUMPS + 1))]
+    _fields_ = [(n, ctypes.c_int32) for n in CFG_FIELDS[:N_BASE_FIELDS]] + [
+        ("fdj_order", ctypes.c_int8 * (MAX_JUMPS + 1))] + [
+        (n, ctypes.c_int32) for n in CFG_FIELDS[N_BASE_FIELDS:]]
 
 
 Getter = Callable[[dict], torch.Tensor]
@@ -164,7 +180,7 @@ class ChainLayout:
         return bool(self.flags & JUMP)
 
     def ctypes_cfg(self) -> ChainCfg:
-        c = ChainCfg(*self.cfg)
+        c = ChainCfg(**dict(zip(CFG_FIELDS, self.cfg)))
         for j, k in enumerate(self.fdj_order):
             c.fdj_order[j] = k
         return c
@@ -208,9 +224,11 @@ class ChainLayout:
         flags = 0
         binary = NO_BINARY
         count = dict(ndm=0, ndmx=0, njump=0, nfd=0, nharm=0, nsw=0, nswx=0,
-                     nfdm=0, nfdj=0)
+                     nfdm=0, nfdj=0, ncm=0, ncmx=0, ncmwx=0, ndmwx=0, nwx=0,
+                     ndip=0, ngauss=0)
         offs = dict(o_astro=0, o_dm=0, o_dmx=0, o_jump=0, o_fd=0, o_bin=0,
-                    o_sw=0, o_swx=0, o_fdm=0, o_fdj=0)
+                    o_sw=0, o_swx=0, o_fdm=0, o_fdj=0, o_cm=0, o_cmx=0,
+                    o_cmwx=0, o_dmwx=0, o_wx=0, o_dip=0, o_gauss=0)
         prepare = None
         fdj_order: Tuple[int, ...] = ()
 
@@ -231,11 +249,36 @@ class ChainLayout:
                     pv_slot(par.name)
             return ms
 
+        def epoch_slot(ep):
+            slot(f"{ep}__day", _epoch_day(ep), ep)
+
+        def wave_block(comp, flag, n_key, o_key):
+            """A sinusoid family's block: its epoch, then the modes'
+            frequencies, SIN and COS amplitudes."""
+            nonlocal flags
+            modes = comp.mode_names()
+            if modes:
+                flags |= flag
+                count[n_key] = len(modes)
+                offs[o_key] = len(names)
+                epoch_slot(comp.epoch_name())
+                for k in range(3):
+                    for mode in modes:
+                        pv_slot(mode[k])
+
+        def needs(flag, kind, what):
+            if not flags & flag:
+                raise AttributeError(f"{kind} needs {what}")
+
         order = (("AstrometryEquatorial", "AstrometryEcliptic"),
-                 ("DelayJump",), ("SolarSystemShapiro",),
+                 ("DelayJump",), ("TroposphereDelay",),
+                 ("SolarSystemShapiro",),
                  ("SolarWindDispersion",), ("SolarWindDispersionX",),
                  ("DispersionDM",), ("DispersionDMX",), ("DispersionJump",),
-                 ("FDJumpDM",), tuple(BINARIES), ("FD",), ("FDJump",))
+                 ("FDJumpDM",), ("DMWaveX",), ("ChromaticCM",),
+                 ("ChromaticCMX",), ("CMWaveX",), ("SimpleExponentialDip",),
+                 ("ChromaticGaussianEvent",), tuple(BINARIES), ("FD",),
+                 ("FDJump",), ("WaveX",))
         last = -1
         for comp in comps:
             kind = type(comp).__name__
@@ -263,7 +306,7 @@ class ChainLayout:
                 ep = comp.pos_epoch_name()
                 if ep:
                     flags |= PM
-                    slot(f"{ep}__day", _epoch_day(ep), ep)
+                    epoch_slot(ep)
                 else:
                     slot("POSEPOCH__day", None)
                 if flags & ECLIPTIC:
@@ -288,8 +331,7 @@ class ChainLayout:
                 count["nsw"] = len(nes)
                 offs["o_sw"] = len(names)
                 if len(nes) > 1:
-                    ep = comp.epoch_name()
-                    slot(f"{ep}__day", _epoch_day(ep), ep)
+                    epoch_slot(comp.epoch_name())
                 else:
                     slot("SWEPOCH__day", None)
                 for nm in nes:
@@ -318,6 +360,71 @@ class ChainLayout:
                         pv_slot(nm)
             elif kind == "DispersionJump":
                 pass  # DMJUMP offsets the measured DMs: no delay, no slot
+            elif kind == "TroposphereDelay":
+                if comp.CORRECT_TROPOSPHERE.value:
+                    flags |= TROPO   # one row input, no slot
+            elif kind == "DMWaveX":
+                wave_block(comp, DMWAVEX, "ndmwx", "o_dmwx")
+            elif kind == "ChromaticCM":
+                flags |= CM
+                cms = comp.cm_names()
+                count["ncm"] = len(cms)
+                offs["o_cm"] = len(names)
+                if len(cms) > 1:
+                    epoch_slot(comp.epoch_name())
+                else:
+                    slot("CMEPOCH__day", None)
+                pv_slot("TNCHROMIDX")
+                for nm in cms:
+                    pv_slot(nm)
+            elif kind == "ChromaticCMX":
+                ranges = comp.cmx_names()
+                if ranges:
+                    needs(CM, kind, "a ChromaticCM component (TNCHROMIDX)")
+                    flags |= CMX
+                    count["ncmx"] = len(ranges)
+                    offs["o_cmx"] = len(names)
+                    for nm in ranges:
+                        pv_slot(nm)
+            elif kind == "CMWaveX":
+                if comp.mode_names():
+                    needs(CM, kind, "a ChromaticCM component (TNCHROMIDX)")
+                wave_block(comp, CMWAVEX, "ncmwx", "o_cmwx")
+            elif kind == "WaveX":
+                wave_block(comp, WAVEX, "nwx", "o_wx")
+            elif kind == "SimpleExponentialDip":
+                dips = comp.dip_indices()
+                if dips:
+                    flags |= EXPDIP
+                    count["ndip"] = len(dips)
+                    offs["o_dip"] = len(names)
+                    pv_slot("EXPDIPEPS")
+                    pv_slot("EXPDIPFREF")
+                    for i in dips:
+                        epoch_slot(f"EXPDIPEP_{i}")
+                        for stem in ("EXPDIPAMP_", "EXPDIPIDX_",
+                                     "EXPDIPTAU_"):
+                            pv_slot(f"{stem}{i}")
+                        # the peak normalization, a function of TAU and
+                        # EPS alone, by the component's own code
+                        slot(f"EXPDIP_{i}__norm",
+                             lambda p, c=comp, i=i: c.peak_norm(p, i))
+            elif kind == "ChromaticGaussianEvent":
+                events = comp.event_indices()
+                if events:
+                    flags |= CHROMGAUSS
+                    count["ngauss"] = len(events)
+                    offs["o_gauss"] = len(names)
+                    pv_slot("CHROMGAUSSFREF")
+                    for i in events:
+                        epoch_slot(f"CHROMGAUSS_EPOCH_{i}")
+                        # 10^LOGAMP and 10^LOGSIG, by the component's code
+                        for k, what in enumerate(("amp", "sigma")):
+                            slot(f"CHROMGAUSS_{i}__{what}",
+                                 lambda p, c=comp, i=i, k=k:
+                                 c.amp_sigma(p, i)[k])
+                        pv_slot(f"CHROMGAUSS_SIGN_{i}")
+                        pv_slot(f"CHROMGAUSS_CHROMIDX_{i}")
             elif kind == "FDJumpDM":
                 mask_block(comp, FDJUMPDM, "nfdm", "o_fdm")
             elif kind == "FDJump":
@@ -330,9 +437,8 @@ class ChainLayout:
                 count["ndm"] = len(dms)
                 offs["o_dm"] = len(names)
                 if len(dms) > 1:
-                    ep = "DMEPOCH" if comp.DMEPOCH.value is not None \
-                        else "PEPOCH"
-                    slot(f"{ep}__day", _epoch_day(ep), ep)
+                    epoch_slot("DMEPOCH" if comp.DMEPOCH.value is not None
+                               else "PEPOCH")
                 else:
                     slot("DMEPOCH__day", None)
                 for nm in dms:
@@ -497,12 +603,14 @@ def _ptr(t: torch.Tensor):
 ROWS = (("tdb_day", torch.int64, ()), ("tdb_frac", F64, ()),
         ("frac_w", F32, (3,)), ("pos", F64, (3,)), ("sun", F64, (3,)),
         ("freq", F64, ()), ("dmx", I32, (2,)), ("jbits", I32, ()),
-        ("swx", I32, (2,)), ("fdmbits", I32, ()), ("fdjbits", I32, ()))
+        ("swx", I32, (2,)), ("fdmbits", I32, ()), ("fdjbits", I32, ()),
+        ("cmx", I32, (2,)), ("tropo", F64, ()))
 #: the inputs that a model without the component passes empty, by the
 #: flag that reads them and the mask entry that holds them
 MASK_ROWS = (("dmx", DMX, DMX_INDEX), ("jbits", JUMP, JUMP_BITS),
              ("swx", SWX, SWX_INDEX), ("fdmbits", FDJUMPDM, FDJUMPDM_BITS),
-             ("fdjbits", FDJUMP, FDJUMP_BITS))
+             ("fdjbits", FDJUMP, FDJUMP_BITS), ("cmx", CMX, CMX_INDEX),
+             ("tropo", TROPO, TROPO_DELAY))
 
 
 def _check_rows(rows, dev):
@@ -686,9 +794,10 @@ class DelayChain(torch.autograd.Function):
 
 def row_inputs(layout: ChainLayout, p: dict, batch) -> list:
     """The kernel's per-TOA tensors (:data:`ROWS`) for ``batch``: its
-    columns plus the DMX bins, SWX ranges and member bits of
-    ``p["mask"]`` (empty where the model has none).  A range index left
-    out by its component (three ranges overlapping on a TOA) raises."""
+    columns plus the DMX bins, SWX and CMX ranges, member bits and the
+    troposphere's delay of ``p["mask"]`` (empty where the model has
+    none).  A range index left out by its component (three ranges
+    overlapping on a TOA) raises."""
     empty = torch.empty(0, dtype=I32, device=batch.device)
     masks = []
     for name, flag, entry in MASK_ROWS:
@@ -699,7 +808,7 @@ def row_inputs(layout: ChainLayout, p: dict, batch) -> list:
                 raise ValueError(
                     f"delay_chain: no {entry} in the params dict: three "
                     "ranges overlap on a TOA (the kernel takes at most two "
-                    "per TOA)" if name in ("dmx", "swx") else
+                    "per TOA)" if name in ("dmx", "swx", "cmx") else
                     f"delay_chain: no {entry} in the params dict")
         masks.append(t)
     return [batch.tdb_day, batch.tdb_frac, batch.tdb_frac_w,

@@ -4,8 +4,10 @@ Port of :mod:`pint_tpu.models`: a
 :class:`~pint_tpu_torch.models.timing_model.TimingModel` is an ordered set
 of registered *components*, each owning typed *parameters*; models are
 built from ``.par`` files by parameter ownership.  Only the components
-ported so far are registered (see ROADMAP.md); a par file naming another
-component's parameters warns that they are unrecognized.
+ported so far are registered (see ROADMAP.md); a par file naming the
+parameters of a component that pint_tpu has and the port does not yet is
+refused (``NotImplementedError``), and one naming parameters that no
+component owns warns that they are unrecognized.
 """
 
 from pint_tpu_torch.models.parameter import (  # noqa: F401
@@ -35,6 +37,7 @@ from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     astrometry,
     binary_dd,
     binary_ell1,
+    chromatic,
     dispersion,
     frequency_dependent,
     jump,
@@ -42,6 +45,9 @@ from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     solar_system_shapiro,
     solar_wind,
     spindown,
+    transient_events,
+    troposphere,
+    wave,
 )
 from pint_tpu_torch.models.model_builder import (  # noqa: F401  isort:skip
     get_model,

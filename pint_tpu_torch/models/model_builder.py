@@ -36,6 +36,36 @@ __all__ = ["parse_parfile", "ModelBuilder", "get_model", "get_model_and_toas"]
 IGNORE_PARAMS = {"NITS", "IBOOT", "EPHVER", "DMMODEL", "GAIN"}
 IGNORE_PREFIXES = ("DMXF1_", "DMXF2_", "DMXEP_")
 
+#: the components that pint_tpu registers and this package does not yet
+#: have: (parameter names, prefix stems) by component.  A par file that
+#: names one of these parameters is refused, where dropping it would give
+#: residuals that silently differ from pint_tpu's.  (The binaries' FBn
+#: and ORBWAVE terms are parameters of the ported binary components: they
+#: load, and the delay kernel refuses them on CUDA.)
+UNPORTED = {
+    "Glitch": ((), ("GLEP_", "GLPH_", "GLF0_", "GLF1_", "GLF2_", "GLF0D_",
+                    "GLTD_")),
+    "PiecewiseSpindown": ((), ("PWEP_", "PWSTART_", "PWSTOP_", "PWPH_",
+                               "PWF0_", "PWF1_", "PWF2_")),
+    "IFunc": (("SIFUNC",), ("IFUNC",)),
+    "PhaseOffset": (("PHOFF",), ()),
+    "Wave": (("WAVE_OM", "WAVEOM", "WAVEEPOCH"), ("WAVE",)),
+    "BinaryBTPiecewise": ((), ("T0X_", "A1X_", "XR1_", "XR2_")),
+}
+
+
+def unported_component(name: str) -> Optional[str]:
+    """The component of :data:`UNPORTED` that owns the par-file parameter
+    ``name``, or None."""
+    try:
+        stem = split_prefix(name)[0]
+    except ValueError:
+        stem = None
+    for comp, (names, stems) in UNPORTED.items():
+        if name in names or stem in stems:
+            return comp
+    return None
+
 
 def parse_parfile(parfile: Union[str, Sequence[str]]) -> Dict[str, List[List[str]]]:
     """Parse a par file into ``{NAME: [field-list, ...]}`` preserving
@@ -214,6 +244,12 @@ class ModelBuilder:
                for c in selected):
             selected.setdefault("SolarSystemShapiro", [])
 
+        refused = sorted({unported_component(k) for k in unknown} - {None})
+        if refused:
+            raise NotImplementedError(
+                f"par-file parameters of {', '.join(refused)}, which "
+                "pint_tpu_torch does not implement yet: "
+                f"{sorted(k for k in unknown if unported_component(k))}")
         if unknown:
             warnings.warn(
                 f"unrecognized par-file parameters ignored: {sorted(unknown)}")

@@ -481,3 +481,58 @@ class PLDMNoise(_PLChromaticBase):
     category = "pl_dm_noise"
     _AMP, _GAM, _C = "TNDMAMP", "TNDMGAM", "TNDMC"
     _TSPAN = "TNDMTSPAN"
+
+
+class PLChromNoise(_PLChromaticBase):
+    """Power-law chromatic noise with the index TNCHROMIDX of the model's
+    ChromaticCM (reference `PLChromNoise`, `noise_model.py:590`)."""
+
+    register = True
+    category = "pl_chrom_noise"
+    _AMP, _GAM, _C = "TNCHROMAMP", "TNCHROMGAM", "TNCHROMC"
+    _TSPAN = "TNCHROMTSPAN"
+
+    def chromatic_alpha(self) -> float:
+        if self._parent is not None and "TNCHROMIDX" in self._parent and \
+                self._parent.TNCHROMIDX.value is not None:
+            return float(self._parent.TNCHROMIDX.value)
+        return 4.0
+
+
+class PLSWNoise(_PLChromaticBase):
+    """Power-law solar-wind density noise: a Gaussian process on n_earth(t)
+    about the deterministic solar-wind model (reference `PLSWNoise`,
+    `noise_model.py:659`; Hazboun et al. 2022, Susarla et al. 2024).  The
+    Fourier basis is scaled per TOA by the solar-wind geometry times the
+    dispersion constant over the frequency squared, so the amplitude is in
+    n_earth units (cm^-3)."""
+
+    register = True
+    category = "pl_sw_noise"
+    _AMP, _GAM, _C = "TNSWAMP", "TNSWGAM", "TNSWC"
+    _TSPAN = "TNSWTSPAN"
+
+    def validate(self):
+        super().validate()
+        if self._parent is not None and \
+                "SolarWindDispersion" not in self._parent.components:
+            raise ValueError(
+                "PLSWNoise needs a SolarWindDispersion component (the GP "
+                "perturbs its geometry); add NE_SW to the model")
+
+    def chromatic_scale(self, toas) -> np.ndarray:
+        """The solar-wind geometry [pc] x DMconst / f^2 per TOA, on the
+        host (reference `PLSWNoise.get_noise_basis`,
+        `noise_model.py:776`)."""
+        from pint_tpu_torch import DMconst, c as C_m_s
+        from pint_tpu_torch.models.astrometry import host_psr_dir
+        from pint_tpu_torch.models.solar_wind import solar_wind_geometry_pc_np
+
+        n = host_psr_dir(self._parent)
+        obs_sun = np.asarray(toas.obs_sun_pos, np.float64) / C_m_s  # ls
+        geom_pc = solar_wind_geometry_pc_np(obs_sun,
+                                            np.broadcast_to(n, obs_sun.shape))
+        f = np.asarray(toas.freq_mhz, np.float64)
+        finite = np.isfinite(f)
+        fsafe = np.where(finite, f, 1.0)
+        return np.where(finite, geom_pc * float(DMconst) / fsafe**2, 0.0)

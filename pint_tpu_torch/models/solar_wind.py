@@ -39,6 +39,7 @@ from pint_tpu_torch.models.timing_model import (
     DelayComponent,
     epoch_days,
     pv,
+    range_entries,
     zeros_rows,
 )
 from pint_tpu_torch.toabatch import TOABatch
@@ -306,20 +307,13 @@ class SolarWindDispersionX(DelayComponent):
         index is left out where three ranges overlap on a TOA, and the
         kernel then refuses the model."""
         out = super().mask_entries(toas)
-        m = toas.utc.mjd_float
-        index = np.full((len(m), 2), -1, np.int32)
-        fits = True
-        for i, n in enumerate(self.swx_names()):
-            idx = n.split("_")[1]
-            r1 = self.params[f"SWXR1_{idx}"].mjd_float
-            r2 = self.params[f"SWXR2_{idx}"].mjd_float
-            sel = (m >= r1) & (m <= r2)
-            out[f"{n}__rangemask"] = sel.astype(np.float64)
-            fits = fits and not np.any(sel & (index[:, 1] >= 0))
-            second = sel & (index[:, 0] >= 0)
-            index[second, 1] = i
-            index[sel & ~second, 0] = i
-        if fits:
+        names = self.swx_names()
+        masks, index = range_entries(names, [
+            (self.params[f"SWXR1_{n[6:]}"].mjd_float,
+             self.params[f"SWXR2_{n[6:]}"].mjd_float) for n in names],
+            toas.utc.mjd_float)
+        out.update(masks)
+        if index is not None:
             out[SWX_INDEX] = index
         return out
 

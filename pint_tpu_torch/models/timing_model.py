@@ -135,6 +135,26 @@ def member_bits(members, masks: dict, ntoas: int):
     return bits
 
 
+def range_entries(names, bounds, mjd: np.ndarray):
+    """(masks, index) of a family of inclusive MJD ranges (DMX, SWX, CMX):
+    ``masks`` maps ``<name>__rangemask`` to each range's float64 TOA mask
+    (the plain version's), ``index`` is the (N, 2) int32 ranges of each
+    TOA (-1 for none) that the delay kernel reads: a TOA on the boundary
+    two ranges share lies in both.  ``index`` is None where three ranges
+    overlap on a TOA, and the kernel then refuses the model."""
+    masks = {}
+    index = np.full((len(mjd), 2), -1, np.int32)
+    fits = True
+    for i, (n, (r1, r2)) in enumerate(zip(names, bounds)):
+        sel = (mjd >= r1) & (mjd <= r2)
+        masks[f"{n}__rangemask"] = sel.astype(np.float64)
+        fits = fits and not np.any(sel & (index[:, 1] >= 0))
+        second = sel & (index[:, 0] >= 0)
+        index[second, 1] = i
+        index[sel & ~second, 0] = i
+    return masks, (index if fits else None)
+
+
 def zeros_rows(batch: TOABatch) -> torch.Tensor:
     """(N,) float64 zeros on the batch's device."""
     return torch.zeros(batch.ntoas, dtype=torch.float64, device=batch.device)

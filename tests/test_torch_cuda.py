@@ -39,6 +39,10 @@ them with it switched off, from the repository root::
   SWM 0 and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1
   sets) as the variants above; the three wideband fitters on the card on
   the committed wideband set against pint_tpu's stored fits;
+* the chromatic family of the row function (``examples.CHROM_FAMILY``:
+  each term alone on DD and ELL1; the ``CHROM`` and ``WAVEX`` sets) as
+  the variants above; the chromatic set's noise fit and the WaveX set's
+  WLS fit on the card against pint_tpu's stored fits;
 * ``phase_chain`` (the delay chain with the phase as its epilogue, the
   paths' kernel since the fusion): on the J0740, DD and GLS models its
   primal (frac, slope, dt64; words) bit-equal to the unfused card chain
@@ -66,7 +70,7 @@ import torch
 
 import torch_port_data as data
 from pint_tpu_torch import qs as tqs
-from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
 from pint_tpu_torch.toabatch import split_f64_words
 
@@ -309,6 +313,12 @@ def test_delay_chain_matches_plain(case):
         assert torch.equal(kepler_E_op(aux[0], aux[1]), aux[2])
 
 
+#: the chromatic family's reference sets (the chromatic set: troposphere,
+#: CM, a dip, a Gaussian event; the WaveX set: the WaveX family, CM, CMX)
+CHROM_SETS = {"CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
+              "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM)}
+
+
 def _chain_model(case, dev):
     """(model, Residuals) of one path's model on the committed 200-TOA
     set, or of one DD or ELL1 variant (``examples.variant_par``) on its
@@ -322,6 +332,11 @@ def _chain_model(case, dev):
     elif case in DM_FAMILY:
         par, tim = (lambda: data.dm_family_par_lines(case),
                     data.dm_family_tim(case))
+    elif case in CHROM_FAMILY:
+        par, tim = (lambda: data.chrom_family_par_lines(case),
+                    data.chrom_family_tim(case))
+    elif case in CHROM_SETS:
+        par, tim = CHROM_SETS[case]
     else:
         par, tim = {
             "J0740": (lambda: j0740_realistic_par(
@@ -333,7 +348,8 @@ def _chain_model(case, dev):
     return model, Residuals(toas, model, device=dev)
 
 
-@pytest.mark.parametrize("case", [*VARIANTS, *DM_FAMILY])
+@pytest.mark.parametrize("case", [*VARIANTS, *DM_FAMILY, *CHROM_FAMILY,
+                                  *CHROM_SETS])
 def test_variant_delay_chain_matches_plain(case):
     """The delay_chain kernel on each DD and ELL1 variant against the
     plain component delays: delay within 1e-12 s, every jacfwd column
@@ -399,7 +415,7 @@ def test_ddk_fit_on_card_matches_reference():
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
 def test_delay_chain_lanes_bit_equal_to_single_lane(case):
     """The multi-lane tangent launch (every lanes-per-thread) against the
     single-lane one, on two θ sets: bit-equal at lanes 1, 3, 10, 76 and
@@ -554,7 +570,7 @@ def _fused_case(case, dev):
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
 def test_phase_chain_bit_equal_to_unfused_chain(case):
     """The fused launches against the unfused card chain: the primal of
     one launch over 1 and 9 θ sets in every mode (frac or the words,
@@ -612,7 +628,7 @@ def test_phase_chain_bit_equal_to_unfused_chain(case):
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
 def test_phase_chain_lanes_bit_equal_to_single_lane(case):
     """Every lanes-per-thread of the fused tangent launch against the
     single-lane one on two θ sets, with random tangents of θ and of
@@ -802,3 +818,46 @@ def test_wideband_fit_on_card_matches_reference(label):
         nsig, nunc = data.fit_gaps(model, want["noise_values"],
                                    want["noise_uncertainties"])
         assert nsig <= 1e-2 and nunc <= 1e-2
+
+
+def test_chromatic_fits_on_card_match_reference():
+    """The chromatic set's DownhillGLSFitter noise fit and the WaveX set's
+    WLSFitter fit on the card against pint_tpu's stored fits, at the bars
+    of tests/test_torch_chromatic.py and tests/test_torch_wavex.py; every
+    residual through the fused phase_chain kernel."""
+    _card()
+    from pint_tpu_torch.fitter import DownhillGLSFitter, WLSFitter
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+
+    with open(data.CHROM_REF_JSON) as f:
+        want = json.load(f)
+    model, toas = data.load_torch(data.CHROM_REF_TIM,
+                                  par=data.chrom_par_lines())
+    data.chrom_start(model)
+    fitter = DownhillGLSFitter(toas, model)
+    before = PhaseChain.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas()
+    assert PhaseChain.launches > before
+    sig, unc = data.fit_gaps(model, want["values"], want["uncertainties"])
+    nsig, nunc = data.fit_gaps(model, want["noise_values"],
+                               want["noise_uncertainties"])
+    gap = abs(chi2 / want["chi2"] - 1.0)
+    print(f"card chromatic fit vs pint_tpu: {sig:.3e} sigma, unc {unc:.3e},"
+          f" chi2 {gap:.3e}, noise {nsig:.3e} sigma, unc {nunc:.3e}")
+    assert fitter.fitresult.status.name == want["status"]
+    assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-3
+    assert nsig <= 1e-2 and nunc <= 1e-2
+    with open(data.WAVEX_REF_JSON) as f:
+        want = json.load(f)
+    model, toas = data.load_wavex("pint_tpu_torch")
+    fitter = WLSFitter(toas, model)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas(maxiter=want["maxiter"])
+    sig, unc = data.fit_gaps(model, want["values"], want["uncertainties"])
+    gap = abs(chi2 / want["chi2"] - 1.0)
+    print(f"card WaveX fit vs pint_tpu: {sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6

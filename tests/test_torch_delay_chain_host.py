@@ -8,7 +8,11 @@ variants (``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial
 and, on its own 200-TOA set, in ecliptic coordinates, ELL1H in its three
 modes, ELL1k), and the DM family (``examples.dm_family_par``: NE_SW with SWM 0
 and SWM 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and the ELL1
-binary; and the wideband set's layout, ``WB``), whose delay is held
+binary; and the wideband set's layout, ``WB``), and the chromatic family
+(the chromatic set ``CHROM``: troposphere, CM, a dip and a Gaussian
+event; the WaveX set ``WAVEX``: WaveX, DMWaveX, CMWaveX, CM and CMX; and,
+as depth legs, each term alone on DD and ELL1,
+``examples.chromatic_family_par``), whose delay is held
 bit-equal (SWM 1 too: torch's pow on the CPU is libm's here, so its
 quadrature's 64 powers per row agree to the last bit):
 
@@ -39,7 +43,7 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.residuals import Residuals
 
@@ -74,12 +78,21 @@ SETS = {"J0740": (_j0740_par, data.REF_TIM),
                   data.variant_tim(kind)) for kind in VARIANTS},
         **{kind: (lambda kind=kind: data.dm_family_par_lines(kind),
                   data.dm_family_tim(kind)) for kind in DM_FAMILY},
-        "WB": (data.wb_par_lines, data.WB_REF_TIM)}
+        "WB": (data.wb_par_lines, data.WB_REF_TIM),
+        "CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
+        "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM),
+        **{kind: (lambda kind=kind: data.chrom_family_par_lines(kind),
+                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY}}
+#: every set; the chromatic family's single-term variants are depth legs
+#: (the CHROM and WAVEX sets hold every chromatic term in tier-1)
+SET_PARAMS = [pytest.param(k, marks=pytest.mark.slow)
+              if k in CHROM_FAMILY else k for k in SETS]
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates, ELL1H and
 #: the DM family on the DD binary (SWM 0) and the ELL1 one (SWM 1)
 DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H", "DMF_DD",
-         "DMF_ELL1_SWM1")
+         "DMF_ELL1_SWM1", *[pytest.param(k, marks=pytest.mark.slow)
+                            for k in ("CHROM", "WAVEX")])
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +137,7 @@ def host_run(h, layout, theta, dtheta, rows, lanes=1):
     return out
 
 
-@pytest.fixture(scope="module", params=list(SETS))
+@pytest.fixture(scope="module", params=SET_PARAMS)
 def case(request):
     par, tim = SETS[request.param]
     model, toas = data.load_torch(tim, par=par())
@@ -211,6 +224,15 @@ def test_lanes_bit_equal_to_dual(host, case, L, lanes):
     assert torch.equal(many, one), float(torch.max(torch.abs(many - one)))
 
 
+@pytest.mark.parametrize("case", ["CHROM", "WAVEX"], indirect=True)
+@pytest.mark.parametrize("L", [2, 4])
+def test_chromatic_lanes_bit_equal_to_dual(host, case, L):
+    """The chromatic family's tier-1 lanes leg: every lane of a tangent
+    launch over all P unit lanes and random ones (the depth legs run every
+    lane count)."""
+    test_lanes_bit_equal_to_dual(host, case, L, "P")
+
+
 @pytest.fixture
 def on_host(host, monkeypatch):
     """The wrapper's kernel calls routed to the host build: ``run`` takes
@@ -288,9 +310,17 @@ def test_wrapper_backward_matches_plain(on_host, case):
     x = case["x0"].clone().requires_grad_(True)
     (gp,) = torch.autograd.grad(torch.sum(w * case["calc"].delay_plain(
         model.with_x(p, x, names), b)), x)
-    scale = torch.abs(_plain_columns(case)).T @ torch.abs(w)
-    rel = float(torch.max(torch.abs(gk - gp) / torch.where(
-        scale > 0, scale, 1.0)))
-    print(f"{case['name']}: backward vs plain reverse mode {rel:.3e} of "
-          "sum |J||g|")
-    assert rel <= BACKWARD_TOL
+    Jp = _plain_columns(case)
+    scale = torch.abs(Jp).T @ torch.abs(w)
+    scale = torch.where(scale > 0, scale, 1.0)
+    rel = float(torch.max(torch.abs(gk - gp) / scale))
+    # J^T g of the plain forward columns (float64-grade)
+    rel_fwd = float(torch.max(torch.abs(gk - Jp.T @ w) / scale))
+    print(f"{case['name']}: backward vs plain reverse mode {rel:.3e}, vs "
+          f"the plain columns' J^T g {rel_fwd:.3e} of sum |J||g|")
+    assert rel_fwd <= BACKWARD_TOL
+    if case["name"] not in CHROM_FAMILY:
+        # the chromatic family's single-term variants (depth legs) are held
+        # against J^T g alone: the plain reverse mode's float32-grade
+        # t - epoch reaches 5.6e-9 of sum |J||g| on CHF_ELL1_DMWAVEX
+        assert rel <= BACKWARD_TOL

@@ -10,7 +10,9 @@ host build of the delay chain alone.  On the committed 200-TOA J0740
 (``examples.variant_par``: DDS, DDH, DDGR, DDK in equatorial and, on its
 own 200-TOA set, in ecliptic coordinates, ELL1H in its three modes,
 ELL1k), on the DM family (``examples.dm_family_par``: NE_SW with SWM 0
-and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1 binaries)
+and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1 binaries),
+on the chromatic family (the ``CHROM`` and ``WAVEX`` sets, and as depth
+legs each term alone on DD and ELL1, ``examples.chromatic_family_par``)
 and on the wideband set's layout (``WB``; the tangent lanes at every L
 and lane count on DDK in ecliptic coordinates, ELL1H and the DM family
 with SWM 1 on DD, the shared-other and words-mode rules on the three
@@ -49,7 +51,7 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
 from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
@@ -73,10 +75,20 @@ SETS = {"J0740": (data.par_lines, data.REF_TIM),
                   data.variant_tim(kind)) for kind in VARIANTS},
         **{kind: (lambda kind=kind: data.dm_family_par_lines(kind),
                   data.dm_family_tim(kind)) for kind in DM_FAMILY},
-        "WB": (data.wb_par_lines, data.WB_REF_TIM)}
+        "WB": (data.wb_par_lines, data.WB_REF_TIM),
+        "CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
+        "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM),
+        **{kind: (lambda kind=kind: data.chrom_family_par_lines(kind),
+                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY}}
+#: every set; the chromatic family's single-term variants are depth legs
+#: (the CHROM and WAVEX sets hold every chromatic term in tier-1)
+SET_PARAMS = [pytest.param(k, marks=pytest.mark.slow)
+              if k in CHROM_FAMILY else k for k in SETS]
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates and ELL1H
-DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1")
+DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1",
+                *[pytest.param(k, marks=pytest.mark.slow)
+                  for k in ("CHROM", "WAVEX")])
 
 
 def _build(gxx, tmp, name):
@@ -150,7 +162,7 @@ def on_host(host, monkeypatch):
     monkeypatch.setattr(pc, "phase_frac", pc.fused)
 
 
-@pytest.fixture(scope="module", params=list(SETS))
+@pytest.fixture(scope="module", params=SET_PARAMS)
 def case(request):
     par, tim = SETS[request.param]
     model, toas = data.load_torch(tim, par=par())
@@ -271,6 +283,15 @@ def test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, lanes):
         assert torch.all(torch.isfinite(want))
         assert torch.equal(got[g], want), (
             case["name"], L, K, g, float(torch.max(torch.abs(got[g] - want))))
+
+
+@pytest.mark.parametrize("case", ["CHROM", "WAVEX"], indirect=True)
+@pytest.mark.parametrize("L", [2, 4])
+def test_chromatic_tangent_lanes_bit_equal(on_host, case, L):
+    """The chromatic family's tier-1 lanes leg: the fused tangent at P
+    lanes against the unfused host chain (the depth legs run every lane
+    count)."""
+    test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, "P")
 
 
 def _column_gap(J, Jp):

@@ -4,7 +4,10 @@
 CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in; the DDK path
 in ecliptic coordinates, the DD and ELL1 variants, the noise-fitting
 path that ``Fitter.auto`` picks, LM, the degraded chain, Powell, the
-grid API, the wideband path and the DM family's variants included), with
+grid API, the wideband path and the DM family's variants, the chromatic
+path and the chromatic family's variants included; the chromatic fit,
+whose dip 50 epochs do not constrain, may end DIVERGED here, and takes
+the 200-TOA set's GP amplitudes), with
 the
 card-only calls (events, synchronize, memory, ``nvidia-smi``, the
 profiler's CUDA trace, the nvcc build and its ptxas report, the delay
@@ -156,6 +159,7 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
         "chip_smoke_rehearsal", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    from pint_tpu_torch.examples import CHROM_NOISE_200
     from pint_tpu_torch.fitter import Fitter
     from pint_tpu_torch.kernels import (build, delay_chain, kepler,
                                         phase_chain, qs_phase)
@@ -227,7 +231,10 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             dd_tim=str(tmp_path / "dd.tim"), gls_tim=str(tmp_path / "gls.tim"),
             out_dir=str(tmp_path / "out"), ddk_tim=str(tmp_path / "ddk.tim"),
             ddk_nfit=26, noise_tim=str(tmp_path / "noise.tim"),
-            wb_tim=str(tmp_path / "wb.tim"), wb_nfit=27)) == 0
+            wb_tim=str(tmp_path / "wb.tim"), wb_nfit=27,
+            chrom_tim=str(tmp_path / "chrom.tim"), chrom_nfit=29,
+            chrom_status=("CONVERGED", "DIVERGED"),
+            chrom_noise=CHROM_NOISE_200)) == 0
     finally:
         for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
                   delay_chain.DelayChain, delay_chain.DelayChainTangent,
@@ -247,7 +254,9 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                       "auto_wls_fit", "lm_fit", "degraded_lm",
                       "fitter_reference", "grid_api", "wideband_main_path",
                       "wideband_profile", "wideband_reference",
-                      "dm_family_chain"]
+                      "dm_family_chain", "chromatic_main_path",
+                      "chromatic_profile", "chromatic_reference",
+                      "chromatic_chain"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -268,7 +277,8 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(set(k["launches_by_path"]) == {
         "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit", "noise_fit",
         "auto_wls_fit", "lm_fit", "degraded_lm", "wideband_fit",
-        "wideband_gls_fit", "wideband_lm_fit"} for k in kernels)
+        "wideband_gls_fit", "wideband_lm_fit", "chromatic_fit"}
+        for k in kernels)
     assert all(by_name[n]["launches_by_path"]["wideband_fit"] > 0
                for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert all(set(by_name[n]["dm_family"]) == {"wideband", "DMF_DD_SWM1"}
@@ -377,5 +387,24 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             "tangents_bit_equal_to_unfused"].values()), lab
     assert dmf["layouts"]["DMF_DD_SWM1"]["flags"] & 16384
     assert set(dmf["timing"]["phase_chain"]) == {"wideband", "DMF_DD_SWM1"}
+    chrom = recs["chromatic_main_path"]
+    assert chrom["fitter"] == "DownhillGLSFitter"
+    assert (chrom["n_fit"], chrom["n_noise"]) == (29, 3)
+    assert chrom["phase_chain_backward_calls"] == 0
+    assert chrom["noise_basis_shape"] == [200, 200 // 4 + 180]
+    assert all(chrom["launches"][n] > 0 for n in ("phase_chain_primal",
+                                                  "phase_chain_tangent"))
+    assert recs["chromatic_reference"]["failed"] == []
+    chf = recs["chromatic_chain"]
+    from pint_tpu_torch.examples import CHROM_FAMILY
+
+    for lab in CHROM_FAMILY + ("wavex", "chromatic"):
+        assert chf["delay_chain"][lab]["delay_bit_equal"], lab
+        assert all(chf["phase_chain"][lab][
+            "tangents_bit_equal_to_unfused"].values()), lab
+    assert set(chf["timing"]["phase_chain"]) == {"chromatic", "wavex"}
+    assert all(set(by_name[n]["chromatic_family"]) == {"chromatic", "wavex"}
+               for n in ("delay_chain_primal", "delay_chain_tangent",
+                         "phase_chain_primal", "phase_chain_tangent"))
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu-rehearsal", "count": 1}}

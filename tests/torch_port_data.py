@@ -186,7 +186,8 @@ def dd_gls_par_lines():
 
 
 def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
-                         errors_us=1.0, par=None, finish=None) -> str:
+                         errors_us=1.0, par=None, finish=None,
+                         receivers=None) -> str:
     """Simulate the GLS set with pint_tpu, as
     ``pint_tpu_torch.examples.simulate_dd_noise_realistic`` does with the
     port (the epochs of ``epoch_toas``, TOA errors ``errors_us``;
@@ -194,7 +195,7 @@ def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
     realization of ECORR and red noise with ``seed``), and write it to
     ``path``.  ``par`` replaces the GLS set's par lines, and
     ``finish(toas, model)``, if given, runs on the simulated TOAs before
-    they are written."""
+    they are written; ``receivers`` replaces ``examples.RECEIVERS``."""
     from pint_tpu import mjd as mjdmod
     from pint_tpu.models import get_model
     from pint_tpu.residuals import Residuals
@@ -202,14 +203,15 @@ def write_dd_gls_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0,
     from pint_tpu.toa import get_TOAs_array, write_tim
     from pint_tpu_torch.examples import RECEIVERS, epoch_toas
 
-    mjds, band, freqs = epoch_toas(ntoas, SPAN_DAYS, CENTER_MJD)
+    receivers = receivers or RECEIVERS
+    mjds, band, freqs = epoch_toas(ntoas, SPAN_DAYS, CENTER_MJD, receivers)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         model = get_model(par or dd_gls_par_lines())
         toas = get_TOAs_array(mjds, obs="gbt", errors_us=errors_us,
                               freqs_mhz=freqs, ephem="DE421", planets=False)
         for b_mhz, fl in zip(band, toas.flags):
-            fl["fe"] = RECEIVERS[float(b_mhz)]
+            fl["fe"] = receivers[float(b_mhz)]
         toas = zero_residuals(toas, model)
         sigma_us = np.asarray(Residuals(toas, model).get_data_error())
         rng = np.random.default_rng(seed + 1)
@@ -305,6 +307,21 @@ def dm_family_tim(kind: str) -> str:
     """The committed set a DM-family variant is checked on: the DD set or
     the J0740 set by its binary."""
     return DD_REF_TIM if kind.startswith("DMF_DD") else REF_TIM
+
+
+def chrom_family_par_lines(kind: str):
+    """One of ``pint_tpu_torch.examples.CHROM_FAMILY`` at this module's
+    size."""
+    from pint_tpu_torch.examples import chromatic_family_par
+
+    return chromatic_family_par(kind, dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                                center_mjd=CENTER_MJD).splitlines()
+
+
+def chrom_family_tim(kind: str) -> str:
+    """The committed set a chromatic-family variant is checked on: the DD
+    set or the J0740 set by its binary."""
+    return DD_REF_TIM if kind.startswith("CHF_DD") else REF_TIM
 
 
 def ddk_par_lines():
@@ -638,6 +655,178 @@ def write_wb_reference() -> dict:
     return rec
 
 
+#: the committed chromatic set (``chromatic_j1713_par(dmx_bins=8)``, 50
+#: epochs of four sub-band TOAs on 430, 820 and 1400 MHz) and pint_tpu's
+#: DownhillGLSFitter fit of its timing and chromatic noise beside it
+CHROM_REF_TIM = os.path.join(DATA_DIR, "chrom_sim_200.tim")
+CHROM_REF_JSON = os.path.join(DATA_DIR, "chrom_sim_200_fit.json")
+
+
+def chrom_par_lines(free=None):
+    """The chromatic set's par lines: ``chromatic_j1713_par(dmx_bins=8)``
+    with ``examples.CHROM_NOISE_200``'s amplitudes and the noise
+    parameters of ``free`` free (default ``examples.CHROM_NOISE_FREE``)."""
+    from pint_tpu_torch.examples import (CHROM_NOISE_200, CHROM_NOISE_FREE,
+                                         chromatic_j1713_par)
+
+    return chromatic_j1713_par(
+        DMX_BINS, SPAN_DAYS, CENTER_MJD,
+        free=CHROM_NOISE_FREE if free is None else free,
+        noise=CHROM_NOISE_200).splitlines()
+
+
+def chrom_start(model):
+    """The perturbed DD start, the chromatic terms moved and the free
+    noise at its start (``examples.chromatic_start``)."""
+    from pint_tpu_torch.examples import chromatic_start
+
+    perturb_dd(model)
+    chromatic_start(model)
+
+
+def write_chrom_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the chromatic set with pint_tpu, as
+    ``pint_tpu_torch.examples.simulate_chromatic_j1713`` does with the
+    port, and write it."""
+    from pint_tpu_torch.examples import CHROM_RECEIVERS
+
+    return write_dd_gls_sim_tim(path, ntoas, seed, par=chrom_par_lines(),
+                                receivers=CHROM_RECEIVERS)
+
+
+def jax_chrom_fit(timfile: str) -> dict:
+    """pint_tpu's DownhillGLSFitter (its defaults) of the chromatic set
+    from :func:`chrom_start`: the record CHROM_REF_JSON holds."""
+    from pint_tpu.fitter import DownhillGLSFitter
+    from pint_tpu_torch.examples import CHROM_NOISE_FREE
+
+    model, toas = load_jax(timfile, par=chrom_par_lines())
+    chrom_start(model)
+    fitter = DownhillGLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params + list(CHROM_NOISE_FREE))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas()
+    return {"what": "pint_tpu DownhillGLSFitter.fit_toas() with its "
+                    "defaults, JAX on the CPU, on chrom_sim_200.tim "
+                    "(chromatic_j1713_par(dmx_bins=8)) from the perturbed "
+                    "DD start and examples.chromatic_start",
+            "ntoas": toas.ntoas, "perturb": DD_PERTURB, "start": start,
+            **fitter_record(fitter, chi2),
+            **wb_noise_record(model, CHROM_NOISE_FREE),
+            "reduced_chi2": float(fitter.resids.reduced_chi2)}
+
+
+def write_chrom_reference() -> dict:
+    """Write CHROM_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_chrom_sim_tim(CHROM_REF_TIM)
+    rec = jax_chrom_fit(CHROM_REF_TIM)
+    with open(CHROM_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
+#: the committed WaveX set (the DD par with WaveX, DMWaveX and CMWaveX in
+#: place of DMX, ChromaticCM, four CMX ranges and the troposphere) and
+#: pint_tpu's WLSFitter fit beside it
+WAVEX_REF_TIM = os.path.join(DATA_DIR, "wavex_sim_200.tim")
+WAVEX_REF_JSON = os.path.join(DATA_DIR, "wavex_sim_200_fit.json")
+def wavex_par_lines():
+    """The WaveX set's par lines before the sinusoids
+    (``examples.wavex_set_par(span_days, center_mjd)``)."""
+    from pint_tpu_torch.examples import wavex_set_par
+
+    return wavex_set_par(SPAN_DAYS, CENTER_MJD).splitlines()
+
+
+def wavex_model(pkg: str, inject: bool = True):
+    """The WaveX set's model in ``pkg`` ("pint_tpu" or "pint_tpu_torch"),
+    built by ``examples.wavex_set_model`` with that package's
+    ``get_model`` and setup helpers."""
+    import importlib
+
+    from pint_tpu_torch.examples import wavex_set_model
+
+    return wavex_set_model(importlib.import_module(pkg + ".models"),
+                           importlib.import_module(pkg + ".models.wave"),
+                           SPAN_DAYS, CENTER_MJD, inject=inject)
+
+
+def wavex_full_par_lines():
+    """The WaveX set's truth model (the sinusoids injected) as par lines
+    of the port."""
+    return wavex_model("pint_tpu_torch").as_parfile().splitlines()
+
+
+def write_wavex_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the WaveX set with pint_tpu (uniform TOAs, as the DD set)
+    and write it."""
+    from pint_tpu.simulation import make_fake_toas_uniform
+    from pint_tpu.toa import write_tim
+    from pint_tpu_torch.examples import RECEIVERS, receiver_freqs
+
+    band, freqs = receiver_freqs(ntoas)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        toas = make_fake_toas_uniform(
+            CENTER_MJD - SPAN_DAYS / 2, CENTER_MJD + SPAN_DAYS / 2, ntoas,
+            wavex_model("pint_tpu"), obs="gbt", error_us=1.0,
+            freq_mhz=freqs, add_noise=True, seed=seed)
+    for b_mhz, fl in zip(band, toas.flags):
+        fl["fe"] = RECEIVERS[float(b_mhz)]
+    write_tim(path, toas)
+    return path
+
+
+def load_wavex(pkg: str, timfile: str = WAVEX_REF_TIM):
+    """(model, toas) of the WaveX set in ``pkg`` at the fit's start: the
+    perturbed DD start, the sinusoid amplitudes at zero."""
+    import importlib
+
+    get_TOAs = importlib.import_module(pkg + ".toa").get_TOAs
+    model = wavex_model(pkg, inject=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        toas = get_TOAs(timfile, model=model)
+    perturb_dd(model)
+    return model, toas
+
+
+def jax_wavex_fit(timfile: str) -> dict:
+    """pint_tpu's eager WLSFitter.fit_toas(maxiter=3) of the WaveX set from
+    :func:`load_wavex`'s start: the record WAVEX_REF_JSON holds."""
+    from pint_tpu.fitter import WLSFitter
+
+    model, toas = load_wavex("pint_tpu", timfile)
+    fitter = WLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params)
+    chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
+    fr = fitter.fitresult
+    return {"what": "pint_tpu WLSFitter.fit_toas(maxiter=3), eager, JAX on "
+                    "the CPU, on wavex_sim_200.tim (the DD par without DMX, "
+                    "with CM, four CMX ranges, CORRECT_TROPOSPHERE Y and "
+                    "WaveX/DMWaveX/CMWaveX from the setup helpers) from the "
+                    "perturbed DD start, amplitudes 0",
+            "ntoas": toas.ntoas, "maxiter": DD_MAXITER,
+            "perturb": DD_PERTURB, "fit_params": fitter.fit_params,
+            "start": start, **fit_record(model, fitter.fit_params),
+            "chi2": float(chi2), "status": fr.status.name,
+            "iterations": fr.iterations, "rung": fr.rung}
+
+
+def write_wavex_reference() -> dict:
+    """Write WAVEX_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_wavex_sim_tim(WAVEX_REF_TIM)
+    rec = jax_wavex_fit(WAVEX_REF_TIM)
+    with open(WAVEX_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -729,7 +918,9 @@ WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "gls": write_gls_reference, "ddk": write_ddk_reference,
            "fitters": write_fitters_reference,
            "noisefit": write_noisefit_reference,
-           "wb_sim_200": write_wb_reference}
+           "wb_sim_200": write_wb_reference,
+           "chrom_sim_200": write_chrom_reference,
+           "wavex_sim_200": write_wavex_reference}
 
 if __name__ == "__main__":
     # python tests/torch_port_data.py [set ...]: every set by default
