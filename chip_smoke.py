@@ -4,8 +4,10 @@ the full-width DD fit, the full-width GLS fit with a NANOGrav-style
 noise model, the full-width DDK fit in ecliptic coordinates, the
 full-width noise-fitting GLS fit that ``Fitter.auto`` picks, with LM,
 Powell and the grid API, the full-width wideband fit (TOAs and their
-DMs) with the DM family of the delay kernel's row function, and the
+DMs) with the DM family of the delay kernel's row function, the
 full-width chromatic noise fit with the chromatic family of the row
+function, and the full-width spider-binary fit (an FBn orbit, ORBWAVEs
+and the planets' Shapiro delays) with the orbit family of the row
 function.
 
 Run from the repository root, with no arguments::
@@ -220,6 +222,34 @@ Phases, each printing one JSON line with its numbers and seconds:
    every instantiation, and the fused kernel's registers of the
    instantiations without the chromatic family against those they had
    before it came.
+11. orbit_main_path: the eighth path, at full width (12,500 TOAs, 95 fit
+   parameters): ``simulate_spider_realistic`` (a redback-class ELL1
+   binary, PB 0.198 d, whose orbit is an FBn series with FB0 and FB1 free
+   and FB2 frozen, four ORBWAVE harmonics free, PLANET_SHAPIRO; on the
+   card) -> ``write_tim`` -> ``get_TOAs`` (the planets' positions loaded)
+   -> the perturbed start (``examples.spider_start``) -> ``Fitter.auto``
+   (a DownhillWLSFitter) -> ``fit_toas()``, the launch counts zeroed just
+   before the fitter is built and read just after the fit, the plain
+   delays and the phase kernel's reverse-mode calls counted (none may
+   run); status, chi2/dof, the pulls of F0, F1, FB0, FB1, A1, TASC, EPS1,
+   EPS2 and each ORBWAVE amplitude against the truth, two warm walls
+   (``orbit_fit_warm_s``), peak memory, the whitened normal matrix's
+   condition and the fit's largest correlation;
+   orbit_profile: one warm fit under torch.profiler;
+   orbit_reference: the committed 200-TOA spider set
+   (``tests/data/spider_sim_200*``, ``Fitter.auto``) and BT_PIECEWISE set
+   (``tests/data/btpw_sim_200*``, ``WLSFitter.fit_toas(maxiter=3)``)
+   fitted on the card against pint_tpu's stored fits;
+   orbit_chain: the delay_chain and phase_chain kernels against the plain
+   delays and the unfused chain (as in chromatic_chain) on each orbit
+   term alone on DD and ELL1 (``examples.orbit_family_par``), the planets
+   on no binary, BT_PIECEWISE on BT (``examples.btpw_par``), a layout
+   with the DM and chromatic families too (``examples.orbit_mixed_par``)
+   and the spider path's model, all on the spider path's 12,500 TOAs;
+   both kernels timed at the spider path's and the mixed layout's shapes
+   with their bounds; ptxas's registers and spills of the orbit family's
+   instantiations, and every other kernel's against the parent's
+   (``PTXAS_REFERENCE``): identical, or the phase fails.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -229,6 +259,10 @@ it, and exits non-zero otherwise.
 ``main(Run(...))`` runs the same phases on another device or at other
 sizes (``tests/test_torch_smoke_rehearsal.py`` runs them on the CPU at
 200 TOAs); with no arguments it runs on the card at full width.
+``python3 chip_smoke.py --ptxas-reference CSRC OUT.json`` compiles
+another checkout's ``delay_chain.cu`` and ``phase_chain.cu`` (needs
+nvcc, no card) and writes their ptxas report in ``PTXAS_REFERENCE``'s
+format.
 """
 
 from __future__ import annotations
@@ -271,6 +305,18 @@ CHROM_REF_TIM = os.path.join(REPO, "tests", "data", "chrom_sim_200.tim")
 CHROM_REF_JSON = os.path.join(REPO, "tests", "data", "chrom_sim_200_fit.json")
 WAVEX_REF_TIM = os.path.join(REPO, "tests", "data", "wavex_sim_200.tim")
 WAVEX_REF_JSON = os.path.join(REPO, "tests", "data", "wavex_sim_200_fit.json")
+SPIDER_TIM = os.path.join(REPO, "build", "spider_12500.tim")
+SPIDER_REF_TIM = os.path.join(REPO, "tests", "data", "spider_sim_200.tim")
+SPIDER_REF_JSON = os.path.join(REPO, "tests", "data",
+                               "spider_sim_200_fit.json")
+BTPW_REF_TIM = os.path.join(REPO, "tests", "data", "btpw_sim_200.tim")
+BTPW_REF_JSON = os.path.join(REPO, "tests", "data", "btpw_sim_200_fit.json")
+#: ptxas's registers, stack and spills of the delay_chain and phase_chain
+#: kernels of the 21 template values before the orbit family came,
+#: compiled on the card's machine from the sources before it
+#: (``python3 chip_smoke.py --ptxas-reference <their csrc> <this file>``)
+PTXAS_REFERENCE = os.path.join(REPO, "tests", "data",
+                               "chain_ptxas_before_orbit_family.json")
 FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
                                 "dd_sim_200_fitters.json")
 DD_MAXITER = 3
@@ -291,6 +337,9 @@ WB_MAXITER = 3
 #: the chromatic fit's pulls: the orbit and spin, and the chromatic terms
 CHROM_PULL_PARAMS = DD_PULL_PARAMS + ("CM1", "CM2", "EXPDIPAMP_1",
                                       "EXPDIPTAU_1", "CHROMGAUSS_LOGAMP_1")
+#: the spider fit's pulls: spin, the orbit (and each ORBWAVE amplitude)
+SPIDER_PULL_PARAMS = ("F0", "F1", "FB0", "FB1", "A1", "TASC", "EPS1",
+                      "EPS2")
 #: ptxas's registers of the fused phase_chain's primal and the spill
 #: stores of its L = 4 tangent before the chromatic family came (PERF.md,
 #: "Registers"): the instantiations without it keep them
@@ -395,6 +444,14 @@ class Run(NamedTuple):
     #: ``examples.CHROM_NOISE_200``'s)
     chrom_status: tuple = ("CONVERGED",)
     chrom_noise: dict = None
+    spider_tim: str = SPIDER_TIM
+    #: the spider path's fit parameters: spin, astrometry, DM, A1, TASC,
+    #: EPS1, EPS2, FB0, FB1, eight ORBWAVE amplitudes, FD1-4, two JUMPs
+    #: and the DMX bins
+    spider_nfit: int = 95
+    #: the layouts orbit_chain holds besides the spider path's model (None:
+    #: every one; a small rehearsal may take fewer)
+    orbit_layouts: tuple = None
 
 
 def emit(obj) -> None:
@@ -1306,6 +1363,9 @@ def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
     base = dict(fams)
     fams.update({str(int(k) + 8): f"{v}+DM" for k, v in base.items()})
     fams.update({str(int(k) + 24): f"{v}+DM+CHROM" for k, v in base.items()})
+    # and with the orbit family's too (kOrbitFamily = 32)
+    fams.update({str(int(k) + 56): f"{v}+DM+CHROM+ORB"
+                 for k, v in base.items()})
     out, cur = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
@@ -2793,6 +2853,312 @@ def chromatic_paths(torch, np, run: Run, ctx: dict) -> dict:
     return out
 
 
+def spider_load(torch, tim: str, dmx_bins: int, par=None):
+    """par + tim -> (model at the spider fit's start, toas) of the spider
+    configuration (``examples.spider_realistic_par``, or ``par``), as a
+    user loads them: the planets' positions loaded (the model sets
+    PLANET_SHAPIRO), the start moved by ``examples.spider_start``."""
+    import warnings
+
+    from pint_tpu_torch.examples import spider_realistic_par, spider_start
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par or spider_realistic_par(
+            dmx_bins=dmx_bins).splitlines())
+        toas = get_TOAs(tim, model=model)
+    spider_start(model)
+    return model, toas
+
+
+def btpw_load(torch, tim: str, dmx_bins: int):
+    """par + tim -> (model at the DD fit's start, toas) of the
+    BT_PIECEWISE set (``examples.btpw_par``)."""
+    import warnings
+
+    from pint_tpu_torch.examples import btpw_par
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(btpw_par(dmx_bins=dmx_bins).splitlines())
+        toas = get_TOAs(tim, model=model)
+    for name, d in DD_PERTURB.items():
+        model[name].value += d
+    return model, toas
+
+
+def normal_matrix_state(np, fitter) -> dict:
+    """The whitened normal matrix of ``fitter`` at its fitted point (its
+    design matrix and an offset column, each column scaled to unit
+    norm): its condition number; and the pairs of fit parameters with the
+    largest correlation in the fit's covariance, over all of them and
+    over the orbit's (FB, ORBWAVE, A1, TASC, EPS)."""
+    M, names = fitter.get_designmatrix()
+    err = fitter.resids.batch.error_us.detach().cpu().numpy() * 1e-6
+    A = np.column_stack([M, np.ones(len(err))]) / err[:, None]
+    A = A / np.linalg.norm(A, axis=0)
+    s = np.linalg.svd(A, compute_uv=False)
+    out = {"normal_matrix_condition": float((s[0] / s[-1]) ** 2)}
+    C = fitter.parameter_correlation_matrix
+    if C is None:
+        return out
+    C = np.abs(np.asarray(C)[:len(names), :len(names)]) - np.eye(len(names))
+    orbit = [k for k, n in enumerate(names)
+             if n.startswith(("FB", "ORBWAVE", "A1", "TASC", "EPS"))]
+    for key, idx in (("max_abs_correlation", list(range(len(names)))),
+                     ("orbit_max_abs_correlation", orbit)):
+        sub = C[np.ix_(idx, idx)]
+        i, j = np.unravel_index(int(np.argmax(sub)), sub.shape)
+        out[key] = {"params": [names[idx[i]], names[idx[j]]],
+                    "value": float(sub[i, j])}
+    return out
+
+
+def ptxas_vs_parent(regs: dict) -> dict:
+    """The kernels of the 21 template values without the orbit family
+    against the parent's ptxas (PTXAS_REFERENCE, written by
+    ``python3 chip_smoke.py --ptxas-reference``): {library: {kernel:
+    [now, then]}} where registers, stack or spills differ, or a kernel
+    is missing."""
+    with open(PTXAS_REFERENCE) as f:
+        ref = json.load(f)["kernels"]
+    out = {}
+    for lib, kernels in ref.items():
+        for k, want in kernels.items():
+            got = regs.get(lib, {}).get(k)
+            if got != want:
+                out.setdefault(lib, {})[k] = [got, want]
+    return out
+
+
+def orbit_paths(torch, np, run: Run, ctx: dict) -> dict:
+    """The spider-binary fit on the card and the orbit family of the delay
+    kernel's row function (phases orbit_main_path ... orbit_chain, see the
+    module docstring).  Returns the spider fit's launches and the timing
+    records."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch.examples import (ORBIT_FAMILY, btpw_par,
+                                         orbit_family_par, orbit_mixed_par,
+                                         simulate_spider_realistic)
+    from pint_tpu_torch.fitter import DownhillWLSFitter, Fitter, WLSFitter
+    from pint_tpu_torch.kernels import build as kbuild
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import write_tim
+
+    out = {"launches": {}}
+
+    with phase("orbit_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        truth, sim = simulate_spider_realistic(
+            ntoas=run.ntoas, seed=0, dmx_bins=run.dmx_bins, device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.spider_tim), exist_ok=True)
+        write_tim(run.spider_tim, sim)
+        t0 = time.perf_counter()
+        model, toas = spider_load(torch, run.spider_tim, run.dmx_bins)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = snapshot(model)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            fit, chi2, cold_s = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+        launches = counts()
+        fr = fit.fitresult
+        names = fit.fit_params
+        pull_names = SPIDER_PULL_PARAMS + tuple(
+            n for n in names if n.startswith("ORBWAVE"))
+        pulls = {n: device_offset(model[n].device_value,
+                                  truth[n].device_value)
+                 / model[n].device_uncertainty for n in pull_names}
+        peak = torch.cuda.max_memory_allocated()
+        rec.update(fitter=type(fit).__name__, ntoas=toas.ntoas,
+                   n_fit=len(names), status=fr.status.name,
+                   iterations=fr.iterations, rung=fr.rung, chi2=chi2,
+                   dof=fr.dof, chi2_per_dof=chi2 / fr.dof,
+                   fit_cold_s=cold_s, launches=launches,
+                   plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"], pulls=pulls,
+                   planets_loaded=sorted(toas.obs_planet_pos),
+                   layout_flags=model.calc.chain_layout.flags,
+                   theta_slots=model.calc.chain_layout.P,
+                   peak_mem_bytes=peak, device=str(fit.device))
+        walls, per_fit = [], []
+        for _ in range(2):
+            restore(model, start)
+            zero_counts()
+            _, _, w = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+            walls.append(w)
+            per_fit.append(counts())
+        rec.update(orbit_fit_warm_s=statistics.median(walls),
+                   fit_walls_s=walls, launches_per_warm_fit=per_fit,
+                   **normal_matrix_state(np, fit))
+        out["launches"]["spider_fit"] = launches
+    if not isinstance(fit, DownhillWLSFitter):
+        raise AssertionError(f"Fitter.auto gave {type(fit).__name__}")
+    if toas.ntoas != run.ntoas or len(names) != run.spider_nfit:
+        raise AssertionError("not the full-width spider configuration")
+    if fr.status.name != "CONVERGED":
+        raise AssertionError(f"spider fit ended {fr.status.name}")
+    if not 0.6 < chi2 / fr.dof < 1.6:
+        raise AssertionError(f"spider fit chi2/dof {chi2 / fr.dof}")
+    if not all(abs(v) < PULL_MAX for v in pulls.values()):
+        raise AssertionError(f"spider fit pulls {pulls}")
+    check_path_launches("spider fit", launches)
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+
+    with phase("orbit_profile", {}) as rec:
+        holder = {}
+
+        def setup():
+            restore(model, start)
+            holder["f"] = Fitter.auto(toas, model, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(), run.out_dir,
+            out_name="orbit_profile", setup=setup))
+        sfit = holder["f"]
+
+    with phase("orbit_reference", {}) as rec:
+        failed = []
+        for label, ref, load_set, make, kw in (
+                ("spider", SPIDER_REF_JSON,
+                 lambda: spider_load(torch, SPIDER_REF_TIM, REF_DMX_BINS),
+                 lambda m, t: Fitter.auto(t, m, device=run.dev), {}),
+                ("btpw", BTPW_REF_JSON,
+                 lambda: btpw_load(torch, BTPW_REF_TIM, REF_DMX_BINS),
+                 lambda m, t: WLSFitter(t, m, device=run.dev),
+                 {"maxiter": DD_MAXITER})):
+            with open(ref) as f:
+                want = json.load(f)
+            rmodel, rtoas = load_set()
+            PhaseChain.launches = 0
+            rf, rchi2, rs = timed_fit(
+                torch, lambda: make(rmodel, rtoas), **kw)
+            sig, unc = stored_gaps(rmodel, want["values"],
+                                   want["uncertainties"])
+            gap = abs(rchi2 / want["chi2"] - 1.0)
+            rec[label] = dict(
+                fitter=type(rf).__name__, chi2=rchi2, chi2_ref=want["chi2"],
+                max_rel_chi2_gap=gap, max_sigma_gap=sig,
+                max_unc_rel_gap=unc, status=rf.fitresult.status.name,
+                ref_status=want["status"], fit_s=rs,
+                launches=PhaseChain.launches)
+            if not (rf.fit_params == want["fit_params"]
+                    and rf.fitresult.status.name == want["status"]
+                    and sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
+                    and gap <= CHI2_TOL and PhaseChain.launches > 0):
+                failed.append(label)
+        rec["failed"] = failed
+    if failed:
+        raise AssertionError(f"orbit references failed: {failed}")
+
+    # -- the orbit family in the row function, at 12,500 TOAs ---------------
+    with phase("orbit_chain", {}) as rec:
+        cases = []
+        pars = {kind: orbit_family_par(kind, dmx_bins=run.dmx_bins)
+                for kind in ORBIT_FAMILY + ("ORB_NONE_PLANET",)}
+        pars["ORB_BT_PIECES"] = btpw_par(dmx_bins=run.dmx_bins)
+        pars["ORB_MIXED"] = orbit_mixed_par(dmx_bins=run.dmx_bins)
+        if run.orbit_layouts is not None:
+            pars = {k: v for k, v in pars.items() if k in run.orbit_layouts}
+        for kind, par in pars.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                m = get_model(par.splitlines())
+            # every layout on the spider path's TOAs: the planets'
+            # positions are loaded there
+            cases.append((kind, m, WLSFitter(toas, m, device=run.dev)))
+        cases.append(("spider", model, sfit))
+        rec["delay_chain"], rec["phase_chain"] = {}, {}
+        delay_errs = [check_delay_chain(torch, label, m, f,
+                                        rec["delay_chain"])
+                      for label, m, f in cases]
+        frac_errs = [check_phase_chain(torch, label, m, f,
+                                       rec["phase_chain"])
+                     for label, m, f in cases]
+        rec["layouts"] = {label: {"flags": m.calc.chain_layout.flags,
+                                  "theta_slots": m.calc.chain_layout.P}
+                          for label, m, _ in cases}
+        # the new terms' times at the path's shapes, and on the layout
+        # that runs every family's terms
+        rec["timing"] = {"delay_chain": {}, "phase_chain": {}}
+        for label, m, f in cases:
+            if label not in ("spider", "ORB_MIXED"):
+                continue
+            rec["timing"]["delay_chain"][label] = {}
+            time_delay_chain(torch, m, f, 1,
+                             rec["timing"]["delay_chain"][label])
+            rec["timing"]["phase_chain"][label] = {}
+            time_phase_chain(torch, m, f, 1,
+                             rec["timing"]["phase_chain"][label])
+        regs = {k: chain_registers(kbuild.build_log(k), k)
+                for k in ("delay_chain", "phase_chain")}
+        rec["registers_orbit_family"] = {
+            lib: {k: v for k, v in r.items() if "+ORB" in k}
+            for lib, r in regs.items()}
+        rec["ptxas_changed_vs_parent"] = ptxas_vs_parent(regs)
+        rec.update(max_abs_delay_err_s=max(delay_errs),
+                   max_abs_frac_err_vs_plain=max(frac_errs))
+    if rec["ptxas_changed_vs_parent"]:
+        raise AssertionError("the kernels without the orbit family changed "
+                             f"ptxas: {rec['ptxas_changed_vs_parent']}")
+    out["timing"] = rec["timing"]
+    out["max_abs_delay_err_s"] = max(delay_errs)
+    out["max_abs_frac_err"] = max(frac_errs)
+    return out
+
+
+def ptxas_reference(csrc: str, path: str) -> int:
+    """Compile ``csrc``'s delay_chain.cu and phase_chain.cu (another
+    checkout's kernel sources) with the package's nvcc flags, one nvcc
+    each at once, and write their kernels' ptxas registers, stack and
+    spills to ``path`` as JSON (PTXAS_REFERENCE's format)."""
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, REPO)
+    from pint_tpu_torch.kernels import build as kbuild
+
+    tmp = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    try:
+        procs = {k: subprocess.Popen(
+            [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o",
+             os.path.join(tmp, f"lib{k}.so"), os.path.join(csrc, f"{k}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in ("delay_chain", "phase_chain")}
+        logs = {k: p.communicate()[0] for k, p in procs.items()}
+        if any(p.returncode for p in procs.values()):
+            print(json.dumps(logs), file=sys.stderr)
+            return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"what": "ptxas -v of delay_chain.cu and phase_chain.cu of "
+                   f"{os.path.relpath(csrc, REPO)}, nvcc flags "
+                   + " ".join(kbuild.NVCC_FLAGS),
+           "nvcc": subprocess.run([kbuild.nvcc(), "--version"],
+                                  capture_output=True,
+                                  text=True).stdout.strip().splitlines()[-1],
+           "kernels": {k: chain_registers(v, k) for k, v in logs.items()}}
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(json.dumps({k: len(v) for k, v in rec["kernels"].items()}))
+    return 0
+
+
 def main(run: Run = Run()) -> int:
     import torch
 
@@ -3427,13 +3793,17 @@ def main(run: Run = Run()) -> int:
     chrom_paths = chromatic_paths(torch, np, run, {"grid_toas": toas,
                                                    "dd_toas": dtoas})
 
+    # -- 11. the spider-binary fit and the orbit family ---------------------
+    orb_paths = orbit_paths(torch, np, run, {})
+
     def by_path(name):
         by = {"j0740_grid": grid_launches[name], "dd_fit": dd_launches[name],
               "gls_fit": gls_launches[name],
               "ddk_ecl_fit": ddk_launches[name],
               **{k: v[name] for k, v in new_paths["launches"].items()},
               **{k: v[name] for k, v in wb_paths["launches"].items()},
-              **{k: v[name] for k, v in chrom_paths["launches"].items()}}
+              **{k: v[name] for k, v in chrom_paths["launches"].items()},
+              **{k: v[name] for k, v in orb_paths["launches"].items()}}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     def at_path(kernel, part, timing, labels):
@@ -3467,6 +3837,12 @@ def main(run: Run = Run()) -> int:
         return at_path(kernel, part, chrom_paths["timing"],
                        ("chromatic", "wavex"))
 
+    def at_orbit(kernel, part):
+        """At the spider path's shapes: its layout, and the layout that
+        runs every family's terms."""
+        return at_path(kernel, part, orb_paths["timing"],
+                       ("spider", "ORB_MIXED"))
+
     grid_t = chain_rec["timing"]["j0740_grid"]
     grid_lin = max(grid_t["tangent"].values(), key=lambda t: t["lanes"])
     fused_t = pc_rec["timing"]["j0740_grid"]
@@ -3499,14 +3875,16 @@ def main(run: Run = Run()) -> int:
         "fused_on_the_paths_into": "phase_chain_primal",
         "max_abs_err": max(chain_rec["max_abs_err"],
                            wb_paths["max_abs_delay_err_s"],
-                           chrom_paths["max_abs_delay_err_s"]),
+                           chrom_paths["max_abs_delay_err_s"],
+                           orb_paths["max_abs_delay_err_s"]),
         "theta_sets": GRID_POINTS,
         "ms": grid_t["primal"]["device_ms"],
         "plain_ms": grid_t["primal"]["plain_ms"],
         "bound_ms": grid_t["primal"]["bound_ms"],
         "bound_by": grid_t["primal"]["bound_by"], "library_ms": None,
         "dm_family": at_wideband("delay_chain", "primal"),
-        "chromatic_family": at_chromatic("delay_chain", "primal")}, {
+        "chromatic_family": at_chromatic("delay_chain", "primal"),
+        "orbit_family": at_orbit("delay_chain", "primal")}, {
         "name": "delay_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/delay_chain.cu",
         "replaces": "pint_tpu/models/astrometry.py:76",
@@ -3520,14 +3898,16 @@ def main(run: Run = Run()) -> int:
         "bound_ms": grid_lin["bound_ms"], "bound_by": grid_lin["bound_by"],
         "library_ms": None,
         "dm_family": at_wideband("delay_chain", "tangent"),
-        "chromatic_family": at_chromatic("delay_chain", "tangent")}, {
+        "chromatic_family": at_chromatic("delay_chain", "tangent"),
+        "orbit_family": at_orbit("delay_chain", "tangent")}, {
         "name": "phase_chain_primal", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
         **by_path("phase_chain_primal"),
         "max_abs_err": max(pc_rec["max_abs_frac_err"],
                            wb_paths["max_abs_frac_err"],
-                           chrom_paths["max_abs_frac_err"]),
+                           chrom_paths["max_abs_frac_err"],
+                           orb_paths["max_abs_frac_err"]),
         "theta_sets": GRID_POINTS,
         "ms": first_time(fused_t["primal"]),
         "fused_chain_ms": fused_t["primal"]["fused_chain_ms"],
@@ -3538,7 +3918,8 @@ def main(run: Run = Run()) -> int:
         "ddk_ecl_fit": {"theta_sets": 1, "ms": first_time(ddk_t["primal"]),
                         "bound_ms": ddk_t["primal"]["bound_ms"]},
         "dm_family": at_wideband("phase_chain", "primal"),
-        "chromatic_family": at_chromatic("phase_chain", "primal")}, {
+        "chromatic_family": at_chromatic("phase_chain", "primal"),
+        "orbit_family": at_orbit("phase_chain", "primal")}, {
         "name": "phase_chain_tangent", "route": "cuda",
         "source": "pint_tpu_torch/csrc/phase_chain.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
@@ -3556,7 +3937,8 @@ def main(run: Run = Run()) -> int:
                         "ms": first_time(ddk_all),
                         "bound_ms": ddk_all["bound_ms"]},
         "dm_family": at_wideband("phase_chain", "tangent"),
-        "chromatic_family": at_chromatic("phase_chain", "tangent")}]})
+        "chromatic_family": at_chromatic("phase_chain", "tangent"),
+        "orbit_family": at_orbit("phase_chain", "tangent")}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3564,4 +3946,10 @@ def main(run: Run = Run()) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ptxas-reference"] and len(sys.argv) == 4:
+        sys.exit(ptxas_reference(os.path.abspath(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--ptxas-reference CSRC OUT.json]",
+              file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

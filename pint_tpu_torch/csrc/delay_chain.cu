@@ -1,8 +1,9 @@
 // delay_chain: the whole delay chain of a timing model (astrometry, delay
-// jumps, the troposphere, solar Shapiro, the solar wind, DM + DMX and the
-// DM family's jumps, DMWaveX, the chromatic delays, the binary, FD,
-// FDJUMP and WaveX) for every (theta set, TOA) row, and its forward-mode
-// tangents, for NVIDIA Hopper (sm_90a).
+// jumps, the troposphere, the Shapiro delays of the Sun and the planets,
+// the solar wind, DM + DMX and the DM family's jumps, DMWaveX, the
+// chromatic delays, the binary with its PB/PBDOT or FBn orbit, ORBWAVEs
+// and BT_PIECEWISE's pieces, FD, FDJUMP and WaveX) for every (theta set,
+// TOA) row, and its forward-mode tangents, for NVIDIA Hopper (sm_90a).
 //
 // Replaces (K4) the eager per-component delays that pint_tpu computes in
 // jnp (no Pallas kernel there; see delay_chain.cuh for the functions, file
@@ -13,9 +14,10 @@
 // Entry points, one row function (delay_chain.cuh) templated over the
 // scalar type, the binary family a template parameter (none, ELL1, DD/BT,
 // DDK, DDS/DDH, ELL1H, ELL1k; each again with the DM family's terms
-// compiled in, kDMFamily, and again with the DM and the chromatic
-// family's, kDMFamily + kChromFamily, so that a layout without them runs
-// the code it ran before they came):
+// compiled in, kDMFamily, again with the DM and the chromatic family's,
+// kDMFamily + kChromFamily, and again with those and the orbit family's,
+// + kOrbitFamily, so that a layout without them runs the code it ran
+// before they came):
 //   primal:  out[g, n]        = delay(theta[g], row n)         (double)
 //   tangent: tangent[g, k, n] = d delay(theta[g], row n) . dtheta[g, k]
 // with theta (G, P) and dtheta (G, K, P): g runs over theta sets (the grid
@@ -72,14 +74,14 @@ namespace {
 
 using ptchain::CfgOf;
 using ptchain::ChainCfg;
-using ptchain::ChromCfg;
-using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::Row;
 using ptchain::RowData;
 using ptchain::RowDataOf;
 using ptchain::load_row_of;
+using ptchain::OrbCfg;
+using ptchain::OrbRowData;
 using ptchain::Theta;
 
 template <int BIN>
@@ -208,6 +210,19 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const double* theta,
   }
 }
 
+// launch<BIN> where this library holds BIN (a build in parts holds some
+// template values: kernels/build.py part_of picks the library)
+template <int BIN>
+cudaError_t launch_part(const OrbRowData& rd, const double* theta,
+                        const double* dtheta, const OrbCfg& c, int K, int lpt,
+                        int64_t G, int64_t N, double* out, double* aux,
+                        cudaStream_t stream) {
+  if constexpr (ptchain::in_part(BIN))
+    return launch<BIN>(rd, theta, dtheta, c, K, lpt, G, N, out, aux, stream);
+  else
+    return cudaErrorNotSupported;
+}
+
 }  // namespace
 
 // One launch.  theta is (G, P) float64.  With dtheta == nullptr `out`
@@ -216,9 +231,10 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const double* theta,
 // receives the (G, K, N) tangent, each thread carrying `lpt` lanes (1, 2
 // or 4).  dmx ((N, 2) int32 bins per TOA, -1 none), jbits (int32
 // DelayJump bits), swx ((N, 2) int32 SWX ranges), fdmbits and fdjbits
-// (int32 FDJUMPDM and FDJUMP bits), cmx ((N, 2) int32 CMX ranges) and
-// tropo (float64 troposphere delay [s]) may be null when the model has
-// none.
+// (int32 FDJUMPDM and FDJUMP bits), cmx ((N, 2) int32 CMX ranges),
+// tropo (float64 troposphere delay [s]), planets ((N, 5, 3) float64
+// observatory -> planet [ls]) and btpiece (int32 BT_PIECEWISE piece, -1
+// none) may be null when the model has none.
 // Returns a cudaError_t code (0 on success).
 extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
                            const float* frac_w, const double* pos,
@@ -226,14 +242,17 @@ extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
                            const int32_t* dmx, const int32_t* jbits,
                            const int32_t* swx, const int32_t* fdmbits,
                            const int32_t* fdjbits, const int32_t* cmx,
-                           const double* tropo, const double* theta,
+                           const double* tropo, const double* planets,
+                           const int32_t* btpiece, const double* theta,
                            const double* dtheta, double* out, double* aux,
-                           ChromCfg cfg, int64_t G, int64_t K, int64_t N,
+                           OrbCfg cfg, int64_t G, int64_t K, int64_t N,
                            int lpt, void* stream) {
-  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                          swx, fdmbits, fdjbits},
-                         cmx,
-                         tropo};
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
   if (G < 1 || N < 1 || cfg.P < 1 ||
       (dtheta != nullptr && (K < 1 || K > INT32_MAX)) ||
       !ptchain::rows_cover(cfg, rd))
@@ -243,8 +262,8 @@ extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
   switch (ptchain::kernel_family(cfg)) {
 #define PT_CASE(B)                                                        \
   case B:                                                                 \
-    err = launch<B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out, aux, \
-                    s);                                                   \
+    err = launch_part<B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out,  \
+                         aux, s);                                         \
     break;
     PT_FAMILIES(PT_CASE)
 #undef PT_CASE

@@ -10,7 +10,7 @@
 // XLA compiles them from jnp, one elementwise op at a time):
 //   K4  pint_tpu/models/astrometry.py  Astrometry.delay, _sincos
 //       (equatorial and ecliptic, PM and PX: AstrometryEcliptic.psr_dir),
-//       solar_system_shapiro.py (the Sun)
+//       solar_system_shapiro.py (the Sun, and PLANET_SHAPIRO's planets)
 //       dispersion.py  DispersionDM (+ DM Taylor terms), DispersionDMX
 //       frequency_dependent.py  FD, FDJump;  jump.py  DelayJump
 //       dispersion.py  FDJumpDM (DispersionJump adds no delay)
@@ -24,7 +24,9 @@
 //       BinaryELL1H.shapiro_delay, BinaryELL1k._eps / roemer_const
 //       binary_dd.py  BinaryDDBase/BinaryDD/BinaryBT.delay,
 //       BinaryDDK._kopeikin, and BinaryDDS/DDH/DDGR through the theta
-//       slots that kernels/delay_chain.py ChainLayout derives for them
+//       slots that kernels/delay_chain.py ChainLayout derives for them,
+//       BinaryBTPiecewise.dt_extra / a1_val
+//       binary_orbits.py  orbits_and_freq (the FBn orbit), orbwave_delta
 // The plain PyTorch versions are the component delays of
 // pint_tpu_torch/models/*.py, composed by PhaseCalc.delay_plain; each
 // expression below keeps their operation order, so the two agree to the
@@ -51,7 +53,10 @@
 // instantiations without it are the code they were before it came.  The
 // chromatic family (CM, CMX, the WaveX family, the exponential dips, the
 // chromatic Gaussian events, the troposphere) likewise only where it
-// carries kChromFamily, which is added on top of kDMFamily alone.
+// carries kChromFamily, which is added on top of kDMFamily alone.  The
+// orbit family (an FBn orbit, ORBWAVE, BT_PIECEWISE's pieces, the
+// planets' Shapiro delays) only where it carries kOrbitFamily, which is
+// added on top of kDMFamily + kChromFamily alone.
 
 #pragma once
 
@@ -495,6 +500,11 @@ enum : int32_t {
   kTropo = 1 << 25,       // TroposphereDelay (one row input)
   kChromFamilyFlags = kCM | kCMX | kCMWaveX | kDMWaveX | kWaveX | kExpDip |
                       kChromGauss | kTropo,
+  kFBOrbit = 1 << 26,        // the orbit is an FBn series (not PB/PBDOT)
+  kOrbWave = 1 << 27,        // ORBWAVE Fourier terms of the orbital phase
+  kBTPieces = 1 << 28,       // BT_PIECEWISE's pieces (one row input)
+  kPlanetShapiro = 1 << 29,  // PLANET_SHAPIRO (one row input)
+  kOrbitFamilyFlags = kFBOrbit | kOrbWave | kBTPieces | kPlanetShapiro,
 };
 
 // binary families (the kernels' template parameter)
@@ -512,6 +522,9 @@ enum : int32_t {
   // added to family + kDMFamily: the chromatic family's terms compiled in
   // (a layout with any of kChromFamilyFlags)
   kChromFamily = 16,
+  // added to family + kDMFamily + kChromFamily: the orbit family's terms
+  // compiled in (a layout with any of kOrbitFamilyFlags)
+  kOrbitFamily = 32,
 };
 
 // slot offsets within the binary block of theta
@@ -635,6 +648,32 @@ enum : int32_t {
   gaussIdx = 4,
 };
 
+// the config of the orbit family's kernels: ChromCfg, then the FBn
+// orbit's terms FB0..FB_{nfb-1}, the ORBWAVE harmonics, the BT_PIECEWISE
+// pieces, and their blocks' offsets
+struct OrbCfg : ChromCfg {
+  int32_t nfb, norbw, npiece;
+  int32_t o_fb, o_orbw, o_piece;
+};
+
+// slots of the orbit family's blocks: the FBn orbit's leading 0, then
+// FB0..FB_{nfb-1} (taylor_horner's coefficients); ORBWAVE_OM [rad/s],
+// ORBWAVE_EPOCH [day], then per harmonic its C and S [orbits]; per piece
+// its t - T0 shift (T0 - T0X) * 86400 [s] (formed in PyTorch), whether it
+// sets T0X, its A1X [ls] and whether it sets A1X (1 or 0)
+enum : int32_t {
+  fbZero = 0,
+  fbFirst = 1,
+  owOM = 0,
+  owEpoch = 1,
+  owFirst = 2,
+  pieceShift = 0,
+  pieceT0Set = 1,
+  pieceA1X = 2,
+  pieceA1Set = 3,
+  pieceSlots = 4,
+};
+
 // slots within the solar wind's block of theta: the Taylor epoch [day],
 // the nsw NE_SW terms, then for SWM 1 SWP, the half range
 // sqrt(pi)/2 Gamma((p-1)/2) / Gamma(p/2) and AU_LS^p (formed in PyTorch,
@@ -652,6 +691,13 @@ constexpr double kPi = 3.141592653589793;       // math.pi
 constexpr double kHalfPi = 1.5707963267948966;  // math.pi / 2
 constexpr double kAuLs2 = 249005.77429136922;   // AU_LS**2 (Python's)
 constexpr double kPcLs = 102927125.05433899;    // 1 pc in light-seconds
+// the planets' GM / c^3 [s] (PLANET_SHAPIRO), in kernels/delay_chain.py
+// PLANETS order
+constexpr double kTjupiter = 4.702819050227708e-09;
+constexpr double kTsaturn = 1.408128810019423e-09;
+constexpr double kTvenus = 1.205680558494223e-11;
+constexpr double kTuranus = 2.1505895513637613e-10;
+constexpr double kTneptune = 2.5373119991867603e-10;
 // the J2000 ecliptic pole (solar_wind.py ECL_POLE)
 constexpr double kEclPoleX = 0.0, kEclPoleY = -0.3977771559319137,
                  kEclPoleZ = 0.9174820620691818;
@@ -734,6 +780,13 @@ struct ChromRow : Row {
   double tropo;  // [s]
 };
 
+// the row of the orbit family's kernels: the planets' positions and the
+// BT_PIECEWISE piece on top of ChromRow
+struct OrbRow : ChromRow {
+  const double* planets;  // observatory -> planet [ls], (5, 3)
+  int32_t btpiece;        // the row's piece, -1 for none
+};
+
 // the per-row inputs as the kernels receive them (kernels/delay_chain.py
 // ROWS), and one row of them
 struct RowData {
@@ -754,33 +807,51 @@ struct ChromRowData : RowData {
   const int32_t* __restrict__ cmx;
   const double* __restrict__ tropo;
 };
+// and the orbit family's: the planets' positions and the pieces
+struct OrbRowData : ChromRowData {
+  const double* __restrict__ planets;
+  const int32_t* __restrict__ btpiece;
+};
 
 // the config, row inputs and row of the kernels of template value BIN:
-// the chromatic family's only where it carries kChromFamily, so that the
-// other kernels keep the parameters, and the code, they had
-template <bool CHROM>
+// the chromatic family's only where it carries kChromFamily, and the
+// orbit family's only where it carries kOrbitFamily, so that the other
+// kernels keep the parameters, and the code, they had
+template <bool CHROM, bool ORB>
 struct ChromSel {
   using Cfg = ChainCfg;
   using Data = RowData;
   using Row_ = Row;
 };
 template <>
-struct ChromSel<true> {
+struct ChromSel<true, false> {
   using Cfg = ChromCfg;
   using Data = ChromRowData;
   using Row_ = ChromRow;
 };
+template <>
+struct ChromSel<true, true> {
+  using Cfg = OrbCfg;
+  using Data = OrbRowData;
+  using Row_ = OrbRow;
+};
 template <int BIN>
-using CfgOf = typename ChromSel<(BIN & kChromFamily) != 0>::Cfg;
+using SelOf = ChromSel<(BIN & kChromFamily) != 0, (BIN & kOrbitFamily) != 0>;
 template <int BIN>
-using RowDataOf = typename ChromSel<(BIN & kChromFamily) != 0>::Data;
+using CfgOf = typename SelOf<BIN>::Cfg;
 template <int BIN>
-using RowOf = typename ChromSel<(BIN & kChromFamily) != 0>::Row_;
+using RowDataOf = typename SelOf<BIN>::Data;
+template <int BIN>
+using RowOf = typename SelOf<BIN>::Row_;
 
 // the template value of the kernels that a layout launches: its binary
-// family, with kDMFamily added when it has a term of the DM family, and
-// kDMFamily + kChromFamily when it has one of the chromatic family
+// family, with kDMFamily added when it has a term of the DM family,
+// kDMFamily + kChromFamily when it has one of the chromatic family, and
+// kDMFamily + kChromFamily + kOrbitFamily when it has one of the orbit
+// family
 PT_HD int kernel_family(const ChainCfg& c) {
+  if (c.flags & kOrbitFamilyFlags)
+    return c.binary + kDMFamily + kChromFamily + kOrbitFamily;
   if (c.flags & kChromFamilyFlags) return c.binary + kDMFamily + kChromFamily;
   return c.binary + ((c.flags & kDMFamilyFlags) ? kDMFamily : 0);
 }
@@ -796,7 +867,7 @@ PT_HD int kernel_family(const ChainCfg& c) {
   X(ptchain::kDDTM2 + ptchain::kDMFamily)                                \
   X(ptchain::kELL1H + ptchain::kDMFamily)                                \
   X(ptchain::kELL1K + ptchain::kDMFamily)                                \
-  PT_CHROM_FAMILIES(X)
+  PT_CHROM_FAMILIES(X) PT_ORB_FAMILIES(X)
 
 #define PT_CHROM(B) ((B) + ptchain::kDMFamily + ptchain::kChromFamily)
 #define PT_CHROM_FAMILIES(X)                                             \
@@ -804,6 +875,34 @@ PT_HD int kernel_family(const ChainCfg& c) {
   X(PT_CHROM(ptchain::kDD)) X(PT_CHROM(ptchain::kDDK))                   \
   X(PT_CHROM(ptchain::kDDTM2)) X(PT_CHROM(ptchain::kELL1H))              \
   X(PT_CHROM(ptchain::kELL1K))
+
+// the index of template value BIN among PT_FAMILIES' 28: the binary
+// family, plus 7 per level (alone, + kDMFamily, + kChromFamily,
+// + kOrbitFamily; kernels/delay_chain.py ChainLayout.kernel_index)
+constexpr int family_index(int BIN) {
+  return 7 * ((BIN & kOrbitFamily)   ? 3
+              : (BIN & kChromFamily) ? 2
+              : (BIN & kDMFamily)    ? 1
+                                     : 0) +
+         (BIN & 7);
+}
+// whether this build instantiates template value BIN: a build in parts
+// (nvcc -DPT_PARTS=n -DPT_PART=p, kernels/build.py PARTS) the values
+// whose index is p mod n, a whole build (the host's) all of them
+constexpr bool in_part(int BIN) {
+#ifdef PT_PARTS
+  return family_index(BIN) % PT_PARTS == PT_PART;
+#else
+  return BIN >= 0;
+#endif
+}
+
+#define PT_ORB(B) (PT_CHROM(B) + ptchain::kOrbitFamily)
+#define PT_ORB_FAMILIES(X)                                               \
+  X(PT_ORB(ptchain::kNoBinary)) X(PT_ORB(ptchain::kELL1))                \
+  X(PT_ORB(ptchain::kDD)) X(PT_ORB(ptchain::kDDK))                       \
+  X(PT_ORB(ptchain::kDDTM2)) X(PT_ORB(ptchain::kELL1H))                  \
+  X(PT_ORB(ptchain::kELL1K))
 
 // whether a layout's member counts fit the bit words and the row inputs
 // hold what it reads (the kernels refuse it otherwise)
@@ -820,6 +919,20 @@ PT_HD bool rows_cover(const ChromCfg& c, const ChromRowData& rd) {
          !((f & kCMX) && c.ncmx > 0 && rd.cmx == nullptr) &&
          !((f & kTropo) && rd.tropo == nullptr) &&
          !((f & (kCMX | kCMWaveX)) && !(f & kCM));
+}
+// and the orbit family's: the planets need their positions and the Sun's
+// term, the pieces their index and a DD/BT binary, an FBn orbit and
+// ORBWAVEs a binary
+PT_HD bool rows_cover(const OrbCfg& c, const OrbRowData& rd) {
+  const int f = c.flags;
+  return rows_cover(static_cast<const ChromCfg&>(c),
+                    static_cast<const ChromRowData&>(rd)) &&
+         !((f & kPlanetShapiro) &&
+           (rd.planets == nullptr || !(f & kShapiro))) &&
+         !((f & kBTPieces) && (rd.btpiece == nullptr || c.binary != kDD ||
+                               c.npiece < 1)) &&
+         !((f & (kFBOrbit | kOrbWave)) && c.binary == kNoBinary) &&
+         !((f & kFBOrbit) && c.nfb < 1);
 }
 
 PT_HD Row load_row(const RowData& rd, int64_t n) {
@@ -843,7 +956,16 @@ PT_HD Row load_row(const RowData& rd, int64_t n) {
 // row n as template value BIN reads it
 template <int BIN>
 PT_HD RowOf<BIN> load_row_of(const RowDataOf<BIN>& rd, int64_t n) {
-  if constexpr ((BIN & kChromFamily) != 0) {
+  if constexpr ((BIN & kOrbitFamily) != 0) {
+    OrbRow r;
+    static_cast<Row&>(r) = load_row(rd, n);
+    r.cmx0 = rd.cmx != nullptr ? rd.cmx[2 * n] : -1;
+    r.cmx1 = rd.cmx != nullptr ? rd.cmx[2 * n + 1] : -1;
+    r.tropo = rd.tropo != nullptr ? rd.tropo[n] : 0.0;
+    r.planets = rd.planets != nullptr ? rd.planets + 15 * n : nullptr;
+    r.btpiece = rd.btpiece != nullptr ? rd.btpiece[n] : -1;
+    return r;
+  } else if constexpr ((BIN & kChromFamily) != 0) {
     ChromRow r;
     static_cast<Row&>(r) = load_row(rd, n);
     r.cmx0 = rd.cmx != nullptr ? rd.cmx[2 * n] : -1;
@@ -930,6 +1052,29 @@ PT_HD T sun_shapiro(const Row& r, const T (&L)[3]) {
   if (!(rr > 0.0)) return make<T>(0.0);
   const T rcos = r.sun[0] * L[0] + r.sun[1] * L[1] + r.sun[2] * L[2];
   return (-2.0 * kTsun) * f_log((rr - rcos) / kAuLs);
+}
+
+// SolarSystemShapiro with PLANET_SHAPIRO: the Sun's term, then each
+// planet's (solar_system_shapiro.py shapiro_delay) in the order of its sum
+template <typename T>
+PT_HD T planet_shapiro(const double* pos, const T (&L)[3], double t_obj) {
+  const double rr = sqrt(pos[0] * pos[0] + pos[1] * pos[1] + pos[2] * pos[2]);
+  if (!(rr > 0.0)) return make<T>(0.0);
+  const T rcos = pos[0] * L[0] + pos[1] * L[1] + pos[2] * L[2];
+  return (-2.0 * t_obj) * f_log((rr - rcos) / kAuLs);
+}
+template <typename T>
+PT_HD T solar_system_shapiro(const OrbCfg& c, const OrbRow& r,
+                             const T (&L)[3]) {
+  T s = sun_shapiro(r, L);
+  if (c.flags & kPlanetShapiro) {
+    s = s + planet_shapiro(r.planets, L, kTjupiter);
+    s = s + planet_shapiro(r.planets + 3, L, kTsaturn);
+    s = s + planet_shapiro(r.planets + 6, L, kTvenus);
+    s = s + planet_shapiro(r.planets + 9, L, kTuranus);
+    s = s + planet_shapiro(r.planets + 12, L, kTneptune);
+  }
+  return s;
 }
 
 // pint_tpu.utils.taylor_horner: sum_k c_k dt^k / k!
@@ -1118,15 +1263,87 @@ PT_HD T binary_dt(const Theta<T>& th, int o, const Row& r, const T& delay) {
   return with_value(ptqs::qs_to_f64(q), shift);
 }
 
-// BinaryELL1 / ELL1H / ELL1k .delay (PB/PBDOT orbit)
-template <typename T, int BIN>
+// binary_orbits.py orbits_and_freq: the orbit count and the orbital
+// frequency [1/s] at dt from PB/PBDOT or (the orbit family: kFBOrbit) the
+// FBn series, plus (kOrbWave) orbwave_delta's Fourier terms at
+// tw = t - ORBWAVE_EPOCH - the delay before the binary [s]
+template <typename T, bool ORB>
+PT_HD void orbit(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                 const T& dt, const T& delay, T& orbits, T& forb) {
+  const int o = c.o_bin;
+  if constexpr (ORB) {
+    const OrbCfg& oc = static_cast<const OrbCfg&>(c);
+    if (c.flags & kFBOrbit) {
+      orbits = taylor_horner(dt, th, oc.o_fb + fbZero, oc.nfb + 1);
+      forb = taylor_horner(dt, th, oc.o_fb + fbFirst, oc.nfb);
+    } else {
+      const T pb = th[o + bPB], pbdot = th[o + bPBDOT];
+      orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
+      forb = (1.0 - pbdot * (dt / pb)) / pb;
+    }
+    if (c.flags & kOrbWave) {
+      const int q = oc.o_orbw;
+      const T om = th[q + owOM];
+      const T tw = days_since(th, q + owEpoch, r) * 86400.0 - delay;
+      T dphi = make<T>(0.0), dfreq = make<T>(0.0);
+      for (int k = 0; k < oc.norbw; ++k) {
+        const T w = (k + 1.0) * om;
+        T ss, cc;
+        f_sincos(w * tw, ss, cc);
+        const T C = th[q + owFirst + 2 * k], S = th[q + owFirst + 2 * k + 1];
+        dphi = (dphi + C * cc) + S * ss;
+        dfreq = dfreq + w * (S * cc - C * ss);
+      }
+      orbits = orbits + dphi;
+      forb = forb + dfreq;
+    }
+  } else {
+    const T pb = th[o + bPB], pbdot = th[o + bPBDOT];
+    orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
+    forb = (1.0 - pbdot * (dt / pb)) / pb;
+  }
+}
+
+// BinaryBTPiecewise.dt_extra: t - T0 [s] of a row in a piece that sets
+// T0X shifted by the piece's (T0 - T0X) * 86400 (the orbit family only)
+template <typename T, bool ORB>
+PT_HD T piece_dt(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                 const T& dt) {
+  if constexpr (ORB) {
+    const int i = static_cast<const OrbRow&>(r).btpiece;
+    if ((c.flags & kBTPieces) && i >= 0) {
+      const int q = static_cast<const OrbCfg&>(c).o_piece + pieceSlots * i;
+      if (val(th[q + pieceT0Set]) != 0.0) return dt + th[q + pieceShift];
+    }
+  }
+  return dt;
+}
+
+// BinaryBTPiecewise.a1_val: a1 of a row in a piece that sets A1X replaced
+// in the reference's order a1 + ((A1X + dt A1DOT) - a1)
+template <typename T, bool ORB>
+PT_HD T piece_a1(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                 const T& dt, const T& a1) {
+  if constexpr (ORB) {
+    const int i = static_cast<const OrbRow&>(r).btpiece;
+    if ((c.flags & kBTPieces) && i >= 0) {
+      const int q = static_cast<const OrbCfg&>(c).o_piece + pieceSlots * i;
+      if (val(th[q + pieceA1Set]) != 0.0)
+        return a1 + ((th[q + pieceA1X] + dt * th[c.o_bin + bA1DOT]) - a1);
+    }
+  }
+  return a1;
+}
+
+// BinaryELL1 / ELL1H / ELL1k .delay (the PB/PBDOT orbit; with ORB the
+// orbit family's FBn orbit and ORBWAVEs too)
+template <typename T, int BIN, bool ORB = false>
 PT_HD T ell1(const ChainCfg& c, const Theta<T>& th, const Row& r,
              const T& delay) {
   const int o = c.o_bin;
   const T dt = binary_dt(th, o, r, delay);
-  const T pb = th[o + bPB], pbdot = th[o + bPBDOT];
-  const T orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
-  const T forb = (1.0 - pbdot * (dt / pb)) / pb;
+  T orbits, forb;
+  orbit<T, ORB>(c, th, r, dt, delay, orbits, forb);
   const T Phi = kTwoPi * (orbits - f_floor(orbits));
   T e1, e2;
   if (BIN == kELL1K) {
@@ -1236,17 +1453,18 @@ PT_HD void kopeikin(const ChainCfg& c, const Theta<T>& th, const Row& r,
 
 // BinaryDD / BinaryBT delay (PB/PBDOT orbit), and the variants: DDK
 // (the Kopeikin terms per row), DDS and DDH (the Shapiro slots as
-// given); aux, if given, receives (M, e, E) of the Kepler solve
-template <typename T, int BIN>
+// given); with ORB the orbit family's FBn orbit, ORBWAVEs and
+// BT_PIECEWISE's pieces too; aux, if given, receives (M, e, E) of the
+// Kepler solve
+template <typename T, int BIN, bool ORB = false>
 PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
            const T& delay, double* aux) {
   const int o = c.o_bin;
-  const T dt = binary_dt(th, o, r, delay);
+  const T dt = piece_dt<T, ORB>(c, th, r, binary_dt(th, o, r, delay));
   T d_a1, d_om, kin;
   if (BIN == kDDK) kopeikin(c, th, r, dt, d_a1, d_om, kin);
-  const T pb = th[o + bPB], pbdot = th[o + bPBDOT];
-  const T orbits = dt / pb - (0.5 * pbdot) * ((dt / pb) * (dt / pb));
-  const T forb = (1.0 - pbdot * (dt / pb)) / pb;
+  T orbits, forb;
+  orbit<T, ORB>(c, th, r, dt, delay, orbits, forb);
   const T M = kTwoPi * (orbits - f_floor(orbits));
   const T e = clip_unit(th[o + bECC] + dt * th[o + bEDOT]);
   // the Kepler solve, and its implicit-function tangent
@@ -1261,6 +1479,7 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
   }
   T a1 = th[o + bA1] + dt * th[o + bA1DOT];
   if (BIN == kDDK) a1 = a1 + d_a1;
+  a1 = piece_a1<T, ORB>(c, th, r, dt, a1);
   const T n = kTwoPi * forb;
   // true_anomaly_continuous
   T nu = 2.0 * f_atan2(f_sqrt(1.0 + e) * f_sin(E / 2.0),
@@ -1319,9 +1538,10 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
 template <typename T, int BIN>
 PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
                   double* aux) {
-  constexpr int FAM = BIN & ~(kDMFamily | kChromFamily);
+  constexpr int FAM = BIN & ~(kDMFamily | kChromFamily | kOrbitFamily);
   constexpr bool DMF = (BIN & kDMFamily) != 0;
   constexpr bool CHF = (BIN & kChromFamily) != 0;
+  constexpr bool ORB = (BIN & kOrbitFamily) != 0;
   T d = make<T>(0.0);
   T L[3] = {d, d, d};
   if (c.flags & kAstro) d = d + astrometry(c, th, r, L);
@@ -1334,7 +1554,13 @@ PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
   if constexpr (CHF) {
     if (c.flags & kTropo) d = d + r.tropo;
   }
-  if (c.flags & kShapiro) d = d + sun_shapiro(r, L);
+  if (c.flags & kShapiro) {
+    // the component's sum added once (PhaseCalc adds each component's)
+    if constexpr (ORB)
+      d = d + solar_system_shapiro(c, r, L);
+    else
+      d = d + sun_shapiro(r, L);
+  }
   if constexpr (DMF) {
     if (c.flags & kSolarWind) d = d + solar_wind(c, th, r, L);
     if (c.flags & kSWX) d = d + swx(c, th, r, L);
@@ -1396,9 +1622,9 @@ PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
     if (c.flags & kChromGauss) d = d + chrom_gauss(c, th, r);
   }
   if (FAM == kELL1 || FAM == kELL1H || FAM == kELL1K)
-    d = d + ell1<T, FAM>(c, th, r, d);
+    d = d + ell1<T, FAM, ORB>(c, th, r, d);
   if (FAM == kDD || FAM == kDDK || FAM == kDDTM2)
-    d = d + dd<T, FAM>(c, th, r, d, aux);
+    d = d + dd<T, FAM, ORB>(c, th, r, d, aux);
   if (c.flags & kFD) {
     T out = make<T>(0.0);
     if (isfinite(r.freq)) {

@@ -6,9 +6,12 @@
 // or nvcc (tests/test_torch_delay_chain_host.py).  Build it without FMA
 // contraction, as the kernels are, from the repository root:
 //
-//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC
+//   g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC
 //       -I pint_tpu_torch/csrc pint_tpu_torch/csrc/delay_chain_host.cpp
 //       -o libdelay_chain_host.so
+//
+// (-O1 compiles the 28 template values in about half the time -O2 takes;
+// the arithmetic is the same IEEE operations, without contraction.)
 
 #include <stdint.h>
 
@@ -18,17 +21,15 @@
 
 namespace {
 
-using ptchain::ChainCfg;
-using ptchain::ChromCfg;
-using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
-using ptchain::RowData;
+using ptchain::OrbCfg;
+using ptchain::OrbRowData;
 using ptchain::Theta;
 
 template <int BIN, int L>
-void tangent_lanes(const ChromRowData& rd, const double* theta,
-                   const double* dtheta, const ChromCfg& c, int64_t G,
+void tangent_lanes(const OrbRowData& rd, const double* theta,
+                   const double* dtheta, const OrbCfg& c, int64_t G,
                    int64_t K, int64_t N, double* out) {
   const int P = c.P;
   std::vector<double> d((size_t)L * P);
@@ -50,8 +51,8 @@ void tangent_lanes(const ChromRowData& rd, const double* theta,
 }
 
 template <int BIN>
-int run(const ChromRowData& rd, const double* theta, const double* dtheta,
-        const ChromCfg& c, int64_t G, int64_t K, int64_t N, int lpt,
+int run(const OrbRowData& rd, const double* theta, const double* dtheta,
+        const OrbCfg& c, int64_t G, int64_t K, int64_t N, int lpt,
         double* out) {
   const int P = c.P;
   if (dtheta == nullptr) {
@@ -94,13 +95,15 @@ extern "C" int delay_chain_host(
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
     const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
-    const double* tropo, const double* theta,
-    const double* dtheta, double* out, ChromCfg cfg, int64_t G, int64_t K,
-    int64_t N, int lpt) {
-  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                          swx, fdmbits, fdjbits},
-                         cmx,
-                         tropo};
+    const double* tropo, const double* planets, const int32_t* btpiece,
+    const double* theta, const double* dtheta, double* out, OrbCfg cfg,
+    int64_t G, int64_t K, int64_t N, int lpt) {
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
   if (G < 1 || N < 1 || cfg.P < 1 || (dtheta != nullptr && K < 1) ||
       !ptchain::rows_cover(cfg, rd))
     return 1;

@@ -56,12 +56,12 @@ namespace {
 
 using ptchain::CfgOf;
 using ptchain::ChainCfg;
-using ptchain::ChromCfg;
-using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
 using ptchain::RowDataOf;
+using ptchain::OrbCfg;
+using ptchain::OrbRowData;
 using ptchain::Theta;
 using ptchain::load_row_of;
 using ptphase::PhaseOut;
@@ -243,6 +243,22 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const PhaseData& ph,
   }
 }
 
+// launch<BIN> where this library holds BIN (a build in parts holds some
+// template values: kernels/build.py part_of picks the library)
+template <int BIN>
+cudaError_t launch_part(const OrbRowData& rd, const PhaseData& ph,
+                        const TangentData& td, const double* theta,
+                        const double* dtheta, const OrbCfg& c,
+                        const PhaseCfg& pc, int K, int lpt, int64_t G,
+                        int64_t N, double* out, float* words, double* slope,
+                        double* dt64, cudaStream_t stream) {
+  if constexpr (ptchain::in_part(BIN))
+    return launch<BIN>(rd, ph, td, theta, dtheta, c, pc, K, lpt, G, N, out,
+                       words, slope, dt64, stream);
+  else
+    return cudaErrorNotSupported;
+}
+
 }  // namespace
 
 // One launch.  theta is (G, P) float64 in the fused layout (cfg: the
@@ -255,27 +271,29 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const PhaseData& ph,
 // P) the tangent: `out` receives the (G, K, N) d frac, each thread
 // carrying `lpt` lanes (1, 2 or 4), from the primal's `slope_in` and
 // `dt64_in` and, if not null, d other at dother + g * dother_sg + k *
-// dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx and tropo as
-// delay_chain.cu takes them.  Returns a cudaError_t code (0 on success).
+// dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx, tropo, planets
+// and btpiece as delay_chain.cu takes them.  Returns a cudaError_t code (0 on success).
 extern "C" int phase_chain(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
     const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
-    const double* tropo,
+    const double* tropo, const double* planets, const int32_t* btpiece,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, ChromCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, OrbCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt,
     void* stream) {
   const bool tangent = dtheta != nullptr;
-  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                          swx, fdmbits, fdjbits},
-                         cmx,
-                         tropo};
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||
@@ -297,8 +315,8 @@ extern "C" int phase_chain(
   switch (ptchain::kernel_family(cfg)) {
 #define PT_CASE(B)                                                        \
   case B:                                                                 \
-    err = launch<B>(rd, ph, td, theta, dtheta, cfg, pc, (int)K, lpt, G, N, \
-                    out, words, slope, dt64, s);                          \
+    err = launch_part<B>(rd, ph, td, theta, dtheta, cfg, pc, (int)K, lpt, G, \
+                         N, out, words, slope, dt64, s);                  \
     break;
     PT_FAMILIES(PT_CASE)
 #undef PT_CASE

@@ -8,9 +8,12 @@
 // (tests/test_torch_phase_chain_host.py).  Build it without FMA
 // contraction, as the kernels are, from the repository root:
 //
-//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC
+//   g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC
 //       -I pint_tpu_torch/csrc pint_tpu_torch/csrc/phase_chain_host.cpp
 //       -o libphase_chain_host.so
+//
+// (-O1 compiles the 28 template values in about half the time -O2 takes;
+// the arithmetic is the same IEEE operations, without contraction.)
 
 #include <stdint.h>
 
@@ -21,11 +24,11 @@
 namespace {
 
 using ptchain::ChainCfg;
-using ptchain::ChromCfg;
-using ptchain::ChromRowData;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
+using ptchain::OrbCfg;
+using ptchain::OrbRowData;
 using ptchain::Theta;
 using ptchain::load_row_of;
 using ptphase::PhaseOut;
@@ -40,9 +43,9 @@ struct Tangent {
 };
 
 template <int BIN, int L>
-void tangent_lanes(const ChromRowData& rd, const Tangent& td,
+void tangent_lanes(const OrbRowData& rd, const Tangent& td,
                    const double* theta, const double* dtheta,
-                   const ChromCfg& c,
+                   const OrbCfg& c,
                    const PhaseCfg& pc, int64_t G, int64_t K, int64_t N,
                    double* out) {
   const int P = pc.P;
@@ -72,10 +75,10 @@ void tangent_lanes(const ChromRowData& rd, const Tangent& td,
 }
 
 template <int BIN>
-int run(const ChromRowData& rd, const double* pulse_number,
+int run(const OrbRowData& rd, const double* pulse_number,
         const double* pep_day, const float* pep_w, const float* f_w, const float* tzr_w,
         const double* other, int64_t other_sg, const Tangent& td,
-        const double* theta, const double* dtheta, const ChromCfg& c,
+        const double* theta, const double* dtheta, const OrbCfg& c,
         const PhaseCfg& pc, int64_t G, int64_t K, int64_t N, int lpt,
         double* out, float* words, double* slope, double* dt64) {
   const int P = pc.P;
@@ -137,19 +140,21 @@ extern "C" int phase_chain_host(
     const double* pos, const double* sun, const double* freq,
     const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
     const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
-    const double* tropo,
+    const double* tropo, const double* planets, const int32_t* btpiece,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, ChromCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, OrbCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt) {
   const bool tangent = dtheta != nullptr;
-  const ChromRowData rd{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                          swx, fdmbits, fdjbits},
-                         cmx,
-                         tropo};
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||

@@ -6,7 +6,9 @@ noise parameters free and per-TOA errors that vary, for the downhill
 fitters' maximum-likelihood noise fit), the DDK binary in ecliptic
 coordinates (WLS), and the NANOGrav-style wideband configuration (the
 noise model's TOAs with a wideband DM each, DMJUMP, DMEFAC/DMEQUAD and
-NE_SW)."""
+NE_SW), the chromatic configuration, and the spider binary (an FBn orbit
+with ORBWAVEs and PLANET_SHAPIRO), with the variants of the delay
+kernel's row function of each family."""
 
 from __future__ import annotations
 
@@ -768,3 +770,196 @@ def wavex_set_model(models, wave, span_days: float = 4550.0,
                     model[name].value = \
                         (a_s if "SIN_" in name else a_c) / k
     return model
+
+
+#: the spider-binary configuration (``spider_fbn_orbwave``): a redback
+#: millisecond pulsar of J1023+0038's class (PB 0.198 d, A1 0.343 ls,
+#: EPS1/EPS2 ~1e-5; M2 and SINI frozen), timed as black-widow and redback
+#: users time such a pulsar: the orbit by an FBn Taylor series in place
+#: of PB/PBDOT and PINT's ORBWAVE Fourier series for the wander of its
+#: orbital phase, with the planets' Shapiro delays
+SPIDER_PAR = """
+PSR J1023-SPIDER
+RAJ 10:23:47.687 1
+DECJ 00:38:40.85 1
+F0 592.42146 1
+F1 -2.4e-15 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 14.33 1
+PLANET_SHAPIRO Y
+BINARY ELL1
+A1 0.343356 1
+TASC 55000.1 1
+EPS1 1.2e-5 1
+EPS2 -8e-6 1
+M2 0.24
+SINI 0.67
+TZRMJD 55000.1
+TZRFRQ 1400
+TZRSITE gbt
+EPHEM DE421
+"""
+#: its orbital period [d]
+SPIDER_PB_DAYS = 0.1980963
+#: FB1 [1/s^2] (free) and FB2 [1/s^3] (frozen): each moves the orbital
+#: phase by ~5e-3 and ~6e-4 orbits at the ends of the 4,550-day span
+SPIDER_FB12 = (-2.5e-19, 5e-28)
+#: the ORBWAVE harmonics' (C, S) amplitudes [orbits], harmonics 0-3, free;
+#: ORBWAVE_EPOCH is the span's middle and ORBWAVE_OM's period the span
+SPIDER_ORBWAVE = ((2e-3, -1.5e-3), (1e-3, 8e-4), (-6e-4, 5e-4),
+                  (3e-4, -4e-4))
+#: the spider fit's start: offsets [par units] from the simulated truth
+SPIDER_PERTURB = {"F0": 1e-10, "A1": 3e-6, "EPS1": 1e-6, "EPS2": -1e-6,
+                  "FB0": 3e-14, "FB1": 2e-21, "ORBWAVEC0": 1e-4,
+                  "ORBWAVES1": -1e-4}
+
+
+def spider_orbit_lines(span_days: float = 4550.0,
+                       center_mjd: float = 54975.0, pb_days: float = None,
+                       fb12=SPIDER_FB12, orbwave=SPIDER_ORBWAVE):
+    """Par lines of an FBn orbit of period ``pb_days`` (FB0 and FB1 free,
+    FB2 frozen; :data:`SPIDER_FB12`) and of ORBWAVE harmonics
+    (``orbwave``, free) with ORBWAVE_EPOCH at the span's middle and
+    ORBWAVE_OM's period the span; either part left out where ``pb_days``
+    or ``orbwave`` is None."""
+    lines = []
+    if pb_days is not None:
+        lines += [f"FB0 {1.0 / (pb_days * 86400.0)!r} 1",
+                  f"FB1 {fb12[0]!r} 1", f"FB2 {fb12[1]!r}"]
+    if orbwave:
+        lines += [f"ORBWAVE_OM {2.0 * math.pi / (span_days * 86400.0)!r}",
+                  f"ORBWAVE_EPOCH {center_mjd!r}"]
+        for k, (c, s) in enumerate(orbwave):
+            lines += [f"ORBWAVEC{k} {c!r} 1", f"ORBWAVES{k} {s!r} 1"]
+    return lines
+
+
+def spider_realistic_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                         center_mjd: float = 54975.0) -> str:
+    """:data:`SPIDER_PAR` at NANOGrav width (:func:`j0740_realistic_par`'s
+    FD1-4, two receiver JUMPs and DMX bins) with
+    :func:`spider_orbit_lines`: 19 nonlinear free parameters (RAJ, DECJ,
+    F0, F1, DM, A1, TASC, EPS1, EPS2, FB0, FB1 and the eight ORBWAVE
+    amplitudes) and 76 linear ones at the default width, 95 in all."""
+    return "\n".join(
+        [SPIDER_PAR.strip()]
+        + spider_orbit_lines(span_days, center_mjd, SPIDER_PB_DAYS)
+        + _width_lines(dmx_bins, span_days, center_mjd))
+
+
+def simulate_spider_realistic(ntoas: int = 12500, seed: int = 0,
+                              dmx_bins: int = 70, span_days: float = 4550.0,
+                              center_mjd: float = 54975.0, device=None):
+    """(model, TOAs) of the full-width spider configuration, simulated as
+    :func:`simulate_dd_realistic` does (the planets' positions loaded:
+    the model sets PLANET_SHAPIRO)."""
+    return _simulate_uniform(
+        spider_realistic_par(dmx_bins=dmx_bins, span_days=span_days,
+                             center_mjd=center_mjd),
+        ntoas, seed, span_days, center_mjd, device)
+
+
+def spider_start(model):
+    """Move a spider model to its fit's start (:data:`SPIDER_PERTURB`)."""
+    for n, d in SPIDER_PERTURB.items():
+        model[n].value = model[n].value + d
+
+
+#: the BT_PIECEWISE pieces over the 4,550-day span: (XR1, XR2) as
+#: fractions of the span, and the T0X shift [d] and A1X offset [ls] from
+#: the par's T0 and A1 (None: the piece keeps the global value); a gap
+#: lies between the second and the third piece
+BTPW_PIECES = (((0.0, 0.24), 3e-5, 5e-6), ((0.24, 0.48), None, -4e-6),
+               ((0.52, 0.76), -2e-5, None), ((0.76, 1.0), 1e-5, 3e-6))
+
+
+def btpw_par(dmx_bins: int = 70, span_days: float = 4550.0,
+             center_mjd: float = 54975.0) -> str:
+    """:func:`dd_realistic_par` as a BT_PIECEWISE binary (M2, SINI and
+    OMDOT dropped, as BT has no Shapiro delay) with the four pieces of
+    :data:`BTPW_PIECES`, their T0X and A1X free."""
+    lo = center_mjd - span_days / 2
+    lines = []
+    t0 = a1 = None
+    for ln in dd_realistic_par(dmx_bins, span_days, center_mjd).splitlines():
+        key = ln.split()[0]
+        if key in ("M2", "SINI", "OMDOT"):
+            continue
+        if key == "T0":
+            t0 = float(ln.split()[1])
+        if key == "A1":
+            a1 = float(ln.split()[1])
+        lines.append("BINARY BT_PIECEWISE" if key == "BINARY" else ln)
+    for i, ((f1, f2), dt0, da1) in enumerate(BTPW_PIECES, 1):
+        lines += [f"XR1_{i:04d} {lo + f1 * span_days:.4f}",
+                  f"XR2_{i:04d} {lo + f2 * span_days:.4f}"]
+        if dt0 is not None:
+            lines.append(f"T0X_{i:04d} {t0 + dt0!r} 1")
+        if da1 is not None:
+            lines.append(f"A1X_{i:04d} {a1 + da1!r} 1")
+    return "\n".join(lines)
+
+
+#: the orbit family's variants of the delay kernel's row function: each
+#: term alone on the DD set (its 7.75 d orbit) and on the ELL1 set (the
+#: J0740 par's 4.77 d orbit) (:func:`orbit_family_par`)
+ORBIT_TERMS = ("FB", "ORBWAVE", "PLANET")
+ORBIT_FAMILY = tuple(f"ORB_{b}_{t}" for b in ("DD", "ELL1")
+                     for t in ORBIT_TERMS)
+#: the DD and the ELL1 set's orbital periods [d]
+ORBIT_PB_DAYS = {"DD": 7.75, "ELL1": 4.76694461}
+#: the ORBWAVE amplitudes [orbits] of the single-term variants
+ORBIT_ORBWAVE = ((3e-4, -2e-4), (1e-4, 1.5e-4))
+
+
+def orbit_family_lines(term: str, binary: str, span_days: float = 4550.0,
+                       center_mjd: float = 54975.0):
+    """Par lines of one orbit-family term on ``binary`` ("DD" or "ELL1"):
+    an FBn orbit of the par's period (FB0, FB1 free, FB2 frozen), two
+    ORBWAVE harmonics (free) on the PB orbit, or PLANET_SHAPIRO."""
+    if term == "FB":
+        return spider_orbit_lines(span_days, center_mjd,
+                                  ORBIT_PB_DAYS[binary], orbwave=None)
+    if term == "ORBWAVE":
+        return spider_orbit_lines(span_days, center_mjd,
+                                  orbwave=ORBIT_ORBWAVE)
+    if term == "PLANET":
+        return ["PLANET_SHAPIRO Y"]
+    raise ValueError(f"unknown orbit-family term {term!r}")
+
+
+#: the J0740 par's binary lines (``ORB_NONE_PLANET`` drops them)
+J0740_BINARY_KEYS = ("BINARY", "PB", "A1", "TASC", "EPS1", "EPS2", "M2",
+                     "SINI")
+
+
+def orbit_family_par(kind: str, dmx_bins: int = 70,
+                     span_days: float = 4550.0,
+                     center_mjd: float = 54975.0) -> str:
+    """The par of one of :data:`ORBIT_FAMILY`: :func:`dd_realistic_par` or
+    :func:`j0740_realistic_par` with :func:`orbit_family_lines` (the FBn
+    variants without PB and PBDOT); and ``ORB_NONE_PLANET``, the J0740
+    par without its binary, with PLANET_SHAPIRO."""
+    _, binary, term = kind.split("_", 2)
+    base = (dd_realistic_par if binary == "DD"
+            else j0740_realistic_par)(dmx_bins, span_days, center_mjd)
+    drop = {"FB": ("PB", "PBDOT")}.get(term, ())
+    if binary == "NONE":
+        drop, binary = J0740_BINARY_KEYS, "ELL1"
+    base = "\n".join(ln for ln in base.splitlines()
+                     if ln.split()[0] not in drop)
+    return "\n".join([base] + orbit_family_lines(term, binary, span_days,
+                                                 center_mjd))
+
+
+def orbit_mixed_par(dmx_bins: int = 70, span_days: float = 4550.0,
+                    center_mjd: float = 54975.0) -> str:
+    """:func:`spider_realistic_par` with the DM family's terms
+    (:func:`dm_family_lines`, SWM 0) and the chromatic family's CM: a
+    layout of the orbit family's kernels that runs every family's
+    terms."""
+    return "\n".join([spider_realistic_par(dmx_bins, span_days, center_mjd)]
+                     + dm_family_lines(0, span_days=span_days,
+                                       center_mjd=center_mjd)
+                     + chromatic_family_lines("CM", span_days, center_mjd))

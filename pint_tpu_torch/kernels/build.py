@@ -7,7 +7,11 @@ land in ``build/pint_tpu_torch/`` beside the package (or
 ``$PINT_TPU_TORCH_BUILD``), named by a hash of source and flags, so an
 unchanged kernel is not rebuilt.  Nothing is compiled at import: the first
 launch builds, or :func:`build_all` builds every source at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per library, all started together.  The delay and the
+phase chain instantiate their kernels for 28 template values; each is
+built in parts (:data:`PARTS`), library ``<name>.<p>`` holding the
+template values of part p (``csrc/delay_chain.cuh`` ``in_part``), so
+that the parts compile in parallel.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
 ``--fmad=false``: ``qs_phase``, ``delay_chain`` and ``phase_chain`` run
@@ -39,8 +43,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-#: every kernel source of the package, by library name
+#: every kernel source of the package
 SOURCES = ("qs_phase", "kepler", "delay_chain", "phase_chain")
+#: the sources built in parts: library "<name>.<p>" holds the template
+#: values whose index (csrc/delay_chain.cuh family_index) is p mod parts
+PARTS = {"delay_chain": 4, "phase_chain": 4}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,25 +68,49 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> str:
+def libraries(names: Sequence[str] = SOURCES) -> list:
+    """The libraries of the sources ``names``: one per source, or its
+    parts ``<name>.<p>``."""
+    return [lib for n in names for lib in (
+        [f"{n}.{p}" for p in range(PARTS[n])] if n in PARTS else [n])]
+
+
+def part_of(name: str, index: int) -> str:
+    """The library of source ``name`` that holds template value number
+    ``index`` (csrc/delay_chain.cuh family_index)."""
+    return f"{name}.{index % PARTS[name]}"
+
+
+def _flags(lib: str):
+    """(source name, nvcc flags) of library ``lib``."""
+    name, _, part = lib.partition(".")
+    if not part:
+        return name, NVCC_FLAGS
+    return name, (*NVCC_FLAGS, f"-DPT_PARTS={PARTS[name]}",
+                  f"-DPT_PART={part}")
+
+
+def library_path(lib: str) -> str:
     """The library's path, named by a hash of its source, the shared
     headers (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    name, flags = _flags(lib)
+    digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             digest.update(f.read())
-    return os.path.join(build_dir(), f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{lib}_{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
+def _start(lib: str):
     """Start one nvcc build; returns (process or None if up to date, paths)."""
-    out = library_path(name)
+    out = library_path(lib)
     if os.path.exists(out):
         return None, out, None
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+    name, flags = _flags(lib)
+    cmd = [nvcc(), *flags, "-I", CSRC_DIR, "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -100,10 +131,10 @@ def _finish(name: str, proc, out: str, tmp: str) -> None:
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Build every named kernel library, all nvcc processes at once;
-    returns ``{name: library path}``."""
+    """Build the libraries of the sources (or libraries) ``names``, all
+    nvcc processes at once; returns ``{library: path}``."""
     with _lock:
-        started = {n: _start(n) for n in names}
+        started = {n: _start(n) for n in libraries(names)}
         errors = []
         for n, (proc, out, tmp) in started.items():
             try:
@@ -112,25 +143,28 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
-        return {n: started[n][1] for n in names}
+        return {n: started[n][1] for n in started}
 
 
 def build_log(name: str) -> str:
-    """nvcc's output of the build of kernel ``name`` (ptxas's registers,
-    stack and spills per kernel); empty if the library was built before
-    logs were kept."""
-    path = library_path(name) + ".log"
-    if not os.path.exists(path):
-        return ""
-    with open(path) as f:
-        return f.read()
+    """nvcc's output of the build of source ``name``, its parts' in turn
+    (ptxas's registers, stack and spills per kernel); empty where a
+    library was built before logs were kept."""
+    out = []
+    for lib in libraries([name]):
+        path = library_path(lib) + ".log"
+        if os.path.exists(path):
+            with open(path) as f:
+                out.append(f.read())
+    return "\n".join(out)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = build_all([name])[name]
+def load(lib: str) -> ctypes.CDLL:
+    """The loaded library ``lib`` (a source's, or one part of it), building
+    it first if needed."""
+    got = _loaded.get(lib)
+    if got is None:
+        path = build_all([lib])[lib]
         with _lock:
-            lib = _loaded.setdefault(name, ctypes.CDLL(path))
-    return lib
+            got = _loaded.setdefault(lib, ctypes.CDLL(path))
+    return got

@@ -2,12 +2,14 @@
 
 :func:`delay_chain` evaluates the whole delay chain of a timing model —
 astrometry (equatorial or ecliptic, PM, PX), delay jumps, the
-troposphere, the Sun's Shapiro delay, the solar wind (NE_SW with SWM 0 or
-1, and SWX), DM (with its Taylor terms), DMX and FDJUMPDM, DMWaveX, the
-chromatic delays (CM with its Taylor terms, CMX, CMWaveX, exponential
-dips, chromatic Gaussian events), the binary (ELL1, ELL1H, ELL1k, or
-DD/BT, DDS, DDH, DDK, DDGR with the Kepler solve), FD, FDJUMP and WaveX —
-in DEFAULT_ORDER for every TOA in one launch (DMJUMP has no delay).  On
+troposphere, the Shapiro delays of the Sun and (PLANET_SHAPIRO) the
+planets, the solar wind (NE_SW with SWM 0 or 1, and SWX), DM (with its
+Taylor terms), DMX and FDJUMPDM, DMWaveX, the chromatic delays (CM with
+its Taylor terms, CMX, CMWaveX, exponential dips, chromatic Gaussian
+events), the binary (ELL1, ELL1H, ELL1k, or DD/BT, DDS, DDH, DDK, DDGR
+with the Kepler solve, and BT_PIECEWISE; each orbit from PB/PBDOT or an
+FBn series, with ORBWAVE's Fourier terms), FD, FDJUMP and WaveX — in
+DEFAULT_ORDER for every TOA in one launch (DMJUMP has no delay).  On
 a CUDA batch it launches the kernel (or raises); on a CPU batch it runs
 the plain version, the components' own delay functions
 (:meth:`pint_tpu_torch.models.timing_model.PhaseCalc.delay_plain`).  There
@@ -25,8 +27,9 @@ mode);
 the per-TOA data are the batch's columns plus the int32 DMX bins of each
 TOA (two: inclusive ranges that share a boundary both hold a TOA on it),
 the SWX and CMX ranges likewise, int32 member bits of DelayJump, FDJumpDM
-and FDJump, and the troposphere's float64 delay, built once on the host
-from the masks.
+and FDJump, the troposphere's float64 delay, built once on the host
+from the masks, the planets' positions (PLANET_SHAPIRO) and each TOA's
+BT_PIECEWISE piece.
 
 :class:`DelayChain` makes it differentiable in θ: ``jvp`` is the kernel's
 tangent launch (the same row function over a number type that carries
@@ -65,13 +68,22 @@ ECLIPTIC, K96, STIGMA = 1024, 2048, 4096
 SOLAR_WIND, SWM1, SWX, FDJUMPDM, FDJUMP = 8192, 16384, 32768, 65536, 131072
 CM, CMX, CMWAVEX, DMWAVEX, WAVEX = 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22
 EXPDIP, CHROMGAUSS, TROPO = 1 << 23, 1 << 24, 1 << 25
+FB_ORBIT, ORBWAVE, BT_PIECES, PLANET_SHAPIRO = (1 << 26, 1 << 27, 1 << 28,
+                                                1 << 29)
+#: the flags of the terms compiled only into the template values with the
+#: DM, the chromatic and the orbit family (csrc/delay_chain.cuh
+#: kDMFamilyFlags, kChromFamilyFlags, kOrbitFamilyFlags)
+DM_FAMILY_FLAGS = SOLAR_WIND | SWX | FDJUMPDM | FDJUMP
+CHROM_FAMILY_FLAGS = (CM | CMX | CMWAVEX | DMWAVEX | WAVEX | EXPDIP
+                      | CHROMGAUSS | TROPO)
+ORBIT_FAMILY_FLAGS = FB_ORBIT | ORBWAVE | BT_PIECES | PLANET_SHAPIRO
 NO_BINARY, ELL1, DD, DDK, DDTM2, ELL1H, ELL1K = 0, 1, 2, 3, 4, 5, 6
 #: the binary families that run the Kepler solve
 DD_FAMILY = (DD, DDK, DDTM2)
 
 #: the mask entries the kernel reads (built by DispersionDMX, DelayJump,
-#: SolarWindDispersionX, FDJumpDM, FDJump, ChromaticCMX and
-#: TroposphereDelay)
+#: SolarWindDispersionX, FDJumpDM, FDJump, ChromaticCMX, TroposphereDelay
+#: and BinaryBTPiecewise)
 DMX_INDEX = "__dmxidx__"
 JUMP_BITS = "__delayjumpbits__"
 SWX_INDEX = "__swxidx__"
@@ -79,6 +91,10 @@ FDJUMPDM_BITS = "__fdjumpdmbits__"
 FDJUMP_BITS = "__fdjumpbits__"
 CMX_INDEX = "__cmxidx__"
 TROPO_DELAY = "__tropo_delay__"
+BTPW_INDEX = "__btpwidx__"
+#: the planets of PLANET_SHAPIRO, in the kernel's order (the order of
+#: SolarSystemShapiro's sum)
+PLANETS = ("jupiter", "saturn", "venus", "uranus", "neptune")
 
 #: the members of a mask family (DelayJump, FDJumpDM, FDJump) that one
 #: int32 bit word per row can carry
@@ -103,18 +119,20 @@ CFG_FIELDS = ("flags", "binary", "P", "ndm", "ndmx", "njump", "nfd",
               "nsw", "nswx", "nfdm", "nfdj", "o_sw", "o_swx", "o_fdm",
               "o_fdj", "ncm", "ncmx", "ncmwx", "ndmwx", "nwx", "ndip",
               "ngauss", "o_cm", "o_cmx", "o_cmwx", "o_dmwx", "o_wx", "o_dip",
-              "o_gauss")
+              "o_gauss", "nfb", "norbw", "npiece", "o_fb", "o_orbw",
+              "o_piece")
 
 
-#: CFG_FIELDS of ``ChainCfg``; the rest are ``ChromCfg``'s own
+#: CFG_FIELDS of ``ChainCfg``; then ``ChromCfg``'s own, then ``OrbCfg``'s
 N_BASE_FIELDS = CFG_FIELDS.index("ncm")
 
 
 class ChainCfg(ctypes.Structure):
-    """csrc/delay_chain.cuh ``ChromCfg``, which the C entry points take:
+    """csrc/delay_chain.cuh ``OrbCfg``, which the C entry points take:
     ``ChainCfg`` (flags, binary family, θ length, block sizes, block
     offsets, ELL1H's highest harmonic, the order k of each FD<k>JUMP
-    member), then the chromatic family's block sizes and offsets."""
+    member), then the chromatic family's block sizes and offsets
+    (``ChromCfg``), then the orbit family's (``OrbCfg``)."""
 
     _fields_ = [(n, ctypes.c_int32) for n in CFG_FIELDS[:N_BASE_FIELDS]] + [
         ("fdj_order", ctypes.c_int8 * (MAX_JUMPS + 1))] + [
@@ -179,6 +197,17 @@ class ChainLayout:
     def jumps(self) -> bool:
         return bool(self.flags & JUMP)
 
+    @property
+    def kernel_index(self) -> int:
+        """The index of the kernels' template value (csrc/delay_chain.cuh
+        kernel_family, family_index): the binary family, plus 7 for the
+        DM family's terms, 14 for the chromatic family's (with the DM
+        family's) and 21 for the orbit family's (with both)."""
+        f = self.flags
+        level = 3 if f & ORBIT_FAMILY_FLAGS else 2 if f & CHROM_FAMILY_FLAGS \
+            else 1 if f & DM_FAMILY_FLAGS else 0
+        return 7 * level + self.cfg[1]
+
     def ctypes_cfg(self) -> ChainCfg:
         c = ChainCfg(**dict(zip(CFG_FIELDS, self.cfg)))
         for j, k in enumerate(self.fdj_order):
@@ -225,10 +254,11 @@ class ChainLayout:
         binary = NO_BINARY
         count = dict(ndm=0, ndmx=0, njump=0, nfd=0, nharm=0, nsw=0, nswx=0,
                      nfdm=0, nfdj=0, ncm=0, ncmx=0, ncmwx=0, ndmwx=0, nwx=0,
-                     ndip=0, ngauss=0)
+                     ndip=0, ngauss=0, nfb=0, norbw=0, npiece=0)
         offs = dict(o_astro=0, o_dm=0, o_dmx=0, o_jump=0, o_fd=0, o_bin=0,
                     o_sw=0, o_swx=0, o_fdm=0, o_fdj=0, o_cm=0, o_cmx=0,
-                    o_cmwx=0, o_dmwx=0, o_wx=0, o_dip=0, o_gauss=0)
+                    o_cmwx=0, o_dmwx=0, o_wx=0, o_dip=0, o_gauss=0, o_fb=0,
+                    o_orbw=0, o_piece=0)
         prepare = None
         fdj_order: Tuple[int, ...] = ()
 
@@ -317,11 +347,9 @@ class ChainLayout:
             elif kind == "DelayJump":
                 mask_block(comp, JUMP, "njump", "o_jump")
             elif kind == "SolarSystemShapiro":
-                if comp.PLANET_SHAPIRO.value:
-                    raise NotImplementedError(
-                        "SolarSystemShapiro with PLANET_SHAPIRO: the "
-                        "delay_chain kernel covers the Sun only")
                 flags |= SHAPIRO
+                if comp.PLANET_SHAPIRO.value:
+                    flags |= PLANET_SHAPIRO   # one row input, no slot
             elif kind == "SolarWindDispersion":
                 if not flags & ASTRO:
                     raise AttributeError(
@@ -463,8 +491,8 @@ class ChainLayout:
                 if kind == "BinaryDDK" and not flags & ASTRO:
                     raise AttributeError(
                         "BinaryDDK needs an astrometry component")
-                binary, bflags, count["nharm"], prepare = _binary_slots(
-                    comp, slot, pv_slot, offs, len(names))
+                binary, bflags, prepare = _binary_slots(
+                    comp, slot, pv_slot, count, offs, names)
                 flags |= bflags
         if not names:
             slot("__empty__", None)
@@ -477,40 +505,89 @@ class ChainLayout:
 
 #: the binary components the kernel covers, by family
 BINARIES = {"BinaryELL1": ELL1, "BinaryELL1H": ELL1H, "BinaryELL1k": ELL1K,
-            "BinaryDD": DD, "BinaryBT": DD, "BinaryDDGR": DD,
-            "BinaryDDK": DDK, "BinaryDDS": DDTM2, "BinaryDDH": DDTM2}
+            "BinaryDD": DD, "BinaryBT": DD, "BinaryBTPiecewise": DD,
+            "BinaryDDGR": DD, "BinaryDDK": DDK, "BinaryDDS": DDTM2,
+            "BinaryDDH": DDTM2}
 
 
 def _value(comp, n: str) -> bool:
     return n in comp.params and comp.params[n].value is not None
 
 
-def _binary_slots(comp, slot, pv_slot, offs, start):
-    """The binary block of θ (csrc/delay_chain.cuh b* offsets): ``(family,
-    flags, highest ELL1H harmonic, the params dict's map or None)``."""
+def _binary_slots(comp, slot, pv_slot, count, offs, names):
+    """The binary block of θ (csrc/delay_chain.cuh b* offsets), then the
+    orbit family's blocks of an FBn orbit, ORBWAVEs and BT_PIECEWISE's
+    pieces (their counts and offsets set in ``count`` and ``offs``):
+    ``(family, flags, the params dict's map or None)``."""
     kind = type(comp).__name__
-    family = BINARIES[kind]
-    if comp.fb_names():
-        raise NotImplementedError(
-            f"{kind} with an FBn orbit: the delay_chain kernel covers the "
-            "PB/PBDOT orbit only")
-    if comp.orbwave_names()[0]:
-        raise NotImplementedError(
-            f"{kind} with ORBWAVEs is not covered by the delay_chain kernel")
-    offs["o_bin"] = start
-    ep = "TASC" if family in (ELL1, ELL1H, ELL1K) else "T0"
-    slot(f"{ep}__day0", _const(ep, 0))
-    for k in range(4):
-        slot(f"{ep}__word{k}", _word(ep, k))
-    slot(f"{ep}__ddays", None, ep)
-    for n in ("PB", "PBDOT", "A1", "A1DOT"):
-        pv_slot(n)
+    offs["o_bin"] = len(names)
 
     def pv_or_zero(n):
         if _value(comp, n):
             pv_slot(n)
         else:
             slot(n, None)
+
+    family, flags, prepare = _binary_block(comp, kind, slot, pv_slot,
+                                           pv_or_zero, count)
+    fbs = comp.fb_names()
+    if fbs:
+        # taylor_horner's coefficients [0, FB0, FB1, ...]: the orbit count
+        # over all of them, the frequency over FB0 on
+        flags |= FB_ORBIT
+        count["nfb"] = len(fbs)
+        offs["o_fb"] = len(names)
+        slot("FB__zero", None)
+        for n in fbs:
+            pv_slot(n)
+    cs, ss = comp.orbwave_names()
+    if cs:
+        flags |= ORBWAVE
+        count["norbw"] = len(cs)
+        offs["o_orbw"] = len(names)
+        pv_slot("ORBWAVE_OM")
+        pv_slot("ORBWAVE_EPOCH")
+        for cn, sn in zip(cs, ss):
+            pv_slot(cn)
+            pv_slot(sn)
+    if kind == "BinaryBTPiecewise" and comp.piece_indices():
+        flags |= BT_PIECES
+        pieces = comp.piece_indices()
+        count["npiece"] = len(pieces)
+        offs["o_piece"] = len(names)
+        # per piece: its t - T0 shift [s], whether it sets T0X, its A1X
+        # [ls], whether it sets A1X (csrc/delay_chain.cuh piece* slots)
+        for i in pieces:
+            if comp.has_piece_value("T0X_", i):
+                # the reference's own (T0 - T0X) * 86400, by its code
+                slot(f"T0X_{i:04d}__shift",
+                     lambda p, i=i: comp.piece_shift(p, i))
+                slot(f"T0X_{i:04d}__set", _number(1.0))
+            else:
+                slot(f"T0X_{i:04d}__shift", None)
+                slot(f"T0X_{i:04d}__set", None)
+            if comp.has_piece_value("A1X_", i):
+                pv_slot(f"A1X_{i:04d}")
+                slot(f"A1X_{i:04d}__set", _number(1.0))
+            else:
+                slot(f"A1X_{i:04d}", None)
+                slot(f"A1X_{i:04d}__set", None)
+    return family, flags, prepare
+
+
+def _binary_block(comp, kind, slot, pv_slot, pv_or_zero, count):
+    """The binary block proper: ``(family, flags, the params dict's map
+    or None)``, ELL1H's highest harmonic in ``count["nharm"]``."""
+    family = BINARIES[kind]
+    ep = "TASC" if family in (ELL1, ELL1H, ELL1K) else "T0"
+    slot(f"{ep}__day0", _const(ep, 0))
+    for k in range(4):
+        slot(f"{ep}__word{k}", _word(ep, k))
+    slot(f"{ep}__ddays", None, ep)
+    # PB is unset under an FBn orbit (its slot then holds 0, unread)
+    pv_or_zero("PB")
+    for n in ("PBDOT", "A1", "A1DOT"):
+        pv_slot(n)
 
     if family in (ELL1, ELL1K):
         flags = BIN_SHAPIRO if _value(comp, "M2") and _value(comp, "SINI") \
@@ -519,7 +596,7 @@ def _binary_slots(comp, slot, pv_slot, offs, start):
             else ("EPS1DOT", "EPS2DOT")
         for n in ("EPS1", "EPS2") + dots + ("M2", "SINI"):
             pv_or_zero(n)
-        return family, flags, 0, None
+        return family, flags, None
     if family == ELL1H:
         for n in ("EPS1", "EPS2", "EPS1DOT", "EPS2DOT"):
             pv_or_zero(n)
@@ -528,17 +605,17 @@ def _binary_slots(comp, slot, pv_slot, offs, start):
         if comp.STIGMA.value is not None:
             for i, n in enumerate(("factor", "a", "b", "d")):
                 slot(f"H__{n}", lambda p, i=i: comp.stigma_factors(p)[i])
-            return ELL1H, BIN_SHAPIRO | STIGMA, 0, None
+            return ELL1H, BIN_SHAPIRO | STIGMA, None
         slot("H__factor", lambda p: -2.0 * pv(p, "H3"))
-        nharm = comp.nharms()
+        count["nharm"] = nharm = comp.nharms()
         for k in range(3, nharm + 1):
             slot(f"H__w{k}", lambda p, k=k: comp.harmonic_weights(p)[k - 3])
-        return ELL1H, BIN_SHAPIRO, nharm, None
+        return ELL1H, BIN_SHAPIRO, None
     for n in ("ECC", "EDOT", "OM", "OMDOT", "GAMMA"):
         pv_or_zero(n)
     flags = OMEGA_FROM_NU if comp.omega_from_nu else 0
     prepare = None
-    if kind != "BinaryBT":
+    if kind not in ("BinaryBT", "BinaryBTPiecewise"):
         flags |= ABERRATION
     if family == DDTM2:
         # DDS, DDH: _tm2_sini's TM2 [s] and sin i, unclipped
@@ -572,7 +649,7 @@ def _binary_slots(comp, slot, pv_slot, offs, start):
     if family == DDK:
         slot("KOM__sin", lambda p: torch.sin(pv(p, "KOM")))
         slot("KOM__cos", lambda p: torch.cos(pv(p, "KOM")))
-    return family, flags, 0, prepare
+    return family, flags, prepare
 
 
 # -- the library ---------------------------------------------------------------
@@ -580,10 +657,12 @@ def _binary_slots(comp, slot, pv_slot, offs, start):
 _c_void_p, _c_int64 = ctypes.c_void_p, ctypes.c_int64
 
 
-def _lib():
-    from pint_tpu_torch.kernels.build import load
+def _lib(layout: "ChainLayout"):
+    """The library that holds ``layout``'s kernels (one part of the
+    source's build, kernels/build.py)."""
+    from pint_tpu_torch.kernels.build import load, part_of
 
-    lib = load("delay_chain")
+    lib = load(part_of("delay_chain", layout.kernel_index))
     if getattr(lib, "_argtypes_set", False):
         return lib
     lib.delay_chain.argtypes = [_c_void_p] * (len(ROWS) + 4) + [
@@ -604,18 +683,19 @@ ROWS = (("tdb_day", torch.int64, ()), ("tdb_frac", F64, ()),
         ("frac_w", F32, (3,)), ("pos", F64, (3,)), ("sun", F64, (3,)),
         ("freq", F64, ()), ("dmx", I32, (2,)), ("jbits", I32, ()),
         ("swx", I32, (2,)), ("fdmbits", I32, ()), ("fdjbits", I32, ()),
-        ("cmx", I32, (2,)), ("tropo", F64, ()))
+        ("cmx", I32, (2,)), ("tropo", F64, ()),
+        ("planets", F64, (len(PLANETS), 3)), ("btpiece", I32, ()))
 #: the inputs that a model without the component passes empty, by the
 #: flag that reads them and the mask entry that holds them
 MASK_ROWS = (("dmx", DMX, DMX_INDEX), ("jbits", JUMP, JUMP_BITS),
              ("swx", SWX, SWX_INDEX), ("fdmbits", FDJUMPDM, FDJUMPDM_BITS),
              ("fdjbits", FDJUMP, FDJUMP_BITS), ("cmx", CMX, CMX_INDEX),
-             ("tropo", TROPO, TROPO_DELAY))
+             ("tropo", TROPO, TROPO_DELAY), ("btpiece", BT_PIECES, BTPW_INDEX))
 
 
 def _check_rows(rows, dev):
     N = rows[0].shape[0]
-    optional = {name for name, _, _ in MASK_ROWS}
+    optional = {name for name, _, _ in MASK_ROWS} | {"planets"}
     for (name, dtype, tail), t in zip(ROWS, rows):
         if name in optional and t.numel() == 0:
             continue
@@ -666,14 +746,15 @@ def _launch(layout: ChainLayout, theta, dtheta, rows, aux: bool = False,
     if G == 0 or (dtheta is not None and K == 0):
         return out, aux_t
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().delay_chain(
+    lib = _lib(layout)
+    err = lib.delay_chain(
         *[_ptr(t) for t in rows], theta.data_ptr(),
         None if dtheta is None else dtheta.data_ptr(), out.data_ptr(),
         None if aux_t is None else aux_t.data_ptr(), layout.ctypes_cfg(),
         G, K, N, lanes, stream)
     if err != 0:
         raise RuntimeError("delay_chain launch failed: "
-                           + _lib().delay_chain_error_string(err).decode())
+                           + lib.delay_chain_error_string(err).decode())
     if dtheta is None:
         DelayChain.launches += 1
     else:
@@ -794,10 +875,12 @@ class DelayChain(torch.autograd.Function):
 
 def row_inputs(layout: ChainLayout, p: dict, batch) -> list:
     """The kernel's per-TOA tensors (:data:`ROWS`) for ``batch``: its
-    columns plus the DMX bins, SWX and CMX ranges, member bits and the
-    troposphere's delay of ``p["mask"]`` (empty where the model has
+    columns plus the DMX bins, SWX and CMX ranges, member bits, the
+    troposphere's delay and the BT_PIECEWISE pieces of ``p["mask"]``, and
+    the planets' positions (N, 5, 3) [ls] (each empty where the model has
     none).  A range index left out by its component (three ranges
-    overlapping on a TOA) raises."""
+    overlapping on a TOA) raises, and so do TOAs without the planets'
+    positions under PLANET_SHAPIRO."""
     empty = torch.empty(0, dtype=I32, device=batch.device)
     masks = []
     for name, flag, entry in MASK_ROWS:
@@ -811,9 +894,17 @@ def row_inputs(layout: ChainLayout, p: dict, batch) -> list:
                     "per TOA)" if name in ("dmx", "swx", "cmx") else
                     f"delay_chain: no {entry} in the params dict")
         masks.append(t)
+    planets = empty.to(F64)
+    if layout.flags & PLANET_SHAPIRO:
+        missing = [pl for pl in PLANETS if pl not in batch.obs_planet_pos_ls]
+        if missing:
+            raise KeyError(f"planet positions {missing} missing: load TOAs "
+                           "with planets=True for PLANET_SHAPIRO")
+        planets = torch.stack([batch.obs_planet_pos_ls[pl]
+                               for pl in PLANETS], dim=1)
     return [batch.tdb_day, batch.tdb_frac, batch.tdb_frac_w,
             batch.ssb_obs_pos_ls, batch.obs_sun_pos_ls, batch.freq_mhz,
-            *masks]
+            *masks[:-1], planets, masks[-1]]
 
 
 def delay_chain(calc, p: dict, batch) -> torch.Tensor:

@@ -85,10 +85,12 @@ class PhaseChainSpec:
 CONSTS = ("pulse_number", "pep_day", "pep_w", "f_w", "tzr_w")
 
 
-def _lib():
-    from pint_tpu_torch.kernels.build import load
+def _lib(spec: "PhaseChainSpec"):
+    """The library that holds ``spec``'s kernels (one part of the
+    source's build, kernels/build.py)."""
+    from pint_tpu_torch.kernels.build import load, part_of
 
-    lib = load("phase_chain")
+    lib = load(part_of("phase_chain", spec.layout.kernel_index))
     if getattr(lib, "_argtypes_set", False):
         return lib
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
@@ -183,12 +185,12 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
         dt64 = torch.empty((*lead, N), dtype=F64, device=dev)
         if G == 0:
             return out, slope, dt64
-        err = _lib().phase_chain(
+        err = _lib(spec).phase_chain(
             *[_ptr(t) for t in rows + consts], theta.data_ptr(), None,
             _ptr(other), None, None, None, None if words else out.data_ptr(),
             out.data_ptr() if words else None, slope.data_ptr(),
             dt64.data_ptr(), cfg, pcfg, G, 0, N, other_sg, 0, 0, 0, stream)
-        _raise(err)
+        _raise(spec, err)
         PhaseChain.launches += 1
         return out, slope, dt64
     K = dtheta.shape[-2]
@@ -208,20 +210,20 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
     out = torch.empty((*lead, K, N), dtype=F64, device=dev)
     if G == 0 or K == 0:
         return out
-    err = _lib().phase_chain(
+    err = _lib(spec).phase_chain(
         *[_ptr(t) for t in rows + consts], theta.data_ptr(),
         dtheta.data_ptr(), None, _ptr(dother), pair[0].data_ptr(),
         pair[1].data_ptr(), out.data_ptr(), None, None, None, cfg, pcfg, G,
         K, N, 0, dother_sg, N, lanes, stream)
-    _raise(err)
+    _raise(spec, err)
     PhaseChainTangent.launches += 1
     return out
 
 
-def _raise(err: int) -> None:
+def _raise(spec: PhaseChainSpec, err: int) -> None:
     if err != 0:
         raise RuntimeError("phase_chain launch failed: "
-                           + _lib().phase_chain_error_string(err).decode())
+                           + _lib(spec).phase_chain_error_string(err).decode())
 
 
 def run(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,

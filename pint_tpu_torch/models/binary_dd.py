@@ -6,7 +6,7 @@ Port of :mod:`pint_tpu.models.binary_dd` (reference
 `binary_ddk.py:45`, delegating to `stand_alone_psr_binaries/BT_model.py`,
 `DD_model.py`, `DDK_model.py` and `DDGR_model.py`; Blandford & Teukolsky
 1976, Damour & Deruelle 1986, Kopeikin 1995 and 1996, Taylor & Weisberg
-1989).  BT_piecewise is not ported yet.
+1989), and BT_piecewise (`BinaryBTPiecewise`, `binary_bt.py:84`).
 
 The eccentric anomaly comes from the ``kepler_E`` CUDA kernel
 (:func:`pint_tpu_torch.kernels.kepler.kepler_E_op`, its plain version on
@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import List
 
+import numpy as np
 import torch
 
 from pint_tpu_torch import Tsun
@@ -36,7 +37,8 @@ from pint_tpu_torch.models.parameter import (
     split_prefix,
 )
 from pint_tpu_torch.models.spindown import dt_seconds_qs
-from pint_tpu_torch.models.timing_model import DelayComponent, pv
+from pint_tpu_torch.models.timing_model import (DelayComponent,
+                                               epoch_days, pv)
 from pint_tpu_torch.toabatch import TOABatch
 
 SECS_PER_DAY = 86400.0
@@ -516,3 +518,123 @@ class BinaryDDGR(BinaryDD):
     def _tm2_sini(self, p, batch, dt):
         pk = self._gr_pk(p)
         return pv(p, "M2") * Tsun, clip_unit(pk["sini"])
+
+
+#: the mask entry of BinaryBTPiecewise that the delay kernel reads: each
+#: TOA's piece (its position in ``piece_indices``), -1 for none
+BTPW_INDEX = "__btpwidx__"
+
+
+class BinaryBTPiecewise(BinaryBT):
+    """BT with piecewise-constant T0 and/or A1 over MJD ranges (reference
+    `binary_bt.py:84` + `stand_alone_psr_binaries/BT_piecewise.py`).
+
+    Each piece ``i`` is an MJD window [XR1_iiii, XR2_iiii) carrying an
+    alternative epoch T0X_iiii [MJD] and/or projected semi-major axis
+    A1X_iiii [ls]; TOAs outside every window use the global T0/A1.  The
+    window membership masks are computed on the host into the params
+    dict, so the delay stays one branch-free chain; the windows may not
+    overlap, so one piece index per TOA (:data:`BTPW_INDEX`) tells the
+    delay kernel the same.
+    """
+
+    register = True
+    _stems = ("T0X_", "A1X_", "XR1_", "XR2_")
+
+    def piece_indices(self) -> List[int]:
+        return sorted({q.index for q in self.prefix_params("XR1_")})
+
+    def add_piece(self, xr1: float, xr2: float, t0x=None, a1x=None,
+                  index=None, frozen=True):
+        if index is None:
+            index = 1 + max(self.piece_indices(), default=-1)
+        self.add_param(prefixParameter("float", f"XR1_{index:04d}",
+                                       units="d", value=xr1))
+        self.add_param(prefixParameter("float", f"XR2_{index:04d}",
+                                       units="d", value=xr2))
+        if t0x is not None:
+            self.add_param(prefixParameter("float", f"T0X_{index:04d}",
+                                           units="d", value=t0x,
+                                           frozen=frozen))
+        if a1x is not None:
+            self.add_param(prefixParameter("float", f"A1X_{index:04d}",
+                                           units="ls", value=a1x,
+                                           frozen=frozen))
+        return index
+
+    def prefix_families(self):
+        return list(self._stems) + super().prefix_families()
+
+    def make_param(self, name: str):
+        try:
+            stem, _ = split_prefix(name)
+        except ValueError:
+            return None
+        if stem in ("XR1_", "XR2_", "T0X_"):
+            return prefixParameter("float", name, units="d")
+        if stem == "A1X_":
+            return prefixParameter("float", name, units="ls")
+        return super().make_param(name)
+
+    def validate(self):
+        super().validate()
+        for i in self.piece_indices():
+            x1 = self.params.get(f"XR1_{i:04d}")
+            x2 = self.params.get(f"XR2_{i:04d}")
+            if x1 is None or x2 is None or x1.value is None \
+                    or x2.value is None:
+                raise ValueError(f"piece {i}: XR1/XR2 must both be given")
+            if not x1.value < x2.value:
+                raise ValueError(f"piece {i}: XR1 must be < XR2")
+        # overlapping windows would double-apply T0/A1 shifts (reference
+        # BT_piecewise raises 'Group boundary overlap detected')
+        spans = sorted((float(self.params[f"XR1_{i:04d}"].value),
+                        float(self.params[f"XR2_{i:04d}"].value), i)
+                       for i in self.piece_indices())
+        for (a1_, a2_, ia), (b1_, _b2, ib) in zip(spans, spans[1:]):
+            if b1_ < a2_:
+                raise ValueError(
+                    f"piece windows {ia} and {ib} overlap "
+                    f"([{a1_}, {a2_}) vs [{b1_}, ...))")
+
+    def has_piece_value(self, stem: str, i: int) -> bool:
+        """Whether piece ``i`` sets ``stem`` ("T0X_" or "A1X_")."""
+        q = self.params.get(f"{stem}{i:04d}")
+        return q is not None and q.value is not None
+
+    def mask_entries(self, toas):
+        out = super().mask_entries(toas)
+        mjd = np.asarray(toas.tdb.mjd_float)
+        pieces = self.piece_indices()
+        index = np.full(mjd.shape, -1, dtype=np.int32)
+        for k, i in enumerate(pieces):
+            x1 = float(self.params[f"XR1_{i:04d}"].value)
+            x2 = float(self.params[f"XR2_{i:04d}"].value)
+            inside = (mjd >= x1) & (mjd < x2)
+            out[f"__btpw_mask_{i:04d}__"] = inside.astype(np.float64)
+            index[inside] = k
+        if pieces:
+            out[BTPW_INDEX] = index
+        return out
+
+    def piece_shift(self, p, i: int):
+        """Piece ``i``'s shift of t - T0 [s]: (T0 - T0X_i) in days."""
+        return (epoch_days(p, "T0") - pv(p, f"T0X_{i:04d}")) * SECS_PER_DAY
+
+    def dt_extra(self, p, batch, dt):
+        for i in self.piece_indices():
+            if not self.has_piece_value("T0X_", i):
+                continue
+            mask = p["mask"][f"__btpw_mask_{i:04d}__"]
+            dt = dt + mask * self.piece_shift(p, i)
+        return dt
+
+    def a1_val(self, p, batch, dt):
+        a1 = super().a1_val(p, batch, dt)
+        for i in self.piece_indices():
+            if not self.has_piece_value("A1X_", i):
+                continue
+            mask = p["mask"][f"__btpw_mask_{i:04d}__"]
+            a1 = a1 + mask * (pv(p, f"A1X_{i:04d}")
+                              + dt * pv(p, "A1DOT") - a1)
+        return a1

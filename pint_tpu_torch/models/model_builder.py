@@ -40,8 +40,7 @@ IGNORE_PREFIXES = ("DMXF1_", "DMXF2_", "DMXEP_")
 #: have: (parameter names, prefix stems) by component.  A par file that
 #: names one of these parameters is refused, where dropping it would give
 #: residuals that silently differ from pint_tpu's.  (The binaries' FBn
-#: and ORBWAVE terms are parameters of the ported binary components: they
-#: load, and the delay kernel refuses them on CUDA.)
+#: and ORBWAVE terms and BT_PIECEWISE's pieces are ported.)
 UNPORTED = {
     "Glitch": ((), ("GLEP_", "GLPH_", "GLF0_", "GLF1_", "GLF2_", "GLF0D_",
                     "GLTD_")),
@@ -50,7 +49,6 @@ UNPORTED = {
     "IFunc": (("SIFUNC",), ("IFUNC",)),
     "PhaseOffset": (("PHOFF",), ()),
     "Wave": (("WAVE_OM", "WAVEOM", "WAVEEPOCH"), ("WAVE",)),
-    "BinaryBTPiecewise": ((), ("T0X_", "A1X_", "XR1_", "XR2_")),
 }
 
 

@@ -250,21 +250,32 @@ def test_ell1h_exact_vs_harmonic_sum():
 
 
 def test_refusals():
-    """What the port does not cover raises: BT_piecewise (not ported), a
-    DDK model without an astrometry component (as pint_tpu's delay
-    raises), an FBn orbit on a variant (the kernel's PB/PBDOT orbit)."""
+    """What the port does not cover raises: a DDK model without an
+    astrometry component (as pint_tpu's delay raises).  BT_piecewise
+    builds now (a BT layout with its pieces), and an FBn orbit on a
+    variant is laid out (its FB block after the binary's slots)."""
+    from pint_tpu_torch.kernels import delay_chain as dc
     from pint_tpu_torch.kernels.delay_chain import ChainLayout
 
     ddk = par_of("DDK")
     bt = [ln.replace("BINARY DDK", "BINARY BT_PIECEWISE") for ln in ddk
           if not ln.startswith(("KIN ", "KOM ", "K96 "))]
-    with pytest.raises(NotImplementedError, match="BinaryBTPiecewise"):
-        _model(bt)
+    m = _model(bt + ["XR1_0001 53000", "XR2_0001 54000",
+                     "A1X_0001 9.2301"])
+    assert "BinaryBTPiecewise" in m.components
+    lay = m.calc.chain_layout
+    assert lay.flags & dc.BT_PIECES and lay.cfg[1] == dc.DD
+    assert not lay.flags & dc.ABERRATION
+    assert {"A1X_0001", "A1X_0001__set", "T0X_0001__shift"} <= set(lay.names)
     comps = [c for c in _model(ddk).delay_components
              if not type(c).__name__.startswith("Astrometry")]
     with pytest.raises(AttributeError, match="astrometry"):
         ChainLayout.from_components(comps)
     for kind in ("DDK", "ELL1H"):
         m = _model(par_of(kind) + ["FB0 1.5e-6", "FB1 0"])
-        with pytest.raises(NotImplementedError, match="FBn"):
-            m.calc.chain_layout
+        lay = m.calc.chain_layout
+        assert lay.flags & dc.FB_ORBIT
+        cfg = dict(zip(dc.CFG_FIELDS, lay.cfg))
+        assert cfg["nfb"] == 2
+        assert lay.names[cfg["o_fb"]:cfg["o_fb"] + 3] == (
+            "FB__zero", "FB0", "FB1")

@@ -43,6 +43,11 @@ them with it switched off, from the repository root::
   each term alone on DD and ELL1; the ``CHROM`` and ``WAVEX`` sets) as
   the variants above; the chromatic set's noise fit and the WaveX set's
   WLS fit on the card against pint_tpu's stored fits;
+* the orbit family of the row function (``examples.ORBIT_FAMILY``: an
+  FBn orbit, ORBWAVEs and PLANET_SHAPIRO each alone on DD and ELL1; the
+  ``SPIDER`` and ``BTPW`` sets) as the variants above; the spider set's
+  ``Fitter.auto`` fit and the BT_PIECEWISE set's WLS fit on the card
+  against pint_tpu's stored fits;
 * ``phase_chain`` (the delay chain with the phase as its epilogue, the
   paths' kernel since the fusion): on the J0740, DD and GLS models its
   primal (frac, slope, dt64; words) bit-equal to the unfused card chain
@@ -70,7 +75,8 @@ import torch
 
 import torch_port_data as data
 from pint_tpu_torch import qs as tqs
-from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
+                                     VARIANTS)
 from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
 from pint_tpu_torch.toabatch import split_f64_words
 
@@ -317,6 +323,10 @@ def test_delay_chain_matches_plain(case):
 #: CM, a dip, a Gaussian event; the WaveX set: the WaveX family, CM, CMX)
 CHROM_SETS = {"CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
               "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM)}
+#: the orbit family's reference sets (the spider set: an FBn orbit,
+#: ORBWAVEs, PLANET_SHAPIRO; the BT_PIECEWISE set)
+ORBIT_SETS = {"SPIDER": (data.spider_par_lines, data.SPIDER_REF_TIM),
+              "BTPW": (data.btpw_par_lines, data.BTPW_REF_TIM)}
 
 
 def _chain_model(case, dev):
@@ -337,6 +347,11 @@ def _chain_model(case, dev):
                     data.chrom_family_tim(case))
     elif case in CHROM_SETS:
         par, tim = CHROM_SETS[case]
+    elif case in ORBIT_FAMILY:
+        par, tim = (lambda: data.orbit_family_par_lines(case),
+                    data.orbit_family_tim(case))
+    elif case in ORBIT_SETS:
+        par, tim = ORBIT_SETS[case]
     else:
         par, tim = {
             "J0740": (lambda: j0740_realistic_par(
@@ -349,7 +364,7 @@ def _chain_model(case, dev):
 
 
 @pytest.mark.parametrize("case", [*VARIANTS, *DM_FAMILY, *CHROM_FAMILY,
-                                  *CHROM_SETS])
+                                  *CHROM_SETS, *ORBIT_FAMILY, *ORBIT_SETS])
 def test_variant_delay_chain_matches_plain(case):
     """The delay_chain kernel on each DD and ELL1 variant against the
     plain component delays: delay within 1e-12 s, every jacfwd column
@@ -415,7 +430,8 @@ def test_ddk_fit_on_card_matches_reference():
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS,
+                                  *ORBIT_FAMILY, *ORBIT_SETS])
 def test_delay_chain_lanes_bit_equal_to_single_lane(case):
     """The multi-lane tangent launch (every lanes-per-thread) against the
     single-lane one, on two θ sets: bit-equal at lanes 1, 3, 10, 76 and
@@ -520,9 +536,17 @@ def test_delay_chain_refuses_what_it_does_not_cover():
         dc.DelayChain.apply(theta.float(), lay, *rows)
     with pytest.raises(ValueError):      # theta on another device
         dc.DelayChain.apply(theta.cpu(), lay, *rows)
-    model.PLANET_SHAPIRO.value = True
-    with pytest.raises(NotImplementedError, match="PLANET_SHAPIRO"):
-        model.calc.delay(r.pdict, r.batch)
+    # a layout the kernel still refuses: more members of a mask family
+    # than one bit word per row carries
+    from pint_tpu_torch.models.jump import DelayJump
+
+    dj = DelayJump()
+    for i in range(dc.MAX_JUMPS + 1):
+        dj.add_jump(index=11 + i, key="-fe", key_value=["RCVR800"],
+                    value=1e-7 * i)
+    model.add_component(dj)
+    with pytest.raises(NotImplementedError, match="at most 31"):
+        model.calc.chain_layout
 
 
 def test_gls_fit_on_card_matches_reference():
@@ -570,7 +594,8 @@ def _fused_case(case, dev):
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS,
+                                  *ORBIT_FAMILY, *ORBIT_SETS])
 def test_phase_chain_bit_equal_to_unfused_chain(case):
     """The fused launches against the unfused card chain: the primal of
     one launch over 1 and 9 θ sets in every mode (frac or the words,
@@ -628,7 +653,8 @@ def test_phase_chain_bit_equal_to_unfused_chain(case):
 
 
 @pytest.mark.parametrize("case", ["J0740", "DD", "GLS", *VARIANTS,
-                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS])
+                                  *DM_FAMILY, *CHROM_FAMILY, *CHROM_SETS,
+                                  *ORBIT_FAMILY, *ORBIT_SETS])
 def test_phase_chain_lanes_bit_equal_to_single_lane(case):
     """Every lanes-per-thread of the fused tangent launch against the
     single-lane one on two θ sets, with random tangents of θ and of
@@ -861,3 +887,44 @@ def test_chromatic_fits_on_card_match_reference():
     print(f"card WaveX fit vs pint_tpu: {sig:.3e} sigma, unc {unc:.3e}, "
           f"chi2 {gap:.3e}")
     assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+def test_orbit_fits_on_card_match_reference():
+    """The spider set's ``Fitter.auto`` fit (an FBn orbit, ORBWAVEs and
+    PLANET_SHAPIRO) and the BT_PIECEWISE set's WLSFitter fit on the card
+    against pint_tpu's stored fits, at the bars of
+    tests/test_torch_orbit_family.py; every residual through the fused
+    phase_chain kernel."""
+    _card()
+    from pint_tpu_torch.fitter import Fitter, WLSFitter
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+
+    for label, ref, par, tim in (
+            ("spider", data.SPIDER_REF_JSON, data.spider_par_lines,
+             data.SPIDER_REF_TIM),
+            ("btpw", data.BTPW_REF_JSON, data.btpw_par_lines,
+             data.BTPW_REF_TIM)):
+        with open(ref) as f:
+            want = json.load(f)
+        model, toas = data.load_torch(tim, par=par())
+        if label == "spider":
+            data.spider_start(model)
+            fitter = Fitter.auto(toas, model)
+            kw = {}
+        else:
+            data.perturb_dd(model)
+            fitter = WLSFitter(toas, model)
+            kw = {"maxiter": want["maxiter"]}
+        before = PhaseChain.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            chi2 = fitter.fit_toas(**kw)
+        assert PhaseChain.launches > before
+        sig, unc = data.fit_gaps(model, want["values"],
+                                 want["uncertainties"])
+        gap = abs(chi2 / want["chi2"] - 1.0)
+        print(f"card {label} fit vs pint_tpu: {sig:.3e} sigma, unc "
+              f"{unc:.3e}, chi2 {gap:.3e}")
+        assert fitter.fit_params == want["fit_params"]
+        assert fitter.fitresult.status.name == want["status"]
+        assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6

@@ -15,8 +15,9 @@ binary):
 And the kernel's inputs, built on the host: the θ packing round trip
 (every slot equals the ``pv``/constant it packs, and is differentiable in
 ``p["delta"]`` exactly as ``pv`` is), the DMX bin index against the range
-masks, the DelayJump bits, and the components and options the kernel
-refuses with ``NotImplementedError``.
+masks, the DelayJump bits, and the layout of the orbit family's terms
+(PLANET_SHAPIRO, an FBn orbit, ORBWAVEs), which the kernel refused before
+it covered them.
 """
 
 import warnings
@@ -200,6 +201,9 @@ def test_delay_jump_bits():
     ("orbwave", "ORBWAVE"),
 ])
 def test_uncovered_components_raise(change, match):
+    """Once refused, now laid out: the term's flag, and its slots (the
+    planets none, an FBn orbit a leading 0 and its terms, ORBWAVE its
+    OM, epoch and C/S pairs), the rest of the layout as the DD par's."""
     par = data.dd_par_lines()
     if change == "planets":
         par = par + ["PLANET_SHAPIRO Y"]
@@ -211,7 +215,46 @@ def test_uncovered_components_raise(change, match):
         from pint_tpu_torch.models import get_model
 
         tm = get_model(par)
+        base = dc.ChainLayout.from_components(get_model(
+            data.dd_par_lines()).delay_components)
     if change == "fb":
         tm.components["BinaryDD"].params["FB0"].value = 1.0 / (7.75 * 86400)
-    with pytest.raises(NotImplementedError, match=match):
-        dc.ChainLayout.from_components(tm.delay_components)
+    lay = dc.ChainLayout.from_components(tm.delay_components)
+    flag = {"PLANET_SHAPIRO": dc.PLANET_SHAPIRO, "FBn": dc.FB_ORBIT,
+            "ORBWAVE": dc.ORBWAVE}[match]
+    extra = {"planets": 0, "fb": 2, "orbwave": 4}[change]
+    cfg = dict(zip(dc.CFG_FIELDS, lay.cfg))
+    assert lay.flags == base.flags | flag
+    assert lay.P == base.P + extra
+    assert (cfg["nfb"], cfg["norbw"]) == {"planets": (0, 0), "fb": (1, 0),
+                                          "orbwave": (0, 1)}[change]
+    new = {"planets": (), "fb": ("FB__zero", "FB0"),
+           "orbwave": ("ORBWAVE_OM", "ORBWAVE_EPOCH", "ORBWAVEC0",
+                       "ORBWAVES0")}[change]
+    assert tuple(n for n in lay.names if n not in new) == base.names
+
+
+@pytest.mark.parametrize("par, want", [
+    (lambda: data.dd_par_lines(), 2),
+    (lambda: data.dm_family_par_lines("DMF_ELL1"), 7 + 1),
+    (lambda: data.chrom_family_par_lines("CHF_DD_CM"), 14 + 2),
+    (lambda: data.orbit_family_par_lines("ORB_DD_PLANET"), 21 + 2),
+    (lambda: data.orbit_mixed_lines(), 21 + 1),
+])
+def test_kernel_index_picks_the_library_part(par, want):
+    """The layout's template value index (csrc/delay_chain.cuh
+    family_index of kernel_family), and the library part that holds it:
+    the parts of a build split the 28 values evenly."""
+    from pint_tpu_torch.kernels import build
+    from pint_tpu_torch.models import get_model
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lay = get_model(par()).calc.chain_layout
+    assert lay.kernel_index == want
+    n = build.PARTS["delay_chain"]
+    assert build.part_of("delay_chain", want) == f"delay_chain.{want % n}"
+    held = [sum(1 for i in range(28) if i % n == p) for p in range(n)]
+    assert max(held) - min(held) <= 1
+    assert build.libraries(["delay_chain"]) == [
+        f"delay_chain.{p}" for p in range(n)]

@@ -12,7 +12,10 @@ binary; and the wideband set's layout, ``WB``), and the chromatic family
 (the chromatic set ``CHROM``: troposphere, CM, a dip and a Gaussian
 event; the WaveX set ``WAVEX``: WaveX, DMWaveX, CMWaveX, CM and CMX; and,
 as depth legs, each term alone on DD and ELL1,
-``examples.chromatic_family_par``), whose delay is held
+``examples.chromatic_family_par``), and the orbit family (the spider set
+``SPIDER``: an FBn orbit, four ORBWAVE harmonics and PLANET_SHAPIRO on
+ELL1; and, as depth legs, the BT_PIECEWISE set ``BTPW`` and each term
+alone on DD and ELL1, ``examples.orbit_family_par``), whose delay is held
 bit-equal (SWM 1 too: torch's pow on the CPU is libm's here, so its
 quadrature's 64 powers per row agree to the last bit):
 
@@ -43,7 +46,8 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
+                                     VARIANTS)
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.residuals import Residuals
 
@@ -82,17 +86,25 @@ SETS = {"J0740": (_j0740_par, data.REF_TIM),
         "CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
         "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM),
         **{kind: (lambda kind=kind: data.chrom_family_par_lines(kind),
-                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY}}
-#: every set; the chromatic family's single-term variants are depth legs
-#: (the CHROM and WAVEX sets hold every chromatic term in tier-1)
+                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY},
+        "SPIDER": (data.spider_par_lines, data.SPIDER_REF_TIM),
+        "BTPW": (data.btpw_par_lines, data.BTPW_REF_TIM),
+        **{kind: (lambda kind=kind: data.orbit_family_par_lines(kind),
+                  data.orbit_family_tim(kind)) for kind in ORBIT_FAMILY}}
+#: the depth legs: the chromatic and the orbit family's single-term
+#: variants and BT_PIECEWISE (the CHROM and WAVEX sets hold every
+#: chromatic term in tier-1, the SPIDER set the FBn orbit, ORBWAVE and
+#: the planets)
+DEPTH_SETS = CHROM_FAMILY + ORBIT_FAMILY + ("BTPW",)
+#: every set
 SET_PARAMS = [pytest.param(k, marks=pytest.mark.slow)
-              if k in CHROM_FAMILY else k for k in SETS]
+              if k in DEPTH_SETS else k for k in SETS]
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates, ELL1H and
 #: the DM family on the DD binary (SWM 0) and the ELL1 one (SWM 1)
 DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H", "DMF_DD",
          "DMF_ELL1_SWM1", *[pytest.param(k, marks=pytest.mark.slow)
-                            for k in ("CHROM", "WAVEX")])
+                            for k in ("CHROM", "WAVEX", "SPIDER", "BTPW")])
 
 
 @pytest.fixture(scope="module")
@@ -104,7 +116,7 @@ def host(tmp_path_factory):
     lib = str(tmp_path_factory.mktemp("delay_chain_host")
               / "libdelay_chain_host.so")
     res = subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-I", CSRC, os.path.join(CSRC, "delay_chain_host.cpp"), "-o", lib],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
@@ -233,6 +245,13 @@ def test_chromatic_lanes_bit_equal_to_dual(host, case, L):
     test_lanes_bit_equal_to_dual(host, case, L, "P")
 
 
+@pytest.mark.parametrize("case", ["SPIDER"], indirect=True)
+@pytest.mark.parametrize("L", [2, 4])
+def test_orbit_lanes_bit_equal_to_dual(host, case, L):
+    """The orbit family's tier-1 lanes leg, as the chromatic family's."""
+    test_lanes_bit_equal_to_dual(host, case, L, "P")
+
+
 @pytest.fixture
 def on_host(host, monkeypatch):
     """The wrapper's kernel calls routed to the host build: ``run`` takes
@@ -253,7 +272,7 @@ def on_host(host, monkeypatch):
     class Stream:
         cuda_stream = 0
 
-    monkeypatch.setattr(dc, "_lib", lambda: Lib)
+    monkeypatch.setattr(dc, "_lib", lambda layout: Lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
     monkeypatch.setattr(dc, "run", lambda layout, theta, dtheta, rows: dc
                         ._launch(layout, theta, dtheta, rows)[0])
@@ -319,8 +338,8 @@ def test_wrapper_backward_matches_plain(on_host, case):
     print(f"{case['name']}: backward vs plain reverse mode {rel:.3e}, vs "
           f"the plain columns' J^T g {rel_fwd:.3e} of sum |J||g|")
     assert rel_fwd <= BACKWARD_TOL
-    if case["name"] not in CHROM_FAMILY:
-        # the chromatic family's single-term variants (depth legs) are held
-        # against J^T g alone: the plain reverse mode's float32-grade
-        # t - epoch reaches 5.6e-9 of sum |J||g| on CHF_ELL1_DMWAVEX
+    if case["name"] not in DEPTH_SETS:
+        # the depth legs are held against J^T g alone: the plain reverse
+        # mode's float32-grade t - epoch reaches 5.6e-9 of sum |J||g| on
+        # CHF_ELL1_DMWAVEX and 7.3e-9 on BTPW
         assert rel <= BACKWARD_TOL

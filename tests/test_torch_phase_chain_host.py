@@ -12,8 +12,11 @@ own 200-TOA set, in ecliptic coordinates, ELL1H in its three modes,
 ELL1k), on the DM family (``examples.dm_family_par``: NE_SW with SWM 0
 and 1, SWX, DMJUMP, FDJUMPDM and FD<k>JUMP on the DD and ELL1 binaries),
 on the chromatic family (the ``CHROM`` and ``WAVEX`` sets, and as depth
-legs each term alone on DD and ELL1, ``examples.chromatic_family_par``)
-and on the wideband set's layout (``WB``; the tangent lanes at every L
+legs each term alone on DD and ELL1, ``examples.chromatic_family_par``),
+on the orbit family (the ``SPIDER`` set: an FBn orbit, ORBWAVEs and
+PLANET_SHAPIRO on ELL1; and as depth legs the ``BTPW`` set and each term
+alone on DD and ELL1, ``examples.orbit_family_par``) and on the wideband
+set's layout (``WB``; the tangent lanes at every L
 and lane count on DDK in ecliptic coordinates, ELL1H and the DM family
 with SWM 1 on DD, the shared-other and words-mode rules on the three
 sets):
@@ -51,7 +54,8 @@ import pytest
 import torch
 
 import torch_port_data as data
-from pint_tpu_torch.examples import CHROM_FAMILY, DM_FAMILY, VARIANTS
+from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
+                                     VARIANTS)
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
 from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
@@ -79,22 +83,30 @@ SETS = {"J0740": (data.par_lines, data.REF_TIM),
         "CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
         "WAVEX": (data.wavex_full_par_lines, data.WAVEX_REF_TIM),
         **{kind: (lambda kind=kind: data.chrom_family_par_lines(kind),
-                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY}}
-#: every set; the chromatic family's single-term variants are depth legs
-#: (the CHROM and WAVEX sets hold every chromatic term in tier-1)
+                  data.chrom_family_tim(kind)) for kind in CHROM_FAMILY},
+        "SPIDER": (data.spider_par_lines, data.SPIDER_REF_TIM),
+        "BTPW": (data.btpw_par_lines, data.BTPW_REF_TIM),
+        **{kind: (lambda kind=kind: data.orbit_family_par_lines(kind),
+                  data.orbit_family_tim(kind)) for kind in ORBIT_FAMILY}}
+#: the depth legs: the chromatic and the orbit family's single-term
+#: variants and BT_PIECEWISE (the CHROM and WAVEX sets hold every
+#: chromatic term in tier-1, the SPIDER set the FBn orbit, ORBWAVE and
+#: the planets)
+DEPTH_SETS = CHROM_FAMILY + ORBIT_FAMILY + ("BTPW",)
+#: every set
 SET_PARAMS = [pytest.param(k, marks=pytest.mark.slow)
-              if k in CHROM_FAMILY else k for k in SETS]
+              if k in DEPTH_SETS else k for k in SETS]
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates and ELL1H
 DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1",
                 *[pytest.param(k, marks=pytest.mark.slow)
-                  for k in ("CHROM", "WAVEX")])
+                  for k in ("CHROM", "WAVEX", "SPIDER", "BTPW")])
 
 
 def _build(gxx, tmp, name):
     lib = str(tmp / f"lib{name}.so")
     res = subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-I", CSRC, os.path.join(CSRC, f"{name}.cpp"), "-o", lib],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
@@ -151,8 +163,8 @@ def on_host(host, monkeypatch):
     class Stream:
         cuda_stream = 0
 
-    monkeypatch.setattr(pc, "_lib", lambda: PhaseLib)
-    monkeypatch.setattr(dc, "_lib", lambda: DelayLib)
+    monkeypatch.setattr(pc, "_lib", lambda spec: PhaseLib)
+    monkeypatch.setattr(dc, "_lib", lambda layout: DelayLib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
     monkeypatch.setattr(pc, "run", pc._launch)
     monkeypatch.setattr(dc, "run", lambda layout, theta, dtheta, rows,
@@ -291,6 +303,13 @@ def test_chromatic_tangent_lanes_bit_equal(on_host, case, L):
     """The chromatic family's tier-1 lanes leg: the fused tangent at P
     lanes against the unfused host chain (the depth legs run every lane
     count)."""
+    test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, "P")
+
+
+@pytest.mark.parametrize("case", ["SPIDER"], indirect=True)
+@pytest.mark.parametrize("L", [2, 4])
+def test_orbit_tangent_lanes_bit_equal(on_host, case, L):
+    """The orbit family's tier-1 lanes leg, as the chromatic family's."""
     test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, "P")
 
 

@@ -5,7 +5,8 @@ CPU at the 200-TOA sizes (a ``chip_smoke.Run`` passed in; the DDK path
 in ecliptic coordinates, the DD and ELL1 variants, the noise-fitting
 path that ``Fitter.auto`` picks, LM, the degraded chain, Powell, the
 grid API, the wideband path and the DM family's variants, the chromatic
-path and the chromatic family's variants included; the chromatic fit,
+path and the chromatic family's variants, the spider path and the orbit
+family's variants included; the chromatic fit,
 whose dip 50 epochs do not constrain, may end DIVERGED here, and takes
 the 200-TOA set's GP amplitudes), with
 the
@@ -124,7 +125,7 @@ def _host_libs(tmp_path):
     for name in ("delay_chain_host", "phase_chain_host"):
         out = str(tmp_path / f"lib{name}.so")
         res = subprocess.run(
-            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+            [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
              "-fPIC", "-I", csrc, os.path.join(csrc, f"{name}.cpp"), "-o",
              out], capture_output=True, text=True)
         assert res.returncode == 0, res.stderr
@@ -152,6 +153,12 @@ def _host_libs(tmp_path):
             return ph.phase_chain_host(*args[:-1])
 
     return DelayLib, PhaseLib
+
+
+#: the orbit family's layouts that orbit_chain holds here (on the card it
+#: holds all of them; tests/test_torch_*_chain_host.py hold each here)
+ORBIT_LAYOUTS = ("ORB_DD_FB", "ORB_NONE_PLANET", "ORB_BT_PIECES",
+                 "ORB_MIXED")
 
 
 def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
@@ -194,6 +201,13 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                                       os.path.join(cache, "clock")))
     monkeypatch.setattr(build, "build_all", lambda *a, **k: {})
     monkeypatch.setattr(build, "build_log", lambda name: PTXAS_LOG)
+    # the parent's ptxas report: the stand-in log's, so that the script's
+    # comparison runs and finds nothing changed
+    ref = tmp_path / "ptxas_reference.json"
+    ref.write_text(json.dumps({"kernels": {
+        k: cs.chain_registers(PTXAS_LOG, k)
+        for k in ("delay_chain", "phase_chain")}}))
+    monkeypatch.setattr(cs, "PTXAS_REFERENCE", str(ref))
     monkeypatch.setattr(Fitter, "_fused_ok", lambda self: True)
     real_q, real_k = qs_phase.run, kepler.run
 
@@ -217,12 +231,12 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(qs_phase, "run", q_run)
     monkeypatch.setattr(kepler, "run", k_run)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
-    monkeypatch.setattr(delay_chain, "_lib", lambda: delay_lib)
+    monkeypatch.setattr(delay_chain, "_lib", lambda layout: delay_lib)
     monkeypatch.setattr(delay_chain, "delay_chain", chain)
     monkeypatch.setattr(delay_chain, "run", lambda layout, theta, dtheta,
                         rows, lanes=None: delay_chain._launch(
                             layout, theta, dtheta, rows, lanes=lanes)[0])
-    monkeypatch.setattr(phase_chain, "_lib", lambda: phase_lib)
+    monkeypatch.setattr(phase_chain, "_lib", lambda spec: phase_lib)
     monkeypatch.setattr(phase_chain, "run", phase_chain._launch)
     monkeypatch.setattr(phase_chain, "phase_frac", phase_chain.fused)
     try:
@@ -234,7 +248,9 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             wb_tim=str(tmp_path / "wb.tim"), wb_nfit=27,
             chrom_tim=str(tmp_path / "chrom.tim"), chrom_nfit=29,
             chrom_status=("CONVERGED", "DIVERGED"),
-            chrom_noise=CHROM_NOISE_200)) == 0
+            chrom_noise=CHROM_NOISE_200,
+            spider_tim=str(tmp_path / "spider.tim"), spider_nfit=33,
+            orbit_layouts=ORBIT_LAYOUTS)) == 0
     finally:
         for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
                   delay_chain.DelayChain, delay_chain.DelayChainTangent,
@@ -256,7 +272,8 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                       "wideband_profile", "wideband_reference",
                       "dm_family_chain", "chromatic_main_path",
                       "chromatic_profile", "chromatic_reference",
-                      "chromatic_chain"]
+                      "chromatic_chain", "orbit_main_path", "orbit_profile",
+                      "orbit_reference", "orbit_chain"]
     dd = next(json.loads(ln) for ln in lines if '"dd_main_path"' in ln)
     assert set(dd["fit_warm_share"]) == {"loop", "host_solve", "write_back",
                                          "other"}
@@ -277,7 +294,8 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(set(k["launches_by_path"]) == {
         "j0740_grid", "dd_fit", "gls_fit", "ddk_ecl_fit", "noise_fit",
         "auto_wls_fit", "lm_fit", "degraded_lm", "wideband_fit",
-        "wideband_gls_fit", "wideband_lm_fit", "chromatic_fit"}
+        "wideband_gls_fit", "wideband_lm_fit", "chromatic_fit",
+        "spider_fit"}
         for k in kernels)
     assert all(by_name[n]["launches_by_path"]["wideband_fit"] > 0
                for n in ("phase_chain_primal", "phase_chain_tangent"))
@@ -406,5 +424,37 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     assert all(set(by_name[n]["chromatic_family"]) == {"chromatic", "wavex"}
                for n in ("delay_chain_primal", "delay_chain_tangent",
                          "phase_chain_primal", "phase_chain_tangent"))
+    orb = recs["orbit_main_path"]
+    assert orb["fitter"] == "DownhillWLSFitter" and orb["n_fit"] == 33
+    assert orb["phase_chain_backward_calls"] == 0
+    assert orb["planets_loaded"] == sorted(delay_chain.PLANETS)
+    assert set(orb["pulls"]) == {
+        "F0", "F1", "FB0", "FB1", "A1", "TASC", "EPS1", "EPS2",
+        *[f"ORBWAVE{cs_}{k}" for cs_ in "CS" for k in range(4)]}
+    assert orb["normal_matrix_condition"] > 1.0
+    assert len(orb["fit_walls_s"]) == 2
+    assert all(orb["launches"][n] > 0 for n in ("phase_chain_primal",
+                                                "phase_chain_tangent"))
+    assert recs["orbit_reference"]["failed"] == []
+    assert recs["orbit_reference"]["spider"]["fitter"] == "DownhillWLSFitter"
+    orc = recs["orbit_chain"]
+    assert set(orc["layouts"]) == {*ORBIT_LAYOUTS, "spider"}
+    for lab in ORBIT_LAYOUTS + ("spider",):
+        assert orc["delay_chain"][lab]["delay_bit_equal"], lab
+        assert all(orc["phase_chain"][lab][
+            "tangents_bit_equal_to_unfused"].values()), lab
+    flags = {lab: v["flags"] for lab, v in orc["layouts"].items()}
+    assert flags["ORB_BT_PIECES"] & delay_chain.BT_PIECES
+    assert flags["ORB_NONE_PLANET"] & delay_chain.PLANET_SHAPIRO
+    assert flags["ORB_DD_FB"] & delay_chain.FB_ORBIT
+    assert flags["ORB_MIXED"] & delay_chain.CM and \
+        flags["ORB_MIXED"] & delay_chain.SOLAR_WIND
+    assert orc["ptxas_changed_vs_parent"] == {}
+    assert set(orc["timing"]["phase_chain"]) == {"spider", "ORB_MIXED"}
+    assert all(set(by_name[n]["orbit_family"]) == {"spider", "ORB_MIXED"}
+               for n in ("delay_chain_primal", "delay_chain_tangent",
+                         "phase_chain_primal", "phase_chain_tangent"))
+    assert all(by_name[n]["launches_by_path"]["spider_fit"] > 0
+               for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu-rehearsal", "count": 1}}

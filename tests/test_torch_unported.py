@@ -4,7 +4,8 @@ pint_tpu_torch does not yet is refused by the port's model builder
 would give residuals that silently differ from pint_tpu's.  On the DD
 set's par, pint_tpu builds each such component; parameters that no
 component owns still only warn, in both packages.  The chromatic family
-that this port now has loads in both.
+and the binary family's rest (BT_PIECEWISE, FBn, ORBWAVE) that this port
+now has load in both.
 """
 
 import warnings
@@ -77,3 +78,22 @@ def test_ported_chromatic_lines_load():
     assert {"ChromaticCM", "SimpleExponentialDip",
             "TroposphereDelay"} <= set(model.components)
     assert not model.CORRECT_TROPOSPHERE.value
+
+
+def test_ported_orbit_lines_load():
+    """BT_PIECEWISE's pieces, an FBn orbit and ORBWAVEs load in both
+    packages (BinaryBTPiecewise left the list with the orbit family)."""
+    assert "BinaryBTPiecewise" not in UNPORTED
+    bt = [ln.replace("BINARY DD", "BINARY BT_PIECEWISE")
+          for ln in data.dd_par_lines()
+          if not ln.startswith(("M2 ", "SINI ", "OMDOT "))]
+    lines = bt + ["XR1_0001 53000", "XR2_0001 54000", "T0X_0001 55000.2001",
+                  "ORBWAVE_OM 1e-8", "ORBWAVE_EPOCH 55000",
+                  "ORBWAVEC0 1e-4", "ORBWAVES0 -1e-4"]
+    for gm in (get_model, jax_get_model):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            model = gm(lines)
+        comp = model.components["BinaryBTPiecewise"]
+        assert comp.piece_indices() == [1]
+        assert comp.orbwave_names() == (["ORBWAVEC0"], ["ORBWAVES0"])

@@ -18,7 +18,11 @@ timing and the white-noise parameters beside it; and a wideband set
 (``wideband_nanograv_par(dmx_bins=8)``: the GLS set's model and epochs
 with NE_SW, two DMJUMPs, DMEFAC/DMEQUAD per receiver and a wideband DM on
 every TOA) with pint_tpu's WidebandTOAFitter, WidebandDownhillFitter (the
-DMEFACs free) and WidebandLMFitter fits beside it.
+DMEFACs free) and WidebandLMFitter fits beside it; a spider set
+(``spider_realistic_par(dmx_bins=8)``: the FBn orbit, ORBWAVEs and
+PLANET_SHAPIRO) with pint_tpu's ``Fitter.auto`` fit beside it; and a
+BT_PIECEWISE set (``btpw_par(dmx_bins=8)``) with pint_tpu's eager
+``WLSFitter`` fit beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -827,6 +831,142 @@ def write_wavex_reference() -> dict:
     return rec
 
 
+#: the committed spider set (``spider_realistic_par(dmx_bins=8)``, the
+#: DD set's receivers and sub-bands) and pint_tpu's Fitter.auto fit of it
+SPIDER_REF_TIM = os.path.join(DATA_DIR, "spider_sim_200.tim")
+SPIDER_REF_JSON = os.path.join(DATA_DIR, "spider_sim_200_fit.json")
+#: the committed BT_PIECEWISE set (``btpw_par(dmx_bins=8)``) and
+#: pint_tpu's eager WLSFitter fit of it
+BTPW_REF_TIM = os.path.join(DATA_DIR, "btpw_sim_200.tim")
+BTPW_REF_JSON = os.path.join(DATA_DIR, "btpw_sim_200_fit.json")
+
+
+def spider_par_lines():
+    from pint_tpu_torch.examples import spider_realistic_par
+
+    return spider_realistic_par(DMX_BINS, SPAN_DAYS, CENTER_MJD).splitlines()
+
+
+def btpw_par_lines():
+    from pint_tpu_torch.examples import btpw_par
+
+    return btpw_par(DMX_BINS, SPAN_DAYS, CENTER_MJD).splitlines()
+
+
+def orbit_family_par_lines(kind: str):
+    """One of ``pint_tpu_torch.examples.ORBIT_FAMILY`` at this module's
+    size."""
+    from pint_tpu_torch.examples import orbit_family_par
+
+    return orbit_family_par(kind, dmx_bins=DMX_BINS, span_days=SPAN_DAYS,
+                            center_mjd=CENTER_MJD).splitlines()
+
+
+def orbit_mixed_lines():
+    """``examples.orbit_mixed_par`` at this module's size."""
+    from pint_tpu_torch.examples import orbit_mixed_par
+
+    return orbit_mixed_par(DMX_BINS, SPAN_DAYS, CENTER_MJD).splitlines()
+
+
+def orbit_family_tim(kind: str) -> str:
+    """The committed set an orbit-family variant is checked on: the DD set
+    or the J0740 set by its binary."""
+    return DD_REF_TIM if kind.startswith("ORB_DD") else REF_TIM
+
+
+def write_uniform_sim_tim(path: str, par, ntoas: int = NTOAS,
+                          seed: int = 0) -> str:
+    """Simulate ``par`` with pint_tpu as the DD set is (uniform TOAs, the
+    three receivers in four sub-bands) and write it to ``path``."""
+    from pint_tpu.models import get_model
+    from pint_tpu.simulation import make_fake_toas_uniform
+    from pint_tpu.toa import write_tim
+    from pint_tpu_torch.examples import RECEIVERS, receiver_freqs
+
+    band, freqs = receiver_freqs(ntoas)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par)
+        toas = make_fake_toas_uniform(
+            CENTER_MJD - SPAN_DAYS / 2, CENTER_MJD + SPAN_DAYS / 2, ntoas,
+            model, obs="gbt", error_us=1.0, freq_mhz=freqs,
+            add_noise=True, seed=seed)
+    for b_mhz, fl in zip(band, toas.flags):
+        fl["fe"] = RECEIVERS[float(b_mhz)]
+    write_tim(path, toas)
+    return path
+
+
+def spider_start(model):
+    """The spider fit's start (``examples.spider_start``)."""
+    from pint_tpu_torch.examples import spider_start as start
+
+    start(model)
+
+
+def jax_spider_fit(timfile: str) -> dict:
+    """pint_tpu's ``Fitter.auto(...).fit_toas()`` (its defaults, JAX on
+    the CPU) of the spider set from :func:`spider_start`: the record
+    SPIDER_REF_JSON holds."""
+    from pint_tpu.fitter import Fitter
+    from pint_tpu_torch.examples import SPIDER_PERTURB
+
+    model, toas = load_jax(timfile, par=spider_par_lines())
+    spider_start(model)
+    fitter = Fitter.auto(toas, model)
+    start = device_values(model, fitter.fit_params)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas()
+    return {"what": "pint_tpu Fitter.auto(...).fit_toas() with its "
+                    "defaults, JAX on the CPU, on spider_sim_200.tim "
+                    "(spider_realistic_par(dmx_bins=8)) from the perturbed "
+                    "start", "fitter": type(fitter).__name__,
+            "ntoas": toas.ntoas, "perturb": SPIDER_PERTURB, "start": start,
+            **fitter_record(fitter, chi2)}
+
+
+def jax_btpw_fit(timfile: str) -> dict:
+    """pint_tpu's eager WLSFitter.fit_toas(maxiter=3) of the BT_PIECEWISE
+    set from the perturbed DD start: the record BTPW_REF_JSON holds."""
+    from pint_tpu.fitter import WLSFitter
+
+    model, toas = load_jax(timfile, par=btpw_par_lines())
+    perturb_dd(model)
+    fitter = WLSFitter(toas, model)
+    start = device_values(model, fitter.fit_params)
+    chi2 = fitter.fit_toas(maxiter=DD_MAXITER)
+    return {"what": "pint_tpu WLSFitter.fit_toas(maxiter=3), eager, JAX on "
+                    "the CPU, on btpw_sim_200.tim (btpw_par(dmx_bins=8)) "
+                    "from the perturbed DD start",
+            "ntoas": toas.ntoas, "maxiter": DD_MAXITER,
+            "perturb": DD_PERTURB, "start": start,
+            **fitter_record(fitter, chi2)}
+
+
+def write_spider_reference() -> dict:
+    """Write SPIDER_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_uniform_sim_tim(SPIDER_REF_TIM, spider_par_lines())
+    rec = jax_spider_fit(SPIDER_REF_TIM)
+    with open(SPIDER_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
+def write_btpw_reference() -> dict:
+    """Write BTPW_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_uniform_sim_tim(BTPW_REF_TIM, btpw_par_lines())
+    rec = jax_btpw_fit(BTPW_REF_TIM)
+    with open(BTPW_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -920,7 +1060,9 @@ WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "noisefit": write_noisefit_reference,
            "wb_sim_200": write_wb_reference,
            "chrom_sim_200": write_chrom_reference,
-           "wavex_sim_200": write_wavex_reference}
+           "wavex_sim_200": write_wavex_reference,
+           "spider_sim_200": write_spider_reference,
+           "btpw_sim_200": write_btpw_reference}
 
 if __name__ == "__main__":
     # python tests/torch_port_data.py [set ...]: every set by default
