@@ -6,9 +6,11 @@ full-width noise-fitting GLS fit that ``Fitter.auto`` picks, with LM,
 Powell and the grid API, the full-width wideband fit (TOAs and their
 DMs) with the DM family of the delay kernel's row function, the
 full-width chromatic noise fit with the chromatic family of the row
-function, and the full-width spider-binary fit (an FBn orbit, ORBWAVEs
+function, the full-width spider-binary fit (an FBn orbit, ORBWAVEs
 and the planets' Shapiro delays) with the orbit family of the row
-function.
+function, and the simulate-fit-scan path (the J0740-class set simulated
+on the card, fitted, scanned over M2/SINI in checkpointed chunks with a
+SIGTERM and resume, and its random models).
 
 Run from the repository root, with no arguments::
 
@@ -250,6 +252,35 @@ Phases, each printing one JSON line with its numbers and seconds:
    with their bounds; ptxas's registers and spills of the orbit family's
    instantiations, and every other kernel's against the parent's
    (``PTXAS_REFERENCE``): identical, or the phase fails.
+12. sim_main_path: the ninth path, sim_scan, at full width (12,500 TOAs,
+   the headline's par with 70 DMX bins and its 86 fit parameters):
+   ``examples.simulate_j0740_realistic`` on the card ->
+   ``WLSFitter.fit_toas(maxiter=3)`` (M2 and SINI frozen; chi2/dof in
+   SIM_CHI2_PER_DOF, every free parameter within 5 sigma of the par's
+   value) -> a fit with M2 and SINI free, whose uncertainties give the
+   steps of a 5 x 5 M2/SINI grid centred on the truth -> the
+   whole-grid program and ``grid_chisq_flat(chunk_size=4,
+   checkpoint=...)`` (7 chunks; within 1e-6 of each other, the chi2
+   minimum within one step of the truth) ->
+   ``calculate_random_models`` at 100 draws on a fit of the same set
+   with RANDOM_MODELS_FROZEN frozen (at most 2 primal and no tangent
+   launch, the draws' scatter over the covariance's prediction in
+   SCATTER_RATIO); every chunk of the scan OK; the launch counts zeroed
+   just before and read just after;
+   sim_scan_timing: the chunked scan (``scan_warm_s``) and the random
+   models (``random_models_warm_s``), median of 3, launches per call,
+   peak memory, one profile of each; every chunk of every timed scan
+   OK, and each repeat bit-identical to the first chunked scan;
+   sim_scan_faults: a SIGTERM after chunk 2 (``ScanInterrupted``, the
+   checkpoint left) and ``resume=True`` (3 chunks restored, every chunk
+   OK, bit-identical to the chunked scan), a chunk made non-finite once
+   (RETRIED, bit-identical), a chunk that raises beyond its retries
+   (REROUTED through one unbatched fit per point, within 1e-6); every
+   other chunk OK;
+   sim_chain: the fused primal over the 100 draws' θ sets, bit-equal to
+   the unfused card chain and within F0 x 1e-12 s of the plain
+   composition, timed against its bound; the chain timed at the scan's
+   chunk width, primal and tangent.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -258,7 +289,11 @@ it, and exits non-zero otherwise.
 
 ``main(Run(...))`` runs the same phases on another device or at other
 sizes (``tests/test_torch_smoke_rehearsal.py`` runs them on the CPU at
-200 TOAs); with no arguments it runs on the card at full width.
+200 TOAs, ``tests/test_torch_smoke_rehearsal_scan.py`` the sim_scan
+path at 300 TOAs), or only some of the paths (``Run.paths``, of
+``PATHS``: the first eight run together or not at all, sim_scan alone;
+without the first eight no kernels line is printed); with no arguments
+it runs every path on the card at full width.
 ``python3 chip_smoke.py --ptxas-reference CSRC OUT.json`` compiles
 another checkout's ``delay_chain.cu`` and ``phase_chain.cu`` (needs
 nvcc, no card) and writes their ptxas report in ``PTXAS_REFERENCE``'s
@@ -411,6 +446,34 @@ TRAJECTORY_SIGMA_TOL = 1e-2
 #: LM's fitted values against the downhill WLS fit's [sigma]
 LM_VS_WLS_SIGMA = 0.2
 
+#: the paths main() drives, in order.  The first eight share their models
+#: and TOAs (phases delay_chain and phase_chain hold all of them), so they
+#: run together or not at all; sim_scan builds what it needs itself
+PATHS = ("grid", "dd_fit", "gls_fit", "ddk_fit", "noise_fit",
+         "wideband_fit", "chromatic_fit", "spider_fit", "sim_scan")
+#: the sim_scan path: the simulated set's truth on the grid's axes, the
+#: grid's points per axis and its step in the sigma of a fit with both
+#: free, the chunk width, the chunk after which a SIGTERM arrives, the
+#: random models' draws and seed, the fit's chi2/dof window (12,400 dof
+#: give a standard deviation of 0.013), and the window of the draws'
+#: scatter over the covariance's prediction
+SIM_TRUTH = {"M2": 0.25, "SINI": 0.99}
+SCAN_AXIS = 5
+SCAN_STEP_SIGMA = 2.0
+SCAN_CHUNK = 4
+SCAN_SIGTERM_AFTER = 2
+RANDOM_MODELS = 100
+RANDOM_MODELS_SEED = 1
+#: frozen in the random models' fit: with three receiver frequencies the
+#: per-frequency constants (FD1-4, DM, the two JUMPs and the offset: eight
+#: parameters for three constraints) are degenerate up to the spin
+#: frequency's 1e-9 drift, and DM with the sum of the DMX bins exactly;
+#: the draw's 1e-12 on the correlation's diagonal then moves the phase by
+#: many cycles along them
+RANDOM_MODELS_FROZEN = ("FD1", "FD2", "FD3", "FD4", "DM")
+SIM_CHI2_PER_DOF = (0.95, 1.05)
+SCATTER_RATIO = (0.8, 1.2)
+
 
 class Run(NamedTuple):
     """Where the phases run and at what size: the card and the full width
@@ -452,6 +515,12 @@ class Run(NamedTuple):
     #: the layouts orbit_chain holds besides the spider path's model (None:
     #: every one; a small rehearsal may take fewer)
     orbit_layouts: tuple = None
+    #: the paths to drive, of PATHS (None: every one)
+    paths: tuple = None
+    #: the sim_scan path's grid points per axis and chunk width (a small
+    #: rehearsal may take a smaller grid)
+    scan_axis: int = SCAN_AXIS
+    scan_chunk: int = SCAN_CHUNK
 
 
 def emit(obj) -> None:
@@ -3121,6 +3190,358 @@ def orbit_paths(torch, np, run: Run, ctx: dict) -> dict:
     return out
 
 
+def scan_grid(np, sigma: dict, axis: int = SCAN_AXIS) -> dict:
+    """The sim_scan path's ``axis`` x ``axis`` M2/SINI grid, flat, centred
+    on SIM_TRUTH: each axis's step SCAN_STEP_SIGMA of ``sigma`` (a fit's
+    uncertainty with both free), kept so that M2 > 0 and SINI < 1 at the
+    grid's edge; returns the axes' steps and values too."""
+    half = axis // 2
+    steps = {n: min(SCAN_STEP_SIGMA * sigma[n],
+                    (SIM_TRUTH[n] if n == "M2" else 1.0 - SIM_TRUTH[n])
+                    / (half + 0.5)) for n in SIM_TRUTH}
+    axes = {n: SIM_TRUTH[n] + steps[n] * np.arange(-half, half + 1)
+            for n in SIM_TRUTH}
+    grid = {"M2": np.repeat(axes["M2"], axis),
+            "SINI": np.tile(axes["SINI"], axis)}
+    return {"steps": steps, "axes": axes, "grid": grid}
+
+
+def check_primal_at(torch, model, fitter, X, rec: dict) -> float:
+    """The fused phase_chain primal at the fit points ``X`` (one launch over
+    len(X) θ sets) against the unfused card chain (bit-equal: frac, slope,
+    dt64) and against the plain composition (frac within F0 x DELAY_TOL_S,
+    K3's bars).  Returns frac's largest gap to the plain composition."""
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+
+    r = fitter.resids
+    p, b, calc, names = r.pdict, r.batch, model.calc, fitter.fit_params
+    spec, thetas, others, tensors = fused_points(torch, model, fitter, X)
+    with torch.no_grad():
+        fused = pc.run(spec, thetas, others, tensors)
+        want = qs_phase.run(*unfused_points(torch, model, fitter, X))
+
+        def plain_f(x):
+            return pc.unfused(calc, model.with_x(p, x, names), b, "nearest")
+
+        with plain_phase():
+            plain = torch.func.vmap(plain_f)(X)
+        err = float(torch.max(torch.abs(fused[0] - plain)))
+    bar = float(model.F0.value) * DELAY_TOL_S
+    rec.update(theta_sets=int(X.shape[0]), ntoas=b.ntoas,
+               primal_bit_equal_to_unfused={
+                   name: bool(torch.equal(a, w)) for name, a, w in
+                   zip(("out", "slope", "dt64"), fused, want)},
+               max_abs_frac_err_vs_plain=err, frac_bar_vs_plain_cycles=bar)
+    if not (all(rec["primal_bit_equal_to_unfused"].values()) and err <= bar):
+        raise AssertionError(f"phase_chain primal at {X.shape[0]} θ sets: "
+                             f"{rec}")
+    return err
+
+
+def sim_scan_paths(torch, np, run: Run) -> dict:
+    """The simulate-fit-scan path (phases sim_main_path ... sim_chain, see
+    the module docstring).  Returns its launches and the timing records of
+    the phase chain at its shapes."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch import faultinject
+    from pint_tpu_torch.examples import (j0740_realistic_par,
+                                         simulate_j0740_realistic)
+    from pint_tpu_torch.exceptions import ScanInterrupted
+    from pint_tpu_torch.fitter import WLSFitter, fit_wls_eigh
+    from pint_tpu_torch.gridutils import grid_chisq_flat
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import ChunkStatus
+    from pint_tpu_torch.simulation import calculate_random_models
+
+    out = {"launches": {}}
+    os.makedirs(run.out_dir, exist_ok=True)
+    ck = os.path.join(run.out_dir, "sim_scan_checkpoint.npz")
+
+    def fresh_checkpoint():
+        if os.path.exists(ck):
+            os.remove(ck)
+        return ck
+
+    # the scans take the card's WLS solve on any device: the eigh of the
+    # normal matrix (on the CPU the default is pint_tpu's SVD recipe)
+    def scan(**kw):
+        return grid_chisq_flat(fit, grid, maxiter=2, kernel=fit_wls_eigh,
+                               chunk_size=run.scan_chunk,
+                               return_summary=True, **kw)
+
+    def random_models():
+        return calculate_random_models(rfit, toas, Nmodels=RANDOM_MODELS,
+                                       seed=RANDOM_MODELS_SEED)
+
+    def all_ok(summ):
+        """Every chunk of a scan that no failpoint touched ran OK: a
+        chunk retried or rerouted there is a fault that the scan hid."""
+        return summ.counts() == {"OK": summ.n_chunks}
+
+    def scatter_ratio(f, dphase):
+        """Median over TOAs of the draws' scatter over F0 sqrt(diag(M C
+        M^T)): M the design matrix with the weighted offset profiled out,
+        C as the draws take it (the correlation with 1e-12 on its
+        diagonal, rescaled), formed as |M s L| with L its Cholesky factor
+        (well scaled, where M C M^T's terms cancel below their
+        rounding)."""
+        names_ = f.covariance_params
+        M, _ = f.get_designmatrix()
+        w = 1.0 / np.asarray(toas.error_us, np.float64) ** 2
+        Mw = M - (w @ M) / np.sum(w)
+        C = np.asarray(f.parameter_covariance_matrix)[:len(names_),
+                                                      :len(names_)]
+        sd = np.sqrt(np.diag(C))
+        L = np.linalg.cholesky(C / np.outer(sd, sd)
+                               + 1e-12 * np.eye(len(names_)))
+        pred = float(f.model.F0.value) * np.linalg.norm(
+            Mw @ (sd[:, None] * L), axis=1)
+        return float(np.median(np.std(dphase, axis=0) / pred))
+
+    with phase("sim_main_path", {}) as rec:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            t0 = time.perf_counter()
+            model, toas = simulate_j0740_realistic(
+                run.ntoas, seed=0, device=run.dev, dmx_bins=run.dmx_bins)
+            torch.cuda.synchronize()
+            rec.update(sim_simulate_s=time.perf_counter() - t0,
+                       zero_residuals_iterations=toas.
+                       zero_residuals_iterations,
+                       simulate_launches=counts())
+            truth = {n: np.array(model[n].device_value, np.float64)
+                     for n in model.free_params}
+            # the fit, M2 and SINI frozen as in the headline grid
+            fit, chi2, fit_s = timed_fit(
+                torch, lambda: WLSFitter(toas, model, device=run.dev),
+                maxiter=DD_MAXITER)
+            fr = fit.fitresult
+            names = fit.fit_params
+            pulls = {n: device_offset(model[n].device_value, truth[n])
+                     / model[n].device_uncertainty for n in names}
+            # the grid's steps: a fit of the same set with M2 and SINI free
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                free = get_model(j0740_realistic_par(
+                    dmx_bins=run.dmx_bins).splitlines())
+            for n in SIM_TRUTH:
+                free[n].frozen = False
+            ffit, fchi2, _ = timed_fit(
+                torch, lambda: WLSFitter(toas, free, device=run.dev),
+                maxiter=DD_MAXITER)
+            sig = {n: float(free[n].uncertainty) for n in SIM_TRUTH}
+            g = scan_grid(np, sig, run.scan_axis)
+            grid = g["grid"]
+            # the whole-grid program, then the chunked, checkpointed scan
+            t0 = time.perf_counter()
+            whole = grid_chisq_flat(fit, grid, maxiter=2,
+                                    kernel=fit_wls_eigh)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            chunked, summ = scan(checkpoint=fresh_checkpoint())
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+            # the random models: on a fit of the same set with
+            # RANDOM_MODELS_FROZEN frozen at the par's values
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rmodel = get_model(j0740_realistic_par(
+                    dmx_bins=run.dmx_bins).splitlines())
+            for n in RANDOM_MODELS_FROZEN:
+                rmodel[n].frozen = True
+            rfit, rchi2, _ = timed_fit(
+                torch, lambda: WLSFitter(toas, rmodel, device=run.dev),
+                maxiter=DD_MAXITER)
+            before = counts()
+            t0 = time.perf_counter()
+            dphase, draws = random_models()
+            torch.cuda.synchronize()
+            rm_s = time.perf_counter() - t0
+            rm_launches = {k: n - before[k] for k, n in counts().items()}
+        launches = counts()
+        rel = float(np.max(np.abs(chunked - whole) / np.abs(whole)))
+        imin = int(np.argmin(chunked))
+        at_min = divmod(imin, run.scan_axis)
+        ratio = scatter_ratio(rfit, dphase)
+        f0 = float(model.F0.value)
+        rec.update(
+            ntoas=toas.ntoas, n_fit=len(names), status=fr.status.name,
+            iterations=fr.iterations, rung=fr.rung, chi2=chi2, dof=fr.dof,
+            chi2_per_dof=chi2 / fr.dof, fit_cold_s=fit_s,
+            pulls=pulls, max_abs_pull=max(abs(v) for v in pulls.values()),
+            free_fit={"chi2": fchi2, "status": ffit.fitresult.status.name,
+                      "values": {n: float(free[n].value) for n in SIM_TRUTH},
+                      "sigma": sig},
+            grid_steps=g["steps"],
+            grid_axes={n: v.tolist() for n, v in g["axes"].items()},
+            chi2_whole=whole.tolist(), chi2_chunked=chunked.tolist(),
+            max_rel_chunked_vs_whole=rel, whole_grid_s=whole_s,
+            chunked_scan_cold_s=chunked_s, chunk_statuses=summ.counts(),
+            n_chunks=summ.n_chunks, chi2_min_at=list(at_min),
+            random_models_fit={
+                "n_fit": len(rfit.fit_params), "chi2": rchi2,
+                "chi2_per_dof": rchi2 / rfit.fitresult.dof,
+                "status": rfit.fitresult.status.name,
+                "n_bad": rfit.fit_info.get("n_bad"),
+                "frozen": list(RANDOM_MODELS_FROZEN)},
+            random_models_cold_s=rm_s, random_models_launches=rm_launches,
+            random_models_shapes=[list(dphase.shape), list(draws.shape)],
+            random_models_scatter_ratio=ratio,
+            random_models_median_std_us=float(np.median(np.std(
+                dphase, axis=0))) / f0 * 1e6,
+            plain_delay_chains=plain["calls"],
+            phase_chain_backward_calls=back["calls"],
+            launches=launches,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            device=str(fit.device))
+        out["launches"]["sim_scan"] = launches
+    if toas.ntoas != run.ntoas or len(names) != run.nfit:
+        raise AssertionError("not the full-width simulated configuration")
+    if fr.status.name not in ("CONVERGED", "MAXITER"):
+        raise AssertionError(f"simulated fit ended {fr.status.name}")
+    if not SIM_CHI2_PER_DOF[0] < chi2 / fr.dof < SIM_CHI2_PER_DOF[1]:
+        raise AssertionError(f"simulated fit chi2/dof {chi2 / fr.dof}")
+    if not rec["max_abs_pull"] < PULL_MAX:
+        raise AssertionError(f"simulated fit pulls {pulls}")
+    if not (rel <= CHI2_TOL and all_ok(summ) and summ.n_chunks == -(
+            -run.scan_axis ** 2 // run.scan_chunk)):
+        raise AssertionError(f"chunked scan: {rel}, {summ}")
+    if not all(abs(i - run.scan_axis // 2) <= 1 for i in at_min):
+        raise AssertionError(f"chi2 minimum at {at_min}, not within one "
+                             "step of the truth")
+    if dphase.shape != (RANDOM_MODELS, toas.ntoas) or draws.shape != (
+            RANDOM_MODELS, len(rfit.fit_params)):
+        raise AssertionError(f"random models' shapes {dphase.shape}, "
+                             f"{draws.shape}")
+    if not (rm_launches["phase_chain_primal"] <= 2
+            and rm_launches["phase_chain_tangent"] == 0
+            and rm_launches["phase_chain_primal"] > 0
+            and plain["calls"] == 0 and back["calls"] == 0):
+        raise AssertionError(f"random models: {rm_launches}; on the path "
+                             f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} backward calls")
+    if not SCATTER_RATIO[0] < ratio < SCATTER_RATIO[1]:
+        raise AssertionError(f"random models' scatter ratio {ratio}")
+    check_path_launches("simulate-fit-scan path", launches)
+
+    with phase("sim_scan_timing", {}) as rec:
+        walls, per_call, repeats, summs = [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, s = scan(checkpoint=fresh_checkpoint())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_call.append(counts())
+            repeats.append(again)
+            summs.append(s)
+        rec.update(scan_warm_s=statistics.median(walls), scan_walls_s=walls,
+                   launches_per_scan=per_call,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   deterministic=all(np.array_equal(v, chunked)
+                                     for v in repeats),
+                   max_rel_repeat_gap=max(float(np.max(np.abs(
+                       v - chunked) / np.abs(chunked))) for v in repeats))
+        rec["profile"] = profile_grid(
+            torch, lambda: summs.append(
+                scan(checkpoint=fresh_checkpoint())[1]),
+            run.out_dir, out_name="sim_scan_profile")
+        rec["chunk_statuses"] = [s.counts() for s in summs]
+        walls, per_call = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            random_models()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_call.append(counts())
+        rec.update(random_models_warm_s=statistics.median(walls),
+                   random_models_walls_s=walls,
+                   launches_per_random_models=per_call,
+                   random_models_peak_mem_bytes=torch.cuda.
+                   max_memory_allocated())
+        rec["random_models_profile"] = profile_grid(
+            torch, random_models, run.out_dir,
+            out_name="random_models_profile")
+    if not all(all_ok(s) for s in summs):
+        raise AssertionError(f"a timed scan hid a fault: {rec}")
+    # the resume and the retry below are held bit-identical to the first
+    # chunked scan, so the card's program must repeat it exactly
+    if not rec["deterministic"]:
+        raise AssertionError(f"chunked scans differ on repeat: {rec}")
+
+    def rest_ok(summ, faulted):
+        """Every chunk but ``faulted`` ran OK."""
+        return all(st == ChunkStatus.OK for i, st in enumerate(
+            summ.statuses) if i != faulted)
+
+    with phase("sim_scan_faults", {}) as rec:
+        fresh_checkpoint()
+        with faultinject.sigterm_midscan(after_chunk=SCAN_SIGTERM_AFTER):
+            try:
+                scan(checkpoint=ck)
+                interrupted = None
+            except ScanInterrupted as e:
+                interrupted = e
+        left = os.path.exists(ck)
+        resumed, rs = scan(checkpoint=ck, resume=True)
+        with faultinject.chunk_nonfinite(chunks=(1,), times=1):
+            retried, ts = scan(checkpoint=fresh_checkpoint())
+        with faultinject.chunk_raise(chunks=(1,), times=99):
+            rerouted, xs = scan(checkpoint=fresh_checkpoint(),
+                                max_retries=2)
+        reroute_rel = float(np.max(np.abs(rerouted - chunked)
+                                   / np.abs(chunked)))
+        rec.update(
+            interrupted=None if interrupted is None else {
+                "signum": interrupted.signum,
+                "chunks_done": interrupted.chunks_done,
+                "n_chunks": interrupted.n_chunks},
+            checkpoint_left=left, resumed_chunks=rs.resumed_chunks,
+            resume_statuses=[s.name for s in rs.statuses],
+            resume_bit_identical=bool(np.array_equal(resumed, chunked)),
+            retry_statuses=[s.name for s in ts.statuses],
+            retry_bit_identical=bool(np.array_equal(retried, chunked)),
+            reroute_statuses=[s.name for s in xs.statuses],
+            reroute_max_rel_gap=reroute_rel)
+    if not (interrupted is not None and left
+            and rs.resumed_chunks == SCAN_SIGTERM_AFTER + 1
+            and rec["resume_bit_identical"] and all_ok(rs)):
+        raise AssertionError(f"SIGTERM and resume: {rec}")
+    if not (ts.statuses[1] == ChunkStatus.RETRIED and rest_ok(ts, 1)
+            and rec["retry_bit_identical"]):
+        raise AssertionError(f"retry: {rec}")
+    if not (xs.statuses[1] == ChunkStatus.REROUTED and rest_ok(xs, 1)
+            and reroute_rel <= CHI2_TOL):
+        raise AssertionError(f"reroute: {rec}")
+
+    # the fused primal at the random models' shape (one launch over the
+    # draws' θ sets) and the chain at the scan's chunk width
+    with phase("sim_chain", {}) as rec:
+        x0 = rmodel.x0(rfit.resids.pdict, rfit.fit_params).to(rfit.device)
+        X = x0 + torch.as_tensor(draws, device=rfit.device)
+        rec["random_models_primal"] = {}
+        err = check_primal_at(torch, rmodel, rfit, X,
+                              rec["random_models_primal"])
+        rec["timing"] = {"random_models": {}, "scan_chunk": {}}
+        time_phase_chain(torch, rmodel, rfit, RANDOM_MODELS,
+                         rec["timing"]["random_models"], sets=())
+        time_phase_chain(torch, model, fit, run.scan_chunk,
+                         rec["timing"]["scan_chunk"])
+    out["timing"] = rec["timing"]
+    out["max_abs_frac_err"] = err
+    return out
+
+
 def ptxas_reference(csrc: str, path: str) -> int:
     """Compile ``csrc``'s delay_chain.cu and phase_chain.cu (another
     checkout's kernel sources) with the package's nvcc flags, one nvcc
@@ -3192,7 +3613,30 @@ def main(run: Run = Run()) -> int:
         rec["libraries"] = {k: os.path.relpath(v, REPO)
                             for k, v in libs.items()}
 
+    paths = PATHS if run.paths is None else tuple(run.paths)
+    unknown = [p for p in paths if p not in PATHS]
+    earlier = [p for p in PATHS[:-1] if p in paths]
+    if unknown or len(earlier) not in (0, len(PATHS) - 1):
+        raise ValueError(f"paths {paths}: the first eight of {PATHS} run "
+                         "together or not at all")
+    kernels = earlier_paths(torch, np, run) if earlier else None
+    if "sim_scan" in paths:
+        sim = sim_scan_paths(torch, np, run)
+        if kernels is not None:
+            add_sim_scan(kernels, sim)
+    if kernels is not None:
+        emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def earlier_paths(torch, np, run: Run) -> list:
+    """Phases qs_phase_frac ... orbit_chain: the first eight paths (see the
+    module docstring).  Returns the kernels line's list."""
     from pint_tpu_torch.gridutils import grid_chisq_flat
+    from pint_tpu_torch.kernels import build as kbuild
     from pint_tpu_torch.kernels import phase_chain
     from pint_tpu_torch.kernels.phase_chain import PhaseChain
 
@@ -3849,7 +4293,7 @@ def main(run: Run = Run()) -> int:
     fused_lin = max(fused_t["tangent"].values(), key=lambda t: t["lanes"])
     ddk_t = pc_rec["timing"]["ddk_fit"]
     ddk_all = max(ddk_t["tangent"].values(), key=lambda t: t["lanes"])
-    emit({"kernels": [{
+    return [{
         "name": "qs_phase_frac", "route": "cuda",
         "source": "pint_tpu_torch/csrc/qs_phase.cu",
         "replaces": "pint_tpu/models/spindown.py:29",
@@ -3938,11 +4382,33 @@ def main(run: Run = Run()) -> int:
                         "bound_ms": ddk_all["bound_ms"]},
         "dm_family": at_wideband("phase_chain", "tangent"),
         "chromatic_family": at_chromatic("phase_chain", "tangent"),
-        "orbit_family": at_orbit("phase_chain", "tangent")}]})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
-    return 0
+        "orbit_family": at_orbit("phase_chain", "tangent")}]
+
+
+def add_sim_scan(kernels: list, sim: dict) -> None:
+    """The sim_scan path's launches in every kernel's count, and the fused
+    kernels' times at its shapes: the primal over the random models' θ
+    sets and at the scan's chunk width, the tangent at the chunk width."""
+    for k in kernels:
+        n = sim["launches"]["sim_scan"][k["name"]]
+        k["launches"] += n
+        k["launches_by_path"]["sim_scan"] = n
+    by_name = {k["name"]: k for k in kernels}
+    rm, chunk = sim["timing"]["random_models"], sim["timing"]["scan_chunk"]
+
+    def at(t, sets):
+        return {"theta_sets": sets, "lanes": t.get("lanes"),
+                "ms": first_time(t), "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"]}
+
+    width = chunk["theta_sets"]
+    by_name["phase_chain_primal"]["sim_scan"] = {
+        "random_models": at(rm["primal"], RANDOM_MODELS),
+        "scan_chunk": at(chunk["primal"], width),
+        "max_abs_err": sim["max_abs_frac_err"]}
+    by_name["phase_chain_tangent"]["sim_scan"] = {
+        "scan_chunk": {lanes: at(t, width)
+                       for lanes, t in chunk["tangent"].items()}}
 
 
 if __name__ == "__main__":

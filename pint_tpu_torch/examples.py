@@ -1,14 +1,14 @@
-"""Shared example configurations: the par strings of
-:mod:`pint_tpu.examples`, and the simulated full-width data sets that
-``chip_smoke.py`` fits: the DD binary with white noise only (WLS) and
-with a NANOGrav-style noise model (GLS, the noise frozen; and with the
-noise parameters free and per-TOA errors that vary, for the downhill
-fitters' maximum-likelihood noise fit), the DDK binary in ecliptic
-coordinates (WLS), and the NANOGrav-style wideband configuration (the
-noise model's TOAs with a wideband DM each, DMJUMP, DMEFAC/DMEQUAD and
-NE_SW), the chromatic configuration, and the spider binary (an FBn orbit
-with ORBWAVEs and PLANET_SHAPIRO), with the variants of the delay
-kernel's row function of each family."""
+"""Shared example configurations: the par strings and the J0740-class
+simulators of :mod:`pint_tpu.examples`, and the simulated full-width
+data sets that ``chip_smoke.py`` fits: the DD binary with white noise
+only (WLS) and with a NANOGrav-style noise model (GLS, the noise frozen;
+and with the noise parameters free and per-TOA errors that vary, for the
+downhill fitters' maximum-likelihood noise fit), the DDK binary in
+ecliptic coordinates (WLS), and the NANOGrav-style wideband
+configuration (the noise model's TOAs with a wideband DM each, DMJUMP,
+DMEFAC/DMEQUAD and NE_SW), the chromatic configuration, and the spider
+binary (an FBn orbit with ORBWAVEs and PLANET_SHAPIRO), with the
+variants of the delay kernel's row function of each family."""
 
 from __future__ import annotations
 
@@ -44,6 +44,37 @@ EPHEM DE421
 """
 
 
+def j0740_class_model():
+    """The flagship model of :data:`J0740_CLASS_PAR`
+    (:func:`pint_tpu.examples.j0740_class_model`)."""
+    from pint_tpu_torch.models import get_model
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return get_model(J0740_CLASS_PAR.strip().splitlines())
+
+
+def simulate_j0740_class(ntoas: int = 40, span_days: float = 600.0,
+                         center_mjd: float = 55000.0, error_us: float = 1.0,
+                         seed: int = 7, device=None):
+    """(model, noisy dual-frequency TOAs) of the flagship configuration,
+    as :func:`pint_tpu.examples.simulate_j0740_class` makes them: uniform
+    TOAs from gbt at 1400 and 800 MHz in turn, white noise of
+    ``error_us``.  The residuals of the simulation run on ``device``
+    (default ``"cuda"``)."""
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    model = j0740_class_model()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        toas = make_fake_toas_uniform(
+            center_mjd - span_days / 2, center_mjd + span_days / 2, ntoas,
+            model, obs="gbt", error_us=error_us,
+            freq_mhz=np.tile([1400.0, 800.0], (ntoas + 1) // 2)[:ntoas],
+            add_noise=True, seed=seed, device=device)
+    return model, toas
+
+
 def j0740_realistic_par(dmx_bins: int = 70, span_days: float = 4550.0,
                         center_mjd: float = 54975.0) -> str:
     """The flagship par grown to the real NANOGrav J0740+6620 column
@@ -54,6 +85,37 @@ def j0740_realistic_par(dmx_bins: int = 70, span_days: float = 4550.0,
     binary."""
     return "\n".join([J0740_CLASS_PAR.strip()]
                      + _width_lines(dmx_bins, span_days, center_mjd))
+
+
+def simulate_j0740_realistic(ntoas: int = 12500, span_days: float = 4550.0,
+                             center_mjd: float = 54975.0, seed: int = 0,
+                             device=None, dmx_bins: int = 70):
+    """(model, TOAs) at the honest NANOGrav-like width, as
+    :func:`pint_tpu.examples.simulate_j0740_realistic` makes them: the
+    model of :func:`j0740_realistic_par` (70 DMX bins, or ``dmx_bins``;
+    the flags are attached after the simulation, so the JUMPs are not in
+    the simulated arrival times, as in pint_tpu), ``ntoas`` uniform
+    TOAs from gbt at 1400, 800 and 1420 MHz in turn with 1 us white
+    noise, each carrying the ``-fe`` flag of its receiver for the JUMPs.
+    The residuals of the simulation run on ``device`` (default
+    ``"cuda"``)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(j0740_realistic_par(
+            dmx_bins=dmx_bins, span_days=span_days,
+            center_mjd=center_mjd).splitlines())
+        freqs = np.tile([1400.0, 800.0, 1420.0], (ntoas + 2) // 3)[:ntoas]
+        toas = make_fake_toas_uniform(
+            center_mjd - span_days / 2, center_mjd + span_days / 2, ntoas,
+            model, obs="gbt", error_us=1.0, freq_mhz=freqs,
+            add_noise=True, seed=seed, device=device)
+    fe = {800.0: "RCVR800", 1400.0: "RCVR1400", 1420.0: "RCVR1400L"}
+    for f_mhz, fl in zip(freqs, toas.flags):
+        fl["fe"] = fe[float(f_mhz)]
+    return model, toas
 
 
 #: the DD binary of pint_tpu's DD round-trip test (`tests/test_binary_dd.py`

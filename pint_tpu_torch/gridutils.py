@@ -6,8 +6,11 @@ outer-product, derived-quantity and tuple wrappers over it).  A grid point
 is a different value of some ``p["delta"]`` leaves, so the whole grid is
 one ``torch.func.vmap`` of the fixed-iteration Gauss-Newton fit over a
 stacked params dict: every grid point's rows go through each device
-operation together, and through one launch of the phase kernel.
-Chunked and checkpointed scans are not ported yet.
+operation together, and through one launch of the phase kernel.  With
+``chunk_size`` or ``checkpoint`` the grid runs in chunks of one width
+through :func:`pint_tpu_torch.runtime.run_checkpointed_scan`
+(checkpoints, resume, retry, and a requeue onto one unbatched fit per
+point).
 """
 
 from __future__ import annotations
@@ -107,11 +110,74 @@ def build_grid_fit_fn(model: TimingModel, batch, fit_params: Sequence[str],
     return fit_one
 
 
+def _slice_stacked(stacked: dict, grid_names: Sequence[str], lo: int,
+                   hi: int, width: Optional[int]) -> dict:
+    """The [lo:hi) slice of a stacked grid params dict, padded to
+    ``width`` points by repeating its last point (the pad's results are
+    computed and dropped, so that every chunk has one width).
+    ``width=None`` with ``hi == lo + 1`` gives scalar grid leaves: the
+    unbatched form of one point."""
+    gset = set(grid_names)
+    delta = {}
+    for k, v in stacked["delta"].items():
+        if k not in gset:
+            delta[k] = v
+        elif width is None:
+            delta[k] = v[lo]
+        else:
+            sl = v[lo:hi]
+            if hi - lo < width:
+                sl = torch.cat([sl, sl[-1:].expand(width - (hi - lo),
+                                                   *sl.shape[1:])])
+            delta[k] = sl
+    return {"const": stacked["const"], "delta": delta,
+            "mask": stacked["mask"]}
+
+
+def _eager_grid_chisq(fitter: Fitter, grid_values: Dict[str, np.ndarray],
+                      maxiter: int = 2, kernel=None) -> np.ndarray:
+    """The requeue path of chunked scans: chi2 of each grid point from
+    one unbatched fit per point (:func:`pint_tpu.gridutils.
+    _eager_grid_chisq`), slower but independent of whatever spoiled the
+    batched dispatch."""
+    names = [n for n in fitter.fit_params if n not in grid_values]
+    fit_one = build_grid_fit_fn(
+        fitter.model, fitter.resids.batch, names, fitter.track_mode,
+        maxiter=maxiter, kernel=kernel, design_matrix=fitter.design_matrix)
+    stacked = stack_grid_pdict(fitter.model, fitter.resids.pdict,
+                               grid_values)
+    gnames = list(grid_values)
+    g = len(np.asarray(next(iter(grid_values.values()))))
+    out = np.empty(g, np.float64)
+    with torch.no_grad():
+        for i in range(g):
+            chi2, _ = fit_one(_slice_stacked(stacked, gnames, i, i + 1,
+                                             None))
+            out[i] = float(chi2)
+    return out
+
+
 def grid_chisq_flat(fitter: Fitter, grid_values: Dict[str, np.ndarray],
-                    maxiter: int = 2, kernel=None) -> np.ndarray:
+                    maxiter: int = 2, kernel=None, *,
+                    chunk_size: Optional[int] = None,
+                    checkpoint: Optional[str] = None,
+                    resume: bool = False, max_retries: int = 2,
+                    checkpoint_every: int = 1,
+                    return_summary: bool = False):
     """chi2 at each of G grid points (all grid arrays shape (G,)); the
     non-grid free parameters are re-fit at every point, all points in one
-    vmapped program on the fitter's device."""
+    vmapped program on the fitter's device.
+
+    With ``chunk_size`` or ``checkpoint`` set (or ``return_summary``),
+    the grid runs in chunks of ``chunk_size`` points (the last padded to
+    that width) through :func:`pint_tpu_torch.runtime.
+    run_checkpointed_scan`: a CRC32-verified checkpoint after every
+    ``checkpoint_every`` chunks, SIGTERM or SIGINT mid-scan flushes a
+    final checkpoint and raises ``ScanInterrupted``, ``resume=True``
+    restores the completed chunks bit-identically; a chunk that raises
+    or returns non-finite chi2 is dispatched again ``max_retries``
+    times, then requeued onto :func:`_eager_grid_chisq`.
+    ``return_summary=True`` returns ``(chi2, ScanSummary)``."""
     model = fitter.model
     r = fitter.resids
     names = [n for n in fitter.fit_params if n not in grid_values]
@@ -127,9 +193,35 @@ def grid_chisq_flat(fitter: Fitter, grid_values: Dict[str, np.ndarray],
     stacked = stack_grid_pdict(model, r.pdict, grid_values)
     vfit = torch.func.vmap(fit_one, in_dims=(grid_in_axes(
         r.pdict, list(grid_values)),))
-    with torch.no_grad():
-        chi2, _ = vfit(stacked)
-    return _check_grid_chi2(chi2.cpu().numpy())
+    if chunk_size is None and checkpoint is None and not return_summary:
+        with torch.no_grad():
+            chi2, _ = vfit(stacked)
+        return _check_grid_chi2(chi2.cpu().numpy())
+
+    from pint_tpu_torch import runtime
+
+    g = next(iter(sizes.values()))
+    cs = int(chunk_size) if chunk_size else g
+    gnames = list(grid_values)
+
+    def run_chunk(ci, lo, hi):
+        with torch.no_grad():
+            chi2, _ = vfit(_slice_stacked(stacked, gnames, lo, hi, cs))
+        return chi2.cpu().numpy()[: hi - lo]
+
+    def fallback(ci, lo, hi):
+        return _eager_grid_chisq(
+            fitter, {k: np.asarray(v)[lo:hi]
+                     for k, v in grid_values.items()},
+            maxiter=maxiter, kernel=kernel)
+
+    sig = runtime.scan_signature("grid", grid_values, names, maxiter, cs)
+    chi2, summary = runtime.run_checkpointed_scan(
+        g, run_chunk, chunk_size=cs, fallback=fallback,
+        checkpoint=checkpoint, resume=resume, max_retries=max_retries,
+        checkpoint_every=checkpoint_every, signature=sig)
+    chi2 = _check_grid_chi2(chi2)
+    return (chi2, summary) if return_summary else chi2
 
 
 def _check_grid_chi2(chi2: np.ndarray) -> np.ndarray:

@@ -24,11 +24,18 @@ PyTorch kernels do.  The shared headers ``csrc/*.cuh`` are found with
 (it also flushes subnormals and reassociates).  ``-Xptxas=-v`` reports
 each kernel's registers, stack and spills; the build's output is kept
 beside the library as ``<library>.log`` (:func:`build_log`).
+
+:func:`host_library` builds the host versions of the row functions
+(``csrc/*_host.cpp``, the kernels' launch shapes around the same row
+code) with g++, once per hash of source, headers, flags and compiler
+version, into ``build/pint_tpu_torch/host/``: the tests on a machine
+without a card hold them bit-equal to the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -42,6 +49,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+
+#: g++ flags of the host builds: no FMA contraction, as the kernels; -O1
+#: builds the chain sources' 28 template values in ~20 s each
+HOST_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 #: every kernel source of the package
 SOURCES = ("qs_phase", "kepler", "delay_chain", "phase_chain")
@@ -90,16 +101,56 @@ def _flags(lib: str):
                   f"-DPT_PART={part}")
 
 
+def _source_digest(source: str, salt: str) -> str:
+    """A hash of ``salt``, the source file and the shared headers
+    (``csrc/*.cuh``)."""
+    digest = hashlib.sha256(salt.encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
 def library_path(lib: str) -> str:
     """The library's path, named by a hash of its source, the shared
     headers (``csrc/*.cuh``) and the flags."""
     name, flags = _flags(lib)
-    digest = hashlib.sha256(" ".join(flags).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
-            digest.update(f.read())
-    return os.path.join(build_dir(), f"lib{lib}_{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{lib}_"
+                        f"{_source_digest(f'{name}.cu', ' '.join(flags))}.so")
+
+
+def host_library(name: str) -> str:
+    """The path of the host build of ``csrc/<name>.cpp``, built with g++
+    if it is not there yet.  The library is named by a hash of the
+    source, the shared headers, :data:`HOST_FLAGS` and ``g++ --version``;
+    a file lock beside it makes processes that ask at once build it
+    once."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host builds cannot be made")
+    version = subprocess.run([gxx, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    salt = " ".join(HOST_FLAGS) + version
+    out_dir = os.path.join(build_dir(), "host")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"lib{name}_"
+                       f"{_source_digest(f'{name}.cpp', salt)}.so")
+    with open(os.path.join(out_dir, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            res = subprocess.run(
+                [gxx, *HOST_FLAGS, "-I", CSRC_DIR,
+                 os.path.join(CSRC_DIR, f"{name}.cpp"), "-o", tmp],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"g++ failed to build {name}:\n"
+                                   f"{res.stderr}")
+            os.replace(tmp, out)
+    return out
 
 
 def _start(lib: str):

@@ -25,6 +25,7 @@ keeps the plain quad-single form of the same sum.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ from pint_tpu_torch.exceptions import (
     UnknownParameter,
 )
 from pint_tpu_torch.models.parameter import (
+    AngleParam,
     MaskParam,
     MJDParam,
     Param,
@@ -401,6 +403,14 @@ class TimingModel:
         if validate:
             comp.validate()
 
+    def remove_component(self, name: str):
+        """Drop component ``name``.  What the port derives from the
+        component list goes with it: the chain layout (each
+        :attr:`calc` forms its own) and the TZR state, which the next
+        residuals rebuild."""
+        self.components.pop(name)._parent = None
+        self.tzr_batch = None
+
     def _sort_components(self):
         def key(item):
             cat = item[1].category
@@ -493,6 +503,12 @@ class TimingModel:
         if missing:
             raise UnknownParameter(f"cannot free unknown parameters {missing}")
 
+    def get_params_dict(self, which="free") -> Dict[str, Param]:
+        """The free parameters (``which="free"``) or all of them, by
+        name."""
+        names = self.free_params if which == "free" else self.params
+        return {n: self[n] for n in names}
+
     @property
     def linear_param_names(self) -> List[str]:
         """Every scalar on-device parameter some component declares
@@ -527,6 +543,18 @@ class TimingModel:
     #   p["delta"]: float64 offsets from the reference values in device
     #       units, all zero as built: the only leaves fits differentiate.
     #   p["mask"]: host-computed per-TOA selection arrays for MaskParams.
+    def values_key(self) -> tuple:
+        """Every parameter's value as it stands (the device value's bytes
+        where it has one) with the selection of each mask parameter: a
+        params dict built when the key was equal still holds the model."""
+        return tuple(
+            (name, par.name,
+             np.asarray(par.device_value, np.float64).tobytes()
+             if par.on_device and par.value is not None else repr(par.value),
+             getattr(par, "key", None), repr(getattr(par, "key_value", None)))
+            for name, c in self.components.items()
+            for par in c.params.values())
+
     def build_pdict_numpy(self, toas=None, tzr_toas=None):
         """(params dict of numpy leaves, TZR mask dict): everything of
         :meth:`build_pdict` except the TZR phase, on the host."""
@@ -644,6 +672,28 @@ class TimingModel:
         out["delta"] = delta
         return out
 
+    def fit_units(self, names: Optional[Sequence[str]] = None) -> List[float]:
+        """d(device)/d(par-file unit) per free parameter (or per name of
+        ``names``): for reporting uncertainties and matching the
+        reference's design-matrix units."""
+        out = []
+        for n in (self.free_params if names is None else names):
+            par = self[n]
+            if isinstance(par, MJDParam):
+                out.append(1.0)  # fraction of a day: the par unit is days
+            elif isinstance(par, AngleParam):
+                # device radians per par-file unit (the uncertainty
+                # conventions of AngleParam)
+                if par.units == "H:M:S":
+                    out.append(math.pi / (12 * 3600))
+                elif par.units == "D:M:S":
+                    out.append(math.pi / (180 * 3600))
+                else:
+                    out.append(math.pi / 180.0)
+            else:
+                out.append(par.par2dev)
+        return out
+
     # -- noise -------------------------------------------------------------
     @property
     def noise_components(self):
@@ -745,6 +795,10 @@ class TimingModel:
         return self.calc.phase(p, batch, subtract_tzr=abs_phase)
 
     @property
+    def F0_value(self) -> float:
+        return float(self.F0.value)
+
+    @property
     def planets_flag(self) -> bool:
         return bool(self.PLANET_SHAPIRO.value) \
             if "PLANET_SHAPIRO" in self else False
@@ -796,6 +850,26 @@ class TimingModel:
             for p in c.params.values():
                 lines.append(p.as_parfile_line())
         return "".join(lines)
+
+    def write_parfile(self, path, **kw):
+        with open(path, "w") as f:
+            f.write(self.as_parfile(**kw))
+
+    def compare(self, other: "TimingModel") -> str:
+        """A textual diff of two models' values (reference
+        `TimingModel.compare`, `src/pint/models/timing_model.py:2521`)."""
+        rows = [f"{'PARAM':12s} {'THIS':>25s} {'OTHER':>25s}"]
+        names = dict.fromkeys(list(self.params) + list(other.params))
+        for n in names:
+            a = self[n].value if n in self else None
+            b = other[n].value if n in other else None
+            if a is None and b is None:
+                continue
+            av = self[n].value_as_string() if a is not None else "--"
+            bv = other[n].value_as_string() if b is not None else "--"
+            if av != bv:
+                rows.append(f"{n:12s} {av:>25s} {bv:>25s}")
+        return "\n".join(rows)
 
     def __repr__(self):  # pragma: no cover
         return (f"TimingModel({self.PSR.value or self.name}: "

@@ -99,6 +99,7 @@ class Residuals:
                                   self.subtract_mean, self.use_weighted_mean)
         self.pdict = model.build_pdict(
             toas, tzr_toas=model.make_tzr_toas_or_none(), device=self.device)
+        self._values_key = model.values_key()
         self._phase_resids: Optional[np.ndarray] = None
         self._chi2_cache: Optional[float] = None
 
@@ -123,8 +124,15 @@ class Residuals:
         self.pdict = self.model.build_pdict(
             self.toas, tzr_toas=self.model.make_tzr_toas_or_none(),
             device=self.device)
+        self._values_key = self.model.values_key()
         self._phase_resids = None
         self._chi2_cache = None
+
+    @property
+    def stale(self) -> bool:
+        """Whether the model's values moved since the params dict was
+        built (:meth:`update` brings it up to date)."""
+        return self._values_key != self.model.values_key()
 
     def rms_weighted(self) -> float:
         w = 1.0 / (self.get_data_error() * 1e-6) ** 2
@@ -331,6 +339,10 @@ class WidebandTOAResiduals:
     @property
     def use_weighted_mean(self):
         return self.toa.use_weighted_mean
+
+    @property
+    def stale(self) -> bool:
+        return self.toa.stale
 
     def update(self):
         self.toa.update()

@@ -7,12 +7,14 @@ arrival times from a model by the reference's `zero_residuals` iteration
 tracking and no mean subtraction, shift the TOAs by -residual, repeat
 until |residual| < tol), so the arrival times sit on integer model
 phases; optional white measurement noise (EFAC/EQUAD-scaled when the
-model has white-noise components) is then added,
-:func:`add_correlated_noise` adds one realization of the correlated noise
-and :func:`add_wideband_dm_data` attaches simulated wideband DMs.
-The residuals run on ``device`` (default ``"cuda"``), the TOA bookkeeping
-on the host.  The rest of pint_tpu's simulation module is not ported
-yet.
+model has white-noise components) is then added;
+:func:`make_fake_toas_fromtim` does the same on the TOAs of a tim file,
+:func:`add_correlated_noise` adds one realization of the correlated noise,
+:func:`add_wideband_dm_data` attaches simulated wideband DMs,
+:func:`update_fake_toa_errors` sets the TOAs' errors, and
+:func:`calculate_random_models` evaluates parameter vectors drawn from a
+fit's covariance.  The residuals run on ``device`` (default ``"cuda"``),
+the TOA bookkeeping on the host.
 """
 
 from __future__ import annotations
@@ -28,20 +30,23 @@ from pint_tpu_torch.residuals import build_resid_fn
 from pint_tpu_torch.toa import TOAs, get_TOAs_array
 from pint_tpu_torch.utils import resolve_device
 
-__all__ = ["zero_residuals", "make_fake_toas_uniform", "add_correlated_noise",
-           "add_wideband_dm_data"]
+__all__ = ["zero_residuals", "make_fake_toas_uniform", "make_fake_toas_fromtim",
+           "update_fake_toa_errors", "add_wideband_dm_data",
+           "add_correlated_noise", "calculate_random_models"]
 
 
 def zero_residuals(toas: TOAs, model: TimingModel, maxiter: int = 10,
                    tol_us: float = 1e-4, device=None) -> TOAs:
     """Iteratively shift TOAs onto integer model phases (reference
-    `zero_residuals`, `src/pint/simulation.py:30`)."""
+    `zero_residuals`, `src/pint/simulation.py:30`).  The number of
+    residual evaluations it took is left in
+    ``toas.zero_residuals_iterations``."""
     dev = resolve_device(device)
     f0 = float(model.F0.value)
     if "AbsPhase" in model.components and (
             model.tzr_batch is None or model.tzr_batch.device != dev):
         model.attach_tzr(toas, device=dev)
-    for _ in range(maxiter):
+    for it in range(maxiter):
         batch = toas.to_batch(device=dev)
         fn = build_resid_fn(model, batch, "nearest", False, False)
         p = model.build_pdict(toas, tzr_toas=model.make_tzr_toas_or_none(),
@@ -49,6 +54,7 @@ def zero_residuals(toas: TOAs, model: TimingModel, maxiter: int = 10,
         with torch.no_grad():
             r_sec = fn(p).cpu().numpy() / f0
         if np.max(np.abs(r_sec)) < tol_us * 1e-6:
+            toas.zero_residuals_iterations = it + 1
             return toas
         toas.utc = mjdmod.add_sec(toas.utc, -r_sec)
         toas.compute_TDBs(ephem=toas.ephem)
@@ -101,6 +107,29 @@ def make_fake_toas_uniform(startMJD: float, endMJD: float, ntoas: int,
     return toas
 
 
+def make_fake_toas_fromtim(timfile, model: TimingModel,
+                           add_noise: bool = False,
+                           seed: Optional[int] = None,
+                           device=None) -> TOAs:
+    """Replace the TOAs of an existing tim file with model-perfect ones
+    (reference `make_fake_toas_fromtim`, `src/pint/simulation.py:477`;
+    :func:`pint_tpu.simulation.make_fake_toas_fromtim`), with white noise
+    of the TOAs' own errors from numpy's ``default_rng(seed)`` when
+    ``add_noise``.  The residuals run on ``device`` (default
+    ``"cuda"``)."""
+    from pint_tpu_torch.toa import get_TOAs
+
+    rng = np.random.default_rng(seed)
+    toas = get_TOAs(timfile, model=model)
+    toas = zero_residuals(toas, model, device=device)
+    if add_noise:
+        noise = rng.standard_normal(toas.ntoas) * toas.error_us * 1e-6
+        toas.utc = mjdmod.add_sec(toas.utc, noise)
+        toas.compute_TDBs(ephem=toas.ephem)
+        toas.compute_posvels(ephem=toas.ephem, planets=toas.planets)
+    return toas
+
+
 def add_correlated_noise(toas: TOAs, model: TimingModel,
                          seed: Optional[int] = None, device=None) -> TOAs:
     """Shift TOAs by one realization of the model's correlated noise
@@ -149,3 +178,80 @@ def add_wideband_dm_data(toas: TOAs, model: TimingModel,
         f["pp_dm"] = repr(float(dm[i]))
         f["pp_dme"] = repr(float(dm_error))
     return toas
+
+
+def update_fake_toa_errors(toas: TOAs, error_us) -> TOAs:
+    """Set every TOA's error [us] (a scalar or one per TOA), as
+    :func:`pint_tpu.simulation.update_fake_toa_errors`."""
+    toas.error_us = np.broadcast_to(np.asarray(error_us, np.float64),
+                                    (toas.ntoas,)).copy()
+    return toas
+
+
+def calculate_random_models(fitter, toas: TOAs, Nmodels: int = 100,
+                            seed: Optional[int] = None,
+                            return_time: bool = False):
+    """Phase (or time) deviations of ``Nmodels`` parameter vectors drawn
+    from the fit's covariance, evaluated at ``toas`` (reference
+    `calculate_random_models`, `src/pint/simulation.py:524`, a loop over
+    copies of the model; :func:`pint_tpu.simulation.
+    calculate_random_models`, one ``jax.vmap``).
+
+    The draws are made on the host as pint_tpu makes them (the Cholesky
+    factor of the correlation with 1e-12 on its diagonal, then the
+    columns scaled; numpy's ``default_rng(seed)``), so a seed and a
+    covariance give the same draws.  They are evaluated by one
+    ``torch.func.vmap`` of the residual function over the base (all
+    offsets 0) and the draws on the fitter's device: on CUDA one
+    ``phase_chain`` primal launch over ``Nmodels + 1`` θ sets.  On the
+    fit's own TOAs the fitter's residuals are reused, their params dict
+    rebuilt first (one more launch, the TZR phase) only if the model's
+    values moved since it was built; on other TOAs residuals are built
+    from the model as it stands.  The weighted mean of each draw's
+    deviation is taken out, as the fit's offset is.
+
+    Returns ``(dphase, draws)``: dphase (Nmodels, ntoas) in cycles
+    (seconds if ``return_time``); draws (Nmodels, nfree) the sampled
+    parameter offsets in device units."""
+    from pint_tpu_torch.fitter import build_resid_sec_fn
+    from pint_tpu_torch.residuals import Residuals
+
+    model = fitter.model
+    names = fitter.covariance_params or fitter.fit_params
+    C = np.asarray(fitter.parameter_covariance_matrix)[
+        :len(names), :len(names)]
+    s = np.sqrt(np.diag(C))
+    L = np.linalg.cholesky(C / np.outer(s, s) +
+                           1e-12 * np.eye(len(names)))
+    rng = np.random.default_rng(seed)
+    draws = (rng.standard_normal((Nmodels, len(names))) @ L.T) * s[None, :]
+
+    if toas is fitter.toas:
+        r = fitter.resids
+        if r.stale:
+            r.update()
+    else:
+        r = Residuals(toas, model, track_mode=fitter.track_mode,
+                      device=fitter.device)
+    resid_sec = build_resid_sec_fn(model, r.batch, names, r.track_mode)
+    p = r.pdict
+    dev = r.device
+    w = 1.0 / torch.as_tensor(np.asarray(toas.error_us, np.float64),
+                              device=dev) ** 2
+
+    def one(x):
+        return resid_sec(x, p)
+
+    with torch.no_grad():
+        x = torch.cat([torch.zeros((1, len(names)), dtype=torch.float64,
+                                   device=dev),
+                       torch.as_tensor(draws, device=dev)])
+        out = torch.func.vmap(one)(x)
+        d = out[1:] - out[0]
+        # take out the weighted offset, as the fit does: the covariance
+        # describes the scatter with the offset marginalized
+        d = d - (torch.sum(d * w, dim=-1) / torch.sum(w))[:, None]
+        dt_sec = d.cpu().numpy()
+    if return_time:
+        return dt_sec, draws
+    return dt_sec * float(model.F0.value), draws

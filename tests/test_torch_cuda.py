@@ -63,7 +63,12 @@ them with it switched off, from the repository root::
   phase_chain wrapper's backward, and equals the CPU's within 1e-9
   (value) and 1e-7 (gradient norm); ``get_designmatrix`` on the card is
   one primal and one tangent launch, bit-equal to the fitter's full
-  assembly and within 1e-10 per column of the CPU's.
+  assembly and within 1e-10 per column of the CPU's;
+* ``calculate_random_models`` at 100 draws: one primal launch over the
+  base's and the 100 draws' θ sets, within F0 x 1e-12 s of the CPU's plain
+  composition; the chunked, checkpointed grid on the committed set within
+  1e-6 of pint_tpu's stored grid and of the whole-grid program, its
+  resume after a SIGTERM bit-identical, a raising chunk rerouted.
 """
 
 import json
@@ -928,3 +933,94 @@ def test_orbit_fits_on_card_match_reference():
         assert fitter.fit_params == want["fit_params"]
         assert fitter.fitresult.status.name == want["status"]
         assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+def _grid_fitter(device):
+    """A WLSFitter on ``device`` on the committed J0740 set, M2 and SINI
+    frozen as the headline grid has them."""
+    from pint_tpu_torch.examples import j0740_realistic_par
+    from pint_tpu_torch.fitter import WLSFitter
+
+    model, toas = data.load_torch(data.REF_TIM, grid=True,
+                                  par=j0740_realistic_par(
+                                      dmx_bins=data.DMX_BINS,
+                                      span_days=data.SPAN_DAYS,
+                                      center_mjd=data.CENTER_MJD)
+                                  .splitlines())
+    return WLSFitter(toas, model, device=device)
+
+
+def test_random_models_on_card_match_plain():
+    """``calculate_random_models`` at 100 draws on the card: one
+    phase_chain primal launch over the base's and the 100 draws' θ sets
+    (the fitter's residuals are up to date after the fit), no tangent
+    launch; the draws equal the CPU's (the same host draw) and
+    the phase deviations within F0 x 1e-12 s of the CPU's plain
+    composition on the same covariance (K3's bar against the plain
+    version)."""
+    dev = _card()
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
+                                                    PhaseChainTangent)
+    from pint_tpu_torch.simulation import calculate_random_models
+
+    fitter = _grid_fitter(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fitter.fit_toas(maxiter=2)
+    before = (PhaseChain.launches, PhaseChainTangent.launches)
+    dphase, draws = calculate_random_models(fitter, fitter.toas,
+                                            Nmodels=100, seed=1)
+    torch.cuda.synchronize()
+    assert (PhaseChain.launches - before[0],
+            PhaseChainTangent.launches - before[1]) == (1, 0)
+    # the same fitted model and covariance on the CPU
+    host = WLSFitter(fitter.toas, fitter.model, device="cpu")
+    host.parameter_covariance_matrix = fitter.parameter_covariance_matrix
+    host.covariance_params = fitter.covariance_params
+    want, wdraws = calculate_random_models(host, host.toas, Nmodels=100,
+                                           seed=1)
+    np.testing.assert_array_equal(draws, wdraws)
+    gap = float(np.max(np.abs(dphase - want)))
+    bar = float(fitter.model.F0.value) * 1e-12
+    print(f"card random models vs CPU plain: {gap:.3e} cycles "
+          f"(bar {bar:.3e})")
+    assert dphase.shape == (100, fitter.toas.ntoas) and gap <= bar
+
+
+def test_chunked_grid_on_card(tmp_path):
+    """The stored 3 x 3 grid in chunks of 2 on the card: within 1e-6 of
+    pint_tpu's stored chi2 and of the card's whole-grid program; a
+    SIGTERM after chunk 1 then ``resume=True`` bit-identical to the
+    uninterrupted chunked scan; a chunk that raises beyond its retries
+    rerouted through the unbatched fit per point within 1e-6."""
+    _card()
+    from pint_tpu_torch import faultinject
+    from pint_tpu_torch.exceptions import ScanInterrupted
+    from pint_tpu_torch.gridutils import grid_chisq_flat
+    from pint_tpu_torch.runtime import ChunkStatus
+
+    with open(data.REF_JSON) as f:
+        ref = json.load(f)
+    fitter = _grid_fitter(None)
+    grid = {k: np.asarray(v) for k, v in ref["grid"].items()}
+    kw = dict(maxiter=ref["maxiter"], chunk_size=2)
+    whole = grid_chisq_flat(fitter, grid, maxiter=ref["maxiter"])
+    chunked, s = grid_chisq_flat(fitter, grid, return_summary=True, **kw)
+    assert s.n_chunks == 5 and s.counts() == {"OK": 5}, s
+    for want in (np.asarray(ref["chi2"]), whole):
+        assert float(np.max(np.abs(chunked - want) / want)) <= 1e-6
+    ck = str(tmp_path / "grid.npz")
+    with faultinject.sigterm_midscan(after_chunk=1):
+        with pytest.raises(ScanInterrupted):
+            grid_chisq_flat(fitter, grid, checkpoint=ck, **kw)
+    resumed, rs = grid_chisq_flat(fitter, grid, checkpoint=ck, resume=True,
+                                  return_summary=True, **kw)
+    assert rs.resumed_chunks == 2 and rs.counts() == {"OK": 5}, rs
+    np.testing.assert_array_equal(resumed, chunked)
+    with faultinject.chunk_raise(chunks=(1,), times=99):
+        rerouted, xs = grid_chisq_flat(fitter, grid, max_retries=1,
+                                       return_summary=True, **kw)
+    assert xs.statuses[1] == ChunkStatus.REROUTED
+    assert xs.counts() == {"OK": 4, "REROUTED": 1}, xs
+    assert float(np.max(np.abs(rerouted - chunked) / chunked)) <= 1e-6

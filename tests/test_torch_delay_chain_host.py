@@ -37,9 +37,7 @@ g++ is looked for inside the test; without it the tests skip.
 """
 
 import ctypes
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,11 +46,10 @@ import torch
 import torch_port_data as data
 from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
                                      VARIANTS)
+from pint_tpu_torch.kernels import build
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.residuals import Residuals
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    dc.__file__))), "csrc")
 DELAY_TOL_S = 1e-12
 COLUMN_TOL = 1e-10
 #: backward vs the plain reverse mode, relative to sum |J| |g|
@@ -108,19 +105,13 @@ DEPTH = ("J0740", "DD", "BT", "DDK_ECL", "ELL1H", "DMF_DD",
 
 
 @pytest.fixture(scope="module")
-def host(tmp_path_factory):
-    """The host build of the row function, loaded with ctypes."""
+def host():
+    """The host build of the row function (built once per source hash,
+    ``build.host_library``), loaded with ctypes."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the row function for the host")
-    lib = str(tmp_path_factory.mktemp("delay_chain_host")
-              / "libdelay_chain_host.so")
-    res = subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", CSRC, os.path.join(CSRC, "delay_chain_host.cpp"), "-o", lib],
-        capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    h = ctypes.CDLL(lib)
+    h = ctypes.CDLL(build.host_library("delay_chain_host"))
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     h.delay_chain_host.argtypes = [vp] * (len(dc.ROWS) + 3) + [
         dc.ChainCfg, i64, i64, i64, ctypes.c_int]

@@ -4,8 +4,9 @@
   ``pint_tpu`` (an AST scan of every import statement, every kernel
   wrapper among them).
 * A fresh interpreter loads par/tim, forms residuals and runs the chi2
-  grid with the port on the CPU, and ends with no ``jax`` and no
-  ``pint_tpu`` module loaded; others simulate, write and fit the DD set
+  grid, whole and in checkpointed chunks, with the port on the CPU, and
+  ends with no ``jax`` and no ``pint_tpu`` module loaded; others
+  simulate, write and fit the DD set
   (``WLSFitter.fit_toas``) and the GLS set with its noise model
   (``GLSFitter.fit_toas``) the same way.
 * Without a CUDA device, every entry point called without ``device``
@@ -64,13 +65,18 @@ def test_no_jax_or_reference_imports():
     # every kernel wrapper, the fused phase chain's included
     for mod in ("qs_phase", "kepler", "delay_chain", "phase_chain"):
         assert os.path.join(PKG, "kernels", f"{mod}.py") in files, mod
+    # the simulators, the random models, the chunked scan and its runtime
+    for mod in ("examples", "simulation", "gridutils", "runtime",
+                "faultinject"):
+        assert os.path.join(PKG, f"{mod}.py") in files, mod
     assert not bad, bad
 
 
 _CHILD = r"""
-import sys, warnings
+import os, sys, warnings
 import numpy as np
 sys.path.insert(0, {repo!r})
+from pint_tpu_torch import faultinject, runtime, simulation
 from pint_tpu_torch.examples import j0740_realistic_par
 from pint_tpu_torch.fitter import WLSFitter
 from pint_tpu_torch.gridutils import grid_chisq_flat
@@ -87,6 +93,14 @@ r = fitter.resids.time_resids
 chi2 = grid_chisq_flat(fitter, {{"M2": np.array([0.25]),
                                  "SINI": np.array([0.99])}}, maxiter=1)
 assert np.all(np.isfinite(r)) and np.all(np.isfinite(chi2))
+# the chunked, checkpointed form of the same grid, and its checkpoint
+ck = os.path.join({tmp!r}, "grid.npz")
+chunked = grid_chisq_flat(fitter, {{"M2": np.array([0.25]),
+                                    "SINI": np.array([0.99])}}, maxiter=1,
+                          chunk_size=1, checkpoint=ck)
+assert np.array_equal(chunked, chi2) and "results" in runtime.load_checkpoint(ck)
+assert not faultinject.is_active("chunk_raise")
+simulation.update_fake_toa_errors(toas, 1.0)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
 print("LEAKED", leaked)
@@ -153,8 +167,8 @@ def _run_child(code):
     assert "LEAKED []" in res.stdout, res.stdout
 
 
-def test_port_runs_without_jax_loaded():
-    _run_child(_CHILD.format(repo=REPO, tim=data.REF_TIM))
+def test_port_runs_without_jax_loaded(tmp_path):
+    _run_child(_CHILD.format(repo=REPO, tim=data.REF_TIM, tmp=str(tmp_path)))
 
 
 def test_dd_fit_runs_without_jax_loaded(tmp_path):
@@ -170,11 +184,13 @@ def test_entry_points_need_a_device_without_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     from pint_tpu_torch.convert import pdict_from_numpy
     from pint_tpu_torch.examples import (j0740_realistic_par,
-                                         simulate_dd_noise_realistic)
+                                         simulate_dd_noise_realistic,
+                                         simulate_j0740_class)
     from pint_tpu_torch.fitter import GLSFitter, WLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.residuals import Residuals
-    from pint_tpu_torch.simulation import add_correlated_noise
+    from pint_tpu_torch.simulation import (add_correlated_noise,
+                                           make_fake_toas_fromtim)
     from pint_tpu_torch.toa import get_TOAs
 
     with warnings.catch_warnings():
@@ -193,6 +209,8 @@ def test_entry_points_need_a_device_without_cuda():
              lambda: GLSFitter(gtoas, gmodel),
              lambda: add_correlated_noise(gtoas, gmodel, seed=0),
              lambda: simulate_dd_noise_realistic(ntoas=8, dmx_bins=2),
+             lambda: simulate_j0740_class(ntoas=8),
+             lambda: make_fake_toas_fromtim(data.REF_TIM, model),
              lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}})]
     for call in calls:
         with pytest.raises(RuntimeError, match="device"):

@@ -45,9 +45,7 @@ g++ is looked for inside the test; without it the tests skip.
 
 import ctypes
 import dataclasses
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -56,13 +54,12 @@ import torch
 import torch_port_data as data
 from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
                                      VARIANTS)
+from pint_tpu_torch.kernels import build
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
 from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
 from pint_tpu_torch.residuals import Residuals
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    dc.__file__))), "csrc")
 FRAC_TOL_CYCLES = 1e-12
 COLUMN_TOL = 1e-10
 RESID_TOL_S = 1e-9
@@ -103,25 +100,14 @@ DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1",
                   for k in ("CHROM", "WAVEX", "SPIDER", "BTPW")])
 
 
-def _build(gxx, tmp, name):
-    lib = str(tmp / f"lib{name}.so")
-    res = subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", CSRC, os.path.join(CSRC, f"{name}.cpp"), "-o", lib],
-        capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return ctypes.CDLL(lib)
-
-
 @pytest.fixture(scope="module")
-def host(tmp_path_factory):
-    """The host builds of the fused chain and of the delay chain alone."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def host():
+    """The host builds of the fused chain and of the delay chain alone
+    (built once per source hash, ``build.host_library``)."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the row functions for the host")
-    tmp = tmp_path_factory.mktemp("phase_chain_host")
-    ph, de = _build(gxx, tmp, "phase_chain_host"), \
-        _build(gxx, tmp, "delay_chain_host")
+    ph, de = (ctypes.CDLL(build.host_library(name))
+              for name in ("phase_chain_host", "delay_chain_host"))
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     ph.phase_chain_host.argtypes = [vp] * (len(dc.ROWS) + 15) + [
         dc.ChainCfg, pc.PhaseCfg, i64, i64, i64, i64, i64, i64, ctypes.c_int]

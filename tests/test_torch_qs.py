@@ -59,7 +59,14 @@ def flush_denormal():
     them (IEEE gradual underflow), as does the CUDA kernel (built without
     -ftz).  Subnormal words are outside the QS magnitude contract, but the
     random lower words of the bit comparisons below reach them in a few
-    products, so those comparisons run torch flushing as XLA does."""
+    products, so those comparisons run torch flushing as XLA does.
+
+    The mode is the calling thread's, and a thread inherits it from the
+    thread that starts it: torch's intra-op threads are started first (a
+    reduction wide enough to reach every one), so that none of them
+    flushes for the rest of the process."""
+    torch.ones(torch.get_num_threads() * (1 << 16),
+               dtype=torch.float64).sum()
     prev = torch.set_flush_denormal(True)
     assert prev is not None
     try:

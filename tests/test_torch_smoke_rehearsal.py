@@ -28,7 +28,6 @@ import importlib.util
 import json
 import os
 import shutil
-import subprocess
 import time
 import types
 
@@ -111,25 +110,17 @@ ptxas info    : Used 128 registers, used 1 barriers, 512 bytes cmem[0]
 """
 
 
-def _host_libs(tmp_path):
+def _host_libs():
     """The host builds of the delay_chain and phase_chain kernels (g++,
-    no FMA contraction, as the kernels are built), loaded with ctypes."""
-    from pint_tpu_torch.kernels import delay_chain, phase_chain
+    no FMA contraction, as the kernels are built; once per source hash,
+    ``build.host_library``), loaded with ctypes."""
+    from pint_tpu_torch.kernels import build, delay_chain, phase_chain
 
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernels' row functions for "
                     "the host")
-    csrc = os.path.join(REPO, "pint_tpu_torch", "csrc")
-    libs = []
-    for name in ("delay_chain_host", "phase_chain_host"):
-        out = str(tmp_path / f"lib{name}.so")
-        res = subprocess.run(
-            [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-             "-fPIC", "-I", csrc, os.path.join(csrc, f"{name}.cpp"), "-o",
-             out], capture_output=True, text=True)
-        assert res.returncode == 0, res.stderr
-        libs.append(ctypes.CDLL(out))
+    libs = [ctypes.CDLL(build.host_library(name))
+            for name in ("delay_chain_host", "phase_chain_host")]
     de, ph = libs
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     de.delay_chain_host.argtypes = [vp] * (len(delay_chain.ROWS) + 3) + [
@@ -161,17 +152,20 @@ ORBIT_LAYOUTS = ("ORB_DD_FB", "ORB_NONE_PLANET", "ORB_BT_PIECES",
                  "ORB_MIXED")
 
 
-def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
+def rehearsal_env(monkeypatch, tmp_path):
+    """``chip_smoke`` loaded as a module, with the card-only calls stubbed,
+    the delay_chain and phase_chain launches run by their host builds,
+    the other kernels' plain runs counted as launches and the fused rung
+    taken as on CUDA (see the module docstring)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_rehearsal", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from pint_tpu_torch.examples import CHROM_NOISE_200
     from pint_tpu_torch.fitter import Fitter
     from pint_tpu_torch.kernels import (build, delay_chain, kepler,
                                         phase_chain, qs_phase)
 
-    delay_lib, phase_lib = _host_libs(tmp_path)
+    delay_lib, phase_lib = _host_libs()
 
     for name, value in (("is_available", lambda: True),
                         ("synchronize", lambda *a, **k: None),
@@ -239,6 +233,25 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(phase_chain, "_lib", lambda spec: phase_lib)
     monkeypatch.setattr(phase_chain, "run", phase_chain._launch)
     monkeypatch.setattr(phase_chain, "phase_frac", phase_chain.fused)
+    return cs
+
+
+def reset_launches():
+    """Every kernel's launch count back to 0."""
+    from pint_tpu_torch.kernels import (delay_chain, kepler, phase_chain,
+                                        qs_phase)
+
+    for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
+              delay_chain.DelayChain, delay_chain.DelayChainTangent,
+              phase_chain.PhaseChain, phase_chain.PhaseChainTangent):
+        k.launches = 0
+
+
+def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
+    from pint_tpu_torch.examples import CHROM_NOISE_200
+    from pint_tpu_torch.kernels import delay_chain
+
+    cs = rehearsal_env(monkeypatch, tmp_path)
     try:
         assert cs.main(cs.Run(
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
@@ -250,12 +263,9 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             chrom_status=("CONVERGED", "DIVERGED"),
             chrom_noise=CHROM_NOISE_200,
             spider_tim=str(tmp_path / "spider.tim"), spider_nfit=33,
-            orbit_layouts=ORBIT_LAYOUTS)) == 0
+            orbit_layouts=ORBIT_LAYOUTS, paths=cs.PATHS[:-1])) == 0
     finally:
-        for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
-                  delay_chain.DelayChain, delay_chain.DelayChainTangent,
-                  phase_chain.PhaseChain, phase_chain.PhaseChainTangent):
-            k.launches = 0
+        reset_launches()
     lines = capsys.readouterr().out.strip().splitlines()
     phases = [json.loads(ln)["phase"] for ln in lines if '"phase"' in ln]
     assert phases == ["device", "build", "qs_phase_frac", "main_path",

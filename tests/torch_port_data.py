@@ -1054,6 +1054,142 @@ def write_reference(maxiter: int = 2) -> dict:
     return rec
 
 
+#: pint_tpu's J0740-class simulators and random models, and its residuals
+#: on REF_TIM after remove_component("FD"), stored for the port to be held
+#: against (tests/test_torch_simulation.py, tests/test_torch_model_api.py)
+SIM_REF_JSON = os.path.join(DATA_DIR, "j0740_sim_refs.json")
+#: make_fake_toas_fromtim's noise seed on REF_TIM; the random models'
+#: draws and seed on pint_tpu's fit of REF_TIM
+FROMTIM_SEED = 3
+RANDOM_MODELS = 8
+RANDOM_MODELS_SEED = 1
+#: the random models' scatter witness: pint_tpu's fits (WLS, maxiter 3)
+#: of simulate_j0740_realistic(ntoas=300, seed=0), the headline's (M2 and
+#: SINI frozen, as the par has them) and one with SCATTER_FROZEN frozen
+#: too, each with SCATTER_MODELS draws from RANDOM_MODELS_SEED
+SCATTER_FROZEN = ("FD1", "FD2", "FD3", "FD4", "DM")
+SCATTER_MODELS = 100
+SCATTER_MAXITER = 3
+
+
+def scatter_ratio(fitter, toas, dphase) -> dict:
+    """The random models' scatter against the covariance's prediction, on
+    a fitter of either package: the median over TOAs of std(dphase over
+    draws) / (F0 |M s L|), M the design matrix with the weighted offset
+    profiled out, s the covariance's standard deviations and L the
+    Cholesky factor of its correlation with 1e-12 on the diagonal (the
+    draw's own), as ``ratio``; with L from the correlation's eigenvectors
+    (no jitter, negative eigenvalues clipped: F0 sqrt(diag(M C M^T))) as
+    ``ratio_cov``; and the draws' median scatter [us]."""
+    names = fitter.covariance_params
+    M = np.asarray(fitter.get_designmatrix()[0], np.float64)
+    w = 1.0 / np.asarray(toas.error_us, np.float64) ** 2
+    Mw = M - (w @ M) / np.sum(w)
+    C = np.asarray(fitter.parameter_covariance_matrix,
+                   np.float64)[:len(names), :len(names)]
+    sd = np.sqrt(np.diag(C))
+    R = C / np.outer(sd, sd)
+    lam, V = np.linalg.eigh(R)
+    f0 = float(fitter.model.F0.value)
+    std = np.std(np.asarray(dphase), axis=0)
+    out = {"median_std_us": float(np.median(std)) / f0 * 1e6}
+    for key, L in (("ratio", np.linalg.cholesky(R + 1e-12 * np.eye(
+            len(names)))), ("ratio_cov", V * np.sqrt(np.clip(lam, 0, None)))):
+        pred = f0 * np.linalg.norm(Mw @ (sd[:, None] * L), axis=1)
+        out[key] = float(np.median(std / pred))
+    return out
+
+
+def toas_record(toas, model) -> dict:
+    """A set of pint_tpu's TOAs as JSON: UTC (day, fraction), frequency,
+    error, site and flags, and pint_tpu's residuals [s] on them."""
+    from pint_tpu.residuals import Residuals
+
+    return {"utc_day": toas.utc.day.tolist(),
+            "utc_frac": toas.utc.frac.tolist(),
+            "freq_mhz": np.asarray(toas.freq_mhz).tolist(),
+            "error_us": np.asarray(toas.error_us).tolist(),
+            "obs": [str(o) for o in toas.obs],
+            "flags": [dict(f) for f in toas.flags],
+            "resid_s": np.asarray(
+                Residuals(toas, model).time_resids).tolist()}
+
+
+def write_sim_references() -> dict:
+    """Write pint_tpu's simulate_j0740_class(ntoas=40),
+    simulate_j0740_realistic(ntoas=300, seed=0), make_fake_toas_fromtim
+    on REF_TIM, calculate_random_models on its fit of REF_TIM (the
+    fitted par, the covariance and its names, the draws, the phase and
+    time deviations), its residuals on REF_TIM after
+    remove_component("FD"), and the scatter of its random models on its
+    two fits of the 300-TOA realistic set (``random_models_scatter``: the
+    headline's with its par, covariance and names; the one with
+    SCATTER_FROZEN frozen with its names) to SIM_REF_JSON; returns the
+    JSON record."""
+    from pint_tpu.residuals import Residuals
+    from pint_tpu.examples import (simulate_j0740_class,
+                                   simulate_j0740_realistic)
+    from pint_tpu.fitter import WLSFitter
+    from pint_tpu.simulation import (calculate_random_models,
+                                     make_fake_toas_fromtim)
+
+    rec = {"what": "pint_tpu's J0740-class simulators and random models "
+                   "(JAX on the CPU)"}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m, t = simulate_j0740_class(ntoas=40)
+        rec["class_40"] = toas_record(t, m)
+        m, t = simulate_j0740_realistic(ntoas=300, seed=0)
+        rec["realistic_300"] = toas_record(t, m)
+        m, _ = load_jax(REF_TIM)
+        t = make_fake_toas_fromtim(REF_TIM, m, add_noise=True,
+                                   seed=FROMTIM_SEED)
+        rec["fromtim_200"] = dict(toas_record(t, m), seed=FROMTIM_SEED)
+        m, t = load_jax(REF_TIM)
+        m.remove_component("FD")
+        rec["remove_fd_resid_s"] = np.asarray(
+            Residuals(t, m).time_resids).tolist()
+        m, t = load_jax(REF_TIM, grid=True)
+        fitter = WLSFitter(t, m)
+        fitter.fit_toas(maxiter=2)
+        dphase, draws = calculate_random_models(
+            fitter, t, Nmodels=RANDOM_MODELS, seed=RANDOM_MODELS_SEED)
+        dt, _ = calculate_random_models(
+            fitter, t, Nmodels=RANDOM_MODELS, seed=RANDOM_MODELS_SEED,
+            return_time=True)
+    rec["random_models"] = {
+        "par": m.as_parfile(), "names": list(fitter.covariance_params),
+        "covariance": np.asarray(
+            fitter.parameter_covariance_matrix).tolist(),
+        "nmodels": RANDOM_MODELS, "seed": RANDOM_MODELS_SEED,
+        "draws": np.asarray(draws).tolist(),
+        "dphase": np.asarray(dphase).tolist(),
+        "dt_s": np.asarray(dt).tolist()}
+    scatter = {"ntoas": 300, "seed": 0, "maxiter": SCATTER_MAXITER,
+               "nmodels": SCATTER_MODELS, "rm_seed": RANDOM_MODELS_SEED}
+    for label, frozen in (("headline", ()), ("frozen", SCATTER_FROZEN)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m, t = simulate_j0740_realistic(ntoas=300, seed=0)
+            for n in frozen:
+                m[n].frozen = True
+            fitter = WLSFitter(t, m)
+            fitter.fit_toas(maxiter=SCATTER_MAXITER)
+            dphase, _ = calculate_random_models(
+                fitter, t, Nmodels=SCATTER_MODELS, seed=RANDOM_MODELS_SEED)
+        scatter[label] = dict(scatter_ratio(fitter, t, dphase),
+                              frozen=list(frozen),
+                              names=list(fitter.covariance_params))
+        if label == "headline":
+            scatter[label].update(par=m.as_parfile(), covariance=np.asarray(
+                fitter.parameter_covariance_matrix).tolist())
+    rec["random_models_scatter"] = scatter
+    with open(SIM_REF_JSON, "w") as f:
+        json.dump(rec, f)
+        f.write("\n")
+    return rec
+
+
 WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "gls": write_gls_reference, "ddk": write_ddk_reference,
            "fitters": write_fitters_reference,
@@ -1062,7 +1198,8 @@ WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "chrom_sim_200": write_chrom_reference,
            "wavex_sim_200": write_wavex_reference,
            "spider_sim_200": write_spider_reference,
-           "btpw_sim_200": write_btpw_reference}
+           "btpw_sim_200": write_btpw_reference,
+           "sim_refs": write_sim_references}
 
 if __name__ == "__main__":
     # python tests/torch_port_data.py [set ...]: every set by default
