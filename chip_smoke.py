@@ -8,9 +8,11 @@ DMs) with the DM family of the delay kernel's row function, the
 full-width chromatic noise fit with the chromatic family of the row
 function, the full-width spider-binary fit (an FBn orbit, ORBWAVEs
 and the planets' Shapiro delays) with the orbit family of the row
-function, and the simulate-fit-scan path (the J0740-class set simulated
+function, the simulate-fit-scan path (the J0740-class set simulated
 on the card, fitted, scanned over M2/SINI in checkpointed chunks with a
-SIGTERM and resume, and its random models).
+SIGTERM and resume, and its random models), and the full-width
+young-pulsar fit (glitches, PiecewiseSpindown, WAVE, IFUNC, PHOFF) with
+the phase family of the fused kernel's row function.
 
 Run from the repository root, with no arguments::
 
@@ -282,6 +284,39 @@ Phases, each printing one JSON line with its numbers and seconds:
    composition, timed against its bound; the chain timed at the scan's
    chunk width, primal and tangent.
 
+13. young_main_path: the tenth path, young_fit, at full width (12,500
+   TOAs over eight years from Parkes at 1.4 and 3.1 GHz, 5 us; 19 fit
+   parameters): ``examples.simulate_young_realistic`` (a Vela-class
+   isolated pulsar, F0 11.19 Hz, F1 -1.56e-11 Hz/s, F2 free, with three
+   glitches, one with its recovery, a PiecewiseSpindown group between
+   the first two, ten WAVE harmonics, a 16-point IFUNC with SIFUNC 2 and
+   PHOFF; on the card) -> ``write_tim`` -> ``get_TOAs`` -> the perturbed
+   start (``examples.young_start``) -> ``Fitter.auto`` (a
+   DownhillWLSFitter) -> ``fit_toas()``, the launch counts zeroed just
+   before the fitter is built and read just after the fit, the plain
+   delays and the phase kernel's reverse-mode calls counted (none may
+   run), every phase_chain launch the phase family's; CONVERGED,
+   chi2/dof in YOUNG_CHI2_PER_DOF, every pull against the truth under
+   5; two warm fits (``young_fit_warm_s``, the median) and the cold one
+   (``young_fit_cold_s``), peak memory;
+   young_profile: one warm fit under torch.profiler;
+   young_reference: the committed 200-TOA young set
+   (``tests/data/young_sim_200*``, ``Fitter.auto``) against pint_tpu's
+   stored fit (1e-3 sigma, 1e-3 in the uncertainties, chi2 1e-6);
+   young_chain: the phase family's template values on the path's model,
+   on ``examples.PHASE_FAMILY``'s edge variants and on a layout with
+   every delay family too (``examples.phase_mixed_par``), on the path's
+   TOAs: the fused primal at 9 θ sets within F0 x 1e-12 s of the plain
+   composition and of the unfused card chain (the gap recorded, bit
+   equality too), the TZR words as the params dict holds them, the
+   tangent launch bit-equal at 1, 2 and 4 lanes per thread, a jacfwd one
+   primal and one tangent launch of the family's values, its columns
+   within 1e-10 relative of the plain composition's; both launches
+   timed at the path's and the mixed layout's shapes against their
+   bounds; ptxas's registers and spills of the phase family's values,
+   and every other kernel's against the parent's
+   (``PTXAS_REFERENCE``): identical, or the phase fails.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero without the last line.  It needs CUDA and the repository beside
@@ -290,8 +325,10 @@ it, and exits non-zero otherwise.
 ``main(Run(...))`` runs the same phases on another device or at other
 sizes (``tests/test_torch_smoke_rehearsal.py`` runs them on the CPU at
 200 TOAs, ``tests/test_torch_smoke_rehearsal_scan.py`` the sim_scan
-path at 300 TOAs), or only some of the paths (``Run.paths``, of
-``PATHS``: the first eight run together or not at all, sim_scan alone;
+path at 300 TOAs, ``tests/test_torch_smoke_rehearsal_young.py`` the
+young_fit path at 300 TOAs), or only some of the paths (``Run.paths``,
+of ``PATHS``: the first eight run together or not at all, sim_scan and
+young_fit each alone;
 without the first eight no kernels line is printed); with no arguments
 it runs every path on the card at full width.
 ``python3 chip_smoke.py --ptxas-reference CSRC OUT.json`` compiles
@@ -347,13 +384,22 @@ SPIDER_REF_JSON = os.path.join(REPO, "tests", "data",
 BTPW_REF_TIM = os.path.join(REPO, "tests", "data", "btpw_sim_200.tim")
 BTPW_REF_JSON = os.path.join(REPO, "tests", "data", "btpw_sim_200_fit.json")
 #: ptxas's registers, stack and spills of the delay_chain and phase_chain
-#: kernels of the 21 template values before the orbit family came,
+#: kernels of the 28 template values before the phase family came (the
+#: four delay families', the 21 before the orbit family among them),
 #: compiled on the card's machine from the sources before it
 #: (``python3 chip_smoke.py --ptxas-reference <their csrc> <this file>``)
 PTXAS_REFERENCE = os.path.join(REPO, "tests", "data",
-                               "chain_ptxas_before_orbit_family.json")
+                               "chain_ptxas_before_phase_family.json")
 FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
                                 "dd_sim_200_fitters.json")
+YOUNG_TIM = os.path.join(REPO, "build", "young_12500.tim")
+YOUNG_REF_TIM = os.path.join(REPO, "tests", "data", "young_sim_200.tim")
+YOUNG_REF_JSON = os.path.join(REPO, "tests", "data", "young_sim_200_fit.json")
+#: the young fit's chi2/dof window (12,481 dof: a standard deviation of
+#: 0.013)
+YOUNG_CHI2_PER_DOF = (0.95, 1.05)
+#: the young fit's free parameters (examples.young_par)
+YOUNG_NFIT = 19
 DD_MAXITER = 3
 #: the DD fit's start: offsets [par units] from the simulated truth, as
 #: pint_tpu's DD round trip perturbs it (tests/test_binary_dd.py)
@@ -411,6 +457,10 @@ ON_PATHS = ("phase_chain_primal", "phase_chain_tangent")
 #: the unfused kernels, which the paths no longer launch (each is held
 #: against its plain version in its own phase)
 OFF_PATHS = ("qs_phase_frac", "delay_chain_primal", "delay_chain_tangent")
+#: the phase family's launches among ON_PATHS' (the young path's are all
+#: of them)
+FAMILY_PATHS = ("phase_chain_primal_phase_family",
+                "phase_chain_tangent_phase_family")
 
 #: bars of this run
 FRAC_TOL_CYCLES = 1e-12
@@ -448,9 +498,13 @@ LM_VS_WLS_SIGMA = 0.2
 
 #: the paths main() drives, in order.  The first eight share their models
 #: and TOAs (phases delay_chain and phase_chain hold all of them), so they
-#: run together or not at all; sim_scan builds what it needs itself
+#: run together or not at all; sim_scan and young_fit build what they
+#: need themselves
 PATHS = ("grid", "dd_fit", "gls_fit", "ddk_fit", "noise_fit",
-         "wideband_fit", "chromatic_fit", "spider_fit", "sim_scan")
+         "wideband_fit", "chromatic_fit", "spider_fit", "sim_scan",
+         "young_fit")
+#: the first eight
+EARLIER = PATHS[:8]
 #: the sim_scan path: the simulated set's truth on the grid's axes, the
 #: grid's points per axis and its step in the sigma of a fit with both
 #: free, the chunk width, the chunk after which a SIGTERM arrives, the
@@ -521,6 +575,9 @@ class Run(NamedTuple):
     #: rehearsal may take a smaller grid)
     scan_axis: int = SCAN_AXIS
     scan_chunk: int = SCAN_CHUNK
+    young_tim: str = YOUNG_TIM
+    #: the layouts young_chain holds besides its model (None: every one)
+    young_layouts: tuple = None
 
 
 def emit(obj) -> None:
@@ -1056,14 +1113,18 @@ def _counted():
                                                     DelayChainTangent)
     from pint_tpu_torch.kernels.kepler import KeplerE
     from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
-                                                    PhaseChainTangent)
+                                                    PhaseChainTangent,
+                                                    PhaseFamilyPrimal,
+                                                    PhaseFamilyTangent)
     from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
 
     return {"qs_phase_frac": QSPhaseFrac, "kepler_E": KeplerE,
             "delay_chain_primal": DelayChain,
             "delay_chain_tangent": DelayChainTangent,
             "phase_chain_primal": PhaseChain,
-            "phase_chain_tangent": PhaseChainTangent}
+            "phase_chain_tangent": PhaseChainTangent,
+            "phase_chain_primal_phase_family": PhaseFamilyPrimal,
+            "phase_chain_tangent_phase_family": PhaseFamilyTangent}
 
 
 def zero_counts() -> None:
@@ -1419,22 +1480,30 @@ def tangent_vs_plain(torch, model, fitter, points: int, rec: dict) -> None:
         raise AssertionError(f"delay_chain tangent vs plain jvp: {rec}")
 
 
+#: the binary families and the families' levels, as chain_registers
+#: names the template values
+BINARY_NAMES = ("none", "ELL1", "DD", "DDK", "DDTM2", "ELL1H", "ELL1K")
+LEVEL_NAMES = ("", "+DM", "+DM+CHROM", "+DM+CHROM+ORB",
+               "+DM+CHROM+ORB+PHASE")
+
+
+def family_name(index: int) -> str:
+    """The name of the template value of index ``index``
+    (csrc/delay_chain.cuh family_index)."""
+    return BINARY_NAMES[index % 7] + LEVEL_NAMES[index // 7]
+
+
 def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
     """ptxas's registers, stack and spills of every delay_chain (or
     phase_chain) kernel (nvcc -Xptxas=-v), by kernel: primal/tangent,
     binary family, lanes per thread."""
     import re
 
-    fams = {"0": "none", "1": "ELL1", "2": "DD", "3": "DDK", "4": "DDTM2",
-            "5": "ELL1H", "6": "ELL1K"}
-    # the same families with the DM family's terms (csrc kDMFamily = 8),
-    # and with the DM and the chromatic family's (kChromFamily = 16)
-    base = dict(fams)
-    fams.update({str(int(k) + 8): f"{v}+DM" for k, v in base.items()})
-    fams.update({str(int(k) + 24): f"{v}+DM+CHROM" for k, v in base.items()})
-    # and with the orbit family's too (kOrbitFamily = 32)
-    fams.update({str(int(k) + 56): f"{v}+DM+CHROM+ORB"
-                 for k, v in base.items()})
+    # each binary family alone and with the families' levels added
+    # (csrc kDMFamily 8, kChromFamily 16, kOrbitFamily 32, kPhaseFamily 64)
+    fams = {str(b + added): family_name(7 * level + b)
+            for level, added in enumerate((0, 8, 24, 56, 120))
+            for b in range(7)}
     out, cur = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
@@ -1699,6 +1768,18 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
     ops = chain_ops(torch, model, fitter)
     with torch.no_grad():
         k3_ops = count_ops(torch, lambda: qspec.plain(shift, dF, other))
+    fam = spec.family is not None
+    comps = calc._kernel_layout()[1]
+    if fam:
+        # the phase family's terms (formed in the launch), counted from
+        # their plain version on the plain delay
+        with torch.no_grad():
+            d_plain = calc.delay_plain(p, b)
+            fam_ops = count_ops(torch, lambda: pc._other_phase(
+                [c for c in comps if c.phase_f64_reads_delay], p, b,
+                d_plain), CHAIN_EXTRA_OPS)
+        for dt, n in fam_ops.items():
+            k3_ops[dt] = k3_ops.get(dt, 0) + n
     row_bytes = sum(t.numel() * t.element_size() for t in rows)
     const_bytes = sum(t.numel() * t.element_size()
                       for t in tensors[len(dc.ROWS):] if t is not None)
@@ -1710,7 +1791,13 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
     def unfused_primal():
         d = dc.run(lay, theta4, None, rows)
         sh = (-d) - (thetas[:, o_pep, None] * 86400.0)
-        return qs_phase.run(qspec, sh, thetas[:, o_spin:o_pep], others)
+        oth = others
+        if fam:
+            # the family's phase and the others' in PyTorch, on the delay
+            oth = torch.stack([pc._other_phase(
+                comps, model.with_x(p, x, names), b, d[g])
+                for g, x in enumerate(X)])
+        return qs_phase.run(qspec, sh, thetas[:, o_spin:o_pep], oth)
 
     def plain_primal():
         def f(x):
@@ -1775,6 +1862,13 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
             return out if dot is None else out + dot
 
         def unfused_tangent():
+            if fam:
+                # the whole unfused card chain's jvp: the delay_chain
+                # tangent launch, the family's phase in PyTorch, the rule
+                return torch.func.vmap(lambda x: torch.func.vmap(
+                    lambda v: torch.func.jvp(lambda y: pc.unfused(
+                        calc, model.with_x(p, y, names), b, "nearest",
+                        delay=calc.delay), (x,), (v,))[1])(E))(X)
             return rule(dc.run(lay, theta4, dth4, rows))
 
         def plain_tangent():
@@ -1809,6 +1903,17 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
         tot = dict(tb["ops"])
         for dt, n in rule_ops.items():
             tot[dt] = tot.get(dt, 0) + n
+        if fam:
+            # the family's terms and their K lanes, counted from the plain
+            # version's jvp on the plain delay
+            with torch.no_grad():
+                fam_lane_ops = count_ops(torch, lambda: torch.func.vmap(
+                    lambda v: torch.func.jvp(lambda x: pc._other_phase(
+                        [c for c in comps if c.phase_f64_reads_delay],
+                        model.with_x(p, x, names), b, d_plain),
+                        (x0,), (v,))[1])(E), CHAIN_EXTRA_OPS)
+            for dt, n in fam_lane_ops.items():
+                tot[dt] = tot.get(dt, 0) + points * n
         t_ops = ops_seconds(tot)
         nbytes = (row_bytes + const_bytes + 8 * points * P * (1 + K)
                   + 16 * points * N + 8 * points * K * N
@@ -2988,11 +3093,10 @@ def normal_matrix_state(np, fitter) -> dict:
 
 
 def ptxas_vs_parent(regs: dict) -> dict:
-    """The kernels of the 21 template values without the orbit family
-    against the parent's ptxas (PTXAS_REFERENCE, written by
-    ``python3 chip_smoke.py --ptxas-reference``): {library: {kernel:
-    [now, then]}} where registers, stack or spills differ, or a kernel
-    is missing."""
+    """The kernels of an earlier checkout against their ptxas there
+    (PTXAS_REFERENCE, written by ``python3 chip_smoke.py
+    --ptxas-reference``): {library: {kernel: [now, then]}} where
+    registers, stack or spills differ, or a kernel is missing."""
     with open(PTXAS_REFERENCE) as f:
         ref = json.load(f)["kernels"]
     out = {}
@@ -3542,6 +3646,369 @@ def sim_scan_paths(torch, np, run: Run) -> dict:
     return out
 
 
+def young_load(torch, tim: str, par=None):
+    """par + tim -> (model at the young fit's start, toas) of the young
+    configuration (``examples.young_par``, or ``par``), as a user loads
+    them, the start moved by ``examples.young_start``."""
+    import warnings
+
+    from pint_tpu_torch.examples import young_par, young_start
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(par or young_par().splitlines())
+        toas = get_TOAs(tim, model=model)
+    young_start(model)
+    return model, toas
+
+
+def check_family_chain(torch, label: str, model, fitter, rec: dict):
+    """phase_chain's phase-family template values on one layout and the
+    young path's TOAs: the fused primal at 9 θ sets within F0 x
+    DELAY_TOL_S of the plain composition, and against the unfused card
+    chain (the delay_chain kernel, the family's and the other components'
+    phase in PyTorch, qs_phase_frac) bit-equal or within the same bar
+    (the family's exp, sin and cos are CUDA's libm built without FMA
+    contraction in the kernel, PyTorch's own in the unfused chain; the
+    gap is recorded); the TZR words as the params dict holds them; the
+    tangent launch bit-equal at 1, 2 and 4 lanes per thread along fit
+    directions (lanes 1, 3, 10 and every fit parameter); a jacfwd one
+    primal and one tangent launch, its columns within COLUMN_TOL relative
+    of the plain composition's.  Returns frac's largest gap to the plain
+    composition [cycles]."""
+    import numpy as np
+
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+
+    r = fitter.resids
+    p, b, calc = r.pdict, r.batch, model.calc
+    dev, N = b.device, b.ntoas
+    names = fitter.fit_params
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    f64 = torch.float64
+    bar = float(model.F0.value) * DELAY_TOL_S
+
+    def at(x):
+        return model.with_x(p, x, names)
+
+    def plain_f(x):
+        return pc.unfused(calc, at(x), b, "nearest")
+
+    # 9 fit points, each parameter moved so that its column moves the
+    # phase by up to 1e-4 cycles (a uniform 1e-9 in every parameter
+    # moves a young pulsar's F2 by 1e13 cycles)
+    x0 = model.x0(p, names).to(dev)
+    J = torch.func.jacfwd(lambda x: pc.fused(calc, at(x), b, "nearest"))(x0)
+    step = 1e-4 / torch.clamp(torch.amax(torch.abs(J), dim=0), min=1e-300)
+    X = x0 + step * torch.randn(GRID_POINTS, len(names), generator=gen,
+                                dtype=f64).to(dev)
+    X[0] = x0
+    spec, thetas, others, tensors = fused_points(torch, model, fitter, X)
+    if spec.family is None or not spec.flags & dc.PHASE_TERMS:
+        raise AssertionError(f"{label}: no phase family in the layout")
+
+    def turns(d):
+        # frac is a phase modulo whole pulses: a row within the gap of
+        # +-0.5 may round to the other pulse
+        return d - torch.round(d)
+
+    with torch.no_grad():
+        fused = pc.run(spec, thetas, others, tensors)
+        want = qs_phase.run(*unfused_points(torch, model, fitter, X))
+        with plain_phase():
+            plain = torch.func.vmap(plain_f)(X)
+    frac_err = float(torch.max(torch.abs(turns(fused[0] - plain))))
+    unfused_gap = {name: float(torch.max(torch.abs(
+        turns(a - w) if name == "out" else a - w)))
+        for name, a, w in zip(("out", "slope", "dt64"), fused, want)}
+    out = {"ntoas": N, "theta_sets": GRID_POINTS, "theta_slots": spec.P,
+           "family_slots": spec.family.P,
+           "family_counts": dict(zip(pc.FAMILY_FIELDS[:5],
+                                     spec.family.counts[:5])),
+           "kernel_index": spec.kernel_index,
+           "max_abs_frac_err_vs_plain": frac_err,
+           "frac_bar_vs_plain_cycles": bar,
+           "primal_bit_equal_to_unfused": {
+               name: bool(torch.equal(a, w)) for name, a, w in
+               zip(("out", "slope", "dt64"), fused, want)},
+           "primal_gap_to_unfused": unfused_gap}
+    # the TZR words on the 1-row TZR batch, as the params dict holds them
+    ptzr = tzr_pdict(torch, np, model, p, dev)
+    with torch.no_grad():
+        kw = pc.fused(calc, ptzr, model.tzr_batch, "words",
+                      subtract_tzr=False, is_tzr=True)
+        uw = pc.unfused(calc, ptzr, model.tzr_batch, "words",
+                        subtract_tzr=False, delay=calc.delay, is_tzr=True)
+    out["tzr_words_match_pdict"] = bool(
+        torch.equal(kw[0], p["const"]["__tzrphase__"]))
+    out["tzr_words_bit_equal_to_unfused"] = bool(torch.equal(kw, uw))
+    # the tangent launch along fit directions at every lanes-per-thread
+    with torch.no_grad():
+        _, slope, dt64 = pc.run(spec, thetas[:1], None if others is None
+                                else others[:1], tensors)
+    equal = {}
+    for K in LANE_COUNTS[:3] + (len(names),):
+        V = torch.randn(K, len(names), generator=gen, dtype=f64).to(dev)
+
+        def along(i):
+            return torch.func.vmap(lambda v: torch.func.jvp(
+                lambda x: pc.fused_inputs(calc, at(x), b, "nearest")[i],
+                (x0,), (v,))[1])(V)
+
+        dth = along(1)[None]
+        dot = None if others is None else along(2)[None]
+        one = pc.run(spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
+                     lanes=1)
+        equal[str(K)] = all(torch.equal(pc.run(
+            spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
+            lanes=L), one) for L in dc.KERNEL_LANES[1:])
+    out["lanes_bit_equal_to_single_lane"] = equal
+    # a jacfwd: one primal and one tangent launch; its columns against the
+    # plain composition's
+    before = counts()
+    J = torch.func.jacfwd(lambda x: pc.fused(calc, at(x), b, "nearest"))(x0)
+    after = counts()
+    out["jacfwd_launches"] = [after[k] - before[k] for k in ON_PATHS]
+    out["jacfwd_family_launches"] = [
+        after[k] - before[k] for k in FAMILY_PATHS]
+    with plain_phase():
+        Jp = torch.func.jacfwd(plain_f)(x0)
+    scale = torch.amax(torch.abs(Jp), dim=0)
+    per_col = torch.amax(torch.abs(J - Jp), dim=0) / torch.where(
+        scale > 0, scale, 1.0)
+    worst = int(torch.argmax(per_col))
+    out.update(max_rel_column_err_vs_plain=float(per_col[worst]),
+               worst_column=names[worst])
+    rec[label] = out
+    ok = (frac_err <= bar and unfused_gap["out"] <= bar
+          and out["tzr_words_match_pdict"] and all(equal.values())
+          and out["jacfwd_launches"] == [1, 1]
+          and out["jacfwd_family_launches"] == [1, 1]
+          and out["max_rel_column_err_vs_plain"] <= COLUMN_TOL)
+    if not ok:
+        raise AssertionError(f"phase family's kernels on {label}: {out}")
+    return frac_err
+
+
+def young_paths(torch, np, run: Run) -> dict:
+    """The young glitching pulsar's fit on the card and the phase family
+    of the fused kernel's row function (phases young_main_path ...
+    young_chain, see the module docstring).  Returns the path's launches,
+    the timing records and the family's registers."""
+    import statistics
+    import warnings
+
+    from pint_tpu_torch.examples import (PHASE_FAMILY, phase_family_par,
+                                         phase_mixed_par, young_start,
+                                         simulate_young_realistic)
+    from pint_tpu_torch.fitter import DownhillWLSFitter, Fitter
+    from pint_tpu_torch.kernels import build as kbuild
+    from pint_tpu_torch.kernels.phase_chain import PhaseChain
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import write_tim
+
+    out = {"launches": {}}
+
+    with phase("young_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        truth, sim = simulate_young_realistic(ntoas=run.ntoas, seed=0,
+                                              device=run.dev)
+        torch.cuda.synchronize()
+        rec["simulate_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(run.young_tim), exist_ok=True)
+        write_tim(run.young_tim, sim)
+        t0 = time.perf_counter()
+        model, toas = young_load(torch, run.young_tim)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = snapshot(model)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back:
+            fit, chi2, cold_s = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+        launches = counts()
+        fr = fit.fitresult
+        names = fit.fit_params
+        pulls = {n: device_offset(model[n].device_value,
+                                  truth[n].device_value)
+                 / model[n].device_uncertainty for n in names}
+        peak = torch.cuda.max_memory_allocated()
+        rec.update(fitter=type(fit).__name__, ntoas=toas.ntoas,
+                   n_fit=len(names), fit_params=names,
+                   status=fr.status.name, iterations=fr.iterations,
+                   rung=fr.rung, chi2=chi2, dof=fr.dof,
+                   chi2_per_dof=chi2 / fr.dof, young_fit_cold_s=cold_s,
+                   launches=launches, plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"], pulls=pulls,
+                   max_abs_pull=max(abs(v) for v in pulls.values()),
+                   theta_slots=model.calc.chain_layout.P,
+                   family_slots=model.calc.phase_family.P,
+                   peak_mem_bytes=peak, device=str(fit.device))
+        walls, per_fit = [], []
+        for _ in range(2):
+            restore(model, start)
+            zero_counts()
+            _, _, w = timed_fit(
+                torch, lambda: Fitter.auto(toas, model, device=run.dev))
+            walls.append(w)
+            per_fit.append(counts())
+        rec.update(young_fit_warm_s=statistics.median(walls),
+                   fit_walls_s=walls, launches_per_warm_fit=per_fit)
+        out["launches"]["young_fit"] = launches
+    if not isinstance(fit, DownhillWLSFitter):
+        raise AssertionError(f"Fitter.auto gave {type(fit).__name__}")
+    if toas.ntoas != run.ntoas or len(names) != YOUNG_NFIT:
+        raise AssertionError("not the full-width young configuration")
+    if fr.status.name != "CONVERGED":
+        raise AssertionError(f"young fit ended {fr.status.name}")
+    if not YOUNG_CHI2_PER_DOF[0] < chi2 / fr.dof < YOUNG_CHI2_PER_DOF[1]:
+        raise AssertionError(f"young fit chi2/dof {chi2 / fr.dof}")
+    if not rec["max_abs_pull"] < PULL_MAX:
+        raise AssertionError(f"young fit pulls {pulls}")
+    check_path_launches("young fit", launches)
+    if min(launches[k] for k in FAMILY_PATHS) <= 0 or any(
+            launches[k] != launches[f] for k, f in zip(ON_PATHS,
+                                                       FAMILY_PATHS)):
+        raise AssertionError(f"the young fit's phase chain launches were "
+                             f"not all the phase family's: {launches}")
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+
+    with phase("young_profile", {}) as rec:
+        holder = {}
+
+        def setup():
+            restore(model, start)
+            holder["f"] = Fitter.auto(toas, model, device=run.dev)
+            torch.cuda.synchronize()
+
+        rec.update(profile_grid(
+            torch, lambda: holder["f"].fit_toas(), run.out_dir,
+            out_name="young_profile", setup=setup))
+        yfit = holder["f"]
+
+    with phase("young_reference", {}) as rec:
+        with open(YOUNG_REF_JSON) as f:
+            want = json.load(f)
+        rmodel, rtoas = young_load(torch, YOUNG_REF_TIM)
+        PhaseChain.launches = 0
+        rf, rchi2, rs = timed_fit(
+            torch, lambda: Fitter.auto(rtoas, rmodel, device=run.dev))
+        sig, unc = stored_gaps(rmodel, want["values"], want["uncertainties"])
+        gap = abs(rchi2 / want["chi2"] - 1.0)
+        rec.update(fitter=type(rf).__name__, chi2=rchi2,
+                   chi2_ref=want["chi2"], max_rel_chi2_gap=gap,
+                   max_sigma_gap=sig, max_unc_rel_gap=unc,
+                   status=rf.fitresult.status.name,
+                   ref_status=want["status"], fit_s=rs,
+                   launches=PhaseChain.launches)
+    if not (rf.fit_params == want["fit_params"]
+            and rf.fitresult.status.name == want["status"]
+            and sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
+            and gap <= CHI2_TOL and PhaseChain.launches > 0):
+        raise AssertionError(f"young reference: {rec}")
+
+    # -- the phase family in the fused row function, at 12,500 TOAs ---------
+    with phase("young_chain", {}) as rec:
+        pars = {kind: phase_family_par(kind) for kind in PHASE_FAMILY}
+        pars["PHASE_MIXED"] = phase_mixed_par(dmx_bins=run.dmx_bins)
+        if run.young_layouts is not None:
+            pars = {k: v for k, v in pars.items() if k in run.young_layouts}
+        cases = []
+        for kind, par in pars.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                m = get_model(par.splitlines())
+            young_start(m)
+            cases.append((kind, m, Fitter.auto(toas, m, device=run.dev)))
+        cases.append(("young", model, yfit))
+        rec["phase_family"] = {}
+        frac_errs = [check_family_chain(torch, label, m, f,
+                                        rec["phase_family"])
+                     for label, m, f in cases]
+        rec["layouts"] = {label: {"delay_flags": m.calc.chain_layout.flags,
+                                  "kernel_index": rec["phase_family"][
+                                      label]["kernel_index"]}
+                          for label, m, _ in cases}
+        # the path's layout at its shapes, and the layout that runs every
+        # family's terms
+        rec["timing"] = {}
+        for label, m, f in cases:
+            if label not in ("young", "PHASE_MIXED"):
+                continue
+            rec["timing"][label] = {}
+            time_phase_chain(torch, m, f, 1, rec["timing"][label],
+                             sets=("all",))
+        regs = {k: chain_registers(kbuild.build_log(k), k)
+                for k in ("delay_chain", "phase_chain")}
+        rec["registers_phase_family"] = {
+            k: v for k, v in regs["phase_chain"].items() if "+PHASE" in k}
+        rec["ptxas_changed_vs_parent"] = ptxas_vs_parent(regs)
+        rec["max_abs_frac_err_vs_plain"] = max(frac_errs)
+    if rec["ptxas_changed_vs_parent"]:
+        raise AssertionError("the kernels without the phase family changed "
+                             f"ptxas: {rec['ptxas_changed_vs_parent']}")
+    out["timing"] = rec["timing"]
+    out["registers"] = rec["registers_phase_family"]
+    out["max_abs_frac_err"] = max(frac_errs)
+    out["max_rel_column_err"] = max(
+        v["max_rel_column_err_vs_plain"]
+        for v in rec["phase_family"].values())
+    out["instantiations"] = {
+        label: family_name(v["kernel_index"])
+        for label, v in rec["layouts"].items()}
+    return out
+
+
+def add_young(kernels: list, young: dict) -> None:
+    """The young path's launches in every kernel's count, and the lines of
+    the phase family's template values of phase_chain (their launches on
+    the path, times at its shapes and registers)."""
+    for k in kernels:
+        n = young["launches"]["young_fit"][k["name"]]
+        k["launches"] += n
+        k["launches_by_path"]["young_fit"] = n
+    t = young["timing"]["young"]
+    mixed = young["timing"].get("PHASE_MIXED")
+    n = young["launches"]["young_fit"]
+    for part, name in (("primal", "phase_chain_primal_phase_family"),
+                       ("tangent", "phase_chain_tangent_phase_family")):
+        rec = t["primal"] if part == "primal" else max(
+            t["tangent"].values(), key=lambda x: x["lanes"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pint_tpu_torch/csrc/phase_chain.cu",
+            "replaces": "pint_tpu/models/glitch.py:105",
+            "also_replaces": ["pint_tpu/models/piecewise.py:103",
+                              "pint_tpu/models/wave.py:100",
+                              "pint_tpu/models/ifunc.py:77"],
+            "instantiations": {
+                label: {"template_value": fam, "registers": young[
+                    "registers"].get(f"{fam}/primal" if part == "primal"
+                                     else f"{fam}/tangent_L4")}
+                for label, fam in young["instantiations"].items()},
+            "launches": n[name], "launches_by_path": {"young_fit": n[name]},
+            "max_abs_err": young["max_abs_frac_err"] if part == "primal"
+            else young["max_rel_column_err"],
+            "theta_sets": 1, "lanes": rec.get("lanes"),
+            "ms": first_time(rec), "fused_chain_ms": rec["fused_chain_ms"],
+            "unfused_chain_ms": rec["unfused_chain_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "phase_mixed": None if mixed is None else {
+                "ms": first_time(mixed["primal"] if part == "primal" else
+                                 max(mixed["tangent"].values(),
+                                     key=lambda x: x["lanes"])),
+                "bound_ms": (mixed["primal"] if part == "primal" else max(
+                    mixed["tangent"].values(),
+                    key=lambda x: x["lanes"]))["bound_ms"]}})
+
+
 def ptxas_reference(csrc: str, path: str) -> int:
     """Compile ``csrc``'s delay_chain.cu and phase_chain.cu (another
     checkout's kernel sources) with the package's nvcc flags, one nvcc
@@ -3615,8 +4082,8 @@ def main(run: Run = Run()) -> int:
 
     paths = PATHS if run.paths is None else tuple(run.paths)
     unknown = [p for p in paths if p not in PATHS]
-    earlier = [p for p in PATHS[:-1] if p in paths]
-    if unknown or len(earlier) not in (0, len(PATHS) - 1):
+    earlier = [p for p in EARLIER if p in paths]
+    if unknown or len(earlier) not in (0, len(EARLIER)):
         raise ValueError(f"paths {paths}: the first eight of {PATHS} run "
                          "together or not at all")
     kernels = earlier_paths(torch, np, run) if earlier else None
@@ -3624,6 +4091,10 @@ def main(run: Run = Run()) -> int:
         sim = sim_scan_paths(torch, np, run)
         if kernels is not None:
             add_sim_scan(kernels, sim)
+    if "young_fit" in paths:
+        young = young_paths(torch, np, run)
+        if kernels is not None:
+            add_young(kernels, young)
     if kernels is not None:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -56,7 +56,11 @@
 // carries kChromFamily, which is added on top of kDMFamily alone.  The
 // orbit family (an FBn orbit, ORBWAVE, BT_PIECEWISE's pieces, the
 // planets' Shapiro delays) only where it carries kOrbitFamily, which is
-// added on top of kDMFamily + kChromFamily alone.
+// added on top of kDMFamily + kChromFamily alone.  The phase family (the
+// glitches, PiecewiseSpindown, WAVE and IFUNC: the phase terms that read
+// the delay) is no delay: phase_chain.cuh's phase_family_row adds it, and
+// only phase_chain.cu instantiates the template values that carry
+// kPhaseFamily, always on top of the orbit family's.
 
 #pragma once
 
@@ -505,6 +509,9 @@ enum : int32_t {
   kBTPieces = 1 << 28,       // BT_PIECEWISE's pieces (one row input)
   kPlanetShapiro = 1 << 29,  // PLANET_SHAPIRO (one row input)
   kOrbitFamilyFlags = kFBOrbit | kOrbWave | kBTPieces | kPlanetShapiro,
+  // the phase chain's layout holds a term of the phase family (PhCfg);
+  // never set in a delay_chain launch
+  kPhaseTerms = 1 << 30,
 };
 
 // binary families (the kernels' template parameter)
@@ -525,6 +532,9 @@ enum : int32_t {
   // added to family + kDMFamily + kChromFamily: the orbit family's terms
   // compiled in (a layout with any of kOrbitFamilyFlags)
   kOrbitFamily = 32,
+  // added to family + kDMFamily + kChromFamily + kOrbitFamily: the phase
+  // family's terms (phase_chain.cu only; a layout with kPhaseTerms)
+  kPhaseFamily = 64,
 };
 
 // slot offsets within the binary block of theta
@@ -674,6 +684,42 @@ enum : int32_t {
   pieceSlots = 4,
 };
 
+// the config of the phase family's kernels (phase_chain.cu only):
+// OrbCfg, then the glitches, the PiecewiseSpindown groups, the WAVE
+// harmonics and the IFUNC points with its interpolation (SIFUNC 0 or 2),
+// the slots (in the fused theta) of F0's float64 value and of the blocks,
+// and the offsets of the WAVE pairs and the IFUNC points in the family's
+// constants (PhRowData::fconst)
+struct PhCfg : OrbCfg {
+  int32_t ngl, npw, nwave, nif, sifunc;
+  int32_t o_f0, o_gl, o_pw, o_wave;
+  int32_t c_wave, c_if;
+};
+
+// slots of the phase family's blocks in the fused theta: per glitch its
+// epoch [day], GLPH, GLF0, GLF1, GLF2, GLF0D, GLTD [d]; per group its
+// epoch [day], PWPH, PWF0, PWF1, PWF2; the WAVE epoch [day] (WAVEEPOCH or
+// PEPOCH) and WAVE_OM [rad/d].  The constants: per WAVE harmonic its A
+// and B [s], then the IFUNC points' nif MJDs and nif values [s]
+enum : int32_t {
+  glDay = 0,
+  glPH = 1,
+  glF0 = 2,
+  glF1 = 3,
+  glF2 = 4,
+  glF0D = 5,
+  glTD = 6,
+  glSlots = 7,
+  pwDay = 0,
+  pwPH = 1,
+  pwF0 = 2,
+  pwF1 = 3,
+  pwF2 = 4,
+  pwSlots = 5,
+  waveDay = 0,
+  waveOM = 1,
+};
+
 // slots within the solar wind's block of theta: the Taylor epoch [day],
 // the nsw NE_SW terms, then for SWM 1 SWP, the half range
 // sqrt(pi)/2 Gamma((p-1)/2) / Gamma(p/2) and AU_LS^p (formed in PyTorch,
@@ -787,6 +833,13 @@ struct OrbRow : ChromRow {
   int32_t btpiece;        // the row's piece, -1 for none
 };
 
+// the row of the phase family's kernels: the row's PiecewiseSpindown
+// groups (bit i for group i) and the family's constants on top of OrbRow
+struct PhRow : OrbRow {
+  int32_t pwbits;
+  const double* fconst;
+};
+
 // the per-row inputs as the kernels receive them (kernels/delay_chain.py
 // ROWS), and one row of them
 struct RowData {
@@ -813,11 +866,18 @@ struct OrbRowData : ChromRowData {
   const int32_t* __restrict__ btpiece;
 };
 
+// and the phase family's: the groups' bits per row and its constants
+struct PhRowData : OrbRowData {
+  const int32_t* __restrict__ pwbits;
+  const double* __restrict__ fconst;
+};
+
 // the config, row inputs and row of the kernels of template value BIN:
-// the chromatic family's only where it carries kChromFamily, and the
-// orbit family's only where it carries kOrbitFamily, so that the other
-// kernels keep the parameters, and the code, they had
-template <bool CHROM, bool ORB>
+// the chromatic family's only where it carries kChromFamily, the orbit
+// family's only where it carries kOrbitFamily, and the phase family's
+// only where it carries kPhaseFamily, so that the other kernels keep the
+// parameters, and the code, they had
+template <bool CHROM, bool ORB, bool PHF = false>
 struct ChromSel {
   using Cfg = ChainCfg;
   using Data = RowData;
@@ -835,8 +895,15 @@ struct ChromSel<true, true> {
   using Data = OrbRowData;
   using Row_ = OrbRow;
 };
+template <>
+struct ChromSel<true, true, true> {
+  using Cfg = PhCfg;
+  using Data = PhRowData;
+  using Row_ = PhRow;
+};
 template <int BIN>
-using SelOf = ChromSel<(BIN & kChromFamily) != 0, (BIN & kOrbitFamily) != 0>;
+using SelOf = ChromSel<(BIN & kChromFamily) != 0, (BIN & kOrbitFamily) != 0,
+                       (BIN & kPhaseFamily) != 0>;
 template <int BIN>
 using CfgOf = typename SelOf<BIN>::Cfg;
 template <int BIN>
@@ -846,10 +913,13 @@ using RowOf = typename SelOf<BIN>::Row_;
 
 // the template value of the kernels that a layout launches: its binary
 // family, with kDMFamily added when it has a term of the DM family,
-// kDMFamily + kChromFamily when it has one of the chromatic family, and
+// kDMFamily + kChromFamily when it has one of the chromatic family,
 // kDMFamily + kChromFamily + kOrbitFamily when it has one of the orbit
-// family
+// family, and all four levels when the phase chain's layout has a term of
+// the phase family
 PT_HD int kernel_family(const ChainCfg& c) {
+  if (c.flags & kPhaseTerms)
+    return c.binary + kDMFamily + kChromFamily + kOrbitFamily + kPhaseFamily;
   if (c.flags & kOrbitFamilyFlags)
     return c.binary + kDMFamily + kChromFamily + kOrbitFamily;
   if (c.flags & kChromFamilyFlags) return c.binary + kDMFamily + kChromFamily;
@@ -876,11 +946,13 @@ PT_HD int kernel_family(const ChainCfg& c) {
   X(PT_CHROM(ptchain::kDDTM2)) X(PT_CHROM(ptchain::kELL1H))              \
   X(PT_CHROM(ptchain::kELL1K))
 
-// the index of template value BIN among PT_FAMILIES' 28: the binary
-// family, plus 7 per level (alone, + kDMFamily, + kChromFamily,
-// + kOrbitFamily; kernels/delay_chain.py ChainLayout.kernel_index)
+// the index of template value BIN among PT_FAMILIES' 28 and
+// PT_PHASE_FAMILIES' 7: the binary family, plus 7 per level (alone,
+// + kDMFamily, + kChromFamily, + kOrbitFamily, + kPhaseFamily;
+// kernels/delay_chain.py family_index)
 constexpr int family_index(int BIN) {
-  return 7 * ((BIN & kOrbitFamily)   ? 3
+  return 7 * ((BIN & kPhaseFamily)   ? 4
+              : (BIN & kOrbitFamily) ? 3
               : (BIN & kChromFamily) ? 2
               : (BIN & kDMFamily)    ? 1
                                      : 0) +
@@ -903,6 +975,19 @@ constexpr bool in_part(int BIN) {
   X(PT_ORB(ptchain::kDD)) X(PT_ORB(ptchain::kDDK))                       \
   X(PT_ORB(ptchain::kDDTM2)) X(PT_ORB(ptchain::kELL1H))                  \
   X(PT_ORB(ptchain::kELL1K))
+
+// X(value) for the template values of the phase family (phase_chain.cu
+// only), each on top of every delay family
+#define PT_PHASE(B) (PT_ORB(B) + ptchain::kPhaseFamily)
+#define PT_PHASE_FAMILIES(X)                                             \
+  X(PT_PHASE(ptchain::kNoBinary)) X(PT_PHASE(ptchain::kELL1))            \
+  X(PT_PHASE(ptchain::kDD)) X(PT_PHASE(ptchain::kDDK))                   \
+  X(PT_PHASE(ptchain::kDDTM2)) X(PT_PHASE(ptchain::kELL1H))              \
+  X(PT_PHASE(ptchain::kELL1K))
+
+// the most PiecewiseSpindown groups a layout carries (one bit word per
+// row)
+constexpr int kMaxPWGroups = 31;
 
 // whether a layout's member counts fit the bit words and the row inputs
 // hold what it reads (the kernels refuse it otherwise)
@@ -935,6 +1020,18 @@ PT_HD bool rows_cover(const OrbCfg& c, const OrbRowData& rd) {
          !((f & kFBOrbit) && c.nfb < 1);
 }
 
+// and the phase family's: at most kMaxPWGroups groups, WAVE and IFUNC
+// need their constants, and IFUNC's interpolation is 0 or 2 (a row
+// without the groups' bits is in none of them)
+PT_HD bool rows_cover(const PhCfg& c, const PhRowData& rd) {
+  return rows_cover(static_cast<const OrbCfg&>(c),
+                    static_cast<const OrbRowData&>(rd)) &&
+         c.ngl >= 0 && c.npw >= 0 && c.npw <= kMaxPWGroups &&
+         c.nwave >= 0 && c.nif >= 0 &&
+         !((c.nwave > 0 || c.nif > 0) && rd.fconst == nullptr) &&
+         !(c.nif > 0 && c.sifunc != 0 && c.sifunc != 2);
+}
+
 PT_HD Row load_row(const RowData& rd, int64_t n) {
   Row r;
   r.day = rd.tdb_day[n];
@@ -956,7 +1053,13 @@ PT_HD Row load_row(const RowData& rd, int64_t n) {
 // row n as template value BIN reads it
 template <int BIN>
 PT_HD RowOf<BIN> load_row_of(const RowDataOf<BIN>& rd, int64_t n) {
-  if constexpr ((BIN & kOrbitFamily) != 0) {
+  if constexpr ((BIN & kPhaseFamily) != 0) {
+    PhRow r;
+    static_cast<OrbRow&>(r) = load_row_of<BIN & ~kPhaseFamily>(rd, n);
+    r.pwbits = rd.pwbits != nullptr ? rd.pwbits[n] : 0;
+    r.fconst = rd.fconst;
+    return r;
+  } else if constexpr ((BIN & kOrbitFamily) != 0) {
     OrbRow r;
     static_cast<Row&>(r) = load_row(rd, n);
     r.cmx0 = rd.cmx != nullptr ? rd.cmx[2 * n] : -1;

@@ -9,6 +9,11 @@
 //   K3  pint_tpu/models/spindown.py  dt_seconds_qs + Spindown.phase
 //       pint_tpu/models/timing_model.py  PhaseCalc.phase (TZR subtraction)
 //       pint_tpu/residuals.py  raw_phase_resids ("nearest" rounding)
+// and, in the template values with kPhaseFamily, the phase components
+// that read the delay (phase_chain.cuh phase_family_row):
+//       pint_tpu/models/glitch.py  Glitch.phase
+//       pint_tpu/models/piecewise.py  PiecewiseSpindown.phase
+//       pint_tpu/models/wave.py  Wave.phase;  ifunc.py  IFunc.phase
 // Its plain PyTorch version is the unfused composition on the CPU
 // (PhaseCalc.delay_plain, the shift, phase_frac_plain with
 // QSPhaseFrac's tangent rule); the wrapper is
@@ -18,7 +23,7 @@
 //   primal:  frac[g, n] (or the four words), slope[g, n], dt64[g, n]
 //   tangent: dfrac[g, k, n] = d frac(theta[g], row n) . dtheta[g, k]
 // with theta (G, P) and dtheta (G, K, P), P = the delay chain's slots +
-// K spin offsets + the PEPOCH offset.
+// K spin offsets + the PEPOCH offset [+ the phase family's slots].
 //
 // What it removes.  Unfused, a residual evaluation is K4's launch (the
 // delay written to memory), PyTorch's shift (elementwise launches), K3's
@@ -34,7 +39,11 @@
 // (~2.3k float32, K3) per (theta set, row) against ~140 bytes of row
 // data: operations.  The tangent launch is K4's tangent launch plus
 // ~4K + 4 float64 operations and 8 bytes written per lane and row:
-// operations at the tens of lanes of a fit's jacfwd.
+// operations at the tens of lanes of a fit's jacfwd.  The phase family
+// adds per row ~15 float64 operations and an exp per glitch, ~10 per
+// group, a sincos and ~8 per WAVE harmonic and a bisection over the IFUNC
+// points (its constants read from a buffer that every row shares):
+// operations too.
 //
 // The design is K4's launch shapes (delay_chain.cu): the primal one
 // thread per (theta set, row), registers only, each block first forming
@@ -60,8 +69,8 @@ using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
 using ptchain::RowDataOf;
-using ptchain::OrbCfg;
-using ptchain::OrbRowData;
+using ptchain::PhCfg;
+using ptchain::PhRowData;
 using ptchain::Theta;
 using ptchain::load_row_of;
 using ptphase::PhaseOut;
@@ -246,9 +255,9 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const PhaseData& ph,
 // launch<BIN> where this library holds BIN (a build in parts holds some
 // template values: kernels/build.py part_of picks the library)
 template <int BIN>
-cudaError_t launch_part(const OrbRowData& rd, const PhaseData& ph,
+cudaError_t launch_part(const PhRowData& rd, const PhaseData& ph,
                         const TangentData& td, const double* theta,
-                        const double* dtheta, const OrbCfg& c,
+                        const double* dtheta, const PhCfg& c,
                         const PhaseCfg& pc, int K, int lpt, int64_t G,
                         int64_t N, double* out, float* words, double* slope,
                         double* dt64, cudaStream_t stream) {
@@ -272,7 +281,10 @@ cudaError_t launch_part(const OrbRowData& rd, const PhaseData& ph,
 // carrying `lpt` lanes (1, 2 or 4), from the primal's `slope_in` and
 // `dt64_in` and, if not null, d other at dother + g * dother_sg + k *
 // dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx, tropo, planets
-// and btpiece as delay_chain.cu takes them.  Returns a cudaError_t code (0 on success).
+// and btpiece as delay_chain.cu takes them; pwbits (N,) the rows'
+// PiecewiseSpindown groups (or null: none) and fconst the phase family's
+// constants (PhCfg), read by the template values with kPhaseFamily.
+// Returns a cudaError_t code (0 on success).
 extern "C" int phase_chain(
     const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
     const double* pos, const double* sun, const double* freq,
@@ -281,24 +293,28 @@ extern "C" int phase_chain(
     const double* tropo, const double* planets, const int32_t* btpiece,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
-    const float* tzr_w, const double* theta, const double* dtheta,
+    const float* tzr_w, const int32_t* pwbits, const double* fconst,
+    const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, OrbCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, PhCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt,
     void* stream) {
   const bool tangent = dtheta != nullptr;
-  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                        swx, fdmbits, fdjbits},
+  const PhRowData rd{{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx,
+                        jbits, swx, fdmbits, fdjbits},
                        cmx,
                        tropo},
                       planets,
-                      btpiece};
+                      btpiece},
+                     pwbits,
+                     fconst};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
       !ptchain::rows_cover(cfg, rd) ||
+      !ptphasechain::family_fits(cfg, pc) ||
       (tangent && (K < 1 || K > INT32_MAX || slope_in == nullptr ||
                    dt64_in == nullptr || out == nullptr)) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
@@ -319,6 +335,7 @@ extern "C" int phase_chain(
                          N, out, words, slope, dt64, s);                  \
     break;
     PT_FAMILIES(PT_CASE)
+    PT_PHASE_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return (int)cudaErrorInvalidValue;

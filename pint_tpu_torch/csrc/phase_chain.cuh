@@ -18,6 +18,18 @@
 //   dfrac   = ((0 + slope dshift) + sum_k pk d dF_k) [+ d other],
 //             pk = dt^{k+1} / (k+1)! formed as pk <- pk dt64 / (k + 2).
 //
+// The template values that carry kPhaseFamily add, right after the delay,
+// the phase family: the phase components that read the delay (Glitch,
+// PiecewiseSpindown, Wave, IFunc; pint_tpu/models/glitch.py,
+// piecewise.py, wave.py, ifunc.py), whose plain versions are their
+// phase_f64 in pint_tpu_torch/models.  Their slots follow the PEPOCH
+// offset in theta (PhCfg), and their float64 sum `fam` joins the phase
+// components that PyTorch sums (the phase JUMPs, PHOFF) as the plain
+// composition sums them, other = fam + other (kernels/phase_chain.py
+// _other_phase), in value and in each lane's tangent:
+//   fam     = (((0 + glitches) + groups) + waves) + ifunc
+//   dfrac   = ((0 + slope dshift) + sum_k pk d dF_k) + (d fam [+ d other]).
+//
 // Plain C++ under PT_HD, so that g++ builds it for the host as nvcc does
 // for the card; both without FMA contraction (qs.cuh).
 
@@ -52,6 +64,126 @@ struct PhaseCfg {
 
 constexpr double kSecsPerDay = 86400.0;
 
+// the number of points of x[0..k) that are <= v (right) or < v (left):
+// torch.searchsorted's index, by bisection
+PT_HD int search_sorted(const double* x, int k, double v, bool right) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (right ? x[mid] <= v : x[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The phase family's float64 phase [cycles] of one row, given the row's
+// delay d [s]: each component's sum in its phase_f64's operation order,
+// the components summed in DEFAULT_ORDER from 0.
+template <typename T, int BIN>
+PT_HD T phase_family_row(const CfgOf<BIN>& c, const Theta<T>& th,
+                         const RowOf<BIN>& r, const T& d) {
+  using ptchain::make;
+  using ptchain::val;
+  const double t = (double)r.day + r.frac;
+  T fam = make<T>(0.0);
+  if (c.ngl > 0) {
+    // Glitch: the dt > 0 gate, and the recovery's safe tau
+    T total = make<T>(0.0);
+    for (int i = 0; i < c.ngl; ++i) {
+      const int o = c.o_gl + ptchain::glSlots * i;
+      const T dt = (t - th[o + ptchain::glDay]) * kSecsPerDay - d;
+      if (!(val(dt) > 0.0)) {
+        total = total + 0.0;
+        continue;
+      }
+      const T dph =
+          th[o + ptchain::glPH] +
+          dt * (th[o + ptchain::glF0] +
+                dt / 2.0 * (th[o + ptchain::glF1] +
+                            dt / 3.0 * th[o + ptchain::glF2]));
+      const T tau = th[o + ptchain::glTD] * kSecsPerDay;
+      if (val(tau) > 0.0) {
+        const T decay = th[o + ptchain::glF0D] * tau *
+                        (1.0 - ptchain::f_exp(-dt / tau));
+        total = total + (dph + decay);
+      } else {
+        total = total + (dph + 0.0);
+      }
+    }
+    fam = fam + total;
+  }
+  if (c.npw > 0) {
+    // PiecewiseSpindown: each group whose window holds the row
+    T total = make<T>(0.0);
+    for (int i = 0; i < c.npw; ++i) {
+      if (!((r.pwbits >> i) & 1)) continue;
+      const int o = c.o_pw + ptchain::pwSlots * i;
+      const T dt = (t - th[o + ptchain::pwDay]) * kSecsPerDay - d;
+      total = total + (th[o + ptchain::pwPH] +
+                       dt * (th[o + ptchain::pwF0] +
+                             dt / 2.0 * (th[o + ptchain::pwF1] +
+                                         dt / 3.0 * th[o + ptchain::pwF2])));
+    }
+    fam = fam + total;
+  }
+  if (c.nwave > 0) {
+    // Wave: F0 sum_k [A_k sin(k OM dt) + B_k cos(k OM dt)]
+    const T dt_day = (t - th[c.o_wave + ptchain::waveDay]) - d / kSecsPerDay;
+    const T base = th[c.o_wave + ptchain::waveOM] * dt_day;
+    const double* ab = r.fconst + c.c_wave;
+    T times = make<T>(0.0);
+    for (int k = 0; k < c.nwave; ++k) {
+      const T arg = (double)(k + 1) * base;
+      T sn, cs;
+      ptchain::f_sincos(arg, sn, cs);
+      times = times + ab[2 * k] * sn + ab[2 * k + 1] * cs;
+    }
+    fam = fam + times * th[c.o_f0];
+  }
+  if (c.nif > 0) {
+    // IFunc: SIFUNC 0 the nearest preceding point, 2 linear and clamped
+    const double* x = r.fconst + c.c_if;
+    const double* y = x + c.nif;
+    const int last = c.nif - 1;
+    const T ts = t - d / kSecsPerDay;
+    T times;
+    if (c.sifunc == 0) {
+      int i = search_sorted(x, c.nif, val(ts), true) - 1;
+      i = i < 0 ? 0 : (i > last ? last : i);
+      times = make<T>(y[i]);
+    } else {
+      int i = search_sorted(x, c.nif, val(ts), false);
+      i = i < 1 ? 1 : i;  // torch.clamp(i, 1, last): the lower bound,
+      i = i > last ? last : i;  // then the upper (0 where nif is 1)
+      const int i0 = i == 0 ? last : i - 1;  // y[-1] where nif is 1
+      const T w = ptchain::clamp2((ts - x[i0]) / (x[i] - x[i0]), 0.0, 1.0);
+      times = y[i0] * (1.0 - w) + y[i] * w;
+    }
+    fam = fam + times * th[c.o_f0];
+  }
+  return fam;
+}
+
+// whether the phase family's slots lie after the PEPOCH offset, inside
+// the fused theta (a layout without the family has none)
+PT_HD bool family_fits(const ptchain::PhCfg& c, const PhaseCfg& pc) {
+  if (!(c.flags & ptchain::kPhaseTerms))
+    return c.ngl == 0 && c.npw == 0 && c.nwave == 0 && c.nif == 0;
+  const int lo = pc.o_pep + 1;
+  return !((c.nwave > 0 || c.nif > 0) && (c.o_f0 < lo || c.o_f0 >= pc.P)) &&
+         !(c.ngl > 0 && (c.o_gl < lo ||
+                         c.o_gl + ptchain::glSlots * c.ngl > pc.P)) &&
+         !(c.npw > 0 && (c.o_pw < lo ||
+                         c.o_pw + ptchain::pwSlots * c.npw > pc.P)) &&
+         !(c.nwave > 0 && (c.o_wave < lo || c.o_wave + 2 > pc.P));
+}
+
+// the delay chain's template value of BIN (the phase family is no delay)
+template <int BIN>
+constexpr int kDelayBin = BIN & ~ptchain::kPhaseFamily;
+
 // One row of the primal: theta is the row's theta set (pc.P slots).
 template <int BIN>
 PT_HD PhaseOut primal_row(const CfgOf<BIN>& c, const PhaseCfg& pc,
@@ -59,8 +191,14 @@ PT_HD PhaseOut primal_row(const CfgOf<BIN>& c, const PhaseCfg& pc,
                           const SpinTerms& s, double pep_day,
                           const float* pep_w, const float* tzr_w,
                           bool has_other, double other, double pn) {
-  const double d = ptchain::delay_row<double, BIN>(c, Theta<double>{theta},
-                                                  r, nullptr);
+  const double d = ptchain::delay_row<double, kDelayBin<BIN>>(
+      c, Theta<double>{theta}, r, nullptr);
+  if constexpr ((BIN & ptchain::kPhaseFamily) != 0) {
+    const double fam =
+        phase_family_row<double, BIN>(c, Theta<double>{theta}, r, d);
+    other = has_other ? fam + other : fam;
+    has_other = true;
+  }
   const double shift = (-d) - (theta[pc.o_pep] * kSecsPerDay);
   return ptphase::phase_row(r.day, r.frac_w, pep_day, pep_w, s, pc.K,
                             theta + pc.o_spin, shift, has_other, other,
@@ -107,7 +245,10 @@ PT_HD LaneOut<Lanes<T>::L> tangent_row(const CfgOf<BIN>& c,
                                        const double* dother,
                                        int64_t dother_sk, int valid) {
   using LT = Lanes<T>;
-  const T d = ptchain::delay_row<T, BIN>(c, th, r, nullptr);
+  const T d = ptchain::delay_row<T, kDelayBin<BIN>>(c, th, r, nullptr);
+  T fam;
+  if constexpr ((BIN & ptchain::kPhaseFamily) != 0)
+    fam = phase_family_row<T, BIN>(c, th, r, d);
   const double slope = *slope_p, dt64 = *dt64_p;
   LaneOut<LT::L> o;
 #pragma unroll
@@ -125,7 +266,14 @@ PT_HD LaneOut<Lanes<T>::L> tangent_row(const CfgOf<BIN>& c,
       o.d[l] = o.d[l] + pk * LT::dtheta(th, l, pc.o_spin + k);
     pk = pk * dt64 / (k + 2.0);
   }
-  if (dother != nullptr) {
+  if constexpr ((BIN & ptchain::kPhaseFamily) != 0) {
+#pragma unroll
+    for (int l = 0; l < LT::L; ++l) {
+      double dfam = LT::d(fam, l);
+      if (dother != nullptr && l < valid) dfam = dfam + dother[l * dother_sk];
+      o.d[l] = o.d[l] + dfam;
+    }
+  } else if (dother != nullptr) {
 #pragma unroll
     for (int l = 0; l < LT::L; ++l)
       if (l < valid) o.d[l] = o.d[l] + dother[l * dother_sk];

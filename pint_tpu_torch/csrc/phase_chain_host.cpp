@@ -12,7 +12,7 @@
 //       -I pint_tpu_torch/csrc pint_tpu_torch/csrc/phase_chain_host.cpp
 //       -o libphase_chain_host.so
 //
-// (-O1 compiles the 28 template values in about half the time -O2 takes;
+// (-O1 compiles the 35 template values in about half the time -O2 takes;
 // the arithmetic is the same IEEE operations, without contraction.)
 
 #include <stdint.h>
@@ -27,8 +27,8 @@ using ptchain::ChainCfg;
 using ptchain::Dual;
 using ptchain::DualN;
 using ptchain::RowData;
-using ptchain::OrbCfg;
-using ptchain::OrbRowData;
+using ptchain::PhCfg;
+using ptchain::PhRowData;
 using ptchain::Theta;
 using ptchain::load_row_of;
 using ptphase::PhaseOut;
@@ -43,9 +43,9 @@ struct Tangent {
 };
 
 template <int BIN, int L>
-void tangent_lanes(const OrbRowData& rd, const Tangent& td,
+void tangent_lanes(const PhRowData& rd, const Tangent& td,
                    const double* theta, const double* dtheta,
-                   const OrbCfg& c,
+                   const PhCfg& c,
                    const PhaseCfg& pc, int64_t G, int64_t K, int64_t N,
                    double* out) {
   const int P = pc.P;
@@ -75,10 +75,10 @@ void tangent_lanes(const OrbRowData& rd, const Tangent& td,
 }
 
 template <int BIN>
-int run(const OrbRowData& rd, const double* pulse_number,
+int run(const PhRowData& rd, const double* pulse_number,
         const double* pep_day, const float* pep_w, const float* f_w, const float* tzr_w,
         const double* other, int64_t other_sg, const Tangent& td,
-        const double* theta, const double* dtheta, const OrbCfg& c,
+        const double* theta, const double* dtheta, const PhCfg& c,
         const PhaseCfg& pc, int64_t G, int64_t K, int64_t N, int lpt,
         double* out, float* words, double* slope, double* dt64) {
   const int P = pc.P;
@@ -143,23 +143,27 @@ extern "C" int phase_chain_host(
     const double* tropo, const double* planets, const int32_t* btpiece,
     const double* pulse_number,
     const double* pep_day, const float* pep_w, const float* f_w,
-    const float* tzr_w, const double* theta, const double* dtheta,
+    const float* tzr_w, const int32_t* pwbits, const double* fconst,
+    const double* theta, const double* dtheta,
     const double* other, const double* dother, const double* slope_in,
     const double* dt64_in, double* out, float* words, double* slope,
-    double* dt64, OrbCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
+    double* dt64, PhCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt) {
   const bool tangent = dtheta != nullptr;
-  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
-                        swx, fdmbits, fdjbits},
+  const PhRowData rd{{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx,
+                        jbits, swx, fdmbits, fdjbits},
                        cmx,
                        tropo},
                       planets,
-                      btpiece};
+                      btpiece},
+                     pwbits,
+                     fconst};
   if (G < 1 || N < 1 || cfg.P < 1 || pc.K < 1 ||
       pc.K > ptphase::kMaxTerms || pc.o_spin < cfg.P ||
       pc.o_spin + pc.K > pc.P || pc.o_pep < pc.o_spin + pc.K ||
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
       !ptchain::rows_cover(cfg, rd) ||
+      !ptphasechain::family_fits(cfg, pc) ||
       (tangent && (K < 1 || slope_in == nullptr || dt64_in == nullptr ||
                    out == nullptr)) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
@@ -176,6 +180,7 @@ extern "C" int phase_chain_host(
                   other_sg, td, theta, dtheta, cfg, pc, G, K, N, lpt, out,  \
                   words, slope, dt64);
     PT_FAMILIES(PT_CASE)
+    PT_PHASE_FAMILIES(PT_CASE)
 #undef PT_CASE
     default:
       return 1;

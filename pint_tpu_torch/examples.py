@@ -6,9 +6,11 @@ and with the noise parameters free and per-TOA errors that vary, for the
 downhill fitters' maximum-likelihood noise fit), the DDK binary in
 ecliptic coordinates (WLS), and the NANOGrav-style wideband
 configuration (the noise model's TOAs with a wideband DM each, DMJUMP,
-DMEFAC/DMEQUAD and NE_SW), the chromatic configuration, and the spider
-binary (an FBn orbit with ORBWAVEs and PLANET_SHAPIRO), with the
-variants of the delay kernel's row function of each family."""
+DMEFAC/DMEQUAD and NE_SW), the chromatic configuration, the spider
+binary (an FBn orbit with ORBWAVEs and PLANET_SHAPIRO), and the young
+glitching pulsar (glitches, PiecewiseSpindown, WAVE, IFUNC, PHOFF), with
+the variants of the delay and the phase kernels' row functions of each
+family."""
 
 from __future__ import annotations
 
@@ -1025,3 +1027,203 @@ def orbit_mixed_par(dmx_bins: int = 70, span_days: float = 4550.0,
                      + dm_family_lines(0, span_days=span_days,
                                        center_mjd=center_mjd)
                      + chromatic_family_lines("CM", span_days, center_mjd))
+
+
+#: a Vela-class young pulsar, isolated (F0 11.19 Hz, F1 -1.56e-11 Hz/s,
+#: F2 free), observed at 1.4 and 3.1 GHz: spin, astrometry and DM, and
+#: the absolute phase's reference TOA.  PEPOCH and the TZR TOA lie before
+#: the first glitch: the TZR phase then holds no term that a fit moves
+#: beyond 1e-6 cycles, so that PHOFF does not take up the TZR phase's
+#: change, which the fits hold as data (pint_tpu's, and the port's)
+YOUNG_PAR = """
+PSR J0835-YOUNG
+RAJ 08:35:20.611 1
+DECJ -45:10:34.8 1
+F0 11.19 1
+F1 -1.56e-11 1
+F2 8e-22 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 67.97 1
+TZRMJD 55000.1
+TZRFRQ 1400
+TZRSITE pks
+EPHEM DE421
+"""
+#: the young set's span [d] (eight years) and centre [MJD], its two
+#: receivers' bands [MHz] and its TOAs' uncertainty [us]
+YOUNG_SPAN_DAYS = 2920.0
+YOUNG_CENTER_MJD = 56000.0
+YOUNG_RECEIVERS = {1400.0: "PKS1400", 3100.0: "PKS3100"}
+YOUNG_ERROR_US = 5.0
+#: its glitches: (epoch as a fraction of the span from its start, GLPH
+#: [cycles], GLF0 [Hz], GLF1 [Hz/s], GLF0D [Hz], GLTD [d]); the first is
+#: the large one, with its recovery, the other two small
+YOUNG_GLITCHES = ((0.25, 0.1, 2.8e-5, -1.0e-13, 2e-7, 30.0),
+                  (0.6, -0.05, 1e-6, 0.0, 0.0, 0.0),
+                  (0.8, 0.02, 2e-7, 0.0, 0.0, 0.0))
+#: its PiecewiseSpindown group: a year between the first two glitches,
+#: (start, stop, epoch as fractions of the span; PWPH [cycles], PWF0 [Hz],
+#: PWF1 [Hz/s])
+YOUNG_PW = (0.3, 0.425, 0.36, 0.01, 2e-9, -5e-17)
+#: its ten WAVE harmonics' (A, B) [s], falling from 1e-4 s, about
+#: WAVEEPOCH at the centre, the fundamental 2 pi / (1.1 span)
+YOUNG_WAVES = tuple((1e-4 * 0.6 ** k, -6e-5 * 0.6 ** k) for k in range(10))
+#: its IFUNC: 16 points over the span, linear (SIFUNC 2) [s]
+YOUNG_IFUNC = tuple(2e-5 * math.sin(0.9 * k) for k in range(16))
+YOUNG_PHOFF = 0.03
+#: the young fit's perturbed start: offsets [par units] from the truth,
+#: each moving the phase by < 0.05 cycles over the span
+YOUNG_PERTURB = {"F0": 1e-10, "GLF0_1": 1e-10, "GLF1_1": 1e-19,
+                 "GLF0D_1": 2e-9, "GLTD_1": 0.5, "PWF0_1": 1e-10,
+                 "GLPH_2": 0.01, "PHOFF": 0.01}
+
+
+def young_lines(span_days: float = YOUNG_SPAN_DAYS,
+                center_mjd: float = YOUNG_CENTER_MJD, free: bool = True):
+    """Par lines of the young set's phase terms: :data:`YOUNG_GLITCHES`
+    (GLPH and GLF0 of each free, GLF1, GLF0D and GLTD of the large one),
+    :data:`YOUNG_PW` (PWPH, PWF0, PWF1 free), :data:`YOUNG_WAVES`,
+    :data:`YOUNG_IFUNC` and PHOFF (free); with ``free`` False every one
+    frozen."""
+    lo = center_mjd - span_days / 2
+    f = " 1" if free else ""
+    lines = []
+    for i, (ep, ph, f0, f1, f0d, td) in enumerate(YOUNG_GLITCHES, 1):
+        lines += [f"GLEP_{i} {lo + ep * span_days:.4f}",
+                  f"GLPH_{i} {ph!r}{f}", f"GLF0_{i} {f0!r}{f}"]
+        if f0d:
+            lines += [f"GLF1_{i} {f1!r}{f}", f"GLF0D_{i} {f0d!r}{f}",
+                      f"GLTD_{i} {td!r}{f}"]
+    r1, r2, ep, ph, f0, f1 = YOUNG_PW
+    lines += [f"PWSTART_1 {lo + r1 * span_days:.4f}",
+              f"PWSTOP_1 {lo + r2 * span_days:.4f}",
+              f"PWEP_1 {lo + ep * span_days:.4f}", f"PWPH_1 {ph!r}{f}",
+              f"PWF0_1 {f0!r}{f}", f"PWF1_1 {f1!r}{f}"]
+    lines += [f"WAVE_OM {2.0 * math.pi / (1.1 * span_days)!r}",
+              f"WAVEEPOCH {center_mjd:.1f}"]
+    lines += [f"WAVE{k} {a!r} {b!r}"
+              for k, (a, b) in enumerate(YOUNG_WAVES, 1)]
+    step = span_days / (len(YOUNG_IFUNC) - 1)
+    lines += ["SIFUNC 2"] + [f"IFUNC{k} {lo + (k - 1) * step:.4f} {v!r}"
+                             for k, v in enumerate(YOUNG_IFUNC, 1)]
+    lines.append(f"PHOFF {YOUNG_PHOFF!r}{f}")
+    return lines
+
+
+def young_par(span_days: float = YOUNG_SPAN_DAYS,
+              center_mjd: float = YOUNG_CENTER_MJD) -> str:
+    """:data:`YOUNG_PAR` with :func:`young_lines`: 19 free parameters
+    (F0, F1, F2, RAJ, DECJ, DM, GLPH and GLF0 of the three glitches, GLF1,
+    GLF0D and GLTD of the large one, PWPH, PWF0, PWF1 and PHOFF)."""
+    return "\n".join([YOUNG_PAR.strip()]
+                     + young_lines(span_days, center_mjd))
+
+
+def young_freqs(ntoas: int):
+    """(per-TOA band [MHz], per-TOA observing frequency [MHz]): the two
+    receivers in turn."""
+    band = np.tile(list(YOUNG_RECEIVERS), (ntoas + 1) // 2)[:ntoas]
+    return band, band.copy()
+
+
+def simulate_young_realistic(ntoas: int = 12500, seed: int = 0,
+                             span_days: float = YOUNG_SPAN_DAYS,
+                             center_mjd: float = YOUNG_CENTER_MJD,
+                             device=None):
+    """(model, TOAs) of the full-width young configuration: ``ntoas``
+    uniform TOAs over the span from Parkes with 5 us white noise, the two
+    receivers in turn, each TOA with its ``-fe`` flag; the residuals of
+    the simulation run on ``device`` (default ``"cuda"``)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    band, freqs = young_freqs(ntoas)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(young_par(span_days, center_mjd).splitlines())
+        toas = make_fake_toas_uniform(
+            center_mjd - span_days / 2, center_mjd + span_days / 2, ntoas,
+            model, obs="pks", error_us=YOUNG_ERROR_US, freq_mhz=freqs,
+            add_noise=True, seed=seed, device=device)
+    for b_mhz, fl in zip(band, toas.flags):
+        fl["fe"] = YOUNG_RECEIVERS[float(b_mhz)]
+    return model, toas
+
+
+def young_start(model):
+    """Move a young model to its fit's start (:data:`YOUNG_PERTURB`)."""
+    for n, d in YOUNG_PERTURB.items():
+        model[n].value = model[n].value + d
+
+
+#: the phase family's variants of the phase kernel's row function, on the
+#: young set's TOAs: every edge of its terms (:func:`phase_family_par`),
+#: the last with a single IFUNC point
+PHASE_FAMILY = ("PHF_EDGES_IF0", "PHF_EDGES_IF2", "PHF_ONE_IF2")
+
+
+def phase_family_lines(sifunc: int, span_days: float = YOUNG_SPAN_DAYS,
+                       center_mjd: float = YOUNG_CENTER_MJD,
+                       npoints: int = 6):
+    """Par lines of the phase family at its edges, over the young set's
+    span: a glitch with its recovery and its epoch free, one with GLTD 0
+    (no recovery) and one with GLF2; two PiecewiseSpindown groups whose
+    windows overlap, the second over the TZR TOA (its epoch and PWF2
+    free); three WAVE harmonics without WAVEEPOCH (PEPOCH is their
+    epoch), WAVE_OM free; ``npoints`` (at most 6) IFUNC points inside the
+    span, so that TOAs lie before the first and after the last,
+    interpolated by ``sifunc`` (0 or 2), the last ``npoints`` of six
+    ordinates (one point's is not 0); PHOFF free."""
+    lo = center_mjd - span_days / 2
+
+    def at(frac):
+        return f"{lo + frac * span_days:.4f}"
+
+    lines = [f"GLEP_1 {at(0.25)} 1", "GLPH_1 0.1 1", "GLF0_1 2.8e-05 1",
+             "GLF1_1 -1e-13 1", "GLF0D_1 2e-07 1", "GLTD_1 30.0 1",
+             f"GLEP_2 {at(0.6)}", "GLPH_2 -0.05 1", "GLF0_2 1e-06 1",
+             "GLF0D_2 0", "GLTD_2 0",
+             f"GLEP_3 {at(0.8)}", "GLPH_3 0.02 1", "GLF0_3 2e-07 1",
+             "GLF2_3 1e-30 1",
+             f"PWSTART_1 {at(0.3)}", f"PWSTOP_1 {at(0.425)}",
+             f"PWEP_1 {at(0.36)}", "PWPH_1 0.01 1", "PWF0_1 2e-09 1",
+             "PWF1_1 -5e-17 1",
+             f"PWSTART_2 {at(0.1)}", f"PWSTOP_2 {at(0.35)}",
+             f"PWEP_2 {at(0.2)} 1", "PWPH_2 -0.02 1", "PWF0_2 1e-9 1",
+             "PWF2_2 1e-25 1",
+             f"WAVE_OM {2.0 * math.pi / (1.1 * span_days)!r} 1"]
+    lines += [f"WAVE{k} {a!r} {b!r}"
+              for k, (a, b) in enumerate(YOUNG_WAVES[:3], 1)]
+    lines.append(f"SIFUNC {sifunc}")
+    lines += [f"IFUNC{k} {at(0.15 + 0.14 * (k - 1))} {v!r}"
+              for k, v in enumerate(YOUNG_IFUNC[6 - npoints:6], 1)]
+    lines.append(f"PHOFF {YOUNG_PHOFF!r} 1")
+    return lines
+
+
+def phase_family_par(kind: str, span_days: float = YOUNG_SPAN_DAYS,
+                     center_mjd: float = YOUNG_CENTER_MJD) -> str:
+    """The par of one of :data:`PHASE_FAMILY`: :data:`YOUNG_PAR` with its
+    position and DM frozen and :func:`phase_family_lines` (IFUNC by the
+    kind's SIFUNC, at one point for ``PHF_ONE_*``)."""
+    frozen = ("RAJ", "DECJ", "DM")
+    base = [ln.rsplit(" ", 1)[0] if ln.split()[0] in frozen else ln
+            for ln in YOUNG_PAR.strip().splitlines()]
+    npoints = 1 if kind.startswith("PHF_ONE") else 6
+    return "\n".join(base + phase_family_lines(int(kind[-1]), span_days,
+                                               center_mjd, npoints))
+
+
+def phase_mixed_par(dmx_bins: int = 70) -> str:
+    """A layout of the phase family's kernels that runs every family's
+    terms, on the young set's TOAs: :func:`j0740_realistic_par` (its ELL1
+    binary) with the DM family's terms (:func:`dm_family_lines`, SWM 0),
+    the chromatic family's CM, the orbit family's ORBWAVE and the young
+    set's phase terms (:func:`young_lines`)."""
+    return "\n".join(
+        [j0740_realistic_par(dmx_bins)]
+        + dm_family_lines(0)
+        + chromatic_family_lines("CM")
+        + orbit_family_lines("ORBWAVE", "ELL1")
+        + young_lines())

@@ -7,11 +7,12 @@ land in ``build/pint_tpu_torch/`` beside the package (or
 ``$PINT_TPU_TORCH_BUILD``), named by a hash of source and flags, so an
 unchanged kernel is not rebuilt.  Nothing is compiled at import: the first
 launch builds, or :func:`build_all` builds every source at once, one
-``nvcc`` process per library, all started together.  The delay and the
-phase chain instantiate their kernels for 28 template values; each is
-built in parts (:data:`PARTS`), library ``<name>.<p>`` holding the
-template values of part p (``csrc/delay_chain.cuh`` ``in_part``), so
-that the parts compile in parallel.
+``nvcc`` process per library, all started together.  The delay chain
+instantiates its kernels for 28 template values and the phase chain for
+35 (the same 28 and the phase family's 7); each is built in parts
+(:data:`PARTS`), library ``<name>.<p>`` holding the template values of
+part p (``csrc/delay_chain.cuh`` ``in_part``), so that the parts compile
+in parallel.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and
 ``--fmad=false``: ``qs_phase``, ``delay_chain`` and ``phase_chain`` run
@@ -51,14 +52,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 #: g++ flags of the host builds: no FMA contraction, as the kernels; -O1
-#: builds the chain sources' 28 template values in ~20 s each
+#: builds the chain sources (28 and 35 template values) in ~20-30 s each
 HOST_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 #: every kernel source of the package
 SOURCES = ("qs_phase", "kepler", "delay_chain", "phase_chain")
 #: the sources built in parts: library "<name>.<p>" holds the template
-#: values whose index (csrc/delay_chain.cuh family_index) is p mod parts
-PARTS = {"delay_chain": 4, "phase_chain": 4}
+#: values whose index (csrc/delay_chain.cuh family_index) is p mod parts.
+#: The phase chain's 35 values, the phase family's the largest, take
+#: eight (four took 201-211 s to build on the card's machine)
+PARTS = {"delay_chain": 4, "phase_chain": 8}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -77,6 +77,10 @@ DM_FAMILY_FLAGS = SOLAR_WIND | SWX | FDJUMPDM | FDJUMP
 CHROM_FAMILY_FLAGS = (CM | CMX | CMWAVEX | DMWAVEX | WAVEX | EXPDIP
                       | CHROMGAUSS | TROPO)
 ORBIT_FAMILY_FLAGS = FB_ORBIT | ORBWAVE | BT_PIECES | PLANET_SHAPIRO
+#: the phase chain's layout holds a term of the phase family
+#: (kernels/phase_chain.py PhaseFamily; csrc/delay_chain.cuh kPhaseTerms):
+#: never set in a delay_chain launch
+PHASE_TERMS = 1 << 30
 NO_BINARY, ELL1, DD, DDK, DDTM2, ELL1H, ELL1K = 0, 1, 2, 3, 4, 5, 6
 #: the binary families that run the Kepler solve
 DD_FAMILY = (DD, DDK, DDTM2)
@@ -103,6 +107,19 @@ MAX_JUMPS = 31
 #: tangent lanes per thread of the tangent launch that csrc/delay_chain.cu
 #: compiles (1 is the single-lane kernel the others are held bit-equal to)
 KERNEL_LANES = (1, 2, 4)
+
+
+def family_index(flags: int, binary: int) -> int:
+    """The index of the kernels' template value of a layout's ``flags``
+    and binary family (csrc/delay_chain.cuh kernel_family, family_index):
+    the binary family, plus 7 for the DM family's terms, 14 for the
+    chromatic family's (with the DM family's), 21 for the orbit family's
+    (with both) and 28 for the phase family's (with all three; the
+    phase_chain kernels only)."""
+    level = 4 if flags & PHASE_TERMS else 3 if flags & ORBIT_FAMILY_FLAGS \
+        else 2 if flags & CHROM_FAMILY_FLAGS \
+        else 1 if flags & DM_FAMILY_FLAGS else 0
+    return 7 * level + binary
 
 
 def lanes_per_thread(G: int, K: int) -> int:
@@ -140,6 +157,22 @@ class ChainCfg(ctypes.Structure):
 
 
 Getter = Callable[[dict], torch.Tensor]
+
+
+def slot_values(consts, deltas, p: dict) -> torch.Tensor:
+    """θ slots of a layout: const + delta per slot (``consts`` getters of
+    the params dict, None for zero; ``deltas`` the names of the
+    ``p["delta"]`` offsets, or None), stacked, differentiable in
+    ``p["delta"]``."""
+    dev = next(iter(p["const"].values())).device
+    zero = torch.zeros((), dtype=F64, device=dev)
+    c = torch.stack([zero if g is None else
+                     torch.as_tensor(g(p), dtype=F64, device=dev)
+                     for g in consts])
+    d = torch.stack([zero if n is None else
+                     torch.as_tensor(p["delta"][n], dtype=F64)
+                     for n in deltas])
+    return c + d
 
 
 def _const(name: str, idx=None) -> Getter:
@@ -199,14 +232,9 @@ class ChainLayout:
 
     @property
     def kernel_index(self) -> int:
-        """The index of the kernels' template value (csrc/delay_chain.cuh
-        kernel_family, family_index): the binary family, plus 7 for the
-        DM family's terms, 14 for the chromatic family's (with the DM
-        family's) and 21 for the orbit family's (with both)."""
-        f = self.flags
-        level = 3 if f & ORBIT_FAMILY_FLAGS else 2 if f & CHROM_FAMILY_FLAGS \
-            else 1 if f & DM_FAMILY_FLAGS else 0
-        return 7 * level + self.cfg[1]
+        """The index of the delay_chain kernels' template value
+        (:func:`family_index`)."""
+        return family_index(self.flags, self.cfg[1])
 
     def ctypes_cfg(self) -> ChainCfg:
         c = ChainCfg(**dict(zip(CFG_FIELDS, self.cfg)))
@@ -219,15 +247,7 @@ class ChainLayout:
         ``p["delta"]`` (and batched where it is)."""
         if self.prepare is not None:
             p = self.prepare(p)
-        dev = next(iter(p["const"].values())).device
-        zero = torch.zeros((), dtype=F64, device=dev)
-        c = torch.stack([zero if g is None else
-                         torch.as_tensor(g(p), dtype=F64, device=dev)
-                         for g in self.consts])
-        d = torch.stack([zero if n is None else
-                         torch.as_tensor(p["delta"][n], dtype=F64)
-                         for n in self.deltas])
-        return c + d
+        return slot_values(self.consts, self.deltas, p)
 
     def unpack(self, theta: torch.Tensor) -> dict:
         """{slot name: θ entry}: the inverse of :meth:`theta`'s layout."""

@@ -3,11 +3,12 @@
 Port of :mod:`pint_tpu.models`: a
 :class:`~pint_tpu_torch.models.timing_model.TimingModel` is an ordered set
 of registered *components*, each owning typed *parameters*; models are
-built from ``.par`` files by parameter ownership.  Only the components
-ported so far are registered (see ROADMAP.md); a par file naming the
-parameters of a component that pint_tpu has and the port does not yet is
-refused (``NotImplementedError``), and one naming parameters that no
-component owns warns that they are unrecognized.
+built from ``.par`` files by parameter ownership.  Every component that
+pint_tpu registers is registered here; a par file naming the parameters
+of a component that pint_tpu has and the port does not (none today:
+``model_builder.UNPORTED``) is refused (``NotImplementedError``), and one
+naming parameters that no component owns warns that they are
+unrecognized.
 """
 
 from pint_tpu_torch.models.parameter import (  # noqa: F401
@@ -40,8 +41,12 @@ from pint_tpu_torch.models import (  # noqa: F401  isort:skip
     chromatic,
     dispersion,
     frequency_dependent,
+    glitch,
+    ifunc,
     jump,
     noise_model,
+    phase_offset,
+    piecewise,
     solar_system_shapiro,
     solar_wind,
     spindown,

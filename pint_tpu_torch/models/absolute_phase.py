@@ -77,7 +77,7 @@ class AbsPhase(PhaseComponent):
         return qs.zeros_like(torch.zeros(batch.ntoas, dtype=torch.float32,
                                          device=batch.device))
 
-    def phase_f64(self, p, batch, delay):
+    def phase_f64(self, p, batch, delay, is_tzr=False):
         return None
 
     def set_tzr_from_toas(self, toas):

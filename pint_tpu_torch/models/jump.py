@@ -67,7 +67,8 @@ class PhaseJump(PhaseComponent):
         # column is exactly the mask, independent of every other param
         return [jp.name for jp in self.jumps]
 
-    def phase_f64(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
+    def phase_f64(self, p: dict, batch: TOABatch, delay,
+                  is_tzr=False) -> torch.Tensor:
         total = zeros_rows(batch)
         f0 = pv(p, "F0")
         for jp in self.jumps:

@@ -39,17 +39,10 @@ IGNORE_PREFIXES = ("DMXF1_", "DMXF2_", "DMXEP_")
 #: the components that pint_tpu registers and this package does not yet
 #: have: (parameter names, prefix stems) by component.  A par file that
 #: names one of these parameters is refused, where dropping it would give
-#: residuals that silently differ from pint_tpu's.  (The binaries' FBn
-#: and ORBWAVE terms and BT_PIECEWISE's pieces are ported.)
-UNPORTED = {
-    "Glitch": ((), ("GLEP_", "GLPH_", "GLF0_", "GLF1_", "GLF2_", "GLF0D_",
-                    "GLTD_")),
-    "PiecewiseSpindown": ((), ("PWEP_", "PWSTART_", "PWSTOP_", "PWPH_",
-                               "PWF0_", "PWF1_", "PWF2_")),
-    "IFunc": (("SIFUNC",), ("IFUNC",)),
-    "PhaseOffset": (("PHOFF",), ()),
-    "Wave": (("WAVE_OM", "WAVEOM", "WAVEEPOCH"), ("WAVE",)),
-}
+#: residuals that silently differ from pint_tpu's.  Empty: every
+#: component of pint_tpu is ported; a component pint_tpu adds comes here
+#: until the port has it.
+UNPORTED: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {}
 
 
 def unported_component(name: str) -> Optional[str]:

@@ -258,19 +258,23 @@ class PhaseComponent(Component):
 
     #: whether :meth:`phase_f64` reads the accumulated delay: the fused
     #: phase kernel forms the delay inside its launch and takes ``other``
-    #: as an input, so it refuses a component whose float64 phase needs
-    #: the delay
+    #: (the phase of the components that do not read it) as an input; the
+    #: components that do read it are its phase family, formed inside the
+    #: launch (:class:`pint_tpu_torch.kernels.phase_chain.PhaseFamily`),
+    #: and it refuses any other
     phase_f64_reads_delay = True
 
     def phase(self, p: dict, batch: TOABatch, delay: torch.Tensor,
               is_tzr: bool = False):
         raise NotImplementedError
 
-    def phase_f64(self, p: dict, batch: TOABatch, delay: torch.Tensor):
+    def phase_f64(self, p: dict, batch: TOABatch, delay: torch.Tensor,
+                  is_tzr: bool = False):
         """This component's phase [cycles] as float64 rows, for components
         whose quad-single phase is ``qs.from_f64_device`` of an f64 value;
-        None for a component that adds no phase.  The phase kernel takes
-        these as its ``other`` input."""
+        None for a component that adds no phase (``is_tzr``: on the TZR
+        TOA's batch).  The phase kernel takes these as its ``other``
+        input, or forms them in its launch (the phase family)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no float64 phase form; the phase "
             "kernel cannot evaluate this model")
@@ -285,6 +289,7 @@ class PhaseCalc:
         self.delay_components = list(delay_components)
         self.phase_components = list(phase_components)
         self._chain_layout = None
+        self._phase_family = None
 
     def delay(self, p: dict, batch: TOABatch) -> torch.Tensor:
         """Total delay [s], accumulated in DEFAULT_ORDER: the
@@ -315,6 +320,18 @@ class PhaseCalc:
             self._chain_layout = ChainLayout.from_components(
                 self.delay_components)
         return self._chain_layout
+
+    @property
+    def phase_family(self):
+        """The phase kernel's phase family of these components (built once;
+        None where no component reads the delay); raises
+        ``NotImplementedError`` for a component it does not cover."""
+        if self._phase_family is None:
+            from pint_tpu_torch.kernels.phase_chain import PhaseFamily
+
+            self._phase_family = (PhaseFamily.from_components(
+                self._kernel_layout()[1]),)
+        return self._phase_family[0]
 
     def phase(self, p: dict, batch: TOABatch,
               subtract_tzr: bool = True, is_tzr: bool = False):
@@ -354,11 +371,12 @@ class PhaseCalc:
         return sd[0], self.phase_components[i + 1:]
 
     def phase_frac(self, p: dict, batch: TOABatch, mode: str,
-                   subtract_tzr: bool = True):
+                   subtract_tzr: bool = True, is_tzr: bool = False):
         """The phase chain's output for this model: ``mode`` "nearest" ->
         (N,) fractional phase [cycles] after nearest-pulse rounding;
         "use_pulse_numbers" -> phase minus the batch's pulse numbers;
-        "words" -> (N, 4) float32 words of the unrounded total phase.
+        "words" -> (N, 4) float32 words of the unrounded total phase
+        (``is_tzr``: on the TZR TOA's batch).
         On a CUDA batch the delay chain and the phase run fused in the
         ``phase_chain`` kernel's launches; on a CPU batch as the plain
         composition (:func:`pint_tpu_torch.kernels.phase_chain.phase_frac`).
@@ -366,7 +384,7 @@ class PhaseCalc:
         reaches, through the kernels' analytic tangent rules."""
         from pint_tpu_torch.kernels.phase_chain import phase_frac
 
-        return phase_frac(self, p, batch, mode, subtract_tzr)
+        return phase_frac(self, p, batch, mode, subtract_tzr, is_tzr=is_tzr)
 
 
 class TimingModel:
@@ -617,7 +635,7 @@ class TimingModel:
                                               dev)["mask"]}
             with torch.no_grad():
                 w = self.calc.phase_frac(p_tzr, self.tzr_batch, "words",
-                                         subtract_tzr=False)
+                                         subtract_tzr=False, is_tzr=True)
             p["const"]["__tzrphase__"] = w[0].detach().clone()
         return p
 

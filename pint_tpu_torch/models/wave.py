@@ -1,8 +1,20 @@
-"""Sinusoidal delays: WaveX, DMWaveX, CMWaveX.
+"""Sinusoidal timing noise: Wave, WaveX, DMWaveX, CMWaveX.
 
-Port of the delay part of :mod:`pint_tpu.models.wave` (reference
-`WaveX` / `DMWaveX` / `CMWaveX`, `src/pint/models/wavex.py:14`,
-`dmwavex.py:15`, `cmwavex.py:15`): unevenly spaced sinusoids
+Port of :mod:`pint_tpu.models.wave`.  ``Wave`` (reference `Wave`,
+`src/pint/models/wave.py:11`) is tempo's harmonically related sinusoids
+as a phase,
+
+    F0 * sum_k [A_k sin(k WAVE_OM dt) + B_k cos(k WAVE_OM dt)],
+
+dt [days] from WAVEEPOCH (or PEPOCH) less the delay, the (A_k, B_k) pairs
+WAVE1, WAVE2, ... [s].  On CUDA it is a term of the ``phase_chain``
+kernel's row function (``csrc/phase_chain.cuh`` ``phase_family_row``,
+the pairs in a small device buffer); :meth:`Wave.phase_f64` is its plain
+version, in the kernel's operation order.
+
+``WaveX`` / ``DMWaveX`` / ``CMWaveX`` (reference
+`src/pint/models/wavex.py:14`, `dmwavex.py:15`, `cmwavex.py:15`) are
+unevenly spaced sinusoids
 
     sum_i [SIN_i sin(2 pi f_i dt) + COS_i cos(2 pi f_i dt)]
 
@@ -10,8 +22,7 @@ with f_i [1/day] about the component's epoch, as a delay [s] (WaveX), a
 DM [pc cm^-3] (DMWaveX) or a CM (CMWaveX, through ChromaticCM's
 TNCHROMIDX).  WaveX is the last delay term (category ``wavex`` sorts
 after ``fdjump``), so its dt is shifted by the whole delay before it.
-The SIN/COS amplitudes are exactly linear.  The phase component ``Wave``
-reads the delay and is not ported yet (the model builder refuses it).
+The SIN/COS amplitudes are exactly linear.
 
 On CUDA these delays are terms of the ``delay_chain`` kernel's row
 function (``csrc/delay_chain.cuh``); the functions here are its plain
@@ -27,15 +38,18 @@ from typing import List
 import numpy as np
 import torch
 
+from pint_tpu_torch import qs
 from pint_tpu_torch.models.chromatic import chromatic_delay
 from pint_tpu_torch.models.dispersion import dispersion_delay
 from pint_tpu_torch.models.parameter import (
+    FloatParam,
     MJDParam,
     prefixParameter,
     split_prefix,
 )
 from pint_tpu_torch.models.timing_model import (
     DelayComponent,
+    PhaseComponent,
     epoch_days,
     pv,
     zeros_rows,
@@ -43,6 +57,78 @@ from pint_tpu_torch.models.timing_model import (
 from pint_tpu_torch.toabatch import TOABatch
 
 SECS_PER_DAY = 86400.0
+
+
+class Wave(PhaseComponent):
+    """Tempo WAVE sinusoids (pre-WaveX red-noise whitening)."""
+
+    register = True
+    category = "wave"
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(FloatParam("WAVE_OM", units="rad/d", aliases=["WAVEOM"],
+                                  description="Wave fundamental frequency"))
+        self.add_param(MJDParam("WAVEEPOCH", description="Wave epoch"))
+
+    def wave_names(self) -> List[str]:
+        return [p.name for p in self.prefix_params("WAVE")
+                if p.name != "WAVE_OM"]
+
+    def add_wave_component(self, index: int, a=0.0, b=0.0, frozen=True):
+        return self.add_param(prefixParameter(
+            "pair", f"WAVE{index}", units="s", value=(a, b), frozen=frozen))
+
+    def prefix_families(self):
+        return ["WAVE"]
+
+    def make_param(self, name):
+        try:
+            prefix, index = split_prefix(name)
+        except ValueError:
+            return None
+        if prefix == "WAVE" and index >= 1:
+            return prefixParameter("pair", name, units="s")
+        return None
+
+    def validate(self):
+        names = self.wave_names()
+        for i, n in enumerate(names):
+            if n != f"WAVE{i + 1}":
+                raise ValueError(f"non-contiguous WAVE sequence at {n}")
+        if names and self.WAVE_OM.value is None:
+            raise ValueError("WAVE terms require WAVE_OM")
+        if self.WAVE_OM.value is not None and self.WAVEEPOCH.value is None:
+            if self._parent is None or self._parent.PEPOCH.value is None:
+                raise ValueError("WAVEEPOCH or PEPOCH required with WAVE_OM")
+
+    def linear_params(self):
+        # F0 sum_k [A_k sin + B_k cos] is linear in the pair-valued
+        # amplitudes, which TimingModel.linear_param_names leaves out (a
+        # pair does not ride the flat fit vector)
+        return self.wave_names()
+
+    def epoch_name(self) -> str:
+        return "WAVEEPOCH" if self.WAVEEPOCH.value is not None else "PEPOCH"
+
+    def phase_f64(self, p: dict, batch: TOABatch, delay, is_tzr=False):
+        names = self.wave_names()
+        if not names:
+            return None
+        dt_day = (batch.tdb_day + batch.tdb_frac
+                  - epoch_days(p, self.epoch_name())) - delay / SECS_PER_DAY
+        base = pv(p, "WAVE_OM") * dt_day
+        times = zeros_rows(batch)
+        for k, n in enumerate(names):
+            ab = pv(p, n)
+            arg = (k + 1) * base
+            times = times + ab[..., 0] * torch.sin(arg) \
+                + ab[..., 1] * torch.cos(arg)
+        return times * pv(p, "F0")
+
+    def phase(self, p: dict, batch: TOABatch, delay, is_tzr=False):
+        ph = self.phase_f64(p, batch, delay, is_tzr)
+        return qs.from_f64_device(zeros_rows(batch) if ph is None else ph)
 
 
 class _WaveXBasis:

@@ -85,9 +85,9 @@ class Residuals:
                 toas.get_pulse_numbers() is None:
             raise ValueError("track_mode use_pulse_numbers needs pulse numbers")
         self.track_mode = track_mode
-        if "PhaseOffset" in model.components:
-            raise NotImplementedError("PhaseOffset is not ported")
-        self.subtract_mean = subtract_mean
+        # PHOFF replaces the mean subtraction (pint_tpu.residuals)
+        self.subtract_mean = subtract_mean and \
+            "PhaseOffset" not in model.components
         self.use_weighted_mean = use_weighted_mean
         self.batch = toas.to_batch(policy=policy, device=device)
         self.device = self.batch.device

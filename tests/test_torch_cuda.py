@@ -64,6 +64,17 @@ them with it switched off, from the repository root::
   (value) and 1e-7 (gradient norm); ``get_designmatrix`` on the card is
   one primal and one tangent launch, bit-equal to the fitter's full
   assembly and within 1e-10 per column of the CPU's;
+* the phase family of the fused row function (the ``YOUNG`` set:
+  three glitches, a PiecewiseSpindown group, WAVE, IFUNC, PHOFF; and
+  ``examples.PHASE_FAMILY``'s edge variants on its TOAs): the primal at
+  9 θ sets within F0 x 1e-12 s of the plain composition and of the
+  unfused card chain (the family's exp, sin and cos are CUDA's libm built
+  without FMA contraction in the kernel, PyTorch's own in the unfused
+  chain), the tangent launch bit-equal at 1, 2 and 4 lanes per thread
+  along fit directions, a jacfwd one primal and one tangent launch of
+  the family's template value, its columns within 1e-10 relative of the
+  plain composition's; ``Fitter.auto`` on the young set on the card
+  against pint_tpu's stored fit;
 * ``calculate_random_models`` at 100 draws: one primal launch over the
   base's and the 100 draws' θ sets, within F0 x 1e-12 s of the CPU's plain
   composition; the chunked, checkpointed grid on the committed set within
@@ -81,7 +92,7 @@ import torch
 import torch_port_data as data
 from pint_tpu_torch import qs as tqs
 from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
-                                     VARIANTS)
+                                     PHASE_FAMILY, VARIANTS)
 from pint_tpu_torch.kernels.qs_phase import PhaseSpec, QSPhaseFrac
 from pint_tpu_torch.toabatch import split_f64_words
 
@@ -332,6 +343,17 @@ CHROM_SETS = {"CHROM": (data.chrom_par_lines, data.CHROM_REF_TIM),
 #: ORBWAVEs, PLANET_SHAPIRO; the BT_PIECEWISE set)
 ORBIT_SETS = {"SPIDER": (data.spider_par_lines, data.SPIDER_REF_TIM),
               "BTPW": (data.btpw_par_lines, data.BTPW_REF_TIM)}
+#: the phase family's layouts on the young set's TOAs: its own par and
+#: the edge variants
+PHASE_SETS = {"YOUNG": data.young_par_lines,
+              **{k: (lambda k=k: _phase_family_lines(k))
+                 for k in PHASE_FAMILY}}
+
+
+def _phase_family_lines(kind):
+    from pint_tpu_torch.examples import phase_family_par
+
+    return phase_family_par(kind).splitlines()
 
 
 def _chain_model(case, dev):
@@ -357,6 +379,8 @@ def _chain_model(case, dev):
                     data.orbit_family_tim(case))
     elif case in ORBIT_SETS:
         par, tim = ORBIT_SETS[case]
+    elif case in PHASE_SETS:
+        par, tim = PHASE_SETS[case], data.YOUNG_REF_TIM
     else:
         par, tim = {
             "J0740": (lambda: j0740_realistic_par(
@@ -933,6 +957,106 @@ def test_orbit_fits_on_card_match_reference():
         assert fitter.fit_params == want["fit_params"]
         assert fitter.fitresult.status.name == want["status"]
         assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(PHASE_SETS))
+def test_phase_family_on_card(case):
+    """The phase family's template values against the plain composition
+    and the unfused card chain on the young set's TOAs (the bars of the
+    module docstring), its lanes bit-equal across lanes per thread, a
+    jacfwd one launch of each, its columns against the plain
+    composition's."""
+    dev = _card()
+    from pint_tpu_torch.kernels import phase_chain as pc
+    from pint_tpu_torch.kernels import qs_phase
+    from pint_tpu_torch.kernels.delay_chain import KERNEL_LANES
+
+    model, r, names, _, _, rng = _fused_case(case, dev)
+    p, b, calc = r.pdict, r.batch, model.calc
+    bar = float(model.F0.value) * 1e-12
+
+    def at(x):
+        return model.with_x(p, x, names)
+
+    # 9 fit points, each parameter moved by up to 1e-4 cycles of phase (a
+    # uniform 1e-9 moves F2 and GLF2 by ~1e13 cycles at the span's ends)
+    x0 = model.x0(p, names).to(dev)
+    J0 = torch.func.jacfwd(lambda x: pc.fused(calc, at(x), b, "nearest"))(x0)
+    step = 1e-4 / torch.clamp(torch.amax(torch.abs(J0), dim=0), min=1e-300)
+    X = x0 + step * torch.from_numpy(
+        rng.standard_normal((9, len(names)))).to(dev)
+    X[0] = x0
+    ins = [pc.fused_inputs(calc, at(x), b, "nearest") for x in X]
+    spec, _, _, tensors = ins[0]
+    assert spec.family is not None
+    with torch.no_grad():
+        thetas = torch.stack([t for _, t, _, _ in ins])
+        others = torch.stack([o for _, _, o, _ in ins])
+        fused = pc.run(spec, thetas, others, tensors)
+        for g, x in enumerate(X):
+            want = qs_phase.run(*pc.unfused_inputs(calc, at(x), b, "nearest",
+                                                   delay=calc.delay))
+            plain = pc.unfused(calc, at(x), b, "nearest")
+            assert float(torch.max(torch.abs(fused[0][g] - want[0]))) <= bar
+            assert float(torch.max(torch.abs(fused[0][g] - plain))) <= bar
+    _, slope, dt64 = pc.run(spec, thetas[:1], others[:1], tensors)
+    for K in (1, 3, 10, len(names)):
+        V = torch.from_numpy(rng.standard_normal((K, len(names)))).to(dev)
+
+        def along(i):
+            return torch.func.vmap(lambda v: torch.func.jvp(
+                lambda x: pc.fused_inputs(calc, at(x), b, "nearest")[i],
+                (x0,), (v,))[1])(V)
+
+        dth, dot = along(1)[None], along(2)[None]
+        one = pc.run(spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
+                     lanes=1)
+        assert torch.all(torch.isfinite(one))
+        for L in KERNEL_LANES[1:]:
+            assert torch.equal(pc.run(spec, thetas[:1], None, tensors, dth,
+                                      slope, dt64, dot, lanes=L), one), (K, L)
+    before = (pc.PhaseFamilyPrimal.launches, pc.PhaseFamilyTangent.launches)
+    J = torch.func.jacfwd(lambda x: pc.fused(calc, at(x), b, "nearest"))(x0)
+    torch.cuda.synchronize()
+    assert (pc.PhaseFamilyPrimal.launches,
+            pc.PhaseFamilyTangent.launches) == (before[0] + 1,
+                                                before[1] + 1)
+    Jp = torch.func.jacfwd(lambda x: pc.unfused(calc, at(x), b,
+                                                "nearest"))(x0)
+    scale = torch.amax(torch.abs(Jp), dim=0)
+    gap = float(torch.max(torch.amax(torch.abs(J - Jp), dim=0)
+                          / torch.where(scale > 0, scale, 1.0)))
+    print(f"{case}: columns vs the plain composition {gap:.3e}")
+    assert gap <= 1e-10
+
+
+def test_young_fit_on_card_matches_reference():
+    """``Fitter.auto`` on the young set on the card against pint_tpu's
+    stored fit (tests/test_torch_phase_family.py's bars), every residual
+    through the phase family's template value."""
+    _card()
+    from pint_tpu_torch.examples import young_start
+    from pint_tpu_torch.fitter import Fitter
+    from pint_tpu_torch.kernels.phase_chain import PhaseFamilyPrimal
+
+    with open(data.YOUNG_REF_JSON) as f:
+        want = json.load(f)
+    model, toas = data.load_torch(data.YOUNG_REF_TIM,
+                                  par=data.young_par_lines())
+    young_start(model)
+    fitter = Fitter.auto(toas, model)
+    before = PhaseFamilyPrimal.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = fitter.fit_toas()
+    assert PhaseFamilyPrimal.launches > before
+    sig, unc = data.fit_gaps(model, want["values"], want["uncertainties"])
+    gap = abs(chi2 / want["chi2"] - 1.0)
+    print(f"card young fit vs pint_tpu: {sig:.3e} sigma, unc {unc:.3e}, "
+          f"chi2 {gap:.3e}")
+    assert fitter.fit_params == want["fit_params"]
+    assert fitter.fitresult.status.name == want["status"]
+    assert sig <= 1e-3 and unc <= 1e-3 and gap <= 1e-6
 
 
 def _grid_fitter(device):

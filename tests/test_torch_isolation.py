@@ -8,7 +8,8 @@
   ends with no ``jax`` and no ``pint_tpu`` module loaded; others
   simulate, write and fit the DD set
   (``WLSFitter.fit_toas``) and the GLS set with its noise model
-  (``GLSFitter.fit_toas``) the same way.
+  (``GLSFitter.fit_toas``) the same way, and form the committed young
+  set's residuals (glitches, PiecewiseSpindown, WAVE, IFUNC, PHOFF).
 * Without a CUDA device, every entry point called without ``device``
   raises instead of running on the CPU.
 * ``chip_smoke.py`` fails without a card, and in a directory that holds
@@ -69,6 +70,9 @@ def test_no_jax_or_reference_imports():
     for mod in ("examples", "simulation", "gridutils", "runtime",
                 "faultinject"):
         assert os.path.join(PKG, f"{mod}.py") in files, mod
+    # the last five components
+    for mod in ("glitch", "piecewise", "wave", "ifunc", "phase_offset"):
+        assert os.path.join(PKG, "models", f"{mod}.py") in files, mod
     assert not bad, bad
 
 
@@ -158,6 +162,28 @@ print("LEAKED", leaked)
 """
 
 
+_CHILD_YOUNG = r"""
+import os, sys, warnings
+import numpy as np
+sys.path.insert(0, {repo!r})
+from pint_tpu_torch.examples import young_par
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.residuals import Residuals
+from pint_tpu_torch.toa import get_TOAs
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(young_par().splitlines())
+    toas = get_TOAs({tim!r}, model=model)
+r = Residuals(toas, model, device="cpu").time_resids
+assert np.all(np.isfinite(r)) and np.std(r) < 1e-5
+assert {{"Glitch", "PiecewiseSpindown", "Wave", "IFunc",
+         "PhaseOffset"}} <= set(model.components)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
+print("LEAKED", leaked)
+"""
+
+
 def _run_child(code):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
@@ -179,13 +205,18 @@ def test_gls_fit_runs_without_jax_loaded(tmp_path):
     _run_child(_CHILD_GLS.format(repo=REPO, tmp=str(tmp_path)))
 
 
+def test_young_set_runs_without_jax_loaded():
+    _run_child(_CHILD_YOUNG.format(repo=REPO, tim=data.YOUNG_REF_TIM))
+
+
 def test_entry_points_need_a_device_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from pint_tpu_torch.convert import pdict_from_numpy
     from pint_tpu_torch.examples import (j0740_realistic_par,
                                          simulate_dd_noise_realistic,
-                                         simulate_j0740_class)
+                                         simulate_j0740_class,
+                                         simulate_young_realistic)
     from pint_tpu_torch.fitter import GLSFitter, WLSFitter
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.residuals import Residuals
@@ -210,6 +241,7 @@ def test_entry_points_need_a_device_without_cuda():
              lambda: add_correlated_noise(gtoas, gmodel, seed=0),
              lambda: simulate_dd_noise_realistic(ntoas=8, dmx_bins=2),
              lambda: simulate_j0740_class(ntoas=8),
+             lambda: simulate_young_realistic(ntoas=8),
              lambda: make_fake_toas_fromtim(data.REF_TIM, model),
              lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}})]
     for call in calls:

@@ -15,7 +15,10 @@ on the chromatic family (the ``CHROM`` and ``WAVEX`` sets, and as depth
 legs each term alone on DD and ELL1, ``examples.chromatic_family_par``),
 on the orbit family (the ``SPIDER`` set: an FBn orbit, ORBWAVEs and
 PLANET_SHAPIRO on ELL1; and as depth legs the ``BTPW`` set and each term
-alone on DD and ELL1, ``examples.orbit_family_par``) and on the wideband
+alone on DD and ELL1, ``examples.orbit_family_par``), on the phase family
+(the ``YOUNG`` set: ``examples.young_par()``, three glitches, a
+PiecewiseSpindown group, WAVE, IFUNC and PHOFF, its terms formed in the
+launch by the template values with kPhaseFamily) and on the wideband
 set's layout (``WB``; the tangent lanes at every L
 and lane count on DDK in ecliptic coordinates, ELL1H and the DM family
 with SWM 1 on DD, the shared-other and words-mode rules on the three
@@ -53,7 +56,8 @@ import torch
 
 import torch_port_data as data
 from pint_tpu_torch.examples import (CHROM_FAMILY, DM_FAMILY, ORBIT_FAMILY,
-                                     VARIANTS)
+                                     PHASE_FAMILY, VARIANTS,
+                                     phase_family_par)
 from pint_tpu_torch.kernels import build
 from pint_tpu_torch.kernels import delay_chain as dc
 from pint_tpu_torch.kernels import phase_chain as pc
@@ -61,6 +65,12 @@ from pint_tpu_torch.kernels.qs_phase import QSPhaseFrac
 from pint_tpu_torch.residuals import Residuals
 
 FRAC_TOL_CYCLES = 1e-12
+#: the phase family's frac against the unfused host chain [cycles]: the
+#: family's exp, sin and cos are the C library's in the host build and
+#: torch's vectorized ones in the unfused chain's PyTorch, which differ
+#: by an ulp on some arguments (a glitch's phase of ~4e3 cycles carries
+#: ~1e-12 cycles per ulp)
+FAMILY_FRAC_TOL_CYCLES = 1e-12
 COLUMN_TOL = 1e-10
 RESID_TOL_S = 1e-9
 GRID_POINTS = 9
@@ -84,15 +94,22 @@ SETS = {"J0740": (data.par_lines, data.REF_TIM),
         "SPIDER": (data.spider_par_lines, data.SPIDER_REF_TIM),
         "BTPW": (data.btpw_par_lines, data.BTPW_REF_TIM),
         **{kind: (lambda kind=kind: data.orbit_family_par_lines(kind),
-                  data.orbit_family_tim(kind)) for kind in ORBIT_FAMILY}}
+                  data.orbit_family_tim(kind)) for kind in ORBIT_FAMILY},
+        # the phase family's layouts (held by the family's tests below)
+        "YOUNG": (data.young_par_lines, data.YOUNG_REF_TIM),
+        **{kind: (lambda kind=kind: phase_family_par(kind).splitlines(),
+                  data.YOUNG_REF_TIM) for kind in PHASE_FAMILY}}
+#: the phase family's layouts: the young set's par and its edge variants
+FAMILY_SETS = ("YOUNG",) + PHASE_FAMILY
 #: the depth legs: the chromatic and the orbit family's single-term
 #: variants and BT_PIECEWISE (the CHROM and WAVEX sets hold every
 #: chromatic term in tier-1, the SPIDER set the FBn orbit, ORBWAVE and
 #: the planets)
 DEPTH_SETS = CHROM_FAMILY + ORBIT_FAMILY + ("BTPW",)
-#: every set
+#: every set of the generic tests (the phase family's have their own)
 SET_PARAMS = [pytest.param(k, marks=pytest.mark.slow)
-              if k in DEPTH_SETS else k for k in SETS]
+              if k in DEPTH_SETS else k for k in SETS
+              if k not in FAMILY_SETS]
 #: the cases of the depth legs (every lanes-per-thread at every lane
 #: count): the first three sets, DDK in ecliptic coordinates and ELL1H
 DEPTH = BASE + ("DDK_ECL", "ELL1H", "DMF_DD_SWM1",
@@ -109,8 +126,8 @@ def host():
     ph, de = (ctypes.CDLL(build.host_library(name))
               for name in ("phase_chain_host", "delay_chain_host"))
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    ph.phase_chain_host.argtypes = [vp] * (len(dc.ROWS) + 15) + [
-        dc.ChainCfg, pc.PhaseCfg, i64, i64, i64, i64, i64, i64, ctypes.c_int]
+    ph.phase_chain_host.argtypes = [vp] * pc.N_POINTERS + [
+        pc.PhCfg, pc.PhaseCfg, i64, i64, i64, i64, i64, i64, ctypes.c_int]
     ph.phase_chain_host.restype = ctypes.c_int
     de.delay_chain_host.argtypes = [vp] * (len(dc.ROWS) + 3) + [
         dc.ChainCfg, i64, i64, i64, ctypes.c_int]
@@ -297,6 +314,107 @@ def test_chromatic_tangent_lanes_bit_equal(on_host, case, L):
 def test_orbit_tangent_lanes_bit_equal(on_host, case, L):
     """The orbit family's tier-1 lanes leg, as the chromatic family's."""
     test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, "P")
+
+
+@pytest.mark.parametrize("case", FAMILY_SETS, indirect=True)
+@pytest.mark.parametrize("mode", ["nearest", "use_pulse_numbers", "words"])
+def test_phase_family_primal_vs_unfused(on_host, case, mode):
+    """The phase family's template value against the unfused host chain
+    (the delay chain's host build, the family's and the other components'
+    phase in PyTorch, phase_frac_plain) over 9 θ sets: slope and dt64
+    bit-equal, frac (or the words) bit-equal on the rows where torch's
+    transcendentals meet the C library's and within
+    FAMILY_FRAC_TOL_CYCLES on every row; one launch."""
+    calc = case["calc"]
+    ins = [_inputs(case, x, mode) for x in case["X"]]
+    spec, _, _, tensors = ins[0]
+    assert spec.family is not None and spec.flags & dc.PHASE_TERMS
+    thetas = torch.stack([t for _, t, _, _ in ins])
+    others = torch.stack([o for _, _, o, _ in ins])
+    before = pc.PhaseFamilyPrimal.launches
+    fused = pc.run(spec, thetas, others, tensors)
+    assert pc.PhaseFamilyPrimal.launches == before + 1
+    rows = gap = 0
+    for g, x in enumerate(case["X"]):
+        want, _ = _unfused_primal(case, x, mode, host_delay(calc))
+        for name, a, w in zip(("slope", "dt64"), fused[1:], want[1:]):
+            assert torch.equal(a[g], w), (case["name"], mode, g, name)
+        a, w = fused[0][g], want[0]
+        if mode == "words":
+            a, w = (v.to(F64).sum(-1) for v in (a, w))
+        d = torch.abs(a - w)
+        rows += int(torch.sum(d > 0))
+        gap = max(gap, float(torch.max(d)))
+    print(f"{case['name']} {mode}: {rows} of {fused[0].shape[0] * fused[0].shape[1]} "
+          f"rows not bit-equal, largest gap {gap:.3e} cycles")
+    assert gap <= FAMILY_FRAC_TOL_CYCLES
+
+
+@pytest.mark.parametrize("case", FAMILY_SETS, indirect=True)
+@pytest.mark.parametrize("lanes", [3, "n"])
+def test_phase_family_tangent_lanes_bit_equal(on_host, case, lanes):
+    """The phase family's lanes: along random fit-parameter directions
+    (θ's and other's tangents their images, as a jacfwd forms them), the
+    fused tangent launch bit-equal at L = 1, 2 and 4 lanes per thread,
+    and within COLUMN_TOL relative of the jvp of the unfused host chain
+    (its transcendentals torch's)."""
+    calc, b, x0 = case["calc"], case["b"], case["x0"]
+    n = len(case["names"])
+    K = n if lanes == "n" else lanes
+    V = torch.from_numpy(np.random.default_rng(K).standard_normal((K, n)))
+
+    def fused_part(i):
+        return lambda x: pc.fused_inputs(calc, _at(case, x), b,
+                                         "nearest")[i]
+
+    spec, theta, other, tensors = _inputs(case, x0, "nearest")
+    dth = torch.func.vmap(lambda v: torch.func.jvp(
+        fused_part(1), (x0,), (v,))[1])(V)
+    dother = None if other is None else torch.func.vmap(
+        lambda v: torch.func.jvp(fused_part(2), (x0,), (v,))[1])(V)
+    _, slope, dt64 = pc.run(spec, theta[None], None if other is None
+                            else other[None], tensors)
+    got = [pc.run(spec, theta[None], None, tensors, dth[None], slope, dt64,
+                  None if dother is None else dother[None], lanes=L)[0]
+           for L in dc.KERNEL_LANES]
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    want = torch.func.vmap(lambda v: torch.func.jvp(
+        lambda x: pc.unfused(calc, _at(case, x), b, "nearest",
+                             delay=host_delay(calc)), (x0,), (v,))[1])(V)
+    assert torch.all(torch.isfinite(want))
+    assert _column_gap(got[0].T, want.T) <= COLUMN_TOL
+
+
+@pytest.mark.parametrize("case", FAMILY_SETS, indirect=True)
+def test_phase_family_jacfwd_one_launch(on_host, case):
+    """A jacfwd over every free parameter through the phase family's
+    template value is one primal and one tangent launch, its columns
+    within COLUMN_TOL relative of the unfused host chain's and of the
+    plain composition's; a vmap over 9 grid points of one is still one
+    of each."""
+    calc, b, X = case["calc"], case["b"], case["X"]
+
+    def fused(x):
+        return pc.fused(calc, _at(case, x), b, "nearest")
+
+    before = (pc.PhaseFamilyPrimal.launches, pc.PhaseFamilyTangent.launches)
+    J = torch.func.jacfwd(fused)(case["x0"])
+    assert (pc.PhaseFamilyPrimal.launches,
+            pc.PhaseFamilyTangent.launches) == (before[0] + 1, before[1] + 1)
+    Ju = torch.func.jacfwd(lambda x: pc.unfused(
+        calc, _at(case, x), b, "nearest", delay=host_delay(calc)))(
+            case["x0"])
+    Jp = torch.func.jacfwd(lambda x: pc.unfused(
+        calc, _at(case, x), b, "nearest"))(case["x0"])
+    print(f"{case['name']}: {int(torch.sum(J != Ju))} of {J.numel()} "
+          f"entries not bit-equal to the unfused host chain's")
+    assert _column_gap(J, Ju) <= COLUMN_TOL
+    assert _column_gap(J, Jp) <= COLUMN_TOL
+    before = (pc.PhaseFamilyPrimal.launches, pc.PhaseFamilyTangent.launches)
+    Jg = torch.func.vmap(torch.func.jacfwd(fused))(X)
+    assert (pc.PhaseFamilyPrimal.launches,
+            pc.PhaseFamilyTangent.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(Jg[0], J)
 
 
 def _column_gap(J, Jp):

@@ -125,8 +125,8 @@ def _host_libs():
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     de.delay_chain_host.argtypes = [vp] * (len(delay_chain.ROWS) + 3) + [
         delay_chain.ChainCfg, i64, i64, i64, ctypes.c_int]
-    ph.phase_chain_host.argtypes = [vp] * (len(delay_chain.ROWS) + 15) + [
-        delay_chain.ChainCfg, phase_chain.PhaseCfg, i64, i64, i64, i64, i64,
+    ph.phase_chain_host.argtypes = [vp] * phase_chain.N_POINTERS + [
+        phase_chain.PhCfg, phase_chain.PhaseCfg, i64, i64, i64, i64, i64,
         i64, ctypes.c_int]
     de.delay_chain_host.restype = ph.phase_chain_host.restype = ctypes.c_int
 
@@ -243,7 +243,8 @@ def reset_launches():
 
     for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
               delay_chain.DelayChain, delay_chain.DelayChainTangent,
-              phase_chain.PhaseChain, phase_chain.PhaseChainTangent):
+              phase_chain.PhaseChain, phase_chain.PhaseChainTangent,
+              phase_chain.PhaseFamilyPrimal, phase_chain.PhaseFamilyTangent):
         k.launches = 0
 
 
@@ -263,7 +264,7 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
             chrom_status=("CONVERGED", "DIVERGED"),
             chrom_noise=CHROM_NOISE_200,
             spider_tim=str(tmp_path / "spider.tim"), spider_nfit=33,
-            orbit_layouts=ORBIT_LAYOUTS, paths=cs.PATHS[:-1])) == 0
+            orbit_layouts=ORBIT_LAYOUTS, paths=cs.EARLIER)) == 0
     finally:
         reset_launches()
     lines = capsys.readouterr().out.strip().splitlines()

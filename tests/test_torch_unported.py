@@ -1,23 +1,28 @@
-"""A par file that names parameters of a component pint_tpu has and
-pint_tpu_torch does not yet is refused by the port's model builder
-(``NotImplementedError`` naming the component), where dropping the lines
-would give residuals that silently differ from pint_tpu's.  On the DD
-set's par, pint_tpu builds each such component; parameters that no
-component owns still only warn, in both packages.  The chromatic family
-and the binary family's rest (BT_PIECEWISE, FBn, ORBWAVE) that this port
-now has load in both.
+"""The port's model builder against pint_tpu's for the components that
+came last (Glitch, Wave, IFunc, PiecewiseSpindown, PhaseOffset): both
+packages load each one's par lines on the DD set's par and agree on its
+parameters.  A par file that names parameters of a component pint_tpu has
+and pint_tpu_torch does not is refused (``NotImplementedError`` naming
+the component), where dropping the lines would give residuals that
+silently differ from pint_tpu's: no component is left in
+``model_builder.UNPORTED``, so the refusal is held with entries
+monkeypatched into it.  Parameters that no component owns still only
+warn, in both packages.  The chromatic family and the binary family's
+rest (BT_PIECEWISE, FBn, ORBWAVE) load in both.
 """
 
 import warnings
 
+import numpy as np
 import pytest
 
 import torch_port_data as data
 from pint_tpu.models import get_model as jax_get_model
 from pint_tpu_torch.models import get_model
+from pint_tpu_torch.models import model_builder
 from pint_tpu_torch.models.model_builder import UNPORTED
 
-#: par lines of each component the port refuses, by its name
+#: par lines of each of the components that came last, by its name
 LINES = {
     "Glitch": ["GLEP_1 55000", "GLF0_1 1e-8"],
     "Wave": ["WAVE_OM 0.01", "WAVEEPOCH 55000", "WAVE1 1e-6 -2e-6"],
@@ -32,33 +37,66 @@ def _par(lines):
     return data.dd_par_lines() + lines
 
 
+def _values(comp):
+    """{name: value} of a component's parameters that have one (an MJD's
+    as its float MJD)."""
+    out = {}
+    for n, par in comp.params.items():
+        v = par.value
+        if v is None:
+            continue
+        out[n] = float(par.mjd_float) if par.kind == "mjd" else v
+    return out
+
+
 @pytest.mark.parametrize("comp", sorted(LINES))
-def test_reference_builds_and_port_refuses(comp):
+def test_reference_and_port_build(comp):
+    """Both packages build the component from its lines, with the same
+    parameters (names, values, frozen flags)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        model = get_model(_par(LINES[comp]))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         ref = jax_get_model(_par(LINES[comp]))
-    assert comp in ref.components
-    with pytest.raises(NotImplementedError, match=comp):
-        get_model(_par(LINES[comp]))
+    assert comp in ref.components and comp in model.components
+    mine, theirs = (_values(m.components[comp]) for m in (model, ref))
+    assert set(mine) == set(theirs)
+    for n, v in theirs.items():
+        np.testing.assert_array_equal(np.asarray(mine[n], np.float64),
+                                      np.asarray(v, np.float64), err_msg=n)
+        assert model[n].frozen == ref[n].frozen, n
 
 
-def test_refusal_names_every_component():
-    lines = LINES["Glitch"] + LINES["Wave"] + ["CM 0.1", "TNCHROMIDX 4"]
+#: two components the port would not have: their parameters and stems
+FAKE_UNPORTED = {"FakeGlitchy": (("FAKEPH",), ("FAKEEP_",)),
+                 "FakeWavy": (("FAKEOM",), ("FAKEW",))}
+
+
+def test_refusal_names_every_component(monkeypatch):
+    """A par naming parameters of two unported components is refused,
+    naming both and their parameters, and not the ported ones beside
+    them."""
+    monkeypatch.setattr(model_builder, "UNPORTED", FAKE_UNPORTED)
+    lines = ["FAKEEP_1 55000", "FAKEOM 0.01", "CM 0.1", "TNCHROMIDX 4"]
     with pytest.raises(NotImplementedError) as err:
         get_model(_par(lines))
     msg = str(err.value)
-    assert "Glitch" in msg and "Wave" in msg and "GLEP_1" in msg
+    assert "FakeGlitchy" in msg and "FakeWavy" in msg and "FAKEEP_1" in msg
     assert "ChromaticCM" not in msg
 
 
 def test_refusal_list_names_only_unported_components():
-    """Every component of the list is one pint_tpu registers and the port
-    does not."""
+    """The list is empty: every component pint_tpu registers, the five
+    that came last among them, is registered in the port too."""
     from pint_tpu.models.timing_model import Component as JC
     from pint_tpu_torch.models.timing_model import Component as TC
 
-    for comp in UNPORTED:
-        assert comp in JC.component_types and comp not in TC.component_types
+    assert not UNPORTED
+    assert set(LINES) <= set(TC.component_types)
+    missing = {c for c, cls in JC.component_types.items()
+               if getattr(cls, "register", False)} - set(TC.component_types)
+    assert not missing, missing
 
 
 def test_unknown_parameters_still_warn():

@@ -22,7 +22,9 @@ DMEFACs free) and WidebandLMFitter fits beside it; a spider set
 (``spider_realistic_par(dmx_bins=8)``: the FBn orbit, ORBWAVEs and
 PLANET_SHAPIRO) with pint_tpu's ``Fitter.auto`` fit beside it; and a
 BT_PIECEWISE set (``btpw_par(dmx_bins=8)``) with pint_tpu's eager
-``WLSFitter`` fit beside it.
+``WLSFitter`` fit beside it; and a young glitching pulsar's set
+(``examples.young_par()``: three glitches, a PiecewiseSpindown group,
+WAVE, IFUNC and PHOFF) with pint_tpu's ``Fitter.auto`` fit beside it.
 
 The set follows ``pint_tpu.examples.simulate_j0740_realistic`` at small
 size: ``j0740_realistic_par(dmx_bins=8)`` (spin, astrometry, DM + 8 DMX
@@ -967,6 +969,72 @@ def write_btpw_reference() -> dict:
     return rec
 
 
+#: the committed young set (``examples.young_par()``: 200 TOAs over its
+#: eight years, Parkes at 1.4 and 3.1 GHz, 5 us) and pint_tpu's
+#: ``Fitter.auto`` fit of it from ``examples.young_start``
+YOUNG_REF_TIM = os.path.join(DATA_DIR, "young_sim_200.tim")
+YOUNG_REF_JSON = os.path.join(DATA_DIR, "young_sim_200_fit.json")
+
+
+def young_par_lines():
+    from pint_tpu_torch.examples import young_par
+
+    return young_par().splitlines()
+
+
+def write_young_sim_tim(path: str, ntoas: int = NTOAS, seed: int = 0) -> str:
+    """Simulate the young set with the port's simulator on the CPU
+    (``examples.simulate_young_realistic``: numpy's white noise from
+    ``seed``) and write it to ``path``."""
+    from pint_tpu_torch.examples import simulate_young_realistic
+    from pint_tpu_torch.toa import write_tim
+
+    _, toas = simulate_young_realistic(ntoas=ntoas, seed=seed,
+                                       device="cpu")
+    write_tim(path, toas)
+    return path
+
+
+def jax_young_fit(timfile: str) -> dict:
+    """pint_tpu's ``Fitter.auto(...).fit_toas()`` (its defaults, JAX on
+    the CPU) of the young set from ``examples.young_start``: the record
+    YOUNG_REF_JSON holds."""
+    from pint_tpu.fitter import Fitter
+    from pint_tpu_torch.examples import YOUNG_PERTURB, young_start
+
+    import jax
+
+    model, toas = load_jax(timfile, par=young_par_lines())
+    young_start(model)
+    # op by op: XLA:CPU's compile of this model's quad-single phase parts
+    # from its eager evaluation by up to half a cycle (PERF.md), and the
+    # eager evaluation is pint_tpu's arithmetic as written
+    with jax.disable_jit():
+        fitter = Fitter.auto(toas, model)
+        start = device_values(model, fitter.fit_params)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            chi2 = fitter.fit_toas()
+    return {"what": "pint_tpu Fitter.auto(...).fit_toas() with its "
+                    "defaults, JAX on the CPU under jax.disable_jit(), on "
+                    "young_sim_200.tim (examples.young_par()) from the "
+                    "perturbed start",
+            "fitter": type(fitter).__name__, "ntoas": toas.ntoas,
+            "perturb": YOUNG_PERTURB, "start": start,
+            **fitter_record(fitter, chi2)}
+
+
+def write_young_reference() -> dict:
+    """Write YOUNG_REF_TIM and pint_tpu's fit on it."""
+    os.makedirs(DATA_DIR, exist_ok=True)
+    write_young_sim_tim(YOUNG_REF_TIM)
+    rec = jax_young_fit(YOUNG_REF_TIM)
+    with open(YOUNG_REF_JSON, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -1199,6 +1267,7 @@ WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "wavex_sim_200": write_wavex_reference,
            "spider_sim_200": write_spider_reference,
            "btpw_sim_200": write_btpw_reference,
+           "young": write_young_reference,
            "sim_refs": write_sim_references}
 
 if __name__ == "__main__":
