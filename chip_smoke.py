@@ -302,7 +302,11 @@ Phases, each printing one JSON line with its numbers and seconds:
    young_profile: one warm fit under torch.profiler;
    young_reference: the committed 200-TOA young set
    (``tests/data/young_sim_200*``, ``Fitter.auto``) against pint_tpu's
-   stored fit (1e-3 sigma, 1e-3 in the uncertainties, chi2 1e-6);
+   stored fit (1e-3 sigma, 1e-3 in the uncertainties, chi2 1e-6), and
+   its design matrix at the par's values (one jacfwd: the fused tangent
+   launch's word-level spin-phase tangent) within 1e-10 relative of
+   pint_tpu's stored columns in every column, RAJ, DECJ and DM included
+   (``tests/data/young_sim_200_columns.json``);
    young_chain: the phase family's template values on the path's model,
    on ``examples.PHASE_FAMILY``'s edge variants and on a layout with
    every delay family too (``examples.phase_mixed_par``), on the path's
@@ -314,8 +318,33 @@ Phases, each printing one JSON line with its numbers and seconds:
    within 1e-10 relative of the plain composition's; both launches
    timed at the path's and the mixed layout's shapes against their
    bounds; ptxas's registers and spills of the phase family's values,
-   and every other kernel's against the parent's
-   (``PTXAS_REFERENCE``): identical, or the phase fails.
+   and every kernel's against the parent's (``PTXAS_REFERENCE``):
+   identical but the 92 phase_chain tangents the reference lists as moved
+   by the word-level tangent (recorded; each must differ), or the phase
+   fails.
+
+14. polyco_main_path: the eleventh path, polyco_orbphase, at full width
+   (the headline's J0740 par, ELL1 with 86 fit parameters, on the grid's
+   12,500 TOAs, loaded as ``load`` does; the DD, DDK-in-ecliptic and
+   spider pars of those paths on the same TOAs), the launch counts zeroed
+   just before and read just after: ``Polycos.generate_polycos`` over 30
+   days from GBT at 1400 MHz (60-minute segments, 12 coefficients, 24
+   samples: 720 segments, 17,280 sample rows in one words launch of the
+   fused phase chain, and the TZR row's in one), the model's phase at
+   12,500 off-node times (one words launch), ``orbital_phase`` of the
+   four binaries (one launch of the delay kernel's orbital-phase entry
+   each, nothing else), AIC and BIC, and ``ftest`` adding FD5 to the
+   J0740 WLS fit of a set simulated on the card
+   (``examples.simulate_j0740_realistic``, 12,500 TOAs: the grid's tim
+   does not fit the model); no tangent's plain delay or reverse mode may
+   run;
+   polyco_orbphase_checks: the polycos within 1e-6 cycles of the model
+   at the off-node times (the gap recorded), and within 1e-9 cycles (the
+   same integers) of the port's CPU polycos; AIC and BIC, and the
+   F-test's chi2 from the same start (on the CPU by the card's fused
+   loop), within 1e-6 of the CPU's; each
+   orbital phase in [0, 1) and within 1e-12 orbits (circularly) of its
+   plain version on the card, timed against its bound.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -326,15 +355,20 @@ it, and exits non-zero otherwise.
 sizes (``tests/test_torch_smoke_rehearsal.py`` runs them on the CPU at
 200 TOAs, ``tests/test_torch_smoke_rehearsal_scan.py`` the sim_scan
 path at 300 TOAs, ``tests/test_torch_smoke_rehearsal_young.py`` the
-young_fit path at 300 TOAs), or only some of the paths (``Run.paths``,
-of ``PATHS``: the first eight run together or not at all, sim_scan and
-young_fit each alone;
+young_fit path at 300 TOAs,
+``tests/test_torch_smoke_rehearsal_polyco.py`` the polyco_orbphase
+path at 200 TOAs), or only some of the paths (``Run.paths``, of
+``PATHS``: the first eight run together or not at all, sim_scan,
+young_fit and polyco_orbphase each alone;
 without the first eight no kernels line is printed); with no arguments
 it runs every path on the card at full width.
 ``python3 chip_smoke.py --ptxas-reference CSRC OUT.json`` compiles
 another checkout's ``delay_chain.cu`` and ``phase_chain.cu`` (needs
 nvcc, no card) and writes their ptxas report in ``PTXAS_REFERENCE``'s
-format.
+format.  ``python3 chip_smoke.py --tangent-times ROOT OUT.json`` times
+the fused phase chain's tangent and primal launches of the checkout at
+ROOT through its public API (``tangent_times``), so that two checkouts
+compare in one run.
 """
 
 from __future__ import annotations
@@ -383,18 +417,24 @@ SPIDER_REF_JSON = os.path.join(REPO, "tests", "data",
                                "spider_sim_200_fit.json")
 BTPW_REF_TIM = os.path.join(REPO, "tests", "data", "btpw_sim_200.tim")
 BTPW_REF_JSON = os.path.join(REPO, "tests", "data", "btpw_sim_200_fit.json")
-#: ptxas's registers, stack and spills of the delay_chain and phase_chain
-#: kernels of the 28 template values before the phase family came (the
-#: four delay families', the 21 before the orbit family among them),
+#: ptxas's registers, stack and spills of every delay_chain and
+#: phase_chain kernel before the word-level spin-phase tangent came,
 #: compiled on the card's machine from the sources before it
-#: (``python3 chip_smoke.py --ptxas-reference <their csrc> <this file>``)
+#: (``python3 chip_smoke.py --ptxas-reference <their csrc> <this file>``):
+#: every kernel keeps them but those its ``moved`` lists, the
+#: phase_chain tangents that the word-level tangent moved
+#: (:func:`ptxas_vs_parent`)
 PTXAS_REFERENCE = os.path.join(REPO, "tests", "data",
-                               "chain_ptxas_before_phase_family.json")
+                               "chain_ptxas_before_word_tangent.json")
 FITTERS_REF_JSON = os.path.join(REPO, "tests", "data",
                                 "dd_sim_200_fitters.json")
 YOUNG_TIM = os.path.join(REPO, "build", "young_12500.tim")
 YOUNG_REF_TIM = os.path.join(REPO, "tests", "data", "young_sim_200.tim")
 YOUNG_REF_JSON = os.path.join(REPO, "tests", "data", "young_sim_200_fit.json")
+#: pint_tpu's design matrix of the young 200-TOA set at the par's values
+#: (``python tests/torch_port_data.py young_columns``)
+YOUNG_COLUMNS_JSON = os.path.join(REPO, "tests", "data",
+                                  "young_sim_200_columns.json")
 #: the young fit's chi2/dof window (12,481 dof: a standard deviation of
 #: 0.013)
 YOUNG_CHI2_PER_DOF = (0.95, 1.05)
@@ -502,7 +542,7 @@ LM_VS_WLS_SIGMA = 0.2
 #: need themselves
 PATHS = ("grid", "dd_fit", "gls_fit", "ddk_fit", "noise_fit",
          "wideband_fit", "chromatic_fit", "spider_fit", "sim_scan",
-         "young_fit")
+         "young_fit", "polyco_orbphase")
 #: the first eight
 EARLIER = PATHS[:8]
 #: the sim_scan path: the simulated set's truth on the grid's axes, the
@@ -527,6 +567,22 @@ RANDOM_MODELS_SEED = 1
 RANDOM_MODELS_FROZEN = ("FD1", "FD2", "FD3", "FD4", "DM")
 SIM_CHI2_PER_DOF = (0.95, 1.05)
 SCATTER_RATIO = (0.8, 1.2)
+#: the polyco_orbphase path: the polycos' segments [min], coefficients
+#: and samples per segment, at GBT and 1400 MHz; their phase against the
+#: model's at off-node times [cycles], and the card's polycos against the
+#: CPU's [cycles] (the fused kernel is within F0 x DELAY_TOL_S of the
+#: plain composition, ~3.5e-10 cycles at J0740's F0)
+POLYCO_SEG_MIN = 60.0
+POLYCO_NCOEFF = 12
+POLYCO_NSAMPLES = 24
+POLYCO_TOL_CYCLES = 1e-6
+POLYCO_CPU_TOL_CYCLES = 1e-9
+#: the orbital phase's kernel against its plain version [orbits]
+ORBIT_TOL = 1e-12
+#: the kernels the polyco_orbphase path must launch: the fused phase
+#: chain's primal (the polycos' words) and the delay kernel's orbital
+#: phase entry; it launches no tangent and nothing unfused
+POLYCO_PATHS = ("phase_chain_primal", "delay_chain_orbital_phase")
 
 
 class Run(NamedTuple):
@@ -578,6 +634,10 @@ class Run(NamedTuple):
     young_tim: str = YOUNG_TIM
     #: the layouts young_chain holds besides its model (None: every one)
     young_layouts: tuple = None
+    #: the polyco_orbphase path's polycos' span [days] and its off-node
+    #: times (a small rehearsal may take fewer)
+    polyco_days: float = 30.0
+    polyco_offnode: int = 12500
 
 
 def emit(obj) -> None:
@@ -1096,9 +1156,9 @@ def plain_delays():
     count = {"calls": 0}
     real = PhaseCalc.delay_plain
 
-    def counted(self, p, batch):
+    def counted(self, p, batch, **kw):
         count["calls"] += 1
-        return real(self, p, batch)
+        return real(self, p, batch, **kw)
 
     PhaseCalc.delay_plain = counted
     try:
@@ -1110,7 +1170,8 @@ def plain_delays():
 def _counted():
     """Every kernel's launch counter, by the name of its kernel line."""
     from pint_tpu_torch.kernels.delay_chain import (DelayChain,
-                                                    DelayChainTangent)
+                                                    DelayChainTangent,
+                                                    OrbitalPhase)
     from pint_tpu_torch.kernels.kepler import KeplerE
     from pint_tpu_torch.kernels.phase_chain import (PhaseChain,
                                                     PhaseChainTangent,
@@ -1124,7 +1185,8 @@ def _counted():
             "phase_chain_primal": PhaseChain,
             "phase_chain_tangent": PhaseChainTangent,
             "phase_chain_primal_phase_family": PhaseFamilyPrimal,
-            "phase_chain_tangent_phase_family": PhaseFamilyTangent}
+            "phase_chain_tangent_phase_family": PhaseFamilyTangent,
+            "delay_chain_orbital_phase": OrbitalPhase}
 
 
 def zero_counts() -> None:
@@ -1508,12 +1570,12 @@ def chain_registers(build_log: str, kernel: str = "delay_chain") -> dict:
     for line in build_log.splitlines():
         if "Function properties for" in line or "Compiling entry" in line:
             # a kernel of ours, or another function (a libdevice callee)
-            m = re.search(kernel + r"_(primal|tangent_lanes|tangent)"
-                          r"ILi(\d+)E(?:Li(\d)E)?", line)
+            m = re.search(kernel + r"_(primal|tangent_lanes|tangent|"
+                          r"orbital_phase)ILi(\d+)E(?:Li(\d)E)?", line)
             cur = None if m is None else out.setdefault(
-                f"{fams[m.group(2)]}/" + ("primal" if m.group(1) == "primal"
-                                          else f"tangent_L{m.group(3) or 1}"),
-                {})
+                f"{fams[m.group(2)]}/" + (
+                    m.group(1) if m.group(1) in ("primal", "orbital_phase")
+                    else f"tangent_L{m.group(3) or 1}"), {})
             continue
         if cur is None:
             continue
@@ -1686,17 +1748,14 @@ def check_phase_chain(torch, label: str, model, fitter, rec: dict):
     # every lanes-per-thread against the single-lane launch, on random
     # tangents of θ and of other at two θ sets
     spec, thetas, others, tensors = fused_points(torch, model, fitter, X[:2])
-    with torch.no_grad():
-        _, slope, dt64 = pc.run(spec, thetas, others, tensors)
     equal = {}
     for K in LANE_COUNTS + (spec.P,):
         dth = torch.randn(2, K, spec.P, generator=gen, dtype=f64).to(dev)
         dot = torch.randn(2, K, N, generator=gen, dtype=f64).to(dev)
-        one = pc.run(spec, thetas, None, tensors, dth, slope, dt64,
-                              dot, lanes=1)
+        one = pc.run(spec, thetas, others, tensors, dth, dot, lanes=1)
         equal[str(K)] = all(
-            torch.equal(pc.run(spec, thetas, None, tensors, dth,
-                                        slope, dt64, dot, lanes=L), one)
+            torch.equal(pc.run(spec, thetas, others, tensors, dth, dot,
+                               lanes=L), one)
             for L in dc.KERNEL_LANES[1:])
     out.update(lanes_bit_equal_to_single_lane=equal,
                max_abs_frac_err_vs_plain_phase=phase_err,
@@ -1724,6 +1783,12 @@ def first_time(rec: dict) -> float:
     its events, its call's time by CUDA events."""
     return rec["device_ms"] if rec["device_ms"] is not None \
         else rec["fused_chain_ms"]
+
+
+#: CUDA-event reps per turn of the tangent chains: the unfused chain's
+#: word-level rule is ~2.3k eager operations per call, and 25 reps per
+#: turn made the phases that time it the script's longest
+TANGENT_TURN_REPS = 5
 
 
 def in_turns(torch, fns: dict, reps: int = 25) -> dict:
@@ -1806,7 +1871,6 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
             return torch.func.vmap(f)(X)
 
     with torch.no_grad():
-        _, slope, dt64 = fused_primal()
         turns = in_turns(torch, {"fused": fused_primal,
                                  "unfused": unfused_primal})
         plain_ms = time_ms(torch, plain_primal, reps=3)
@@ -1848,18 +1912,16 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
         dth4 = dth[..., :P4].contiguous()
 
         def fused_tangent():
-            return pc.run(spec, thetas, None, tensors, dth, slope,
-                                   dt64, dot)
+            return pc.run(spec, thetas, others, tensors, dth, dot)
 
         def rule(dd):
-            # the shift's forward rule, then QSPhaseFrac.jvp's arithmetic
+            # the shift's forward rule, then QSPhaseFrac.jvp's word-level
+            # tangent, lane by lane
             dshift = (-dd) - (dth[..., o_pep, None] * 86400.0)
-            out = torch.zeros_like(dt64)[:, None] + slope[:, None] * dshift
-            pk = dt64[:, None]
-            for k in range(Ks):
-                out = out + pk * dth[..., o_spin + k, None]
-                pk = pk * dt64[:, None] / (k + 2.0)
-            return out if dot is None else out + dot
+            return torch.func.vmap(
+                lambda ds, df, do: qspec.jvp(shift, dF, other, ds, df, do),
+                in_dims=(1, 1, None if dot is None else 1), out_dims=1)(
+                    dshift, dth[..., o_spin:o_pep], dot)
 
         def unfused_tangent():
             if fam:
@@ -1887,7 +1949,8 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
             rel = float(torch.max(torch.amax(err, dim=-1, keepdim=True)
                                   / torch.where(scale > 0, scale, 1.0)))
             turns = in_turns(torch, {"fused": fused_tangent,
-                                     "unfused": unfused_tangent})
+                                     "unfused": unfused_tangent},
+                             reps=TANGENT_TURN_REPS)
             rule_ops = count_ops(torch, lambda: rule(
                 torch.zeros(points, K, N, dtype=torch.float64,
                             device=b.device)))
@@ -1896,8 +1959,8 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
         by_lanes = {str(L): [] for L in dc.KERNEL_LANES}
         for L in dc.KERNEL_LANES + dc.KERNEL_LANES[::-1]:
             by_lanes[str(L)].append(device_kernel_ms(
-                torch, lambda: pc.run(spec, thetas, None, tensors, dth,
-                                      slope, dt64, dot, lanes=L),
+                torch, lambda: pc.run(spec, thetas, others, tensors, dth,
+                                      dot, lanes=L),
                 "phase_chain_tangent"))
         tb = chain_bound(ops, points, K, N, P4, row_bytes)
         tot = dict(tb["ops"])
@@ -1916,7 +1979,7 @@ def time_phase_chain(torch, model, fitter, points: int, rec: dict,
                 tot[dt] = tot.get(dt, 0) + points * n
         t_ops = ops_seconds(tot)
         nbytes = (row_bytes + const_bytes + 8 * points * P * (1 + K)
-                  + 16 * points * N + 8 * points * K * N
+                  + other_bytes + 8 * points * K * N
                   * (1 if dot is None else 2))
         t_bytes = nbytes / MEM_BYTES_PER_S
         bound = 1e3 * max(t_ops, t_bytes)
@@ -3092,18 +3155,28 @@ def normal_matrix_state(np, fitter) -> dict:
     return out
 
 
-def ptxas_vs_parent(regs: dict) -> dict:
+def ptxas_vs_parent(regs: dict, moved: dict = None) -> dict:
     """The kernels of an earlier checkout against their ptxas there
     (PTXAS_REFERENCE, written by ``python3 chip_smoke.py
     --ptxas-reference``): {library: {kernel: [now, then]}} where
-    registers, stack or spills differ, or a kernel is missing."""
+    registers, stack or spills differ, or a kernel is missing, but for
+    the kernels the reference lists under ``moved`` (the ones a change
+    since that checkout was known to move), which go to ``moved`` (if
+    given) in the same form.  A listed kernel that kept its ptxas, or is
+    missing, is returned too: the list is exact."""
     with open(PTXAS_REFERENCE) as f:
-        ref = json.load(f)["kernels"]
+        ref = json.load(f)
+    listed = ref.get("moved", {})
     out = {}
-    for lib, kernels in ref.items():
+    for lib, kernels in ref["kernels"].items():
         for k, want in kernels.items():
             got = regs.get(lib, {}).get(k)
-            if got != want:
+            if k in listed.get(lib, ()):
+                if got is None or got == want:
+                    out.setdefault(lib, {})[k] = [got, want]
+                elif moved is not None:
+                    moved.setdefault(lib, {})[k] = [got, want]
+            elif got != want:
                 out.setdefault(lib, {})[k] = [got, want]
     return out
 
@@ -3286,8 +3359,9 @@ def orbit_paths(torch, np, run: Run, ctx: dict) -> dict:
         rec.update(max_abs_delay_err_s=max(delay_errs),
                    max_abs_frac_err_vs_plain=max(frac_errs))
     if rec["ptxas_changed_vs_parent"]:
-        raise AssertionError("the kernels without the orbit family changed "
-                             f"ptxas: {rec['ptxas_changed_vs_parent']}")
+        raise AssertionError("ptxas changed in kernels the reference does "
+                             "not list as moved, or kept in one it lists: "
+                             f"{rec['ptxas_changed_vs_parent']}")
     out["timing"] = rec["timing"]
     out["max_abs_delay_err_s"] = max(delay_errs)
     out["max_abs_frac_err"] = max(frac_errs)
@@ -3664,6 +3738,39 @@ def young_load(torch, tim: str, par=None):
     return model, toas
 
 
+def young_columns_vs_stored(torch, np, dev) -> dict:
+    """The young 200-TOA set's design matrix (one jacfwd of the fitters'
+    resid_sec function: the fused tangent launch's word-level spin-phase
+    tangent) at the par's values against pint_tpu's stored columns
+    (YOUNG_COLUMNS_JSON): the largest relative gap of each column."""
+    import warnings
+
+    from pint_tpu_torch.examples import young_par
+    from pint_tpu_torch.fitter import build_resid_sec_fn
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.toa import get_TOAs
+
+    with open(YOUNG_COLUMNS_JSON) as f:
+        want = json.load(f)
+    # the par's values, as the stored columns were taken
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = get_model(young_par().splitlines())
+        toas = get_TOAs(YOUNG_REF_TIM, model=model)
+    r = Residuals(toas, model, device=dev)
+    names = want["names"]
+    fn = build_resid_sec_fn(model, r.batch, names, r.track_mode)
+    M = torch.func.jacfwd(lambda x: fn(x, r.pdict))(
+        model.x0(r.pdict, names).to(dev)).cpu().numpy()
+    W = np.asarray(want["columns"]).T
+    scale = np.max(np.abs(W), axis=0)
+    gap = np.max(np.abs(M - W), axis=0) / np.where(scale > 0, scale, 1.0)
+    return {"column_gaps_vs_stored": dict(zip(names, map(float, gap))),
+            "max_rel_column_gap_vs_stored": float(np.max(gap)),
+            "column_bar": COLUMN_TOL}
+
+
 def check_family_chain(torch, label: str, model, fitter, rec: dict):
     """phase_chain's phase-family template values on one layout and the
     young path's TOAs: the fused primal at 9 θ sets within F0 x
@@ -3748,8 +3855,7 @@ def check_family_chain(torch, label: str, model, fitter, rec: dict):
     out["tzr_words_bit_equal_to_unfused"] = bool(torch.equal(kw, uw))
     # the tangent launch along fit directions at every lanes-per-thread
     with torch.no_grad():
-        _, slope, dt64 = pc.run(spec, thetas[:1], None if others is None
-                                else others[:1], tensors)
+        others1 = None if others is None else others[:1]
     equal = {}
     for K in LANE_COUNTS[:3] + (len(names),):
         V = torch.randn(K, len(names), generator=gen, dtype=f64).to(dev)
@@ -3761,11 +3867,10 @@ def check_family_chain(torch, label: str, model, fitter, rec: dict):
 
         dth = along(1)[None]
         dot = None if others is None else along(2)[None]
-        one = pc.run(spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
-                     lanes=1)
+        one = pc.run(spec, thetas[:1], others1, tensors, dth, dot, lanes=1)
         equal[str(K)] = all(torch.equal(pc.run(
-            spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
-            lanes=L), one) for L in dc.KERNEL_LANES[1:])
+            spec, thetas[:1], others1, tensors, dth, dot, lanes=L), one)
+            for L in dc.KERNEL_LANES[1:])
     out["lanes_bit_equal_to_single_lane"] = equal
     # a jacfwd: one primal and one tangent launch; its columns against the
     # plain composition's
@@ -3907,10 +4012,12 @@ def young_paths(torch, np, run: Run) -> dict:
                    status=rf.fitresult.status.name,
                    ref_status=want["status"], fit_s=rs,
                    launches=PhaseChain.launches)
+        rec.update(young_columns_vs_stored(torch, np, run.dev))
     if not (rf.fit_params == want["fit_params"]
             and rf.fitresult.status.name == want["status"]
             and sig <= FIT_SIGMA_TOL and unc <= UNC_TOL
-            and gap <= CHI2_TOL and PhaseChain.launches > 0):
+            and gap <= CHI2_TOL and PhaseChain.launches > 0
+            and rec["max_rel_column_gap_vs_stored"] <= COLUMN_TOL):
         raise AssertionError(f"young reference: {rec}")
 
     # -- the phase family in the fused row function, at 12,500 TOAs ---------
@@ -3948,11 +4055,14 @@ def young_paths(torch, np, run: Run) -> dict:
                 for k in ("delay_chain", "phase_chain")}
         rec["registers_phase_family"] = {
             k: v for k, v in regs["phase_chain"].items() if "+PHASE" in k}
-        rec["ptxas_changed_vs_parent"] = ptxas_vs_parent(regs)
+        rec["ptxas_moved_vs_parent"] = {}
+        rec["ptxas_changed_vs_parent"] = ptxas_vs_parent(
+            regs, rec["ptxas_moved_vs_parent"])
         rec["max_abs_frac_err_vs_plain"] = max(frac_errs)
     if rec["ptxas_changed_vs_parent"]:
-        raise AssertionError("the kernels without the phase family changed "
-                             f"ptxas: {rec['ptxas_changed_vs_parent']}")
+        raise AssertionError("ptxas changed in kernels the reference does "
+                             "not list as moved, or kept in one it lists: "
+                             f"{rec['ptxas_changed_vs_parent']}")
     out["timing"] = rec["timing"]
     out["registers"] = rec["registers_phase_family"]
     out["max_abs_frac_err"] = max(frac_errs)
@@ -4009,6 +4119,295 @@ def add_young(kernels: list, young: dict) -> None:
                     key=lambda x: x["lanes"]))["bound_ms"]}})
 
 
+def polyco_load(torch, run: Run):
+    """The polyco_orbphase path's models on the grid's tim, as a user loads
+    them: the headline's J0740 par (ELL1; M2 and SINI frozen, its WLS
+    fitter on the path's device), and the DD, DDK (ecliptic) and spider
+    (an FBn orbit, ORBWAVEs, PLANET_SHAPIRO) pars of the dd, ddk and
+    spider paths, each with the tim's TOAs (the planets' positions where
+    its par asks for them)."""
+    import warnings
+
+    from pint_tpu_torch.examples import (ddk_ecliptic_realistic_par,
+                                         dd_realistic_par,
+                                         spider_realistic_par)
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    model, toas, fitter = load(torch, run.dev, run.tim, run.dmx_bins)
+    binaries = {"J0740": (model, toas)}
+    for label, par in (("DD", dd_realistic_par),
+                       ("DDK", ddk_ecliptic_realistic_par),
+                       ("spider", spider_realistic_par)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m = get_model(par(dmx_bins=run.dmx_bins).splitlines())
+            binaries[label] = (m, get_TOAs(run.tim, model=m))
+    return model, toas, fitter, binaries
+
+
+def circular_gap(np, a, b) -> float:
+    """Largest |a - b| of two phases modulo whole turns."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.max(np.abs(d - np.round(d))))
+
+
+def polyco_paths(torch, np, run: Run) -> dict:
+    """Polycos, orbital phase and model selection at the headline's full
+    width (phases polyco_main_path and polyco_orbphase_checks, see the
+    module docstring).  Returns the path's launches and the orbital-phase
+    kernel's records."""
+    import warnings
+
+    from pint_tpu_torch import modelselect, qs
+    from pint_tpu_torch.examples import simulate_j0740_realistic
+    from pint_tpu_torch.fitter import Fitter, WLSFitter
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.polycos import Polycos
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    out = {"launches": {}}
+    kw = dict(obs="gbt", segLength=POLYCO_SEG_MIN, ncoeff=POLYCO_NCOEFF,
+              obsFreq=1400.0, nsamples=POLYCO_NSAMPLES)
+
+    def words_phase(model, r):
+        # the model's absolute phase less the TZR phase: one words launch
+        w = model.calc.phase_frac(r.pdict, r.batch, "words")
+        ip, fp = qs.round_nearest(qs.QS(*[w[:, k] for k in range(4)]))
+        return ip.cpu().numpy(), qs.to_f64(fp).cpu().numpy()
+
+    with phase("polyco_main_path", {}) as rec:
+        t0 = time.perf_counter()
+        model, toas, fitter, binaries = polyco_load(torch, run)
+        rec["setup_s"] = time.perf_counter() - t0
+        start = float(np.floor(np.median(toas.utc.mjd_float)))
+        end = start + run.polyco_days
+        rng = np.random.default_rng(SEED)
+        t_off = start + run.polyco_days * rng.random(run.polyco_offnode)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            otoas = get_TOAs_array(t_off, obs="gbt", errors_us=1.0,
+                                   freqs_mhz=np.full(len(t_off), 1400.0),
+                                   ephem=model.EPHEM.value or "DE421")
+        zero_counts()
+        with plain_delays() as plain, no_backward() as back, \
+                torch.no_grad():
+            # polycos: every segment's samples in one words launch
+            t0 = time.perf_counter()
+            pcs = Polycos.generate_polycos(model, start, end,
+                                           device=run.dev, **kw)
+            torch.cuda.synchronize()
+            polyco_s = time.perf_counter() - t0
+            polyco_launches = counts()
+            # the model's phase at the off-node times: one words launch
+            t0 = time.perf_counter()
+            r_off = Residuals(otoas, model, subtract_mean=False,
+                              device=run.dev)
+            off_model = words_phase(model, r_off)
+            model_phase_s = time.perf_counter() - t0
+            # orbital phase: one launch of the delay kernel's entry each
+            orbits = {}
+            for label, (m, t) in binaries.items():
+                r = Residuals(t, m, device=run.dev)
+                before = counts()
+                orbits[label] = (m, r, m.orbital_phase(r.pdict, r.batch))
+                torch.cuda.synchronize()
+                after = counts()
+                orbits[label] += ({k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]},)
+            # model selection: AIC and BIC of the headline's model, and an
+            # F-test of FD5 on a set that model fits (the grid's tim does
+            # not: fits of it land wherever the solve's rounding sends
+            # them), simulated on the card as the sim_scan path does
+            t0 = time.perf_counter()
+            aic = modelselect.akaike_information_criterion(model, toas,
+                                                           device=run.dev)
+            bic = modelselect.bayesian_information_criterion(
+                model, toas, device=run.dev)
+            torch.cuda.synchronize()
+            aic_bic_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            smodel, stoas = simulate_j0740_realistic(
+                run.ntoas, seed=0, device=run.dev, dmx_bins=run.dmx_bins)
+            torch.cuda.synchronize()
+            ftest_simulate_s = time.perf_counter() - t0
+            smodel.M2.frozen = True
+            smodel.SINI.frozen = True
+            sstart = snapshot(smodel)
+            t0 = time.perf_counter()
+            sfitter = WLSFitter(stoas, smodel, device=run.dev)
+            sfitter.fit_toas(maxiter=2)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                ft = modelselect.ftest(sfitter, add_lines="FD5 0 1",
+                                       maxiter=2)
+            torch.cuda.synchronize()
+            ftest_s = time.perf_counter() - t0
+        launches = counts()
+        out["launches"]["polyco_orbphase"] = launches
+        nseg = len(pcs.entries)
+        rec.update(ntoas=toas.ntoas, n_fit=len(fitter.fit_params),
+                   start_mjd=start, days=run.polyco_days, segments=nseg,
+                   sample_rows=nseg * POLYCO_NSAMPLES, polyco_s=polyco_s,
+                   polyco_launches={k: v for k, v in polyco_launches.items()
+                                    if v},
+                   offnode_times=len(t_off), model_phase_s=model_phase_s,
+                   orbital_phase_launches={k: v[3] for k, v in
+                                           orbits.items()},
+                   aic=aic, bic=bic, aic_bic_s=aic_bic_s,
+                   ftest_simulate_s=ftest_simulate_s,
+                   ftest_n_fit=len(sfitter.fit_params), ftest_s=ftest_s,
+                   ftest={k: v for k, v in ft.items() if k != "fitter"},
+                   launches=launches, plain_delay_chains=plain["calls"],
+                   phase_chain_backward_calls=back["calls"])
+    if nseg * POLYCO_SEG_MIN != round(run.polyco_days * 1440.0):
+        raise AssertionError(f"{nseg} polyco segments")
+    # the polycos' samples in one words launch and the TZR row's in one
+    if polyco_launches["phase_chain_primal"] != 2 or any(
+            polyco_launches[k] for k in ("phase_chain_tangent",
+                                         *OFF_PATHS)):
+        raise AssertionError(f"polyco launches {polyco_launches}")
+    if min(launches[k] for k in POLYCO_PATHS) <= 0 or any(
+            launches[k] for k in OFF_PATHS):
+        raise AssertionError(f"the polyco_orbphase path did not run the "
+                             f"kernels alone: {launches}")
+    if any(v[3] != {"delay_chain_orbital_phase": 1}
+           for v in orbits.values()):
+        raise AssertionError("orbital phase launches "
+                             f"{rec['orbital_phase_launches']}")
+    if plain["calls"] or back["calls"]:
+        raise AssertionError(f"{plain['calls']} plain delay chains, "
+                             f"{back['calls']} phase_chain backward calls")
+
+    with phase("polyco_orbphase_checks", {}) as rec:
+        # the polycos against the model at the off-node times
+        ints, fracs = pcs.eval_abs_phase(t_off)
+        d = (ints - off_model[0]) + (fracs - off_model[1])
+        model_gap = float(np.max(np.abs(d - np.round(d))))
+        # the port's CPU polycos and model selection
+        t0 = time.perf_counter()
+        cpu = Polycos.generate_polycos(model, start, end, device="cpu", **kw)
+        cpu_polyco_s = time.perf_counter() - t0
+        ci, cf = cpu.eval_abs_phase(t_off)
+        ints_equal = bool(np.array_equal(ci, ints)) and all(
+            a.rphase_int == b.rphase_int
+            for a, b in zip(cpu.entries, pcs.entries))
+        cpu_gap = max(circular_gap(np, cf - ci, fracs - ints),
+                      max(abs(a.rphase_frac - b.rphase_frac)
+                          for a, b in zip(cpu.entries, pcs.entries)))
+        cpu_aic = modelselect.akaike_information_criterion(model, toas,
+                                                           device="cpu")
+        cpu_bic = modelselect.bayesian_information_criterion(
+            model, toas, device="cpu")
+        aic_gap = max(abs(aic / cpu_aic - 1.0), abs(bic / cpu_bic - 1.0))
+        # the F-test on the CPU from the same start by the card's
+        # algorithm, the fused loop with the eigh solve (the CPU's eager
+        # loop with the SVD solve stops ~2% higher in chi2 after two
+        # iterations on this set): both fits' chi2
+        restore(smodel, sstart)
+        fused_ok = Fitter._fused_ok
+        Fitter._fused_ok = lambda self: True
+        try:
+            t0 = time.perf_counter()
+            cfitter = WLSFitter(stoas, smodel, device="cpu")
+            cfitter.fit_toas(maxiter=2)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cft = modelselect.ftest(cfitter, add_lines="FD5 0 1",
+                                        maxiter=2)
+            ftest_cpu_s = time.perf_counter() - t0
+        finally:
+            Fitter._fused_ok = fused_ok
+        ft_chi2_gap = max(abs(ft[k] / cft[k] - 1.0)
+                          for k in ("chi2_base", "chi2_new"))
+        ft_dof_equal = all(ft[k] == cft[k] for k in ("dof_base", "dof_new"))
+        rec.update(polyco_vs_model_max_abs_cycles=model_gap,
+                   polyco_bar_cycles=POLYCO_TOL_CYCLES,
+                   polyco_card_vs_cpu_max_abs_cycles=cpu_gap,
+                   polyco_ints_equal_to_cpu=ints_equal,
+                   cpu_polyco_s=cpu_polyco_s, aic_bic_rel_gap_to_cpu=aic_gap,
+                   ftest_chi2_rel_gap_to_cpu=ft_chi2_gap,
+                   ftest_dof_equal_to_cpu=ft_dof_equal,
+                   ftest_cpu={k: v for k, v in cft.items() if k != "fitter"},
+                   ftest_cpu_s=ftest_cpu_s)
+        # the orbital-phase kernel against its plain version on the card
+        rec["orbital_phase"] = {}
+        for label, (m, r, got, _) in orbits.items():
+            p, b = r.pdict, r.batch
+            binary = [c for c in m.delay_components
+                      if c.category == "pulsar_system"][0]
+
+            def plain_fn():
+                return binary.orbital_phase(p, b, m.calc.delay_plain(
+                    p, b, upto="pulsar_system"))
+
+            with torch.no_grad():
+                want = plain_fn()
+                err = circular_gap(np, got.cpu().numpy(),
+                                   want.cpu().numpy())
+                in_range = bool(torch.all((got >= 0) & (got < 1)))
+                ms = device_kernel_ms(
+                    torch, lambda: m.orbital_phase(p, b),
+                    "delay_chain_orbital_phase")
+                plain_ms = time_ms(torch, plain_fn, reps=5)
+                ops = count_ops(torch, plain_fn, CHAIN_EXTRA_OPS)
+            lay = m.calc.chain_layout
+            rows = dc.row_inputs(lay, p, b)
+            nbytes = (sum(t.numel() * t.element_size() for t in rows)
+                      + 8 * lay.P + 8 * b.ntoas)
+            t_ops, t_bytes = ops_seconds(ops), nbytes / MEM_BYTES_PER_S
+            rec["orbital_phase"][label] = dict(
+                binary=type(binary).__name__, ntoas=b.ntoas,
+                kernel_index=lay.kernel_index,
+                template_value=family_name(lay.kernel_index),
+                max_abs_err_orbits=err, in_unit_interval=in_range,
+                device_ms=ms, plain_ms=plain_ms, ops=ops, bytes=nbytes,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    worst = max(v["max_abs_err_orbits"]
+                for v in rec["orbital_phase"].values())
+    if not (model_gap <= POLYCO_TOL_CYCLES and ints_equal
+            and cpu_gap <= POLYCO_CPU_TOL_CYCLES and aic_gap <= CHI2_TOL
+            and ft_chi2_gap <= CHI2_TOL and ft_dof_equal
+            and worst <= ORBIT_TOL
+            and all(v["in_unit_interval"]
+                    for v in rec["orbital_phase"].values())):
+        raise AssertionError(f"polyco_orbphase checks: {rec}")
+    out["orbital_phase"] = rec["orbital_phase"]
+    out["max_abs_orbit_err"] = worst
+    return out
+
+
+def add_polyco(kernels: list, polyco: dict) -> None:
+    """The polyco_orbphase path's launches in every kernel's count, and the
+    line of the delay kernel's orbital-phase entry (its launches on the
+    path, times at the J0740 layout, the others beside them)."""
+    n = polyco["launches"]["polyco_orbphase"]
+    for k in kernels:
+        k["launches"] += n[k["name"]]
+        k["launches_by_path"]["polyco_orbphase"] = n[k["name"]]
+    t = polyco["orbital_phase"]
+    main = t["J0740"]
+    kernels.append({
+        "name": "delay_chain_orbital_phase", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/delay_chain.cu",
+        "replaces": "pint_tpu/models/timing_model.py:761",
+        "also_replaces": ["pint_tpu/models/binary_dd.py:156",
+                          "pint_tpu/models/binary_ell1.py:198"],
+        "launches": n["delay_chain_orbital_phase"],
+        "launches_by_path": {
+            "polyco_orbphase": n["delay_chain_orbital_phase"]},
+        "max_abs_err": polyco["max_abs_orbit_err"], "theta_sets": 1,
+        "ms": main["device_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "layouts": {label: {k: v[k] for k in (
+            "binary", "template_value", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err_orbits")}
+            for label, v in t.items()}})
+
+
 def ptxas_reference(csrc: str, path: str) -> int:
     """Compile ``csrc``'s delay_chain.cu and phase_chain.cu (another
     checkout's kernel sources) with the package's nvcc flags, one nvcc
@@ -4020,30 +4419,206 @@ def ptxas_reference(csrc: str, path: str) -> int:
     sys.path.insert(0, REPO)
     from pint_tpu_torch.kernels import build as kbuild
 
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    names = ("delay_chain", "phase_chain")
     try:
-        procs = {k: subprocess.Popen(
-            [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I", csrc, "-o",
-             os.path.join(tmp, f"lib{k}.so"), os.path.join(csrc, f"{k}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for k in ("delay_chain", "phase_chain")}
-        logs = {k: p.communicate()[0] for k, p in procs.items()}
+        # in the package's parts (kernels/build.py PARTS), all at once
+        procs = {}
+        for lib in kbuild.libraries(names):
+            name, flags = kbuild._flags(lib)
+            procs[lib] = subprocess.Popen(
+                [kbuild.nvcc(), *flags, "-I", csrc, "-o",
+                 os.path.join(tmp, f"lib{lib}.so"),
+                 os.path.join(csrc, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        parts = {k: p.communicate()[0] for k, p in procs.items()}
         if any(p.returncode for p in procs.values()):
-            print(json.dumps(logs), file=sys.stderr)
+            print(json.dumps(parts), file=sys.stderr)
             return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    logs = {k: "\n".join(v for lib, v in parts.items()
+                         if lib.partition(".")[0] == k) for k in names}
     rec = {"what": "ptxas -v of delay_chain.cu and phase_chain.cu of "
-                   f"{os.path.relpath(csrc, REPO)}, nvcc flags "
+                   f"{os.path.relpath(csrc, REPO)}, built in the "
+                   "package's parts, nvcc flags "
                    + " ".join(kbuild.NVCC_FLAGS),
            "nvcc": subprocess.run([kbuild.nvcc(), "--version"],
                                   capture_output=True,
                                   text=True).stdout.strip().splitlines()[-1],
-           "kernels": {k: chain_registers(v, k) for k, v in logs.items()}}
+           "kernels": {k: chain_registers(v, k) for k, v in logs.items()},
+           # the kernels a later change moves are listed here by hand;
+           # a new reference starts exact
+           "moved": {}}
     with open(path, "w") as f:
         json.dump(rec, f, indent=1, sort_keys=True)
         f.write("\n")
     print(json.dumps({k: len(v) for k, v in rec["kernels"].items()}))
+    return 0
+
+
+def tangent_times(root: str, path: str) -> int:
+    """Device ms of the fused phase chain's launches in the checkout at
+    ``root`` (its package, its kernels built beside it), through the
+    package's public API alone (so that another checkout's wrapper may
+    take other arguments): a jacfwd of ``PhaseCalc.phase_frac`` is one
+    primal and one tangent launch.  The layouts of PERF.md's kernel
+    table: the headline's J0740 par on the bench tim (12,500 TOAs, 70
+    DMX bins) at 1, 4 (the chunked scan's width) and 9 θ sets of its
+    nonlinear and its linear fit parameters; the young configuration at
+    1 θ set of its 19; the DDK, chromatic and spider paths' models at
+    their nonlinear and linear (DDK: all) parameters; ``ORB_MIXED`` on
+    the spider TOAs and ``PHASE_MIXED`` on the young TOAs at 1 θ set.
+    The young, DDK, chromatic, spider and DD TOAs are simulated on the
+    card by the first checkout timed and read from ``build/`` by the
+    next.  Then the walls end to end (``walls``): the headline grid's
+    warm call (9 points, as ``grid_warm_s``), a 5 x 5 M2/SINI scan in
+    chunks of 4 with the eigh solve on the same fitter (the sim_scan
+    path's call on the bench tim), and the DD configuration's warm
+    ``fit_toas(maxiter=3)`` (as ``fit_warm_s``), each the median of
+    three after a cold call.  Written to ``path`` as JSON with the
+    card's ``nvidia-smi`` line."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    cache = os.path.join(REPO, "build", "cache")
+    os.environ.setdefault("PINT_TPU_CACHE", cache)
+    os.environ.setdefault("PINT_TPU_CLOCK_DIR", os.path.join(cache, "clock"))
+    import pint_tpu_torch
+    from pint_tpu_torch import examples as ex
+    from pint_tpu_torch.fitter import fit_wls_eigh
+    from pint_tpu_torch.gridutils import grid_chisq_flat
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.toa import get_TOAs, write_tim
+
+    dev = "cuda"
+    rec = {"root": os.path.relpath(os.path.dirname(
+               os.path.dirname(os.path.abspath(pint_tpu_torch.__file__))),
+               REPO),
+           "nvidia_smi": nvidia_smi_line(), "layouts": {}, "walls": {}}
+
+    def times(label, model, toas, sets):
+        r = Residuals(toas, model, device=dev)
+        p, b, calc = r.pdict, r.batch, model.calc
+        names = model.free_params
+        lin, nl = model.partition_linear_params(names)
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        out = rec["layouts"].setdefault(label, {})
+        for group, params in (("nonlinear", nl), ("linear", lin),
+                              ("all", names)):
+            if group not in sets:
+                continue
+            x0 = model.x0(p, params).to(dev)
+
+            def frac(x):
+                return calc.phase_frac(model.with_x(p, x, params), b,
+                                       "nearest")
+
+            for points in sets[group]:
+                X = x0 + 1e-12 * torch.randn(points, len(params),
+                                             generator=gen,
+                                             dtype=torch.float64).to(dev)
+                X[0] = x0
+                if points == 1:
+                    def fn():
+                        return torch.func.jacfwd(frac)(x0)
+                else:
+                    def fn():
+                        return torch.func.vmap(torch.func.jacfwd(frac))(X)
+                key = f"{points} x {len(params)}"
+                out[key] = {
+                    "params": group,
+                    "tangent_ms": device_kernel_ms(torch, fn,
+                                                   "phase_chain_tangent"),
+                    "primal_ms": device_kernel_ms(torch, fn,
+                                                  "phase_chain_primal")}
+
+    def simulated(name, simulate):
+        """A tim of 12,500 simulated TOAs under build/, made once."""
+        tim = os.path.join(REPO, "build", f"tangent_times_{name}.tim")
+        if not os.path.exists(tim):
+            os.makedirs(os.path.dirname(tim), exist_ok=True)
+            write_tim(tim, simulate()[1])
+        return tim
+
+    def walls(fn, before=None):
+        out = []
+        for i in range(4):
+            if before is not None:
+                before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return {"cold_s": out[0], "warm_s": median(out[1:]),
+                "warm_walls_s": out[1:]}
+
+    def model_of(par):
+        return get_model(par.splitlines())
+
+    nl_lin = {"nonlinear": (1,), "linear": (1,)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model, toas, fitter = load(torch, dev, TIM, 70)
+        times("J0740", model, toas, {"nonlinear": (1, 4, 9),
+                                     "linear": (1, 4, 9)})
+        grid = {"M2": np.repeat(np.array(GRID_M2), 3),
+                "SINI": np.tile(np.array(GRID_SINI), 3)}
+        rec["walls"]["grid_9"] = walls(
+            lambda: grid_chisq_flat(fitter, grid, maxiter=2))
+        m2 = np.linspace(GRID_M2[0], GRID_M2[-1], 5)
+        sini = np.linspace(GRID_SINI[0], GRID_SINI[-1], 5)
+        scan = {"M2": np.repeat(m2, 5), "SINI": np.tile(sini, 5)}
+        rec["walls"]["scan_5x5_chunks_of_4"] = walls(
+            lambda: grid_chisq_flat(fitter, scan, maxiter=2,
+                                    kernel=fit_wls_eigh, chunk_size=4))
+        del model, toas, fitter
+
+        young = simulated("young", lambda: ex.simulate_young_realistic(
+            ntoas=12500, seed=0, device=dev))
+        model = model_of(ex.young_par())
+        toas = get_TOAs(young, model=model)
+        times("young", model, toas, {"all": (1,)})
+        model = model_of(ex.phase_mixed_par(dmx_bins=70))
+        toas = get_TOAs(young, model=model)
+        times("PHASE_MIXED", model, toas, {"all": (1,)})
+
+        ddk = simulated("ddk", lambda: ex.simulate_ddk_ecliptic_realistic(
+            ntoas=12500, seed=0, dmx_bins=70, device=dev))
+        model = model_of(ex.ddk_ecliptic_realistic_par(dmx_bins=70))
+        times("DDK", model, get_TOAs(ddk, model=model),
+              {"nonlinear": (1,), "all": (1,)})
+
+        chrom = simulated("chromatic", lambda: ex.simulate_chromatic_j1713(
+            ntoas=12500, seed=0, dmx_bins=70, device=dev))
+        model = model_of(ex.chromatic_j1713_par(dmx_bins=70))
+        times("chromatic", model, get_TOAs(chrom, model=model), nl_lin)
+
+        spider = simulated("spider", lambda: ex.simulate_spider_realistic(
+            ntoas=12500, seed=0, dmx_bins=70, device=dev))
+        model = model_of(ex.spider_realistic_par(dmx_bins=70))
+        toas = get_TOAs(spider, model=model)
+        times("spider", model, toas, nl_lin)
+        model = model_of(ex.orbit_mixed_par(dmx_bins=70))
+        times("ORB_MIXED", model, get_TOAs(spider, model=model), nl_lin)
+
+        dd = simulated("dd", lambda: ex.simulate_dd_realistic(
+            ntoas=12500, seed=0, dmx_bins=70, device=dev))
+        model, toas = dd_load(torch, dd, 70)
+        start = snapshot(model)
+        rec["walls"]["dd_fit_maxiter_3"] = walls(
+            lambda: dd_fit(torch, dev, model, toas),
+            before=lambda: restore(model, start))
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    print(json.dumps(rec))
     return 0
 
 
@@ -4095,6 +4670,10 @@ def main(run: Run = Run()) -> int:
         young = young_paths(torch, np, run)
         if kernels is not None:
             add_young(kernels, young)
+    if "polyco_orbphase" in paths:
+        polyco = polyco_paths(torch, np, run)
+        if kernels is not None:
+            add_polyco(kernels, polyco)
     if kernels is not None:
         emit({"kernels": kernels})
     print(smi, flush=True)
@@ -4885,8 +5464,11 @@ def add_sim_scan(kernels: list, sim: dict) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ptxas-reference"] and len(sys.argv) == 4:
         sys.exit(ptxas_reference(os.path.abspath(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--tangent-times"] and len(sys.argv) == 4:
+        sys.exit(tangent_times(sys.argv[2], sys.argv[3]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--ptxas-reference CSRC OUT.json]",
+        print("usage: chip_smoke.py [--ptxas-reference CSRC OUT.json | "
+              "--tangent-times ROOT OUT.json]",
               file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

@@ -20,6 +20,9 @@
 // before they came):
 //   primal:  out[g, n]        = delay(theta[g], row n)         (double)
 //   tangent: tangent[g, k, n] = d delay(theta[g], row n) . dtheta[g, k]
+//   orbital phase: out[g, n] = the binary's fractional orbital phase at
+//            the delay before it (TimingModel.orbital_phase; a layout
+//            with a binary)
 // with theta (G, P) and dtheta (G, K, P): g runs over theta sets (the grid
 // points of a vmap) and k over tangent lanes that share theta[g] (the
 // lanes of a jacfwd, or the P unit lanes of a reverse-mode call).  Each
@@ -103,6 +106,22 @@ __global__ void delay_chain_primal(RowDataOf<BIN> rd,
     aux[G * N + row] = a[1];
     aux[2 * G * N + row] = a[2];
   }
+}
+
+// TimingModel.orbital_phase: the chain up to the binary and the binary's
+// orbit, one thread per (theta set, row), out[g, n] = orbits - floor
+template <int BIN>
+__global__ void delay_chain_orbital_phase(RowDataOf<BIN> rd,
+                                          const double* __restrict__ theta,
+                                          CfgOf<BIN> c, int64_t G, int64_t N,
+                                          double* __restrict__ out) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= G * N) return;
+  const int64_t g = row / N;
+  const int64_t n = row - g * N;
+  const Theta<double> th{theta + g * c.P};
+  out[row] = ptchain::delay_row<double, BIN, true>(
+      c, th, load_row_of<BIN>(rd, n), nullptr);
 }
 
 template <int BIN>
@@ -223,6 +242,25 @@ cudaError_t launch_part(const OrbRowData& rd, const double* theta,
     return cudaErrorNotSupported;
 }
 
+// delay_chain_orbital_phase<BIN> where this library holds BIN and BIN has
+// a binary (the refusal of a model without one is the wrapper's, as
+// pint_tpu's)
+template <int BIN>
+cudaError_t launch_orbital_phase(const OrbRowData& rd, const double* theta,
+                                 const OrbCfg& c, int64_t G, int64_t N,
+                                 double* out, cudaStream_t stream) {
+  if constexpr (ptchain::in_part(BIN) &&
+                (BIN & 7) != ptchain::kNoBinary) {
+    const int threads = 128;
+    const unsigned blocks = (unsigned)((G * N + threads - 1) / threads);
+    delay_chain_orbital_phase<BIN><<<blocks, threads, 0, stream>>>(
+        rd, theta, c, G, N, out);
+    return cudaSuccess;
+  } else {
+    return cudaErrorNotSupported;
+  }
+}
+
 }  // namespace
 
 // One launch.  theta is (G, P) float64.  With dtheta == nullptr `out`
@@ -264,6 +302,42 @@ extern "C" int delay_chain(const int64_t* tdb_day, const double* tdb_frac,
   case B:                                                                 \
     err = launch_part<B>(rd, theta, dtheta, cfg, (int)K, lpt, G, N, out,  \
                          aux, s);                                         \
+    break;
+    PT_FAMILIES(PT_CASE)
+#undef PT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// One orbital-phase launch on the rows and theta (G, P) of delay_chain():
+// `out` receives the (G, N) fractional orbital phase in [0, 1) of the
+// layout's binary at the delay of the components before it.
+extern "C" int delay_chain_orbital_phase(
+    const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
+    const double* pos, const double* sun, const double* freq,
+    const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
+    const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
+    const double* tropo, const double* planets, const int32_t* btpiece,
+    const double* theta, double* out, OrbCfg cfg, int64_t G, int64_t N,
+    void* stream) {
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
+  if (G < 1 || N < 1 || cfg.P < 1 || out == nullptr ||
+      !ptchain::rows_cover(cfg, rd))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (ptchain::kernel_family(cfg)) {
+#define PT_CASE(B)                                                     \
+  case B:                                                              \
+    err = launch_orbital_phase<B>(rd, theta, cfg, G, N, out, s);       \
     break;
     PT_FAMILIES(PT_CASE)
 #undef PT_CASE

@@ -1636,9 +1636,27 @@ PT_HD T dd(const ChainCfg& c, const Theta<T>& th, const Row& r,
   return out;
 }
 
+// TimingModel.orbital_phase: the binary's orbits - floor(orbits) at the
+// delay of the components before it, from TASC (the ELL1 family) or T0
+// with BT_PIECEWISE's pieces (the DD family), with the orbit family's
+// FBn orbit and ORBWAVEs: ell1's and dd's first steps
+template <typename T, int FAM, bool ORB>
+PT_HD T orbital_phase(const ChainCfg& c, const Theta<T>& th, const Row& r,
+                      const T& delay) {
+  const int o = c.o_bin;
+  T dt = binary_dt(th, o, r, delay);
+  if (FAM == kDD || FAM == kDDK || FAM == kDDTM2)
+    dt = piece_dt<T, ORB>(c, th, r, dt);
+  T orbits, forb;
+  orbit<T, ORB>(c, th, r, dt, delay, orbits, forb);
+  return orbits - f_floor(orbits);
+}
+
 // the whole chain, in DEFAULT_ORDER; each component reads the delay
-// accumulated before it (PhaseCalc.delay)
-template <typename T, int BIN>
+// accumulated before it (PhaseCalc.delay).  With ORBPH the chain stops
+// at the binary and returns its orbital_phase instead (a layout with a
+// binary; the template values without ORBPH compile as they did)
+template <typename T, int BIN, bool ORBPH = false>
 PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
                   double* aux) {
   constexpr int FAM = BIN & ~(kDMFamily | kChromFamily | kOrbitFamily);
@@ -1724,6 +1742,7 @@ PT_HD T delay_row(const CfgOf<BIN>& c, const Theta<T>& th, const RowOf<BIN>& r,
     if (c.flags & kExpDip) d = d + exp_dips(c, th, r);
     if (c.flags & kChromGauss) d = d + chrom_gauss(c, th, r);
   }
+  if constexpr (ORBPH) return orbital_phase<T, FAM, ORB>(c, th, r, d);
   if (FAM == kELL1 || FAM == kELL1H || FAM == kELL1K)
     d = d + ell1<T, FAM, ORB>(c, th, r, d);
   if (FAM == kDD || FAM == kDDK || FAM == kDDTM2)

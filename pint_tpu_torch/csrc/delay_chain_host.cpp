@@ -84,7 +84,53 @@ int run(const OrbRowData& rd, const double* theta, const double* dtheta,
   }
 }
 
+template <int BIN>
+int orbital_phase(const OrbRowData& rd, const double* theta, const OrbCfg& c,
+                  int64_t G, int64_t N, double* out) {
+  if constexpr ((BIN & 7) == ptchain::kNoBinary) {
+    return 1;
+  } else {
+    for (int64_t g = 0; g < G; ++g)
+      for (int64_t n = 0; n < N; ++n)
+        out[g * N + n] = ptchain::delay_row<double, BIN, true>(
+            c, Theta<double>{theta + g * c.P},
+            ptchain::load_row_of<BIN>(rd, n), nullptr);
+    return 0;
+  }
+}
+
 }  // namespace
+
+// delay_chain.cu's delay_chain_orbital_phase() on host memory, without
+// the stream: out (G, N) the binary's fractional orbital phase.  Returns
+// 0, or 1 on inputs the kernel would refuse (a layout without a binary
+// among them).
+extern "C" int delay_chain_orbital_phase_host(
+    const int64_t* tdb_day, const double* tdb_frac, const float* frac_w,
+    const double* pos, const double* sun, const double* freq,
+    const int32_t* dmx, const int32_t* jbits, const int32_t* swx,
+    const int32_t* fdmbits, const int32_t* fdjbits, const int32_t* cmx,
+    const double* tropo, const double* planets, const int32_t* btpiece,
+    const double* theta, double* out, OrbCfg cfg, int64_t G, int64_t N) {
+  const OrbRowData rd{{{tdb_day, tdb_frac, frac_w, pos, sun, freq, dmx, jbits,
+                        swx, fdmbits, fdjbits},
+                       cmx,
+                       tropo},
+                      planets,
+                      btpiece};
+  if (G < 1 || N < 1 || cfg.P < 1 || out == nullptr ||
+      !ptchain::rows_cover(cfg, rd))
+    return 1;
+  switch (ptchain::kernel_family(cfg)) {
+#define PT_CASE(B) \
+  case B:          \
+    return orbital_phase<B>(rd, theta, cfg, G, N, out);
+    PT_FAMILIES(PT_CASE)
+#undef PT_CASE
+    default:
+      return 1;
+  }
+}
 
 // delay_chain.cu's delay_chain() on host memory, without aux and stream:
 // theta (G, P); dtheta null -> out (G, N) delay, else dtheta (G, K, P) ->

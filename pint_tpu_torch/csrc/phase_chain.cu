@@ -16,7 +16,7 @@
 //       pint_tpu/models/wave.py  Wave.phase;  ifunc.py  IFunc.phase
 // Its plain PyTorch version is the unfused composition on the CPU
 // (PhaseCalc.delay_plain, the shift, phase_frac_plain with
-// QSPhaseFrac's tangent rule); the wrapper is
+// QSPhaseFrac's word-level tangent rule); the wrapper is
 // pint_tpu_torch/kernels/phase_chain.py.
 //
 // Entry points (phase_chain.cuh has the row functions and the layout):
@@ -32,14 +32,17 @@
 // 12,500) that the shift's forward rule and QSPhaseFrac.jvp then pass
 // over, one elementwise launch per term.  Fused, the delay and its
 // tangents stay in registers: the primal launch writes frac, slope and
-// dt64, the tangent launch reads slope and dt64 and writes d frac only.
+// dt64, the tangent launch recomputes the row's quad-single words with
+// their lanes' tangents and writes d frac only.
 //
 // What bounds it.  The primal launch does the delay row (~350-400
 // float64 and ~590 float32 operations per row, K4) and the phase row
 // (~2.3k float32, K3) per (theta set, row) against ~140 bytes of row
-// data: operations.  The tangent launch is K4's tangent launch plus
-// ~4K + 4 float64 operations and 8 bytes written per lane and row:
-// operations at the tens of lanes of a fit's jacfwd.  The phase family
+// data: operations.  The tangent launch is K4's tangent launch plus the
+// phase row again over float32 words that carry each lane's tangent
+// (qs.cuh F32N<L>: the row's ~2.3k float32 operations once, and as many
+// again for each lane) and 8 bytes written per lane and row: operations
+// at the tens of lanes of a fit's jacfwd.  The phase family
 // adds per row ~15 float64 operations and an exp per glitch, ~10 per
 // group, a sincos and ~8 per WAVE harmonic and a bisection over the IFUNC
 // points (its constants read from a buffer that every row shares):
@@ -50,8 +53,13 @@
 // the row-independent spin terms in shared memory; the tangent one
 // thread per (theta set, row, block of L lanes) over DualN<L>, one block
 // per (theta set, lane block, 64 rows) staging theta[g] and its L dtheta
-// rows in shared memory.  L = 1 is the single-lane Dual kernel, kept as
-// the reference the others are held bit-equal to.
+// rows in shared memory, and the spin terms as the primal does.  L = 1 is
+// the single-lane Dual kernel, kept as the reference the others are held
+// bit-equal to.  The tangent launch reads nothing the primal wrote: it
+// forms the shift with its lanes and the phase row's words again, and
+// pint_tpu's word-level tangent from them (a young pulsar's F1 makes
+// that tangent the float32 rounding of the instantaneous frequency, not
+// linear in the shift's, so no float64 slope of the primal's meets it).
 //
 // Built with --fmad=false, as qs.cuh requires, and never --use_fast_math.
 
@@ -119,21 +127,36 @@ __global__ void phase_chain_primal(RowDataOf<BIN> rd, PhaseData ph,
   }
 }
 
-// the tangent launch's per-row inputs from the primal, and d other
+// d other by strides, for the tangent launch
 struct TangentData {
-  const double* __restrict__ slope;   // (G, N)
-  const double* __restrict__ dt64;    // (G, N)
   const double* __restrict__ dother;  // (G, K, N) by strides, or null
   int64_t dother_sg, dother_sk;
 };
 
+// the phase's row inputs of theta set g, row n
+__device__ __forceinline__ ptphasechain::PhaseRowIn phase_in(
+    const PhaseData& ph, const PhaseCfg& pc, int64_t g, int64_t n) {
+  return {ph.pep_day[0],
+          ph.pep_w,
+          ph.tzr_w,
+          pc.mode,
+          pc.mode == ptphase::kPulseNumbers ? ph.pulse_number[n] : 0.0,
+          ph.other != nullptr,
+          ph.other != nullptr ? ph.other[g * ph.other_sg + n] : 0.0};
+}
+
 template <int BIN>
-__global__ void phase_chain_tangent(RowDataOf<BIN> rd, TangentData td,
+__global__ void phase_chain_tangent(RowDataOf<BIN> rd, PhaseData ph,
+                                    TangentData td,
                                     const double* __restrict__ theta,
                                     const double* __restrict__ dtheta,
                                     CfgOf<BIN> c, PhaseCfg pc, int K,
                                     int64_t G, int64_t N,
                                     double* __restrict__ tangent) {
+  __shared__ SpinTerms spin;
+  if ((int)threadIdx.x <= pc.K)
+    ptphase::spin_term(spin, ph.f_w, pc.K, threadIdx.x);
+  __syncthreads();
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= G * K * N) return;
   const int64_t gk = row / N;
@@ -142,8 +165,7 @@ __global__ void phase_chain_tangent(RowDataOf<BIN> rd, TangentData td,
   const Theta<Dual> th{theta + g * pc.P, dtheta + gk * pc.P};
   tangent[row] =
       ptphasechain::tangent_row<BIN, Dual>(
-          c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
-          td.dt64 + g * N + n,
+          c, pc, th, load_row_of<BIN>(rd, n), spin, phase_in(ph, pc, g, n),
           td.dother != nullptr
               ? td.dother + g * td.dother_sg + k * td.dother_sk + n
               : nullptr,
@@ -159,13 +181,18 @@ constexpr int kMinBlocks = L == 4 ? 8 : 1;
 
 template <int BIN, int L>
 __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
-    phase_chain_tangent_lanes(RowDataOf<BIN> rd, TangentData td,
+    phase_chain_tangent_lanes(RowDataOf<BIN> rd, PhaseData ph,
+                              TangentData td,
                               const double* __restrict__ theta,
                               const double* __restrict__ dtheta, CfgOf<BIN> c,
                               PhaseCfg pc, int K, int64_t N,
                               double* __restrict__ tangent) {
-  // theta[g] (P), then the block's L tangent rows (L, P), zero past K
+  // theta[g] (P), then the block's L tangent rows (L, P), zero past K;
+  // and the spin terms
   extern __shared__ double sh[];
+  __shared__ SpinTerms spin;
+  if ((int)threadIdx.x <= pc.K)
+    ptphase::spin_term(spin, ph.f_w, pc.K, threadIdx.x);
   const int P = pc.P;
   const int64_t g = blockIdx.z;
   const int k0 = blockIdx.y * L;
@@ -186,8 +213,7 @@ __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
   const Theta<DualN<L>> th{sh, sh + P, P};
   const ptphasechain::LaneOut<L> t =
       ptphasechain::tangent_row<BIN, DualN<L>>(
-          c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
-          td.dt64 + g * N + n,
+          c, pc, th, load_row_of<BIN>(rd, n), spin, phase_in(ph, pc, g, n),
           td.dother != nullptr
               ? td.dother + g * td.dother_sg + k0 * td.dother_sk + n
               : nullptr,
@@ -198,7 +224,8 @@ __global__ void __launch_bounds__(kTangentThreads, kMinBlocks<L>)
 }
 
 template <int BIN, int L>
-cudaError_t launch_lanes(const RowDataOf<BIN>& rd, const TangentData& td,
+cudaError_t launch_lanes(const RowDataOf<BIN>& rd, const PhaseData& ph,
+                         const TangentData& td,
                          const double* theta, const double* dtheta,
                          const CfgOf<BIN>& c, const PhaseCfg& pc, int K,
                          int64_t G, int64_t N, double* out,
@@ -214,8 +241,8 @@ cudaError_t launch_lanes(const RowDataOf<BIN>& rd, const TangentData& td,
   }
   const dim3 blocks((unsigned)((N + kTangentThreads - 1) / kTangentThreads),
                     (unsigned)lane_blocks, (unsigned)G);
-  kernel<<<blocks, kTangentThreads, smem, stream>>>(rd, td, theta, dtheta, c,
-                                                    pc, K, N, out);
+  kernel<<<blocks, kTangentThreads, smem, stream>>>(rd, ph, td, theta,
+                                                    dtheta, c, pc, K, N, out);
   return cudaSuccess;
 }
 
@@ -238,15 +265,15 @@ cudaError_t launch(const RowDataOf<BIN>& rd, const PhaseData& ph,
       const unsigned blocks =
           (unsigned)((G * K * N + threads - 1) / threads);
       phase_chain_tangent<BIN><<<blocks, threads, 0, stream>>>(
-          rd, td, theta, dtheta, c, pc, K, G, N, out);
+          rd, ph, td, theta, dtheta, c, pc, K, G, N, out);
       return cudaSuccess;
     }
     case 2:
-      return launch_lanes<BIN, 2>(rd, td, theta, dtheta, c, pc, K, G, N, out,
-                                  stream);
+      return launch_lanes<BIN, 2>(rd, ph, td, theta, dtheta, c, pc, K, G, N,
+                                  out, stream);
     case 4:
-      return launch_lanes<BIN, 4>(rd, td, theta, dtheta, c, pc, K, G, N, out,
-                                  stream);
+      return launch_lanes<BIN, 4>(rd, ph, td, theta, dtheta, c, pc, K, G, N,
+                                  out, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -278,9 +305,9 @@ cudaError_t launch_part(const PhRowData& rd, const PhaseData& ph,
 // (rows of theta set g at other + g * other_sg) and `tzr_w` may be null,
 // `pulse_number` is read in mode kPulseNumbers only.  With dtheta (G, K,
 // P) the tangent: `out` receives the (G, K, N) d frac, each thread
-// carrying `lpt` lanes (1, 2 or 4), from the primal's `slope_in` and
-// `dt64_in` and, if not null, d other at dother + g * dother_sg + k *
-// dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx, tropo, planets
+// carrying `lpt` lanes (1, 2 or 4), from the row's words recomputed with
+// their tangents, `other` as the primal's and, if not null, d other at
+// dother + g * dother_sg + k * dother_sk + n.  dmx, jbits, swx, fdmbits, fdjbits, cmx, tropo, planets
 // and btpiece as delay_chain.cu takes them; pwbits (N,) the rows'
 // PiecewiseSpindown groups (or null: none) and fconst the phase family's
 // constants (PhCfg), read by the template values with kPhaseFamily.
@@ -295,8 +322,8 @@ extern "C" int phase_chain(
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const int32_t* pwbits, const double* fconst,
     const double* theta, const double* dtheta,
-    const double* other, const double* dother, const double* slope_in,
-    const double* dt64_in, double* out, float* words, double* slope,
+    const double* other, const double* dother, double* out, float* words,
+    double* slope,
     double* dt64, PhCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt,
     void* stream) {
@@ -315,8 +342,10 @@ extern "C" int phase_chain(
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
       !ptchain::rows_cover(cfg, rd) ||
       !ptphasechain::family_fits(cfg, pc) ||
-      (tangent && (K < 1 || K > INT32_MAX || slope_in == nullptr ||
-                   dt64_in == nullptr || out == nullptr)) ||
+      (tangent && (K < 1 || K > INT32_MAX || out == nullptr ||
+                   pc.mode == ptphase::kWords ||
+                   (pc.mode == ptphase::kPulseNumbers &&
+                    pulse_number == nullptr))) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
                     (pc.mode == ptphase::kWords ? words == nullptr
                                                 : out == nullptr) ||
@@ -325,7 +354,7 @@ extern "C" int phase_chain(
     return (int)cudaErrorInvalidValue;
   const PhaseData ph{pulse_number, pep_day, pep_w, f_w, tzr_w, other,
                      other_sg};
-  const TangentData td{slope_in, dt64_in, dother, dother_sg, dother_sk};
+  const TangentData td{dother, dother_sg, dother_sk};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (ptchain::kernel_family(cfg)) {

@@ -12,11 +12,15 @@
 //   delay   = delay_row(theta)                         (K4's row function)
 //   shift   = (-delay) - (dPEPOCH * 86400)            (Spindown.kernel_inputs)
 //   phase   = phase_row(shift, dF, other, TZR, mode)  (K3's row function)
-// and, per tangent lane, QSPhaseFrac.jvp's arithmetic in its order on the
-// delay's tangent (DualN<L> or Dual) and the primal's slope and dt64:
-//   dshift  = (-d delay) - (d dPEPOCH * 86400)
-//   dfrac   = ((0 + slope dshift) + sum_k pk d dF_k) [+ d other],
-//             pk = dt^{k+1} / (k+1)! formed as pk <- pk dt64 / (k + 2).
+// and, per tangent lane, the word-level tangent of QSPhaseFrac.jvp
+// (pint_tpu_torch.models.spindown.phase_frac_jvp) on the delay's tangent
+// (DualN<L> or Dual): the shift with its lanes,
+//   shift   = (-delay) - (dPEPOCH * 86400),
+// then qs_phase.cuh phase_row_tangent, the phase row again over float32
+// words that carry the lanes' tangents (qs.cuh F32N<L>), with the offsets
+// dF_k and `other` entering with their lanes as their values do.  The
+// tangent launch recomputes the row's words: it reads no output of the
+// primal launch.
 //
 // The template values that carry kPhaseFamily add, right after the delay,
 // the phase family: the phase components that read the delay (Glitch,
@@ -28,7 +32,7 @@
 // composition sums them, other = fam + other (kernels/phase_chain.py
 // _other_phase), in value and in each lane's tangent:
 //   fam     = (((0 + glitches) + groups) + waves) + ifunc
-//   dfrac   = ((0 + slope dshift) + sum_k pk d dF_k) + (d fam [+ d other]).
+//   d other = d fam [+ d other].
 //
 // Plain C++ under PT_HD, so that g++ builds it for the host as nvcc does
 // for the card; both without FMA contraction (qs.cuh).
@@ -40,6 +44,28 @@
 
 #include "delay_chain.cuh"
 #include "qs_phase.cuh"
+
+// the float64 counterpart of a word with L lanes: DualN<L>
+namespace ptqs {
+template <int L>
+struct Wide<F32N<L>> {
+  using type = ptchain::DualN<L>;
+  PT_HD static type of(const F32N<L>& w) {
+    type r;
+    r.v = (double)w.v;
+#pragma unroll
+    for (int l = 0; l < L; ++l) r.d[l] = (double)w.d[l];
+    return r;
+  }
+  PT_HD static F32N<L> narrow(const type& x) {
+    F32N<L> r;
+    r.v = (float)x.v;
+#pragma unroll
+    for (int l = 0; l < L; ++l) r.d[l] = (float)x.d[l];
+    return r;
+  }
+};
+}  // namespace ptqs
 
 namespace ptphasechain {
 
@@ -230,54 +256,73 @@ struct LaneOut {
   double d[L];
 };
 
-// One row's d frac along the lanes of T (the first `valid` of them):
-// *slope and *dt64 are the primal's at this row and theta set, read only
-// once the delay's tangents are formed (so that they are not live across
-// the delay row); dother, if not null, lane l's tangent of `other` at
-// dother[l * dother_sk].
+// a tangent number as DualN lanes (Dual is one lane)
+PT_HD DualN<1> as_lanes(const Dual& x) {
+  DualN<1> r;
+  r.v = x.v;
+  r.d[0] = x.d;
+  return r;
+}
+template <int L>
+PT_HD const DualN<L>& as_lanes(const DualN<L>& x) {
+  return x;
+}
+
+// the phase's row inputs that are not the delay chain's: PEPOCH, the TZR
+// words, the mode, the row's pulse number and the primal's `other`
+struct PhaseRowIn {
+  double pep_day;
+  const float* pep_w;
+  const float* tzr_w;
+  int mode;
+  double pn;
+  bool has_other;
+  double other;
+};
+
+// One row's d frac along the lanes of T (the first `valid` of them): the
+// delay's tangents (K4's row function over T), the shift, and
+// phase_row_tangent over words with the lanes' tangents; dother, if not
+// null, lane l's tangent of `other` at dother[l * dother_sk].
 template <int BIN, typename T>
 PT_HD LaneOut<Lanes<T>::L> tangent_row(const CfgOf<BIN>& c,
                                        const PhaseCfg& pc,
                                        const Theta<T>& th,
                                        const RowOf<BIN>& r,
-                                       const double* slope_p,
-                                       const double* dt64_p,
+                                       const SpinTerms& s,
+                                       const PhaseRowIn& in,
                                        const double* dother,
                                        int64_t dother_sk, int valid) {
-  using LT = Lanes<T>;
-  const T d = ptchain::delay_row<T, kDelayBin<BIN>>(c, th, r, nullptr);
-  T fam;
-  if constexpr ((BIN & ptchain::kPhaseFamily) != 0)
-    fam = phase_family_row<T, BIN>(c, th, r, d);
-  const double slope = *slope_p, dt64 = *dt64_p;
-  LaneOut<LT::L> o;
+  constexpr int L = Lanes<T>::L;
+  using D = DualN<L>;
+  using W = ptqs::F32N<L>;
+  const T delay = ptchain::delay_row<T, kDelayBin<BIN>>(c, th, r, nullptr);
+  const D d = as_lanes(delay);
+  bool has_other = in.has_other;
+  D other;
+  other.v = in.other;
 #pragma unroll
-  for (int l = 0; l < LT::L; ++l) {
-    const double dshift =
-        (-LT::d(d, l)) - (LT::dtheta(th, l, pc.o_pep) * kSecsPerDay);
-    o.d[l] = 0.0 + slope * dshift;
-  }
-  // each lane's terms in QSPhaseFrac.jvp's order; pk depends on the row
-  // alone, so it is formed once for the thread's lanes
-  double pk = dt64;
-  for (int k = 0; k < pc.K; ++k) {
-#pragma unroll
-    for (int l = 0; l < LT::L; ++l)
-      o.d[l] = o.d[l] + pk * LT::dtheta(th, l, pc.o_spin + k);
-    pk = pk * dt64 / (k + 2.0);
-  }
+  for (int l = 0; l < L; ++l)
+    other.d[l] = dother != nullptr && l < valid ? dother[l * dother_sk] : 0.0;
   if constexpr ((BIN & ptchain::kPhaseFamily) != 0) {
+    const D fam = as_lanes(phase_family_row<T, BIN>(c, th, r, delay));
+    D sum;
+    sum.v = has_other ? fam.v + in.other : fam.v;
 #pragma unroll
-    for (int l = 0; l < LT::L; ++l) {
-      double dfam = LT::d(fam, l);
-      if (dother != nullptr && l < valid) dfam = dfam + dother[l * dother_sk];
-      o.d[l] = o.d[l] + dfam;
-    }
-  } else if (dother != nullptr) {
-#pragma unroll
-    for (int l = 0; l < LT::L; ++l)
-      if (l < valid) o.d[l] = o.d[l] + dother[l * dother_sk];
+    for (int l = 0; l < L; ++l)
+      sum.d[l] = dother != nullptr && l < valid ? fam.d[l] + other.d[l]
+                                                : fam.d[l];
+    other = sum;
+    has_other = true;
   }
+  const D shift = (-d) - (as_lanes(th[pc.o_pep]) * kSecsPerDay);
+  const D frac = ptphase::phase_row_tangent<W>(
+      r.day, r.frac_w, in.pep_day, in.pep_w, s, pc.K,
+      [&](int k) { return as_lanes(th[pc.o_spin + k]); }, shift, has_other,
+      other, in.tzr_w, in.mode, in.pn);
+  LaneOut<L> o;
+#pragma unroll
+  for (int l = 0; l < L; ++l) o.d[l] = frac.d[l];
   return o;
 }
 

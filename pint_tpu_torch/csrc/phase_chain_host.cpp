@@ -36,16 +36,31 @@ using ptphase::SpinTerms;
 using ptphasechain::PhaseCfg;
 
 struct Tangent {
-  const double* slope;
-  const double* dt64;
+  const double* pulse_number;
+  const double* pep_day;
+  const float* pep_w;
+  const float* tzr_w;
+  const double* other;
+  int64_t other_sg;
   const double* dother;
   int64_t dother_sg, dother_sk;
+
+  ptphasechain::PhaseRowIn in(const PhaseCfg& pc, int64_t g,
+                              int64_t n) const {
+    return {pep_day[0],
+            pep_w,
+            tzr_w,
+            pc.mode,
+            pc.mode == ptphase::kPulseNumbers ? pulse_number[n] : 0.0,
+            other != nullptr,
+            other != nullptr ? other[g * other_sg + n] : 0.0};
+  }
 };
 
 template <int BIN, int L>
 void tangent_lanes(const PhRowData& rd, const Tangent& td,
-                   const double* theta, const double* dtheta,
-                   const PhCfg& c,
+                   const SpinTerms& spin, const double* theta,
+                   const double* dtheta, const PhCfg& c,
                    const PhaseCfg& pc, int64_t G, int64_t K, int64_t N,
                    double* out) {
   const int P = pc.P;
@@ -62,8 +77,7 @@ void tangent_lanes(const PhRowData& rd, const Tangent& td,
       for (int64_t n = 0; n < N; ++n) {
         const ptphasechain::LaneOut<L> t =
             ptphasechain::tangent_row<BIN, DualN<L>>(
-                c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
-                td.dt64 + g * N + n,
+                c, pc, th, load_row_of<BIN>(rd, n), spin, td.in(pc, g, n),
                 td.dother != nullptr
                     ? td.dother + g * td.dother_sg + k0 * td.dother_sk + n
                     : nullptr,
@@ -82,9 +96,9 @@ int run(const PhRowData& rd, const double* pulse_number,
         const PhaseCfg& pc, int64_t G, int64_t K, int64_t N, int lpt,
         double* out, float* words, double* slope, double* dt64) {
   const int P = pc.P;
+  SpinTerms spin;
+  for (int k = 0; k <= pc.K; ++k) ptphase::spin_term(spin, f_w, pc.K, k);
   if (dtheta == nullptr) {
-    SpinTerms spin;
-    for (int k = 0; k <= pc.K; ++k) ptphase::spin_term(spin, f_w, pc.K, k);
     for (int64_t g = 0; g < G; ++g)
       for (int64_t n = 0; n < N; ++n) {
         const int64_t row = g * N + n;
@@ -111,8 +125,7 @@ int run(const PhRowData& rd, const double* pulse_number,
         for (int64_t n = 0; n < N; ++n)
           out[gk * N + n] =
               ptphasechain::tangent_row<BIN, Dual>(
-                  c, pc, th, load_row_of<BIN>(rd, n), td.slope + g * N + n,
-                  td.dt64 + g * N + n,
+                  c, pc, th, load_row_of<BIN>(rd, n), spin, td.in(pc, g, n),
                   td.dother != nullptr
                       ? td.dother + g * td.dother_sg + k * td.dother_sk + n
                       : nullptr,
@@ -121,10 +134,12 @@ int run(const PhRowData& rd, const double* pulse_number,
       }
       return 0;
     case 2:
-      tangent_lanes<BIN, 2>(rd, td, theta, dtheta, c, pc, G, K, N, out);
+      tangent_lanes<BIN, 2>(rd, td, spin, theta, dtheta, c, pc, G, K, N,
+                           out);
       return 0;
     case 4:
-      tangent_lanes<BIN, 4>(rd, td, theta, dtheta, c, pc, G, K, N, out);
+      tangent_lanes<BIN, 4>(rd, td, spin, theta, dtheta, c, pc, G, K, N,
+                           out);
       return 0;
     default:
       return 1;
@@ -145,8 +160,8 @@ extern "C" int phase_chain_host(
     const double* pep_day, const float* pep_w, const float* f_w,
     const float* tzr_w, const int32_t* pwbits, const double* fconst,
     const double* theta, const double* dtheta,
-    const double* other, const double* dother, const double* slope_in,
-    const double* dt64_in, double* out, float* words, double* slope,
+    const double* other, const double* dother, double* out, float* words,
+    double* slope,
     double* dt64, PhCfg cfg, PhaseCfg pc, int64_t G, int64_t K, int64_t N,
     int64_t other_sg, int64_t dother_sg, int64_t dother_sk, int lpt) {
   const bool tangent = dtheta != nullptr;
@@ -164,15 +179,17 @@ extern "C" int phase_chain_host(
       pc.o_pep >= pc.P || pc.mode < 0 || pc.mode > 2 ||
       !ptchain::rows_cover(cfg, rd) ||
       !ptphasechain::family_fits(cfg, pc) ||
-      (tangent && (K < 1 || slope_in == nullptr || dt64_in == nullptr ||
-                   out == nullptr)) ||
+      (tangent && (K < 1 || out == nullptr || pc.mode == ptphase::kWords ||
+                   (pc.mode == ptphase::kPulseNumbers &&
+                    pulse_number == nullptr))) ||
       (!tangent && (slope == nullptr || dt64 == nullptr ||
                     (pc.mode == ptphase::kWords ? words == nullptr
                                                 : out == nullptr) ||
                     (pc.mode == ptphase::kPulseNumbers &&
                      pulse_number == nullptr))))
     return 1;
-  const Tangent td{slope_in, dt64_in, dother, dother_sg, dother_sk};
+  const Tangent td{pulse_number, pep_day, pep_w, tzr_w, other,
+                   other_sg,     dother,  dother_sg, dother_sk};
   switch (ptchain::kernel_family(cfg)) {
 #define PT_CASE(B)                                                          \
   case B:                                                                   \

@@ -17,10 +17,12 @@
 //   mode 0: to_f64(round_nearest(total).frac)
 //   mode 1: to_f64(total - from_f64(pulse_number))
 //   mode 2: the four words of total
-// plus, in float64, dt64 and slope = d frac / d shift as pint_tpu's
-// word-level autodiff gives it: the secant frequency sum_k F_k dt^k/(k+1)!
-// of the F words plus the exact derivative sum_k dF_k dt^k/k! of the
-// offsets' term.  The wrappers' tangent rules read both.
+// plus, in float64, dt64 and slope = sum_k F_k dt^k/(k+1)! of the F words
+// (the secant frequency) plus sum_k dF_k dt^k/k! of the offsets' term:
+// pint_tpu's word-level tangent d frac / d shift on a millisecond
+// pulsar, kept as an output for the card's checks.  The tangent itself
+// is phase_row_tangent: the same operations over words that carry their
+// forward-mode lanes.
 //
 // What does not depend on the row is formed once, by spin_terms, into a
 // SpinTerms that a kernel keeps in shared memory: the Taylor coefficients
@@ -135,6 +137,50 @@ PT_HD PhaseOut phase_row(int64_t tdb_day, const float* frac_w,
 #pragma unroll
   for (int i = 0; i < 4; ++i) o.words[i] = total.w[i];
   return o;
+}
+
+// One row's tangent of the phase (mode kNearest or kPulseNumbers) as
+// pint_tpu's word-level forward mode forms it: phase_row's quad-single
+// operations, in its order, over words W that carry their lanes'
+// float32 tangents (qs.cuh F32N), and the offsets' float64 Taylor term
+// over W's float64 counterpart D.  The shift, each offset (dF(k)) and
+// `other` enter with their float64 lanes through from_f64, as their
+// values do.  Returns frac (or the phase less the pulse number) as a D:
+// its lanes are d frac.  On a young pulsar this is the float32 rounding
+// of the instantaneous frequency (not linear in d shift); on a
+// millisecond pulsar the primal's slope times d shift, up to the words'
+// last bits.
+template <typename W, typename DFn>
+PT_HD typename ptqs::Wide<W>::type phase_row_tangent(
+    int64_t tdb_day, const float* frac_w, double pep_day, const float* pep_w,
+    const SpinTerms& s, int K, DFn dF,
+    const typename ptqs::Wide<W>::type& shift, bool has_other,
+    const typename ptqs::Wide<W>::type& other, const float* tzr_w, int mode,
+    double pn) {
+  using D = typename ptqs::Wide<W>::type;
+  using ptqs::lift;
+  using ptqs::QSW;
+  const QSW<W> dt = ptqs::qs_add(
+      lift<W>(ptqs::dt_days_seconds_qs(tdb_day, frac_w, pep_day, pep_w)),
+      ptqs::qs_from_f64<W>(shift));
+  const D dt64 = ptqs::qs_to_f64(dt);
+  QSW<W> acc = lift<W>(s.coef[K]);
+  for (int k = K - 1; k >= 0; --k)
+    acc = ptqs::qs_add(ptqs::qs_mul(acc, dt), lift<W>(s.coef[k]));
+  D th = 0.0 * dt64;
+  for (int k = K; k >= 1; --k) th = th * dt64 / (k + 1.0) + dF(k - 1);
+  th = th * dt64 / 1.0 + 0.0;
+  acc = ptqs::qs_add(acc, ptqs::qs_from_f64<W>(th));
+  QSW<W> total = ptqs::qs_add(lift<W>(QS{{0.0f, 0.0f, 0.0f, 0.0f}}), acc);
+  if (has_other) total = ptqs::qs_add(total, ptqs::qs_from_f64<W>(other));
+  if (tzr_w != nullptr)
+    total = ptqs::qs_add(total, lift<W>(ptqs::qs_neg(
+                                    QS{{tzr_w[0], tzr_w[1], tzr_w[2],
+                                        tzr_w[3]}})));
+  if (mode == kNearest) return ptqs::qs_to_f64(ptqs::qs_round_frac(total));
+  total = ptqs::qs_add(total, lift<W>(ptqs::qs_neg(ptqs::qs_from_f64(
+                                  isnan(pn) ? 0.0 : pn))));
+  return ptqs::qs_to_f64(total);
 }
 
 }  // namespace ptphase

@@ -688,6 +688,9 @@ def _lib(layout: "ChainLayout"):
     lib.delay_chain.argtypes = [_c_void_p] * (len(ROWS) + 4) + [
         ChainCfg, _c_int64, _c_int64, _c_int64, ctypes.c_int, _c_void_p]
     lib.delay_chain.restype = ctypes.c_int
+    lib.delay_chain_orbital_phase.argtypes = [_c_void_p] * (
+        len(ROWS) + 2) + [ChainCfg, _c_int64, _c_int64, _c_void_p]
+    lib.delay_chain_orbital_phase.restype = ctypes.c_int
     lib.delay_chain_error_string.argtypes = [ctypes.c_int]
     lib.delay_chain_error_string.restype = ctypes.c_char_p
     lib._argtypes_set = True
@@ -938,6 +941,75 @@ def delay_chain(calc, p: dict, batch) -> torch.Tensor:
     layout = calc.chain_layout
     return DelayChain.apply(layout.theta(p), layout,
                             *row_inputs(layout, p, batch))
+
+
+class OrbitalPhase:
+    """The orbital-phase entry of the delay kernel
+    (``delay_chain_orbital_phase``): the chain up to the binary and its
+    orbit, no tangent."""
+
+    #: orbital-phase kernel launches in this process
+    launches = 0
+
+
+def orbital_phase_launch(layout: ChainLayout, theta, rows) -> torch.Tensor:
+    """One orbital-phase launch on CUDA ``theta`` (..., P): the (..., N)
+    fractional orbital phase of ``layout``'s binary."""
+    if layout.cfg[1] == NO_BINARY:
+        raise ValueError("orbital_phase requires a binary model (no BINARY "
+                         "in the par file)")
+    dev = theta.device
+    N = _check_rows(rows, dev)
+    lead = theta.shape[:-1]
+    if theta.dtype != F64 or theta.shape[-1] != layout.P:
+        raise ValueError(f"delay_chain: theta must be float64 (..., "
+                         f"{layout.P}), got {tuple(theta.shape)}")
+    G = math.prod(lead)
+    out = torch.empty((*lead, N), dtype=F64, device=dev)
+    if G == 0:
+        return out
+    theta = theta.detach().contiguous()
+    rows = [t.contiguous() for t in rows]
+    lib = _lib(layout)
+    err = lib.delay_chain_orbital_phase(
+        *[_ptr(t) for t in rows], theta.data_ptr(), out.data_ptr(),
+        layout.ctypes_cfg(), G, N, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("delay_chain orbital-phase launch failed: "
+                           + lib.delay_chain_error_string(err).decode())
+    OrbitalPhase.launches += 1
+    return out
+
+
+def orbital_phase(calc, p: dict, batch) -> torch.Tensor:
+    """The (N,) fractional orbital phase in [0, 1) of ``calc``'s binary
+    (:meth:`pint_tpu_torch.models.timing_model.TimingModel.orbital_phase`):
+    the kernel's orbital-phase entry on a CUDA batch, the plain version
+    (the delay before the binary, then the binary's ``orbital_phase``) on
+    a CPU batch.  No tangent."""
+    binary = [c for c in calc.delay_components
+              if c.category == "pulsar_system"]
+    if not binary:
+        raise ValueError("orbital_phase requires a binary model (no BINARY "
+                         "in the par file)")
+    if batch.device.type == "cpu":
+        d = calc.delay_plain(p, batch, upto="pulsar_system")
+        return binary[0].orbital_phase(p, batch, d)
+    if batch.device.type != "cuda":
+        raise ValueError(f"delay_chain: unsupported device {batch.device}")
+    return orbital_phase_kernel(calc, p, batch)
+
+
+def orbital_phase_kernel(calc, p: dict, batch) -> torch.Tensor:
+    """One launch of the orbital-phase entry for ``calc``'s layout on
+    ``batch``'s rows."""
+    layout = calc.chain_layout
+    with torch.no_grad():
+        # θ without the layout's ``prepare``: DDGR's orbit reads the par's
+        # PBDOT, not its derived one, as the binary's orbital_phase does
+        theta = slot_values(layout.consts, layout.deltas, p)
+        return orbital_phase_launch(layout, theta,
+                                    row_inputs(layout, p, batch))
 
 
 def delay_chain_aux(calc, p: dict, batch):

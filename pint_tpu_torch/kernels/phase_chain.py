@@ -24,17 +24,14 @@ constants in a small buffer and each TOA's PiecewiseSpindown groups in
 a bit word); ``other``, the float64 phase of the other components after
 the Spindown (the phase JUMPs, PHOFF), and its tangent are row inputs.
 :class:`PhaseChain` makes it differentiable in forward mode: ``jvp`` is
-one tangent launch, which reads the primal's
-``slope`` and ``dt64`` and forms each lane's d frac in the order of
-``QSPhaseFrac.jvp`` applied to the shift's forward rule,
-
-    d frac = (0 + slope · d shift) + Σ_k dt^{k+1}/(k+1)! · d δF_k [+ d other],
-    d shift = (-d delay) - d δPEPOCH · 86400,
-
-with ``other`` the phase family's sum and the components' in PyTorch
-(:func:`_other_phase`),
-
-so that it is bit-equal to the unfused chain (K4's tangent launch, the
+one tangent launch, which recomputes each row's delay with its lanes'
+tangents, the shift ``(-delay) - δPEPOCH·86400`` and the quad-single
+phase row over float32 words that carry each lane's tangent: pint_tpu's
+word-level tangent (``QSPhaseFrac.jvp``,
+:func:`~pint_tpu_torch.models.spindown.phase_frac_jvp`), with ``other``
+(the phase family's sum and the components' in PyTorch,
+:func:`_other_phase`) and its tangent entering as its value does; so
+that it is bit-equal to the unfused chain (K4's tangent launch, the
 shift's rule, QSPhaseFrac.jvp) up to the sign of a zero.  The ``vmap``
 rules fold a batch of tangents of one θ into the launch's lane axis and a
 batch of θ into its θ-set axis: a ``vmap`` over grid points of a
@@ -279,8 +276,8 @@ class PhaseChainSpec:
 CONSTS = ("pulse_number", "pep_day", "pep_w", "f_w", "tzr_w", "pw_bits",
           "fconst")
 #: the pointers the C entry point takes: the rows, CONSTS, theta, dtheta,
-#: other, dother, the primal's slope and dt64, and the four outputs
-N_POINTERS = len(dc.ROWS) + len(CONSTS) + 10
+#: other, dother and the four outputs
+N_POINTERS = len(dc.ROWS) + len(CONSTS) + 8
 
 
 def _lib(spec: "PhaseChainSpec"):
@@ -346,12 +343,12 @@ def _rows_of(x, lead, tail, name, dev):
 
 
 def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
-            slope=None, dt64=None, dother=None, lanes: Optional[int] = None):
-    """One launch on ``theta`` (..., P): the primal ``(out, slope, dt64)``
-    with ``out`` the (..., N) phase or the (..., N, 4) words; or, with
-    ``dtheta`` (..., K, P), the primal's ``slope`` and ``dt64`` and
-    ``dother`` (..., K, N) or None, the (..., K, N) d frac of the K
-    lanes, each thread carrying ``lanes`` of them (by default
+            dother=None, lanes: Optional[int] = None):
+    """One launch on ``theta`` (..., P) and ``other`` (..., N) or None:
+    the primal ``(out, slope, dt64)`` with ``out`` the (..., N) phase or
+    the (..., N, 4) words; or, with ``dtheta`` (..., K, P) and ``dother``
+    (..., K, N) or None, the (..., K, N) d frac of the K lanes, each
+    thread carrying ``lanes`` of them (by default
     :func:`delay_chain.lanes_per_thread`)."""
     dev = theta.device
     rows, consts = list(tensors[:len(dc.ROWS)]), tensors[len(dc.ROWS):]
@@ -376,8 +373,8 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
     consts = [None if t is None else t.contiguous() for t in consts]
     cfg, pcfg = spec.chain_cfg(), spec.ctypes_cfg()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    other, other_sg = _rows_of(other, lead, (N,), "other", dev)
     if dtheta is None:
-        other, other_sg = _rows_of(other, lead, (N,), "other", dev)
         words = spec.mode == "words"
         out = torch.empty((*lead, N, 4) if words else (*lead, N),
                           dtype=F32 if words else F64, device=dev)
@@ -387,7 +384,7 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
             return out, slope, dt64
         err = _lib(spec).phase_chain(
             *[_ptr(t) for t in rows + consts], theta.data_ptr(), None,
-            _ptr(other), None, None, None, None if words else out.data_ptr(),
+            _ptr(other), None, None if words else out.data_ptr(),
             out.data_ptr() if words else None, slope.data_ptr(),
             dt64.data_ptr(), cfg, pcfg, G, 0, N, other_sg, 0, 0, 0, stream)
         _raise(spec, err)
@@ -401,12 +398,8 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
     if lanes not in dc.KERNEL_LANES:
         raise ValueError(f"phase_chain: lanes per thread must be one of "
                          f"{dc.KERNEL_LANES}, got {lanes}")
-    pair = []
-    for name, t in (("slope", slope), ("dt64", dt64)):
-        if t is None or t.dtype != F64 or t.device != dev:
-            raise ValueError(f"phase_chain: the tangent launch needs the "
-                             f"primal's float64 {name} on {dev}")
-        pair.append(t.expand(*lead, N).contiguous())
+    if spec.mode == "words":
+        raise ValueError("phase_chain: the words mode carries no tangent")
     dother, dother_sg = _rows_of(dother, lead, (K, N), "dother", dev)
     dtheta = dtheta.contiguous()
     out = torch.empty((*lead, K, N), dtype=F64, device=dev)
@@ -414,9 +407,9 @@ def _launch(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
         return out
     err = _lib(spec).phase_chain(
         *[_ptr(t) for t in rows + consts], theta.data_ptr(),
-        dtheta.data_ptr(), None, _ptr(dother), pair[0].data_ptr(),
-        pair[1].data_ptr(), out.data_ptr(), None, None, None, cfg, pcfg, G,
-        K, N, 0, dother_sg, N, lanes, stream)
+        dtheta.data_ptr(), _ptr(other), _ptr(dother), out.data_ptr(), None,
+        None, None, cfg, pcfg, G, K, N, other_sg, dother_sg, N, lanes,
+        stream)
     _raise(spec, err)
     PhaseChainTangent.launches += 1
     if spec.family is not None:
@@ -445,11 +438,11 @@ def _raise(spec: PhaseChainSpec, err: int) -> None:
 
 
 def run(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
-        slope=None, dt64=None, dother=None, lanes: Optional[int] = None):
+        dother=None, lanes: Optional[int] = None):
     """The kernel on CUDA tensors; an error on anything else (the plain
     composition is :func:`unfused`, which :func:`phase_frac` takes for
     a CPU batch)."""
-    for t in (theta, other, dtheta, slope, dt64, dother, *tensors):
+    for t in (theta, other, dtheta, dother, *tensors):
         if t is not None and \
                 torch._C._functorch.is_functorch_wrapped_tensor(t):
             raise TypeError(
@@ -460,8 +453,7 @@ def run(spec: PhaseChainSpec, theta, other, tensors, dtheta=None,
             f"phase_chain: the kernel runs on CUDA tensors, not "
             f"{theta.device}; PhaseCalc.phase_frac takes the plain "
             "composition on the CPU")
-    return _launch(spec, theta, other, tensors, dtheta, slope, dt64, dother,
-                   lanes)
+    return _launch(spec, theta, other, tensors, dtheta, dother, lanes)
 
 
 def _front(x, d, B):
@@ -488,21 +480,21 @@ def _lanes_front(x, d, B):
 def _no_batched_tensors(in_dims):
     if any(d is not None for d in in_dims):
         raise NotImplementedError(
-            "phase_chain: only theta, other and their tangents (and the "
-            "primal's slope and dt64) may carry a vmap axis")
+            "phase_chain: only theta, other and their tangents may carry a "
+            "vmap axis")
 
 
 class PhaseChainTangent(torch.autograd.Function):
-    """``(theta (..., P), dtheta (..., K, P), slope, dt64 (..., N), dother
-    (..., K, N) or None, spec, *tensors) -> (..., K, N)`` d frac along the
-    K lanes of ``dtheta``: the kernel's tangent launch."""
+    """``(theta (..., P), dtheta (..., K, P), other (..., N) or None,
+    dother (..., K, N) or None, spec, *tensors) -> (..., K, N)`` d frac
+    along the K lanes of ``dtheta``: the kernel's tangent launch."""
 
     #: tangent kernel launches in this process
     launches = 0
 
     @staticmethod
-    def forward(theta, dtheta, slope, dt64, dother, spec, *tensors):
-        return run(spec, theta, None, tensors, dtheta, slope, dt64, dother)
+    def forward(theta, dtheta, other, dother, spec, *tensors):
+        return run(spec, theta, other, tensors, dtheta, dother)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -513,25 +505,25 @@ class PhaseChainTangent(torch.autograd.Function):
         raise NotImplementedError("phase_chain has no reverse mode")
 
     @staticmethod
-    def vmap(info, in_dims, theta, dtheta, slope, dt64, dother, spec,
-             *tensors):
-        _no_batched_tensors(in_dims[6:])
+    def vmap(info, in_dims, theta, dtheta, other, dother, spec, *tensors):
+        _no_batched_tensors(in_dims[5:])
         B = info.batch_size
-        td, dd, sd, ed, od = in_dims[:5]
-        if td is None and sd is None and ed is None:
+        td, dd, od, dod = in_dims[:4]
+        if td is None and od is None:
             # tangents of one θ (jacfwd lanes): more lanes of each θ set
             d = _lanes_front(dtheta, dd, B)             # (..., B, K, P)
             K = d.shape[-2]
             o = None if dother is None else \
-                _lanes_front(dother, od, B).flatten(-3, -2)
-            out = PhaseChainTangent.apply(theta, d.flatten(-3, -2), slope,
-                                          dt64, o, spec, *tensors)
+                _lanes_front(dother, dod, B).flatten(-3, -2)
+            out = PhaseChainTangent.apply(theta, d.flatten(-3, -2), other, o,
+                                          spec, *tensors)
             out = out.unflatten(-2, (B, K))             # (..., B, K, N)
             return out, out.dim() - 3
         # a batch of θ (grid points): more θ sets, each with its lanes
         return PhaseChainTangent.apply(
-            _front(theta, td, B), _front(dtheta, dd, B), _front(slope, sd, B),
-            _front(dt64, ed, B), _rows_front(dother, od), spec, *tensors), 0
+            _front(theta, td, B), _front(dtheta, dd, B),
+            _rows_front(other, od), _rows_front(dother, dod), spec,
+            *tensors), 0
 
 
 class PhaseChain(torch.autograd.Function):
@@ -553,26 +545,26 @@ class PhaseChain(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        theta, _, spec, *tensors = inputs
+        theta, other, spec, *tensors = inputs
         _, slope, dt64 = output
         ctx.mark_non_differentiable(slope, dt64)
         ctx.spec = spec
-        ctx.present = [t is not None for t in tensors]
-        ctx.save_for_forward(theta, slope, dt64,
-                             *[t for t in tensors if t is not None])
+        ctx.present = [t is not None for t in [other, *tensors]]
+        ctx.save_for_forward(theta,
+                             *[t for t in [other, *tensors] if t is not None])
 
     @staticmethod
     def jvp(ctx, dtheta, dother, _spec, *_tensors):
         if ctx.spec.mode == "words":
             raise NotImplementedError(
                 "phase_chain: the words mode carries no tangent")
-        theta, slope, dt64, *given = ctx.saved_tensors
+        theta, *given = ctx.saved_tensors
         it = iter(given)
-        tensors = [next(it) if p else None for p in ctx.present]
+        other, *tensors = [next(it) if p else None for p in ctx.present]
         if dtheta is None:
             dtheta = torch.zeros_like(theta)
         d = PhaseChainTangent.apply(
-            theta, dtheta.unsqueeze(-2), slope, dt64,
+            theta, dtheta.unsqueeze(-2), other,
             None if dother is None else dother.unsqueeze(-2), ctx.spec,
             *tensors)
         return d.squeeze(-2), None, None

@@ -9,23 +9,23 @@ kernel (or raise); tensors on the CPU run its plain version,
 fallback from one to the other.
 
 :class:`QSPhaseFrac` makes it a differentiable operation for
-``torch.func``: forward mode through an analytic float64 tangent rule,
+``torch.func``: forward mode through pint_tpu's word-level tangent
+(:func:`pint_tpu_torch.models.spindown.phase_frac_jvp`: each float64
+tangent enters the quad-single words where its value does and every word
+operation carries its float32 tangent, in eager PyTorch on the inputs'
+device), and a ``vmap`` rule that folds batched grid points into the
+kernel's row axis, so ``torch.func.vmap`` over a grid still makes one
+launch.  The kernel runs once per primal evaluation however many tangent
+lanes ``torch.func.jacfwd`` pushes through the rule.  This unfused chain
+is the card's reference for the fused ``phase_chain`` kernel, whose
+tangent launch forms the same words lane by lane.
 
-    d frac = slope · d shift + Σ_k dt^{k+1}/(k+1)! · d δF_k + d other,
-    slope  = Σ_k F_k dt^k/(k+1)! + Σ_k δF_k dt^k/k!
-
-(``slope`` and ``dt`` are returned by the kernel), and a
-``vmap`` rule that folds batched grid points into the kernel's row axis,
-so ``torch.func.vmap`` over a grid still makes one launch.  The forward
-runs once per primal evaluation however many tangent lanes
-``torch.func.jacfwd`` pushes through the rule.
-
-``slope`` is pint_tpu's tangent, not the exact derivative
-Σ_k (F_k + δF_k) dt^k/k!: :mod:`pint_tpu` differentiates the
-quad-single Taylor sum word by word, and that tangent is the *secant*
-frequency Φ(dt)/dt = Σ_k F_k dt^k/(k+1)! of the reference values, while
-the float64 term of the fit offsets δF differentiates exactly.  The port
-gives the same tangent, so its design matrix matches the reference's.
+The kernel also returns ``dt`` and ``slope`` = Σ_k F_k dt^k/(k+1)! +
+Σ_k δF_k dt^k/k!: pint_tpu's word-level tangent in the shift on a
+millisecond pulsar (the *secant* frequency of the F words, to the last
+bit), which a young pulsar's F1 resolves into the instantaneous one,
+float32-rounded and not linear in the shift's tangent
+(tests/test_torch_phase_family.py); no tangent reads it.
 
 ``QSPhaseFrac.launches`` counts kernel launches (plain runs do not count).
 """
@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from pint_tpu_torch.models.spindown import phase_frac_plain
+from pint_tpu_torch.models.spindown import phase_frac_jvp, phase_frac_plain
 
 F32, F64 = torch.float32, torch.float64
 MODES = {"nearest": 0, "use_pulse_numbers": 1, "words": 2}
@@ -69,6 +69,14 @@ class PhaseSpec:
         return phase_frac_plain(self.tdb_day, self.frac_w, self.pep_day,
                                 self.pep_w, self.f_w, shift, dF, other,
                                 self.tzr_w, self.pulse_number, self.mode)
+
+    def jvp(self, shift, dF, other, dshift, ddF, dother):
+        """The word-level tangent of ``out`` (:func:`phase_frac_jvp`),
+        in eager PyTorch on the inputs' device."""
+        return phase_frac_jvp(self.tdb_day, self.frac_w, self.pep_day,
+                              self.pep_w, self.f_w, shift, dF, other,
+                              self.tzr_w, self.pulse_number, self.mode,
+                              dshift, ddF, dother)
 
 
 def _lib():
@@ -176,8 +184,8 @@ def _to_front(x, d, B):
 
 class QSPhaseFrac(torch.autograd.Function):
     """``(shift, dF, other, *static, mode) -> (frac, slope, dt64)`` with
-    the analytic forward-mode tangent of ``frac``; ``slope`` and ``dt64``
-    carry none.  ``static`` are the PhaseSpec tensors (tdb_day, frac_w,
+    the word-level forward-mode tangent of ``frac``; ``slope`` and
+    ``dt64`` carry none.  ``static`` are the PhaseSpec tensors (tdb_day, frac_w,
     pep_day, pep_w, f_w, tzr_w, pulse_number): they pass through
     ``apply`` as arguments so that torch.func unwraps them before the
     kernel reads their pointers (``torch.func.jvp`` wraps every tensor
@@ -192,24 +200,17 @@ class QSPhaseFrac(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
+        shift, dF, other, *static_and_mode = inputs
         _, slope, dt64 = output
         ctx.mark_non_differentiable(slope, dt64)
-        ctx.save_for_forward(slope, dt64)
+        ctx.mode = static_and_mode[-1]
+        ctx.save_for_forward(shift, dF, other, *static_and_mode[:-1])
 
     @staticmethod
     def jvp(ctx, dshift, ddF, dother, *_static_tangents):
-        slope, dt64 = ctx.saved_tensors
-        out = torch.zeros_like(dt64)
-        if dshift is not None:
-            out = out + slope * dshift
-        if ddF is not None:
-            pk = dt64                           # dt^{k+1} / (k+1)!
-            for k in range(ddF.shape[-1]):
-                out = out + pk * ddF[..., k, None]
-                pk = pk * dt64 / (k + 2.0)
-        if dother is not None:
-            out = out + dother
-        return out, None, None
+        shift, dF, other, *static = ctx.saved_tensors
+        spec = PhaseSpec(*static, ctx.mode)
+        return spec.jvp(shift, dF, other, dshift, ddF, dother), None, None
 
     @staticmethod
     def vmap(info, in_dims, shift, dF, other, *static_and_mode):

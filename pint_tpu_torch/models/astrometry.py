@@ -98,6 +98,21 @@ class Astrometry(DelayComponent):
         """Unit vector SSB→pulsar at each TOA, shape (N, 3)."""
         raise NotImplementedError
 
+    def radec_deg(self):
+        """Catalog (ra, dec) in ICRS degrees from the parameter values, no
+        proper-motion propagation (:meth:`pint_tpu.models.astrometry.
+        Astrometry.radec_deg`: the target coordinate of photon weights,
+        the reference `fermiphase`'s ``modelin.coords_as_ICRS()``,
+        `fermi_toas.py:173`).  AngleParam values are radians; an ecliptic
+        position is rotated by the module's own helpers."""
+        lon = float(self.params[self._angle_names[0]].value)
+        lat = float(self.params[self._angle_names[1]].value)
+        n = _sph_dir(lon, lat)
+        if self._angle_names[0] == "ELONG":
+            n = _rot_eq_to_ecl(self.obliquity()).T @ n
+        return (float(math.degrees(math.atan2(n[1], n[0]))) % 360.0,
+                float(math.degrees(math.asin(n[2]))))
+
     #: (pm_lon_name, pm_lat_name) in this frame — set by subclasses
     _pm_names = ()
 

@@ -160,6 +160,15 @@ class BinaryDDBase(OrbwaveMixin, DelayComponent):
         return self.dt_extra(p, batch, dt_seconds_qs(p, batch, delay,
                                                      "T0")[1])
 
+    def orbital_phase(self, p: dict, batch: TOABatch,
+                      delay) -> torch.Tensor:
+        """Fractional orbital phase in [0, 1) at each TOA, measured from
+        T0 (:meth:`pint_tpu.models.binary_dd.BinaryDDBase.orbital_phase`)."""
+        orbits, _ = self._apply_orbwaves(
+            p, batch, delay, *orbits_and_freq(p, self._dt(p, batch, delay),
+                                              self.fb_names()))
+        return orbits - torch.floor(orbits)
+
     def delay(self, p: dict, batch: TOABatch, delay) -> torch.Tensor:
         dt = self._dt(p, batch, delay)
         orbits, forb = self._apply_orbwaves(

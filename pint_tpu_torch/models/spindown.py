@@ -98,12 +98,11 @@ def phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF,
     f64 scalar, ``pep_w`` (4,) f32, ``f_w`` (K, 4) f32, ``shift`` and
     ``other`` (..., N) f64, ``dF`` (..., K) f64, ``tzr_w`` (4,) f32,
     ``pulse_number`` (N,) f64.  Returns ``(out, slope, dt64)`` with
-    ``dt64`` = dt [s] and ``slope`` = d out / d shift as pint_tpu's
-    word-level autodiff gives it: the secant frequency
-    Σ_k F_k dt^k/(k+1)! of the F words (not the derivative
-    Σ_k F_k dt^k/k!) plus the exact Σ_k δF_k dt^k/k! of the offsets'
-    float64 term; both f64 (..., N), read by the tangent rule of the
-    kernel's wrapper.
+    ``dt64`` = dt [s] and ``slope`` the secant frequency
+    Σ_k F_k dt^k/(k+1)! of the F words plus Σ_k δF_k dt^k/k! of the
+    offsets' float64 term, both f64 (..., N): pint_tpu's word-level
+    d out / d shift on a millisecond pulsar, kept for the card's checks
+    (the tangent is :func:`phase_frac_jvp`).
 
     Autodiff flows through the words, as it does in :mod:`pint_tpu`.
     """
@@ -135,6 +134,43 @@ def phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF,
     else:
         raise ValueError(f"unknown phase mode {mode!r}")
     return out, sec + der, dt64
+
+
+def phase_frac_jvp(tdb_day, frac_w, pep_day, pep_w, f_w, shift, dF, other,
+                   tzr_w, pulse_number, mode, dshift, ddF, dother):
+    """d out of :func:`phase_frac_plain` ("nearest" or
+    "use_pulse_numbers") along the float64 tangents ``dshift``, ``ddF``
+    and ``dother`` (None: zero), as pint_tpu's word-level forward mode
+    forms it: each tangent enters the quad-single chain where its value
+    does (``from_f64_device`` and ``add``), the float32 words carry their
+    own tangents through every operation of :mod:`pint_tpu_torch.qs` in
+    its order (the Taylor-Horner products, the renormalizations, the
+    rounding's word subtractions; ``round`` has none), and ``to_f64``
+    sums them.  On a young pulsar that tangent is the float32 rounding of
+    the instantaneous frequency, not linear in ``dshift``; on a
+    millisecond pulsar it is the primal's ``slope`` (the secant
+    frequency) times ``dshift`` up to the words' last bits.  Forward mode
+    of the plain version itself (``torch.func.jvp``), so the arithmetic
+    is the primal's."""
+    if mode == "words":
+        raise NotImplementedError("the words mode carries no tangent")
+    given = [(k, x, t) for k, x, t in (("shift", shift, dshift),
+                                        ("dF", dF, ddF),
+                                        ("other", other, dother))
+             if x is not None and t is not None]
+    if not given:
+        return torch.zeros_like(shift)
+    keys = [k for k, _, _ in given]
+
+    def frac(*xs):
+        a = dict(shift=shift, dF=dF, other=other)
+        a.update(zip(keys, xs))
+        return phase_frac_plain(tdb_day, frac_w, pep_day, pep_w, f_w,
+                                a["shift"], a["dF"], a["other"], tzr_w,
+                                pulse_number, mode)[0]
+
+    return torch.func.jvp(frac, tuple(x for _, x, _ in given),
+                          tuple(t for _, _, t in given))[1]
 
 
 class Spindown(PhaseComponent):

@@ -291,21 +291,36 @@ class PhaseCalc:
         self._chain_layout = None
         self._phase_family = None
 
-    def delay(self, p: dict, batch: TOABatch) -> torch.Tensor:
+    def delay(self, p: dict, batch: TOABatch,
+              upto: Optional[str] = None) -> torch.Tensor:
         """Total delay [s], accumulated in DEFAULT_ORDER: the
         ``delay_chain`` kernel on a CUDA batch, :meth:`delay_plain` on a
         CPU batch (:func:`pint_tpu_torch.kernels.delay_chain.delay_chain`).
         Differentiable (forward mode) in everything that ``p["delta"]``
-        reaches."""
+        reaches.  ``upto``: stop before the first component of that
+        category (:meth:`pint_tpu.models.timing_model.PhaseCalc.delay`);
+        the kernel forms the whole chain only (its orbital-phase entry
+        stops at the binary: :meth:`TimingModel.orbital_phase`), so a
+        partial delay runs on a CPU batch."""
         from pint_tpu_torch.kernels.delay_chain import delay_chain
 
-        return delay_chain(self, p, batch)
+        if upto is None:
+            return delay_chain(self, p, batch)
+        if batch.device.type != "cpu":
+            raise NotImplementedError(
+                "the delay kernel forms the whole chain; a delay up to "
+                f"{upto!r} runs on a CPU batch")
+        return self.delay_plain(p, batch, upto=upto)
 
-    def delay_plain(self, p: dict, batch: TOABatch) -> torch.Tensor:
+    def delay_plain(self, p: dict, batch: TOABatch,
+                    upto: Optional[str] = None) -> torch.Tensor:
         """The plain PyTorch version of the delay kernel: each component's
-        delay, given the delay accumulated before it."""
+        delay, given the delay accumulated before it (up to, not
+        including, the first component of category ``upto``)."""
         d = zeros_rows(batch)
         for comp in self.delay_components:
+            if upto is not None and comp.category == upto:
+                break
             d = d + comp.delay(p, batch, d)
         return d
 
@@ -801,6 +816,19 @@ class TimingModel:
             if f is not None:
                 dm = dm + f(p, batch)
         return dm
+
+    def orbital_phase(self, p: dict, batch: TOABatch) -> torch.Tensor:
+        """Fractional orbital phase in [0, 1) at each TOA (reference
+        `photonphase --addorbphase`,
+        `src/pint/scripts/photonphase.py:277-283`:
+        ``modelin.binary_instance.orbits()`` after ``modelin.delay``): the
+        delay kernel's orbital-phase entry on a CUDA batch, the delay up
+        to the binary and the binary's ``orbital_phase`` on a CPU batch
+        (:func:`pint_tpu_torch.kernels.delay_chain.orbital_phase`).
+        Raises if the model has no binary component."""
+        from pint_tpu_torch.kernels.delay_chain import orbital_phase
+
+        return orbital_phase(self.calc, p, batch)
 
     @property
     def calc(self) -> PhaseCalc:

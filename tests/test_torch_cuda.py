@@ -697,19 +697,15 @@ def test_phase_chain_lanes_bit_equal_to_single_lane(case):
     ins = [pc.fused_inputs(calc, model.with_x(p, x, names), b, "nearest")
            for x in X[:2]]
     spec, _, _, tensors = ins[0]
-    with torch.no_grad():
-        thetas = torch.stack([t for _, t, _, _ in ins])
-        _, slope, dt64 = pc.run(spec, thetas, torch.stack(
-            [o for _, _, o, _ in ins]), tensors)
+    thetas = torch.stack([t for _, t, _, _ in ins])
+    others = torch.stack([o for _, _, o, _ in ins])
     for K in (1, 3, 10, 76, spec.P):
         dth = torch.from_numpy(rng.standard_normal((2, K, spec.P))).to(dev)
         dot = torch.from_numpy(rng.standard_normal((2, K, b.ntoas))).to(dev)
-        one = pc.run(spec, thetas, None, tensors, dth, slope, dt64, dot,
-                     lanes=1)
+        one = pc.run(spec, thetas, others, tensors, dth, dot, lanes=1)
         assert torch.all(torch.isfinite(one))
         for L in KERNEL_LANES[1:]:
-            many = pc.run(spec, thetas, None, tensors, dth, slope, dt64,
-                          dot, lanes=L)
+            many = pc.run(spec, thetas, others, tensors, dth, dot, lanes=L)
             assert torch.equal(many, one), (K, L)
 
 
@@ -999,7 +995,6 @@ def test_phase_family_on_card(case):
             plain = pc.unfused(calc, at(x), b, "nearest")
             assert float(torch.max(torch.abs(fused[0][g] - want[0]))) <= bar
             assert float(torch.max(torch.abs(fused[0][g] - plain))) <= bar
-    _, slope, dt64 = pc.run(spec, thetas[:1], others[:1], tensors)
     for K in (1, 3, 10, len(names)):
         V = torch.from_numpy(rng.standard_normal((K, len(names)))).to(dev)
 
@@ -1009,12 +1004,12 @@ def test_phase_family_on_card(case):
                 (x0,), (v,))[1])(V)
 
         dth, dot = along(1)[None], along(2)[None]
-        one = pc.run(spec, thetas[:1], None, tensors, dth, slope, dt64, dot,
+        one = pc.run(spec, thetas[:1], others[:1], tensors, dth, dot,
                      lanes=1)
         assert torch.all(torch.isfinite(one))
         for L in KERNEL_LANES[1:]:
-            assert torch.equal(pc.run(spec, thetas[:1], None, tensors, dth,
-                                      slope, dt64, dot, lanes=L), one), (K, L)
+            assert torch.equal(pc.run(spec, thetas[:1], others[:1], tensors,
+                                      dth, dot, lanes=L), one), (K, L)
     before = (pc.PhaseFamilyPrimal.launches, pc.PhaseFamilyTangent.launches)
     J = torch.func.jacfwd(lambda x: pc.fused(calc, at(x), b, "nearest"))(x0)
     torch.cuda.synchronize()
@@ -1148,3 +1143,83 @@ def test_chunked_grid_on_card(tmp_path):
     assert xs.statuses[1] == ChunkStatus.REROUTED
     assert xs.counts() == {"OK": 4, "REROUTED": 1}, xs
     assert float(np.max(np.abs(rerouted - chunked) / chunked)) <= 1e-6
+
+
+def test_young_columns_on_card_match_stored():
+    """The young set's design matrix on the card (the fused tangent
+    launch's word-level spin-phase tangent) against pint_tpu's stored
+    columns (``python tests/torch_port_data.py young_columns``): every
+    column within 1e-10 relative, RAJ, DECJ and DM included."""
+    dev = _card()
+    from pint_tpu_torch.fitter import build_resid_sec_fn
+    from pint_tpu_torch.residuals import Residuals
+
+    with open(data.YOUNG_COLUMNS_JSON) as f:
+        want = json.load(f)
+    model, toas = data.load_torch(data.YOUNG_REF_TIM,
+                                  par=data.young_par_lines())
+    r = Residuals(toas, model, device=dev)
+    names = want["names"]
+    f = build_resid_sec_fn(model, r.batch, names, r.track_mode)
+    M = torch.func.jacfwd(lambda x: f(x, r.pdict))(
+        model.x0(r.pdict, names).to(dev)).cpu().numpy()
+    W = np.asarray(want["columns"]).T
+    scale = np.max(np.abs(W), axis=0)
+    gap = np.max(np.abs(M - W), axis=0) / np.where(scale > 0, scale, 1.0)
+    print("young columns on the card: "
+          + ", ".join(f"{n} {g:.2e}" for n, g in zip(names, gap)))
+    assert float(np.max(gap)) <= 1e-10
+
+
+#: the binary families of the orbital-phase entry, on the 200-TOA sets
+ORBITAL_SETS = {
+    "ELL1": (lambda: _torch_j0740_par(), data.REF_TIM),
+    "DD": (data.dd_par_lines, data.DD_REF_TIM),
+    "DDK": (lambda: data.variant_par_lines("DDK_ECL"),
+            data.variant_tim("DDK_ECL")),
+    "DDGR": (lambda: data.variant_par_lines("DDGR"),
+             data.variant_tim("DDGR")),
+    "ELL1H": (lambda: data.variant_par_lines("ELL1H"),
+              data.variant_tim("ELL1H")),
+    "BT_PIECEWISE": (data.btpw_par_lines, data.BTPW_REF_TIM),
+    "FBn_ORBWAVE": (data.spider_par_lines, data.SPIDER_REF_TIM)}
+
+
+def _torch_j0740_par():
+    from pint_tpu_torch.examples import j0740_realistic_par
+
+    return j0740_realistic_par(dmx_bins=data.DMX_BINS,
+                               span_days=data.SPAN_DAYS,
+                               center_mjd=data.CENTER_MJD).splitlines()
+
+
+@pytest.mark.parametrize("case", list(ORBITAL_SETS))
+def test_orbital_phase_on_card(case):
+    """``TimingModel.orbital_phase`` on a CUDA batch: one launch of the
+    delay kernel's orbital-phase entry and nothing else of the chain,
+    within 1e-12 orbits (circularly) of the plain version run on the
+    card's tensors (the delay up to the binary, the binary's own
+    ``orbital_phase``)."""
+    dev = _card()
+    from pint_tpu_torch.kernels import delay_chain as dc
+    from pint_tpu_torch.residuals import Residuals
+
+    par, tim = ORBITAL_SETS[case]
+    model, toas = data.load_torch(tim, par=par())
+    r = Residuals(toas, model, device=dev)
+    p, b = r.pdict, r.batch
+    before = (dc.OrbitalPhase.launches, dc.DelayChain.launches)
+    with torch.no_grad():
+        got = model.orbital_phase(p, b)
+        torch.cuda.synchronize()
+        after = (dc.OrbitalPhase.launches, dc.DelayChain.launches)
+        binary = [c for c in model.delay_components
+                  if c.category == "pulsar_system"][0]
+        want = binary.orbital_phase(
+            p, b, model.calc.delay_plain(p, b, upto="pulsar_system"))
+    d = (got - want).cpu().numpy()
+    gap = float(np.max(np.abs(d - np.round(d))))
+    print(f"{case}: orbital phase on the card {gap:.3e} orbits from the "
+          "plain version")
+    assert after == (before[0] + 1, before[1])
+    assert bool(torch.all((got >= 0) & (got < 1))) and gap <= 1e-12

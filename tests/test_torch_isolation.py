@@ -9,7 +9,9 @@
   simulate, write and fit the DD set
   (``WLSFitter.fit_toas``) and the GLS set with its noise model
   (``GLSFitter.fit_toas``) the same way, and form the committed young
-  set's residuals (glitches, PiecewiseSpindown, WAVE, IFUNC, PHOFF).
+  set's residuals (glitches, PiecewiseSpindown, WAVE, IFUNC, PHOFF),
+  and one runs the analysis modules (polycos, orbital phase, binary
+  conversion, model selection, derived quantities, Phase).
 * Without a CUDA device, every entry point called without ``device``
   raises instead of running on the CPU.
 * ``chip_smoke.py`` fails without a card, and in a directory that holds
@@ -184,6 +186,40 @@ print("LEAKED", leaked)
 """
 
 
+_CHILD_ANALYSIS = r"""
+import os, sys, warnings
+import numpy as np
+import torch
+sys.path.insert(0, {repo!r})
+from pint_tpu_torch import derived_quantities, modelselect, phase
+from pint_tpu_torch.binaryconvert import convert_binary
+from pint_tpu_torch.examples import j0740_realistic_par
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.polycos import Polycos
+from pint_tpu_torch.residuals import Residuals
+from pint_tpu_torch.toa import get_TOAs
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(j0740_realistic_par(dmx_bins=8).splitlines())
+    toas = get_TOAs({tim!r}, model=model)
+    pcs = Polycos.generate_polycos(model, 55000.0, 55000.0 + 1 / 24,
+                                   ncoeff=8, nsamples=16, device="cpu")
+    dd = convert_binary(model, "DD")
+r = Residuals(toas, model, device="cpu")
+orb = model.orbital_phase(r.pdict, r.batch)
+assert bool(torch.all((orb >= 0) & (orb < 1)))
+assert len(pcs.entries) == 1 and dd.BINARY.value == "DD"
+assert np.isfinite(modelselect.akaike_information_criterion(
+    model, toas, device="cpu"))
+assert model.components["AstrometryEquatorial"].radec_deg()[0] > 0
+assert derived_quantities.mass_funct(4.77, 3.98) > 0
+assert float(phase.from_float(torch.tensor(2.75)).frac) == -0.25
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu"))
+print("LEAKED", leaked)
+"""
+
+
 def _run_child(code):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
@@ -209,6 +245,12 @@ def test_young_set_runs_without_jax_loaded():
     _run_child(_CHILD_YOUNG.format(repo=REPO, tim=data.YOUNG_REF_TIM))
 
 
+def test_analysis_modules_run_without_jax_loaded():
+    """Polycos, orbital phase, binary conversion, model selection, the
+    derived quantities and Phase in a fresh interpreter on the CPU."""
+    _run_child(_CHILD_ANALYSIS.format(repo=REPO, tim=data.REF_TIM))
+
+
 def test_entry_points_need_a_device_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -217,8 +259,10 @@ def test_entry_points_need_a_device_without_cuda():
                                          simulate_dd_noise_realistic,
                                          simulate_j0740_class,
                                          simulate_young_realistic)
+    from pint_tpu_torch import modelselect
     from pint_tpu_torch.fitter import GLSFitter, WLSFitter
     from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.polycos import Polycos
     from pint_tpu_torch.residuals import Residuals
     from pint_tpu_torch.simulation import (add_correlated_noise,
                                            make_fake_toas_fromtim)
@@ -243,7 +287,12 @@ def test_entry_points_need_a_device_without_cuda():
              lambda: simulate_j0740_class(ntoas=8),
              lambda: simulate_young_realistic(ntoas=8),
              lambda: make_fake_toas_fromtim(data.REF_TIM, model),
-             lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}})]
+             lambda: pdict_from_numpy({"const": {"F0": np.float64(1.0)}}),
+             lambda: Polycos.generate_polycos(model, 55000.0, 55000.04,
+                                              ncoeff=4, nsamples=8),
+             lambda: modelselect.akaike_information_criterion(model, toas),
+             lambda: modelselect.bayesian_information_criterion(model,
+                                                                toas)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device"):
             call()

@@ -5,7 +5,8 @@ With the port on the CPU and JAX on the CPU:
 
 * ``LMFitter.fit_toas()`` and ``PowellFitter.fit_toas()`` on the
   committed DD set from the perturbed start against pint_tpu's stored
-  fits (``tests/data/dd_sim_200_fitters.json``; Powell with only the five
+  fits (``tests/data/dd_sim_200_fitters.json``; LM's evaluated op by op,
+  ``torch_port_data.jax_fitters``; Powell with only the five
   parameters the perturbation moves free, ``torch_port_data.
   POWELL_PARAMS``): LM's values within 1e-3 sigma, uncertainties within
   1e-3 relative, chi2 within 1e-6 relative; Powell's uncertainties and
@@ -17,8 +18,11 @@ With the port on the CPU and JAX on the CPU:
   ``TestPowellAndLM`` holds them;
 * the degradation chain with the WLS solve poisoned (NaN steps from
   finite inputs) in both packages: the port's chain ends on the LM rung
-  with the same ``rung_statuses``, chi2 within 1e-6 relative and values
-  within 1e-3 sigma of pint_tpu's, a ``FitDegradedWarning`` at each
+  with the same ``rung_statuses`` as pint_tpu's, chi2 within 1e-6
+  relative and values within 1e-3 sigma of pint_tpu's LM from the same
+  start (the stored record), and within 1e-2 sigma of pint_tpu's chain
+  run here under jit (chi2 and uncertainties at the same bars as
+  above), a ``FitDegradedWarning`` at each
   hand-off; with NaN uncertainties every rung fails and the
   ``ConvergenceFailure`` carries all three statuses.
 """
@@ -44,6 +48,11 @@ UNC_TOL = 1e-3
 CHI2_TOL = 1e-6
 #: Powell's values (see the module docstring)
 POWELL_SIGMA_TOL = 1e-2
+#: the degraded chain's values against pint_tpu's jitted chain, which
+#: XLA:CPU's compile lands ~1.7e-3 sigma from its op-by-op LM along the
+#: DD set's near-degenerate DM/FD/JUMP direction (``chip_smoke.py``'s
+#: trajectory bar)
+TRAJECTORY_SIGMA_TOL = 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -221,19 +230,35 @@ def test_poisoned_solve_recovers_through_lm_rung(degraded):
     assert len(degr) >= 2   # fused -> eager and eager -> LM
 
 
-def test_poisoned_solve_matches_pint_tpu(degraded):
+def test_poisoned_solve_matches_pint_tpu(degraded, ref):
+    """The chain's LM rung, an LMFitter from the perturbed start (the
+    fused and eager rungs leave the model there), against pint_tpu's
+    LMFitter from that start evaluated op by op (the stored ``lm``
+    record) at the LM bars.  pint_tpu's own chain, run here under jit,
+    reaches the same rung with the same statuses
+    (``test_poisoned_solve_recovers_through_lm_rung``); XLA:CPU's compile
+    lands its LM rung 1.7e-3 sigma away along the set's near-degenerate
+    DM/FD/JUMP direction, as it does its LMFitter
+    (``torch_port_data.jax_fitters``)."""
     jf, jchi2, tf, tchi2, _ = degraded
+    rec = ref["lm"]
     names = tf.fit_params
-    assert names == jf.fit_params
-    sig = max(abs(float(np.sum(np.asarray(tf.model[n].device_value)
-                               - np.asarray(jf.model[n].device_value))))
-              / jf.model[n].device_uncertainty for n in names)
-    unc = max(abs(tf.model[n].device_uncertainty
-                  / jf.model[n].device_uncertainty - 1.0) for n in names)
-    gap = abs(tchi2 / jchi2 - 1.0)
+    assert names == jf.fit_params == rec["fit_params"]
+    sig, unc = data.fit_gaps(tf.model, rec["values"], rec["uncertainties"])
+    gap = abs(tchi2 / rec["chi2"] - 1.0)
+    jsig, _ = data.fit_gaps(jf.model, rec["values"], rec["uncertainties"])
+    live = data.fit_record(jf.model, names)
+    lsig, lunc = data.fit_gaps(tf.model, live["values"],
+                               live["uncertainties"])
+    lgap = abs(tchi2 / jchi2 - 1.0)
     print(f"degraded chain (LM rung) vs pint_tpu: {sig:.3e} sigma, "
-          f"uncertainties {unc:.3e}, chi2 {gap:.3e}")
+          f"uncertainties {unc:.3e}, chi2 {gap:.3e} (pint_tpu's jitted "
+          f"chain {jsig:.3e} sigma from its eager LM); vs the jitted "
+          f"chain: {lsig:.3e} sigma, uncertainties {lunc:.3e}, "
+          f"chi2 {lgap:.3e}")
     assert sig <= FIT_SIGMA_TOL and unc <= UNC_TOL and gap <= CHI2_TOL
+    assert lsig <= TRAJECTORY_SIGMA_TOL and lunc <= UNC_TOL \
+        and lgap <= CHI2_TOL
 
 
 def test_nan_sigma_fails_whole_chain_typed():

@@ -29,8 +29,8 @@ sets):
   ``phase_frac_plain``) in all three modes, on 1 and 9 θ sets;
 * the fused tangent lanes (L = 1, 2, 4; lanes 1, 3, 10 and P) are
   bit-equal to the unfused host chain's (the delay chain's host
-  tangents, the shift's forward rule, ``QSPhaseFrac.jvp``), up to the
-  sign of a zero, which ``torch.equal`` ignores;
+  tangents, the shift's forward rule, ``QSPhaseFrac.jvp``'s word-level
+  tangent), up to the sign of a zero, which ``torch.equal`` ignores;
 * frac within ``FRAC_TOL_CYCLES`` of the plain composition (the
   components' own delays), and the jacfwd columns within 1e-10 relative
   of it;
@@ -276,9 +276,7 @@ def test_tangent_lanes_bit_equal_to_unfused(on_host, case, L, lanes):
     dth = _dtheta(spec, K, 2)
     dother = torch.from_numpy(np.random.default_rng(K + 1).standard_normal(
         (2, K, b.ntoas)))
-    _, slope, dt64 = pc.run(spec, thetas, others, tensors)
-    got = pc.run(spec, thetas, None, tensors, dth, slope, dt64, dother,
-                 lanes=L)
+    got = pc.run(spec, thetas, others, tensors, dth, dother, lanes=L)
     lay, P4 = spec.layout, spec.layout.P
     o_spin, o_pep = P4, P4 + spec.K
     rows = tensors[:len(dc.ROWS)]
@@ -372,9 +370,8 @@ def test_phase_family_tangent_lanes_bit_equal(on_host, case, lanes):
         fused_part(1), (x0,), (v,))[1])(V)
     dother = None if other is None else torch.func.vmap(
         lambda v: torch.func.jvp(fused_part(2), (x0,), (v,))[1])(V)
-    _, slope, dt64 = pc.run(spec, theta[None], None if other is None
-                            else other[None], tensors)
-    got = [pc.run(spec, theta[None], None, tensors, dth[None], slope, dt64,
+    got = [pc.run(spec, theta[None], None if other is None else other[None],
+                  tensors, dth[None],
                   None if dother is None else dother[None], lanes=L)[0]
            for L in dc.KERNEL_LANES]
     assert all(torch.equal(g, got[0]) for g in got[1:])
@@ -500,10 +497,10 @@ def test_unbatched_other_is_shared(on_host, case):
     out = torch.func.vmap(f, in_dims=(0, None))(thetas, other)
     tan = torch.func.vmap(lambda t: torch.func.jvp(
         f, (t, other), (dth, dot))[1])(thetas)
-    want, slope, dt64 = pc.run(spec, thetas, other.expand(G, N), tensors)
+    want = pc.run(spec, thetas, other.expand(G, N), tensors)[0]
     assert torch.equal(out, want)
     assert torch.equal(tan, pc.run(
-        spec, thetas, None, tensors, dth.expand(G, 1, spec.P), slope, dt64,
+        spec, thetas, other.expand(G, N), tensors, dth.expand(G, 1, spec.P),
         dot.expand(G, 1, N))[:, 0])
 
 

@@ -25,19 +25,17 @@ the first and after the last; PHOFF):
 * ``Fitter.auto`` on the young set against pint_tpu's stored fit
   (``python tests/torch_port_data.py young``).
 
-The position and DM columns of the young set are the one departure, held
-at its own bar with pint_tpu's witness: the port's quad-single phase
-differentiates the spin phase by the secant frequency Σ F_k dt^k/(k+1)!
-of the F words (``kernels/qs_phase.py``), which is pint_tpu's tangent on
-millisecond pulsars to the last bit; pint_tpu's word-level tangent moves
-to the instantaneous frequency where F1 dt/2 is resolved in the words'
-tangents, as on a young pulsar's F1 ~ 1e-11 Hz/s, and the columns part
-there by up to |F1| dt / (2 F0) relative.  There pint_tpu's tangent
-carries its words' float32 rounding (~1e-7 relative, not linear in the
-shift's tangent), so only a float32 forward mode of the words per lane
-would meet it within ``COLUMN_TOL``; the edge variants hold their
-position and DM frozen, and every column they fit is held at
-``COLUMN_TOL``.
+The young set's position and DM columns are held at ``COLUMN_TOL`` like
+every other column: the port differentiates the quad-single spin phase
+as pint_tpu does, by a float32 forward mode of the words per lane
+(``models/spindown.py`` ``phase_frac_jvp``; the fused tangent kernel's
+``F32N<L>`` words).  A float64 slope could not: pint_tpu's word-level
+tangent is the secant frequency Σ F_k dt^k/(k+1)! of the F words on a
+millisecond pulsar, but moves to the instantaneous frequency where F1
+dt/2 is resolved in the words' tangents, as on a young pulsar's F1 ~
+1e-11 Hz/s, and there carries its words' float32 rounding (~1e-7
+relative, not linear in the shift's tangent; pint_tpu's own witness,
+``test_secant_slope_departure_witness``).
 """
 
 import json
@@ -80,7 +78,7 @@ CHI2_TOL = 1e-6
 F64 = torch.float64
 FAMILY = ("Glitch", "PiecewiseSpindown", "Wave", "IFunc", "PhaseOffset")
 #: the young set's delay parameters, whose columns carry the spin phase's
-#: secant frequency (the module docstring)
+#: word-level tangent in the shift (the module docstring)
 DELAY_PARAMS = ("RAJ", "DECJ", "DM")
 
 
@@ -196,13 +194,9 @@ def _check_resid_and_columns(kind, toas):
     # component's phase as a quad-single in pint_tpu, the float64 phases
     # summed once in the port)
     rgap = float(np.max(np.abs(tres - jres)))
-    # the young set's delay columns: their own bar, in
-    # test_young_delay_columns_within_the_secant_gap
-    skip = DELAY_PARAMS if kind == "YOUNG" else ()
-    keep = [i for i, n in enumerate(names) if n not in skip]
-    cols = _rel_gap(tM[:, keep], jM[:, keep])
+    cols = _rel_gap(tM, jM)
     print(f"{kind}: residuals {rgap:.3e} s ({rgap * f0:.3e} cycles; bar "
-          f"{RESID_TOL_S}), {len(keep)} columns {cols:.3e} relative (bar "
+          f"{RESID_TOL_S}), {len(names)} columns {cols:.3e} relative (bar "
           f"{COLUMN_TOL})")
     assert rgap <= RESID_TOL_S and cols <= COLUMN_TOL
     # PHOFF replaces the mean subtraction in both packages: the
@@ -254,14 +248,14 @@ def _horner_jvp(F, dt, x=1.0):
 
 def test_secant_slope_departure_witness():
     """pint_tpu's own tangent of the spin phase: the secant frequency to
-    the last bit at a millisecond pulsar's F1 (which the port's slope
-    gives), the instantaneous one within 1e-7 relative at the young set's
-    F1; so a young pulsar's position and DM columns part from pint_tpu's
-    by up to |F1| dt / (2 F0), which the port's slope holds.  At the
-    young F1 pint_tpu's tangent is its words' float32 rounding: not
-    linear in the shift's tangent by ~1e-7 relative, so no float64 slope
-    times d shift (K3's tangent rule) meets it within COLUMN_TOL; at the
-    millisecond F1 it is linear to 1e-15."""
+    the last bit at a millisecond pulsar's F1 (the primal's ``slope``),
+    the instantaneous one within 1e-7 relative at the young set's F1, up
+    to |F1| dt / (2 F0) from the secant.  At the young F1 pint_tpu's
+    tangent is its words' float32 rounding: not linear in the shift's
+    tangent by ~1e-7 relative, so no float64 slope times d shift meets
+    it within COLUMN_TOL (the port forms it word by word:
+    tests/test_torch_word_tangent.py); at the millisecond F1 it is linear
+    to 1e-15."""
     dt = 1.26e8
     msp, young = [346.53199992, -1.46e-15], [11.19, -1.56e-11, 8e-22]
     sec = [sum(f * dt ** k / np.prod(np.arange(1, k + 2))
@@ -281,9 +275,11 @@ def test_secant_slope_departure_witness():
 
 
 @pytest.mark.slow
-def test_young_delay_columns_within_the_secant_gap(toas):
-    """The young set's position and DM columns against pint_tpu's: within
-    |F1| dt_max / (2 F0) relative, the gap of the witness above."""
+def test_young_delay_columns_match_word_level_tangent(toas):
+    """The young set's position and DM columns against pint_tpu's within
+    COLUMN_TOL: the spin phase's tangent is formed per lane from the
+    quad-single words, as pint_tpu's forward mode forms it, where the
+    secant frequency parted from it by up to |F1| dt_max / (2 F0)."""
     jm, jr, tm, tr = _pair("YOUNG", toas)
     names = list(DELAY_PARAMS)
     jf = j_resid_sec(jm, jr.batch, names, jr.track_mode)
@@ -294,11 +290,11 @@ def test_young_delay_columns_within_the_secant_gap(toas):
         tm.x0(tr.pdict, names)).detach().numpy()
     tdb = tr.batch.tdb_day.numpy() + tr.batch.tdb_frac.numpy()
     dt_max = float(np.max(np.abs(tdb - tm.PEPOCH.mjd_float))) * 86400
-    bar = abs(float(tm.F1.value)) * dt_max / (2 * float(tm.F0.value))
+    secant = abs(float(tm.F1.value)) * dt_max / (2 * float(tm.F0.value))
     gap = _rel_gap(tM, jM)
-    print(f"YOUNG position and DM columns: {gap:.3e} relative (the secant "
-          f"gap {bar:.3e})")
-    assert gap <= bar * 1.01
+    print(f"YOUNG position and DM columns: {gap:.3e} relative (bar "
+          f"{COLUMN_TOL}; the secant frequency's gap was {secant:.3e})")
+    assert gap <= COLUMN_TOL
 
 
 def _raises_same(lines, match):

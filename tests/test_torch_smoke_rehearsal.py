@@ -16,7 +16,9 @@ kernel's auxiliary output, the count of plain delay chains that on the
 card must be zero) stubbed, the ``delay_chain`` and ``phase_chain``
 kernels' launches run by their host builds (``csrc/*_host.cpp``, built
 with g++; the test skips without it), the other kernels' plain runs
-counted as their launches, and the fused rung taken as on CUDA.  It
+counted as their launches, and the fused rung taken as on CUDA; each
+timing takes one timed call and one traced call, where the card takes
+25 and 20.  It
 catches wrong paths, shapes, names and control flow in the script
 before a chip call does; it says nothing of the kernels' speed or of
 their CUDA source.
@@ -128,7 +130,10 @@ def _host_libs():
     ph.phase_chain_host.argtypes = [vp] * phase_chain.N_POINTERS + [
         phase_chain.PhCfg, phase_chain.PhaseCfg, i64, i64, i64, i64, i64,
         i64, ctypes.c_int]
+    de.delay_chain_orbital_phase_host.argtypes = [vp] * (
+        len(delay_chain.ROWS) + 2) + [delay_chain.ChainCfg, i64, i64]
     de.delay_chain_host.restype = ph.phase_chain_host.restype = ctypes.c_int
+    de.delay_chain_orbital_phase_host.restype = ctypes.c_int
 
     class DelayLib:
         @staticmethod
@@ -137,6 +142,10 @@ def _host_libs():
             ptrs, (cfg, G, K, N, lpt, _stream) = args[:nptr], args[nptr:]
             assert ptrs[-1] is None
             return de.delay_chain_host(*ptrs[:-1], cfg, G, K, N, lpt)
+
+        @staticmethod
+        def delay_chain_orbital_phase(*args):
+            return de.delay_chain_orbital_phase_host(*args[:-1])
 
     class PhaseLib:
         @staticmethod
@@ -227,6 +236,8 @@ def rehearsal_env(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
     monkeypatch.setattr(delay_chain, "_lib", lambda layout: delay_lib)
     monkeypatch.setattr(delay_chain, "delay_chain", chain)
+    monkeypatch.setattr(delay_chain, "orbital_phase",
+                        delay_chain.orbital_phase_kernel)
     monkeypatch.setattr(delay_chain, "run", lambda layout, theta, dtheta,
                         rows, lanes=None: delay_chain._launch(
                             layout, theta, dtheta, rows, lanes=lanes)[0])
@@ -243,6 +254,7 @@ def reset_launches():
 
     for k in (qs_phase.QSPhaseFrac, kepler.KeplerE,
               delay_chain.DelayChain, delay_chain.DelayChainTangent,
+              delay_chain.OrbitalPhase,
               phase_chain.PhaseChain, phase_chain.PhaseChainTangent,
               phase_chain.PhaseFamilyPrimal, phase_chain.PhaseFamilyTangent):
         k.launches = 0
@@ -253,6 +265,14 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
     from pint_tpu_torch.kernels import delay_chain
 
     cs = rehearsal_env(monkeypatch, tmp_path)
+    # one timed call and one traced call per timing, where the card takes
+    # 25 and 20: a CPU time is no measurement of the card
+    time_ms, device_kernel_ms = cs.time_ms, cs.device_kernel_ms
+    monkeypatch.setattr(cs, "time_ms",
+                        lambda torch, fn, reps=25: time_ms(torch, fn, 1))
+    monkeypatch.setattr(cs, "device_kernel_ms",
+                        lambda torch, fn, name, reps=20: device_kernel_ms(
+                            torch, fn, name, 1))
     try:
         assert cs.main(cs.Run(
             dev="cpu", tim=cs.REF_TIM, ntoas=200, dmx_bins=8, nfit=24,
@@ -469,3 +489,47 @@ def test_chip_smoke_rehearsal(monkeypatch, tmp_path, capsys):
                for n in ("phase_chain_primal", "phase_chain_tangent"))
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "cpu-rehearsal", "count": 1}}
+
+
+#: (what the reference lists as moved, the kernel's ptxas now) -> whether
+#: ``ptxas_vs_parent`` reports it as a change, and whether as moved
+PTXAS_GATE_CASES = {
+    "unlisted_kept": (False, "same", False, False),
+    "unlisted_moved": (False, "other", True, False),
+    "listed_moved": (True, "other", False, True),
+    "listed_kept": (True, "same", True, False),
+    "listed_missing": (True, None, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PTXAS_GATE_CASES))
+def test_ptxas_gate_moved_list_is_exact(tmp_path, monkeypatch, case):
+    """chip_smoke's ptxas gate against the parent's report: a kernel the
+    reference lists under ``moved`` must have moved, and every other
+    kernel must have kept its ptxas."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_ptxas_gate", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    listed, now, changed, moved = PTXAS_GATE_CASES[case]
+    then = {"registers": 128, "spill_load_bytes": 0,
+            "spill_store_bytes": 0, "stack_bytes": 40}
+    kernel = "DD+DM/tangent_L4"
+    ref = tmp_path / "ptxas_reference.json"
+    ref.write_text(json.dumps({
+        "kernels": {"phase_chain": {kernel: then,
+                                    "DD+DM/primal": then}},
+        "moved": {"phase_chain": [kernel]} if listed else {}}))
+    monkeypatch.setattr(cs, "PTXAS_REFERENCE", str(ref))
+    got = {"same": then, "other": {**then, "registers": 142},
+           None: None}[now]
+    regs = {"phase_chain": {"DD+DM/primal": then}}
+    if got is not None:
+        regs["phase_chain"][kernel] = got
+    into = {}
+    out = cs.ptxas_vs_parent(regs, into)
+    assert (kernel in out.get("phase_chain", {})) == changed
+    assert (kernel in into.get("phase_chain", {})) == moved
+    assert "DD+DM/primal" not in out.get("phase_chain", {})
+    # without a ``moved`` dict a listed kernel that moved is left out
+    assert cs.ptxas_vs_parent(regs) == out

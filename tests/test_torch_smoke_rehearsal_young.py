@@ -69,6 +69,8 @@ def test_chip_smoke_rehearsal_young(monkeypatch, tmp_path, capsys):
     ref = recs["young_reference"]
     assert ref["max_sigma_gap"] <= cs.FIT_SIGMA_TOL
     assert ref["max_unc_rel_gap"] <= cs.UNC_TOL
+    # the young set's design matrix against pint_tpu's stored columns
+    assert ref["max_rel_column_gap_vs_stored"] <= cs.COLUMN_TOL
     chain = recs["young_chain"]
     assert set(chain["phase_family"]) == {"PHF_EDGES_IF2", "young"}
     for label, rec in chain["phase_family"].items():

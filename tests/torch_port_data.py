@@ -444,13 +444,25 @@ def fitter_record(fitter, chi2: float) -> dict:
 def jax_fitters(timfile: str) -> dict:
     """pint_tpu's DownhillWLSFitter (defaults), LMFitter (defaults) and
     PowellFitter (defaults, POWELL_PARAMS free) on the DD set from the
-    perturbed start (JAX on the CPU): the record FITTERS_REF_JSON holds."""
+    perturbed start (JAX on the CPU): the record FITTERS_REF_JSON holds.
+
+    LM runs op by op (``jax.disable_jit()``): its 50 iterations stop short
+    of the minimum along the set's near-degenerate DM/FD/JUMP direction,
+    where ulps of the design matrix move the end point, and XLA:CPU's
+    compile of pint_tpu's word-level tangent rounds other ulps than its
+    arithmetic as written (1.7e-3 sigma apart after the 50 iterations);
+    the eager evaluation is that arithmetic, as for the young set."""
+    import contextlib
+
+    import jax
+
     from pint_tpu.fitter import DownhillWLSFitter, LMFitter, PowellFitter
 
     rec = {"what": "pint_tpu DownhillWLSFitter, LMFitter and PowellFitter "
                    "fit_toas() with their defaults, JAX on the CPU, on "
                    "dd_sim_200.tim from the perturbed DD start; Powell "
-                   "with only POWELL_PARAMS free",
+                   "with only POWELL_PARAMS free; LMFitter under "
+                   "jax.disable_jit()",
            "perturb": DD_PERTURB, "powell_params": list(POWELL_PARAMS)}
     for label, cls in (("downhill_wls", DownhillWLSFitter),
                        ("lm", LMFitter), ("powell", PowellFitter)):
@@ -458,11 +470,13 @@ def jax_fitters(timfile: str) -> dict:
         perturb_dd(model)
         if cls is PowellFitter:
             powell_subset(model)
-        fitter = cls(toas, model)
-        start = device_values(model, fitter.fit_params)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            chi2 = fitter.fit_toas()
+        with (jax.disable_jit() if cls is LMFitter
+              else contextlib.nullcontext()):
+            fitter = cls(toas, model)
+            start = device_values(model, fitter.fit_params)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                chi2 = fitter.fit_toas()
         rec[label] = {"start": start, **fitter_record(fitter, chi2)}
     return rec
 
@@ -1035,6 +1049,46 @@ def write_young_reference() -> dict:
     return rec
 
 
+#: pint_tpu's design matrix of the young set at the par's values: the
+#: columns of its resid_sec function in every free parameter, op by op
+YOUNG_COLUMNS_JSON = os.path.join(DATA_DIR, "young_sim_200_columns.json")
+
+
+def jax_young_columns(timfile: str) -> dict:
+    """pint_tpu's jacfwd of ``build_resid_sec_fn`` (JAX on the CPU under
+    ``jax.disable_jit()``) on the young set at ``examples.young_par()``'s
+    values, in its free parameters: the record YOUNG_COLUMNS_JSON holds."""
+    import jax
+
+    from pint_tpu.fitter import build_resid_sec_fn
+    from pint_tpu.residuals import Residuals
+
+    model, toas = load_jax(timfile, par=young_par_lines())
+    names = list(model.free_params)
+    with jax.disable_jit():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r = Residuals(toas, model)
+        f = build_resid_sec_fn(model, r.batch, names, r.track_mode)
+        M = np.asarray(jax.jacfwd(f)(model.x0(r.pdict, names), r.pdict))
+    return {"what": "pint_tpu jacfwd of build_resid_sec_fn (the fitters' "
+                    "design matrix, s per unit offset), JAX on the CPU "
+                    "under jax.disable_jit(), on young_sim_200.tim at "
+                    "examples.young_par()'s values",
+            "ntoas": toas.ntoas, "names": names,
+            "columns": M.T.tolist()}
+
+
+def write_young_columns() -> dict:
+    """Write pint_tpu's design matrix of the young set to
+    YOUNG_COLUMNS_JSON."""
+    rec = jax_young_columns(YOUNG_REF_TIM)
+    with open(YOUNG_COLUMNS_JSON, "w") as f:
+        json.dump(rec, f)
+        f.write("\n")
+    return rec
+
+
 def load_jax(timfile: str, grid: bool = False, par=None):
     """(model, toas) of pint_tpu from the par lines (default the J0740
     set's) and ``timfile``; ``grid=True`` freezes M2 and SINI as the
@@ -1268,6 +1322,7 @@ WRITERS = {"j0740": write_reference, "dd": write_dd_reference,
            "spider_sim_200": write_spider_reference,
            "btpw_sim_200": write_btpw_reference,
            "young": write_young_reference,
+           "young_columns": write_young_columns,
            "sim_refs": write_sim_references}
 
 if __name__ == "__main__":
